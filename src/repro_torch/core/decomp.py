@@ -1,0 +1,158 @@
+"""Decomposition registry and the whole-search level loop.
+
+A ``Decomposition`` entry, registered under the ``BFSConfig.decomposition``
+string, declares what the session API (``core/engine.py``) needs to run a
+search: the partition and graph types it takes, the grid it needs, the
+LevelArgs builder, the whole-search body and its plan checks.  This slice
+registers "2d", the paper's checkerboard (§4.4).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import BFSConfig
+from repro_torch.core import collectives
+from repro_torch.core.partition import Partition2D
+from repro_torch.core.steps import (LevelArgs, bottomup_level, topdown_level,
+                                    zero_counters)
+from repro_torch.graph.formats import BlockedGraph
+
+MAX_LEVELS = 64
+
+_F32 = np.float32
+
+
+@dataclass(frozen=True)
+class PlanStatics:
+    """Scalars a plan resolves once from the graph and the config."""
+    cap_seg: int = 0          # 2D bottom-up sub-step edge window
+    cap_f: int = 0            # kernel mode: frontier bound (0 = nc)
+
+
+@dataclass(frozen=True)
+class Decomposition:
+    name: str                 # registry key, = BFSConfig.decomposition
+    partition_cls: type
+    graph_cls: type
+    axis_sizes: Callable      # (part) -> (pr, pc) the grid must have
+    make_level_args: Callable  # (part, cfg, ops, statics, graph, device)
+    body: Callable            # (g, root, *, part, args, cfg) -> search output
+    validate: Callable        # (part, statics) -> None (raises on bad plan)
+
+
+_REGISTRY: Dict[str, Decomposition] = {}
+
+
+def register_decomposition(entry: Decomposition) -> Decomposition:
+    if entry.name in _REGISTRY:
+        raise ValueError(f"duplicate decomposition {entry.name!r}")
+    _REGISTRY[entry.name] = entry
+    return entry
+
+
+def get_decomposition(name: str) -> Decomposition:
+    if name not in _REGISTRY:
+        raise ValueError(f"no decomposition registered for {name!r}; "
+                         f"have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+# ---------------------------------------------------------------------------
+# The whole-search level loop
+# ---------------------------------------------------------------------------
+
+
+def _masses(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor):
+    """Frontier size, frontier edge mass and unvisited edge mass, summed
+    exactly in int64 and read to the host in one transfer."""
+    zero = torch.zeros((), dtype=deg.dtype, device=deg.device)
+    n_f, m_f, m_u = torch.stack([
+        front.sum(),
+        torch.where(front, deg, zero).sum(),
+        torch.where(pi == -1, deg, zero).sum()]).tolist()
+    return n_f, m_f, m_u
+
+
+def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
+                 bu_level):
+    """Beamer's direction heuristics, per-level stats and counter
+    accumulation over the (pi, front, lv) -> (pi, front, ctr) steps.
+
+    The loop is a Python loop.  Each level ends with one host read: the
+    next frontier's size and the frontier and unvisited edge masses,
+    which the next level's direction decision and the loop's exit need
+    (the JAX package keeps them on the device inside a while loop).  A
+    top-down level in local_mode="kernel" adds two reads per block, so
+    2*pr*pc in all: the frontier's column count (``torch.nonzero``) and
+    its edge total, which sizes the kernel's grid (``spmsv/ops.py``).
+    Bottom-up levels and dense discovery read nothing more.
+
+    The masses are summed exactly in int64 and cast to float32.  The JAX
+    package sums them in float32, which is exact up to 2**24 and beyond
+    that depends on its reduction order, so past 2**24 the two can differ
+    in the last bits of m_f and m_u and, at a threshold, in a decision."""
+    pi = torch.where(gidx == root, root, -1).to(torch.int32)
+    front = gidx == root
+    stats = np.zeros((MAX_LEVELS, 5), np.float32)
+    ctr = zero_counters()
+    mode, level, n_f = 0, 0, _F32(1.0)
+    _, m_f_i, m_u_i = _masses(pi, front, g["deg_A"])
+    while level < MAX_LEVELS and n_f > 0:
+        m_f, m_u = _F32(m_f_i), _F32(m_u_i)
+        new_mode = mode
+        if cfg.direction_optimizing:
+            if mode == 0 and m_f > m_u / _F32(cfg.alpha):
+                new_mode = 1
+            elif mode == 1 and n_f < _F32(n_total / cfg.beta):
+                new_mode = 0
+        step = bu_level if new_mode == 1 else td_level
+        pi, front, c2 = step(pi, front, {"n_f": n_f, "m_f": m_f})
+        ctr = {k: ctr[k] + c2[k] for k in ctr}
+        # stats row: n_f, m_f, mode, used, measured expand words
+        stats[level] = (n_f, m_f, new_mode, 1, c2["wire_expand"])
+        n_f_i, m_f_i, m_u_i = _masses(pi, front, g["deg_A"])
+        n_f = _F32(n_f_i)
+        mode = new_mode
+        level += 1
+    return pi, level, ctr, stats
+
+
+# ---------------------------------------------------------------------------
+# 2D checkerboard entry
+# ---------------------------------------------------------------------------
+
+
+def _bfs_body_2d(g, root, *, part: Partition2D, args: LevelArgs,
+                 cfg: BFSConfig):
+    dev = g["deg_A"].device
+    gidx = torch.arange(part.n, dtype=torch.int32, device=dev).reshape(
+        part.pr, part.pc, part.chunk)
+    return _search_loop(
+        g, gidx, root, n_total=part.n, cfg=cfg,
+        td_level=lambda pi, f, lv: topdown_level(g, pi, f, args, lv),
+        bu_level=lambda pi, f, lv: bottomup_level(g, pi, f, args, lv))
+
+
+def _make_args_2d(part, cfg, ops, statics: PlanStatics, graph,
+                  device) -> LevelArgs:
+    return LevelArgs(part=part, fold_mode=cfg.fold_mode,
+                     perm=collectives.perm_index(part.transpose_perm(), device),
+                     seg_ptr=graph.seg_ptr.cpu().numpy().astype(np.int64),
+                     ops=ops, cap_seg=statics.cap_seg, cap_f=statics.cap_f)
+
+
+def _validate_2d(part, statics: PlanStatics) -> None:
+    if statics.cap_seg <= 0:
+        raise ValueError("2d decomposition needs cap_seg > 0 "
+                         "(pass graph.cap_seg)")
+
+
+register_decomposition(Decomposition(
+    name="2d", partition_cls=Partition2D, graph_cls=BlockedGraph,
+    axis_sizes=lambda part: (part.pr, part.pc),
+    make_level_args=_make_args_2d, body=_bfs_body_2d,
+    validate=_validate_2d))

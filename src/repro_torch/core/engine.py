@@ -1,0 +1,208 @@
+"""BFSEngine: the plan -> compile -> run traversal session.
+
+The Graph500 methodology (paper §7) is "build the distributed graph once,
+then run BFS from 16-64 roots", so a session has three stages:
+
+  plan    ``plan_bfs(graph, cfg, mesh) -> BFSPlan`` resolves the
+          Decomposition entry (core/decomp.py) and the LocalOps entry
+          (core/local_ops.py), pulls the static scalars (cap_seg) from
+          the graph, and checks graph,
+          partition, mesh and config up front.
+
+  compile ``BFSPlan.compile() -> BFSEngine`` ships the graph arrays to
+          the mesh's device ONCE, builds the search program once (the
+          level arguments and, for ``local_mode="kernel"``, the CUDA
+          kernels) and warms it up with one search; ``ship_s`` and
+          ``compile_s`` report the two costs apart.
+
+  run     ``BFSEngine.run(root)`` / ``run_many(roots)`` reuse both.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import BFSConfig
+from repro_torch.core.decomp import Decomposition, PlanStatics, get_decomposition
+from repro_torch.core.local_ops import LocalOps, get_local_ops
+
+
+@dataclass
+class BFSResult:
+    parents: np.ndarray          # (n_orig,) int64
+    n_levels: int
+    counters: Dict[str, float]   # whole-search totals (paper 64-bit words)
+    level_stats: np.ndarray      # (MAX_LEVELS, 5) float32: n_f, m_f, mode,
+    #                              used, measured expand words that level
+
+
+# the config values this slice runs; the rest wait for later slices
+_PORTED = {"decomposition": ("2d",), "fold_mode": ("reduce", "alltoall"),
+           "compact_updates": (False,), "use_edge_dst": (False,),
+           "instrument": (True,), "expand_chunks": (1,)}
+
+
+@dataclass(frozen=True)
+class BFSPlan:
+    """A validated description of one traversal session: which
+    decomposition and local format run on which grid with which static
+    capacities.  ``compile()`` it into a BFSEngine once a graph is
+    attached."""
+    part: Any
+    cfg: BFSConfig
+    mesh: Any                     # launch.mesh.SimMesh
+    entry: Decomposition
+    ops: LocalOps
+    statics: PlanStatics
+    graph: Any = None
+
+    @property
+    def keys(self) -> Tuple[str, ...]:
+        """Graph arrays this plan ships (from the LocalOps entry)."""
+        return self.ops.keys
+
+    def build_fn(self, graph_arrays: Dict[str, torch.Tensor]):
+        """The single-root search program over shipped arrays:
+        fn(root) -> (pi (pr, pc, chunk), n_levels, counters, level_stats)."""
+        args = self.entry.make_level_args(self.part, self.cfg, self.ops,
+                                          self.statics, self.graph,
+                                          self.mesh.device)
+
+        def fn(root: int):
+            return self.entry.body(graph_arrays, root, part=self.part,
+                                   args=args, cfg=self.cfg)
+        return fn
+
+    def compile(self) -> "BFSEngine":
+        return BFSEngine(self)
+
+
+def _check_ported(cfg: BFSConfig) -> None:
+    for field, ported in _PORTED.items():
+        if getattr(cfg, field) not in ported:
+            raise NotImplementedError(
+                f"cfg.{field}={getattr(cfg, field)!r} is not ported yet; "
+                f"this port runs {field} in {ported}")
+
+
+def plan_for_part(part, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
+                  cap_seg: int = 0, cap_f: int = 0) -> BFSPlan:
+    """A graph-less plan from a partition and static capacities; every
+    check that needs no arrays."""
+    _check_ported(cfg)
+    entry = get_decomposition(cfg.decomposition)
+    if not isinstance(part, entry.partition_cls):
+        raise TypeError(
+            f"decomposition={cfg.decomposition!r} needs a "
+            f"{entry.partition_cls.__name__}, got {type(part).__name__}")
+    if (mesh.pr, mesh.pc) != tuple(entry.axis_sizes(part)):
+        raise ValueError(f"mesh grid {mesh.pr}x{mesh.pc} but the partition "
+                         f"needs {entry.axis_sizes(part)}")
+    ops = get_local_ops(cfg.decomposition, local_mode, cfg.storage)
+    statics = PlanStatics(cap_seg=cap_seg, cap_f=cap_f)
+    entry.validate(part, statics)
+    return BFSPlan(part=part, cfg=cfg, mesh=mesh, entry=entry, ops=ops,
+                   statics=statics)
+
+
+def plan_bfs(graph, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
+             cap_f: int = 0) -> BFSPlan:
+    """Plan a traversal session over a concrete blocked graph: resolve the
+    entries, pull the statics from the graph, and check that the graph
+    carries every array the chosen local format ships."""
+    _check_ported(cfg)
+    entry = get_decomposition(cfg.decomposition)
+    if not isinstance(graph, entry.graph_cls):
+        raise TypeError(
+            f"cfg.decomposition={cfg.decomposition!r} does not match "
+            f"graph type {type(graph).__name__}")
+    plan = plan_for_part(graph.part, cfg, mesh, local_mode=local_mode,
+                         cap_f=cap_f, cap_seg=graph.cap_seg)
+    arrays = graph.device_arrays()
+    missing = [k for k in plan.keys if k not in arrays]
+    if missing:
+        raise ValueError(f"graph lacks arrays {missing} needed by "
+                         f"local_mode={local_mode!r}")
+    return replace(plan, graph=graph)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class BFSEngine:
+    """A compiled traversal session: graph shipped once, program built
+    once, traversed from many roots.
+
+    Attributes:
+      ship_s       seconds to move the graph arrays to the mesh's device
+      compile_s    seconds to build the search program (kernels included)
+                   and run one warm-up search
+      ship_count   graph shipments so far (1 after compile; run/run_many
+                   never add one)
+      trace_count  search programs built so far (1 after compile)
+    """
+
+    def __init__(self, plan: BFSPlan):
+        if plan.graph is None:
+            raise ValueError("plan has no graph attached; build it with "
+                             "plan_bfs(graph, cfg, mesh)")
+        self.plan = plan
+        self.ship_count = 0
+        self.trace_count = 0
+        dev = plan.mesh.device
+        t0 = time.perf_counter()
+        self._gdev = self._ship(plan.graph.device_arrays(), dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+        self.ship_s = t1 - t0
+        self._fn = plan.build_fn(self._gdev)
+        self.trace_count += 1
+        # warm-up from the highest-degree vertex: every level kind runs
+        # once, so the kernels are built, loaded and launched before the
+        # first timed root
+        self._fn(int(torch.argmax(self._gdev["deg_A"].reshape(-1))))
+        _sync(dev)
+        self.compile_s = time.perf_counter() - t1
+
+    def _ship(self, arrays: Dict[str, torch.Tensor], dev: torch.device):
+        self.ship_count += 1
+        return {k: arrays[k].to(dev) for k in self.plan.keys}
+
+    def _check_root(self, root) -> int:
+        """A root in the padded ghost range has no edges and would return
+        an empty tree; reject it at the session boundary."""
+        part = self.plan.part
+        root = int(root)
+        if not 0 <= root < part.n_orig:
+            raise ValueError(
+                f"root {root} out of range [0, {part.n_orig}): the graph "
+                f"has {part.n_orig} vertices (padded to {part.n})")
+        return root
+
+    def search(self, root: int):
+        """The device search: (pi on the device, n_levels, counters,
+        level_stats).  Time this plus a synchronize for traversal time."""
+        return self._fn(self._check_root(root))
+
+    def to_result(self, out) -> BFSResult:
+        """Parents by global vertex id on the host, counters as floats."""
+        part = self.plan.part
+        pi, level, ctr, stats = out
+        pi = pi.reshape(part.n)[: part.n_orig].cpu().numpy()
+        return BFSResult(parents=pi.astype(np.int64), n_levels=int(level),
+                         counters={k: float(v) for k, v in ctr.items()},
+                         level_stats=np.asarray(stats))
+
+    def run(self, root: int) -> BFSResult:
+        return self.to_result(self.search(root))
+
+    def run_many(self, roots: Sequence[int]) -> List[BFSResult]:
+        """The Graph500 loop: sequential searches from many roots against
+        the one shipped graph and program."""
+        return [self.run(int(r)) for r in roots]

@@ -1,0 +1,66 @@
+"""Frontier bitmaps and the paper's vector-redistribution steps over the
+simulated mesh.
+
+Bitmaps are packed 32 vertices to a word.  Torch has few ops on uint32,
+so a packed word is an int32 holding the same 32 bits (``.view`` it as
+uint32 to compare with the JAX package's words); ``(w >> k) & 1`` reads
+bit k of either.  Wire counters report paper units: 1 vertex id = 1 word,
+1 bitmap bit = 1/64 word.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import collectives
+
+INT_INF = 2**31 - 1
+
+_F32 = np.float32
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(..., X) bool -> (..., X//32) int32 words; X must be a multiple of 32."""
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    b = mask.reshape(*mask.shape[:-1], -1, 32).to(torch.int64) << shifts
+    w = b.sum(dim=-1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words -> (..., W*32) bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1).to(torch.bool)
+
+
+def test_bits(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Membership of ``idx`` in the packed bitmap ``words`` (a gather)."""
+    idx = idx.to(torch.int64)
+    return ((words[idx >> 5] >> (idx & 31)) & 1).to(torch.bool)
+
+
+def transpose_vector(x: torch.Tensor, perm) -> torch.Tensor:
+    """The paper's TransposeVector: one permute moving each processor's
+    whole chunk from layout A to layout B (or back, with the inverse
+    perm); ``perm`` comes from ``collectives.perm_index``."""
+    return collectives.ppermute(x, perm)
+
+
+def expand_bitmap(front: torch.Tensor, perm) -> Tuple[torch.Tensor, np.float32]:
+    """Expand (Alg. 3 l.5-6 / Alg. 4 l.6-7): transpose the ``(pr, pc,
+    chunk)`` frontier to layout B, then gather packed words along the
+    processor column, giving each processor its C_j slice.
+
+    Returns ``(f_words (pr, pc, nc//32) int32, wire)``: ``wire`` is the
+    float32 per-processor word count of the transpose and the gather, in
+    paper 64-bit-word units."""
+    pr = front.shape[0]
+    words = pack_bits(front)
+    gathered = collectives.all_gather_rows(transpose_vector(words, perm))
+    # 1/2: a 32-bit word is half a paper word; the transpose sends one
+    # copy and the gather pr-1 copies of each word
+    wire = _F32(words.shape[-1]) * _F32(1.0 / 2.0) * _F32(1 + (pr - 1))
+    return gathered, wire

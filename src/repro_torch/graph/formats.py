@@ -1,0 +1,174 @@
+"""Blocked 2D graph storage: CSR/CSC per block + DCSC/DCSR compressions,
+built on the device of the edge list.
+
+The adjacency block of processor (i,j) is T[R_i, C_j], T[v,u]=1 iff edge
+u->v.  Two orientations are stored, as the paper stores each undirected
+adjacency twice (§5.1):
+
+  * CSC by source column -> top-down SpMSV  (frontier u -> children v)
+  * CSR by dest row      -> bottom-up scan  (unvisited v -> parents u)
+
+Every array is padded to the per-block capacity ``cap`` and carries the
+grid as its two leading dims ``(pr, pc, ...)``; ``nnz`` masks the tail.
+The arrays are those of the JAX package's ``build_blocked``, element for
+element; the edges of a block are sorted by (block, primary, secondary),
+so CSR rows list their sources in ascending order -- the bottom-up
+kernel's first hit is the row's minimum because of it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Dict
+
+import torch
+
+from repro_torch.core.partition import Partition2D, make_partition
+from repro_torch.graph.rmat import EdgeList
+
+
+def _round_up(x: int, q: int) -> int:
+    return ((x + q - 1) // q) * q
+
+
+@dataclass
+class BlockedGraph:
+    part: Partition2D
+    m_input: int
+    m: int
+    # --- top-down orientation (CSC by source column u) ---
+    col_ptr: torch.Tensor   # (pr, pc, nc+1) i32
+    row_idx: torch.Tensor   # (pr, pc, cap)  i32  local dest v, CSC order
+    edge_src: torch.Tensor  # (pr, pc, cap)  i32  local src u, CSC order
+    # --- bottom-up orientation (CSR by dest row v) ---
+    row_ptr: torch.Tensor   # (pr, pc, nr+1) i32
+    col_idx: torch.Tensor   # (pr, pc, cap+cap_seg) i32 local src u, CSR order
+    edge_dst: torch.Tensor  # (pr, pc, cap+cap_seg) i32 local dest v, CSR order
+    seg_ptr: torch.Tensor   # (pr, pc, pc+1) i32 CSR ptr at chunk-segment bounds
+    # --- hypersparse pointer compressions ---
+    jc: torch.Tensor        # (pr, pc, cap_nzc)   i32 non-empty source cols
+    cp: torch.Tensor        # (pr, pc, cap_nzc+1) i32 ptrs into row_idx
+    jr: torch.Tensor        # (pr, pc, cap_nzr)   i32 non-empty dest rows
+    rp: torch.Tensor        # (pr, pc, cap_nzr+1) i32 ptrs into col_idx
+    # --- per-block / per-vertex metadata ---
+    nnz: torch.Tensor       # (pr, pc) i32
+    nzc: torch.Tensor       # (pr, pc) i32
+    nzr: torch.Tensor       # (pr, pc) i32
+    deg_A: torch.Tensor     # (pr, pc, chunk) i32 out-degree, layout-A chunks
+    cap: int
+    cap_seg: int
+    maxdeg_col: int         # max CSC column-segment length over all blocks
+
+    def device_arrays(self) -> Dict[str, torch.Tensor]:
+        """Every tensor field by name."""
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+
+
+def _sort_key(src, dst, pc: int, nr: int, nc: int, by_row: bool):
+    """The int64 key ordering edges by (block, primary, secondary): CSC
+    (primary = local source col) or, with ``by_row``, CSR (primary = local
+    dest row).  Built in place from the int32 ids, so only the key and
+    one int32 temporary exist at a time (scale 24 has 0.5G edges)."""
+    key = dst.to(torch.int64).div_(nr, rounding_mode="floor")      # bi
+    key.mul_(pc).add_(torch.div(src, nc, rounding_mode="floor"))   # blk
+    if by_row:
+        key.mul_(nr).add_(dst.remainder(nr)).mul_(nc).add_(src.remainder(nc))
+    else:
+        key.mul_(nc).add_(src.remainder(nc)).mul_(nr).add_(dst.remainder(nr))
+    return key
+
+
+def _orient(key, n_primary: int, n_secondary: int, p: int, cap: int, nnz):
+    """Sort the keys and lay the edges out per block: (ptr (p,
+    n_primary+1), secondary (p, cap), primary (p, cap), counts (p,
+    n_primary)).  The keys are unique because the edges are."""
+    dev = key.device
+    key = torch.sort(key).values
+    flat = torch.div(key, n_secondary, rounding_mode="floor")   # blk*np+pri
+    key.sub_(flat * n_secondary)
+    sec_sorted = key.to(torch.int32)
+    del key
+    cnt = torch.bincount(flat, minlength=p * n_primary).reshape(p, n_primary)
+    pri_sorted = flat.remainder_(n_primary).to(torch.int32)
+    del flat
+    ptr = torch.zeros((p, n_primary + 1), dtype=torch.int64, device=dev)
+    ptr[:, 1:] = torch.cumsum(cnt, dim=1)
+    sec = torch.zeros((p, cap), dtype=torch.int32, device=dev)
+    pri = torch.zeros((p, cap), dtype=torch.int32, device=dev)
+    start = 0
+    for b, k in enumerate(nnz):      # blocks are contiguous in key order
+        sec[b, :k] = sec_sorted[start:start + k]
+        pri[b, :k] = pri_sorted[start:start + k]
+        start += k
+    return ptr, sec, pri, cnt
+
+
+def _compress(ptr, cnt, n_primary: int, p: int):
+    """DCSC/DCSR: the pointer array restricted to non-empty primaries."""
+    dev = ptr.device
+    nz_counts = (cnt > 0).sum(dim=1)
+    cap_nz = _round_up(max(int(nz_counts.max()), 1), 8)
+    jx = torch.full((p, cap_nz), n_primary, dtype=torch.int64, device=dev)
+    px = torch.zeros((p, cap_nz + 1), dtype=torch.int64, device=dev)
+    for b in range(p):
+        nz = torch.nonzero(cnt[b]).reshape(-1)
+        k = nz.shape[0]
+        jx[b, :k] = nz
+        px[b, :k] = ptr[b, nz]
+        px[b, k:] = ptr[b, n_primary]
+    return jx, px, nz_counts
+
+
+def build_blocked(edges: EdgeList, pr: int, pc: int, align: int = 128,
+                  cap_pad: int = 128) -> BlockedGraph:
+    """The 2D blocked graph of ``edges`` on the edges' device."""
+    part = make_partition(edges.n, pr, pc, align)
+    nr, nc, chunk, p = part.nr, part.nc, part.chunk, part.p
+    dev = edges.src.device
+    src, dst = edges.src, edges.dst                    # int32
+    blk = torch.div(dst, nr, rounding_mode="floor") * pc \
+        + torch.div(src, nc, rounding_mode="floor")
+    nnz_t = torch.bincount(blk, minlength=p)
+    del blk
+    deg = torch.bincount(src, minlength=part.n)
+    nnz = [int(x) for x in nnz_t.tolist()]
+    cap = _round_up(max(max(nnz), 1), cap_pad)
+
+    # CSC: primary = source col u, secondary = dest row v
+    col_ptr, row_idx, edge_src, col_cnt = _orient(
+        _sort_key(src, dst, pc, nr, nc, by_row=False), nc, nr, p, cap,
+        nnz)
+    # CSR: primary = dest row v, secondary = source col u
+    row_ptr, col_idx, edge_dst, row_cnt = _orient(
+        _sort_key(src, dst, pc, nr, nc, by_row=True), nr, nc, p, cap, nnz)
+
+    jc, cp, nzc = _compress(col_ptr, col_cnt, nc, p)
+    jr, rp, nzr = _compress(row_ptr, row_cnt, nr, p)
+    maxdeg_col = int(col_cnt.max())
+    del col_cnt, row_cnt
+
+    # CSR ptr at chunk-segment boundaries (bottom-up sub-step windows)
+    seg_bounds = torch.arange(pc + 1, device=dev) * chunk
+    seg_ptr = row_ptr[:, seg_bounds]
+    cap_seg = _round_up(max(int((seg_ptr[:, 1:] - seg_ptr[:, :-1]).max()), 1),
+                        cap_pad)
+    # pad the CSR-orientation index arrays so a cap_seg-wide window
+    # starting at any segment boundary stays in bounds
+    tail = torch.zeros((p, cap_seg), dtype=torch.int32, device=dev)
+    col_idx = torch.cat([col_idx, tail], dim=1)
+    edge_dst = torch.cat([edge_dst, tail], dim=1)
+    del tail
+
+    def _blk(x):  # (p, ...) -> (pr, pc, ...) int32
+        return x.reshape(pr, pc, *x.shape[1:]).to(torch.int32).contiguous()
+
+    return BlockedGraph(
+        part=part, m_input=edges.m_input, m=edges.m,
+        col_ptr=_blk(col_ptr), row_idx=_blk(row_idx), edge_src=_blk(edge_src),
+        row_ptr=_blk(row_ptr), col_idx=_blk(col_idx), edge_dst=_blk(edge_dst),
+        seg_ptr=_blk(seg_ptr),
+        jc=_blk(jc), cp=_blk(cp), jr=_blk(jr), rp=_blk(rp),
+        nnz=_blk(nnz_t), nzc=_blk(nzc), nzr=_blk(nzr),
+        deg_A=_blk(deg.reshape(p, chunk)),
+        cap=cap, cap_seg=cap_seg, maxdeg_col=maxdeg_col,
+    )

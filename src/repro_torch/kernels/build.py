@@ -1,0 +1,131 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
+interface.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch/`` at the root of the checkout, under a name keyed by
+a hash of the source and the flags, and loaded with ``ctypes``.  Pointers
+and the stream go in as ``c_void_p``; each C entry returns
+``cudaGetLastError()`` and ``CudaKernel.launch`` raises when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` or the one on PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels build only where the toolkit is")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build_libraries(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, all
+    ``nvcc`` processes at once; returns name -> library path.  The
+    compiler's ``-Xptxas -v`` report lands beside each library as
+    ``<lib>.log``."""
+    names = list(names)
+    todo: List = []
+    out: Dict[str, Path] = {}
+    for name in names:
+        so = _target(name)
+        out[name] = so
+        if not so.exists():
+            todo.append((name, so))
+    if not todo:
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, so in todo:
+        tmp = so.with_suffix(f".tmp{os.getpid()}")
+        log = open(so.with_suffix(".so.log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for name, so, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (rc {rc}): "
+                          f"{so.with_suffix('.so.log').read_text()[-2000:]}")
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return out
+
+
+def build_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the library built for ``name``."""
+    return _target(name).with_suffix(".so.log").read_text()
+
+
+class CudaKernel:
+    """One kernel's C entry point, loaded at first launch, with a count of
+    its launches (a plain integer the wrapper bumps after each launch)."""
+
+    def __init__(self, name: str, argtypes: Sequence):
+        self.name = name            # the source stem and the C entry point
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC / f"{self.name}.cu"
+
+    def load(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(str(build_libraries([self.name])[self.name]))
+            fn = getattr(lib, self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        err = self.load()(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(*tensors) -> None:
+    """The kernel path takes CUDA tensors on one device, and nothing else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"kernel inputs must all lie on one CUDA device, "
+                         f"got {sorted(str(d) for d in devs)}")

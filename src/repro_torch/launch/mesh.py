@@ -1,0 +1,38 @@
+"""The simulated mesh: a (pr, pc) processor grid on one device.
+
+The JAX package runs its 2D checkerboard on a real (pr, pc) device mesh.
+The port runs it on one card: every per-processor array carries the grid
+as its two leading dims, exactly as ``BlockedGraph`` stores its blocks,
+and each collective is a tensor op over those dims
+(``core/collectives.py``).  A ``SimMesh`` only says how large the grid is
+and which device holds it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA without a card raises
+    (nothing carries on quietly on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' to run the plain versions")
+    return dev
+
+
+@dataclass(frozen=True)
+class SimMesh:
+    pr: int              # processor rows (the expand/gather axis)
+    pc: int              # processor cols (the fold and rotation axis)
+    device: torch.device
+
+
+def make_local_mesh(pr: int = 1, pc: int = 1, device="cuda") -> SimMesh:
+    if pr < 1 or pc < 1:
+        raise ValueError(f"grid {pr}x{pc} must have positive sides")
+    return SimMesh(pr=pr, pc=pc, device=resolve_device(device))

@@ -24,6 +24,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess system test (>60s); deselect with "
         "-m 'not slow' for the fast CI lane")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels have no "
+        "CPU mode); skips without one")
 
 
 def _install_hypothesis_shim():
