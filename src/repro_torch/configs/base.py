@@ -1,11 +1,19 @@
 """The traversal configuration of the PyTorch port.
 
 ``BFSConfig`` carries the same fields and defaults as the JAX package's,
-so one config object describes a session in either package.  This slice
-of the port runs ``decomposition="2d"`` with ``fold_mode`` "reduce" or
-"alltoall", ``instrument=True`` and ``expand_chunks=1``;
+so one config object describes a session in either package.  The port
+runs ``instrument=True`` with ``compact_updates`` and ``use_edge_dst``
+off, and
+
+  * ``decomposition="2d"`` with ``fold_mode`` "reduce" or "alltoall"
+    and ``expand_chunks=1``;
+  * ``decomposition`` "1d" and "1ds" with either ``frontier_codec``
+    ("none", "packed") and any ``expand_chunks >= 1`` that divides the
+    strip's packed words (and, for "1ds", the bucket capacity).
+
 ``core.engine.plan_bfs`` rejects the rest by name until a later slice
-ports it.
+ports it, as it rejects the local format ``("1d"|"1ds", "kernel",
+"csr")``, which needs the ``(p, n+1)`` strip ``col_ptr``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,112 @@
+"""The paper's §6 communication model, the part the 1D strips read:
+wire words per level of the dense, chunked, sparse and packed frontier
+exchanges, the packed codec's widths, and the 1ds bucket planning.
+
+Counts are in the paper's 64-bit words.  These are the closed forms of
+the JAX package's ``core/comm_model.py`` (which imports no JAX but is
+not imported here: the port keeps its own copy).  Each works on host
+ints and floats; the per-frontier forms also take a numpy float32
+count and then round every step in float32, in the reference's
+operation order, as its in-program counters do.
+"""
+from __future__ import annotations
+
+import math
+
+
+def _float(x):
+    """The float type a closed form computes in: a numpy scalar's own,
+    else Python's."""
+    return x.dtype.type if hasattr(x, "dtype") else float
+
+
+def expand_1d_level_words(n, p):
+    """Dense 1D expand of one level: one n-bit bitmap, every chunk
+    replicated to the other p-1 processors: (p-1) * n/64 words."""
+    return (p - 1) * (n / 64.0)
+
+
+def chunked_expand_1d_level_words(n, p, n_chunks: int):
+    """The chunked (pipelined) dense expand: ``n_chunks`` sub-chunk
+    gathers that together move exactly the one bitmap, so the same
+    words as ``expand_1d_level_words``.  ``n_chunks`` must divide the
+    per-strip bitmap extent (chunk/32 words)."""
+    if n_chunks < 1:
+        raise ValueError(f"expand_chunks must be >= 1, got {n_chunks}")
+    chunk_words = (n // max(p, 1)) // 32
+    if chunk_words % n_chunks:
+        raise ValueError(
+            f"expand_chunks={n_chunks} does not divide the per-strip "
+            f"bitmap extent ({chunk_words} packed words)")
+    return expand_1d_level_words(n, p)
+
+
+def expand_1d_words(n: int, p: int, n_levels: int) -> float:
+    """A whole search of the dense "1d" expand: ``n_levels`` bitmaps."""
+    return float(n_levels) * expand_1d_level_words(n, p)
+
+
+def sparse_expand_1d_words(n_f, p):
+    """Sparse owner-directed expand ("1ds", raw ids): each of the
+    ``n_f`` frontier ids goes to the other p-1 processors, 1 id = 1
+    word."""
+    return n_f * _float(n_f)(p - 1.0)
+
+
+def codec_bits(chunk: int) -> int:
+    """Offset width of the packed codec: ceil(log2(chunk)) bits."""
+    return max(1, int(chunk - 1).bit_length())
+
+
+def codec_packed_words(cap_x: int, bits: int) -> int:
+    """u32 words holding ``cap_x`` offsets packed at ``bits`` each."""
+    return -((-cap_x * bits) // 32)
+
+
+def codec_bucket_words(cap_x: int, bits: int) -> int:
+    """u32 words of one encoded bucket: the count word + the payload."""
+    return 1 + codec_packed_words(cap_x, bits)
+
+
+def compressed_expand_1d_words(n_f, p, bits: int, n_chunks: int = 1):
+    """Packed sparse expand of one level: each of the ``n_f`` ids costs
+    ``bits`` bits, plus one u32 count word per bucket from each of the
+    p owners (``n_chunks`` buckets each when pipelined, at the narrower
+    ``codec_bits(chunk/n_chunks)`` the caller passes), all replicated
+    to the other p-1 processors."""
+    f = _float(n_f)
+    return f(p - 1.0) * (n_f * f(bits) + f(32.0 * p * n_chunks)) / f(64.0)
+
+
+def plan_cap_x(n: int, p: int, m: int, align: int = 32,
+               bits: int = 64) -> int:
+    """The "1ds" per-processor bucket capacity: the sparse exchange
+    beats the bitmap while the global frontier is under n/bits ids, so
+    n/(bits*p) per processor, with the expected level-1 load (2m/n)/p as
+    headroom and ``align`` as the floor; never above the chunk.  ``m``
+    (the real edge count) is required."""
+    if m <= 0:
+        raise ValueError(
+            f"plan_cap_x needs the real edge count to size the level-1 "
+            f"headroom (got m={m}); pass graph.m")
+    chunk = max(n // max(p, 1), 1)
+    d_avg = int(2.0 * m / n) if n else 0
+    cap = max(n // (max(bits, 1) * max(p, 1)), d_avg // max(p, 1) + 1,
+              align)
+    cap = ((cap + align - 1) // align) * align
+    return min(cap, ((chunk + align - 1) // align) * align)
+
+
+def topdown_1d_words(m: int, p: int) -> float:
+    """Classic sparse 1D top-down volume: a (p-1)/p share of the 2m
+    directed endpoints is remote and ships once as an id."""
+    return 2.0 * m * (p - 1) / p
+
+
+def rmat_strip_skew(p: int, a: float = 0.57, b: float = 0.19) -> float:
+    """Expected share of R-MAT edge endpoints in the heaviest 1/p vertex
+    range (the low-id strip): ~(a+b)**log2(p).  Strip capacities are
+    padded to that strip's nnz, so this sets the padded memory."""
+    if p <= 1:
+        return 1.0
+    return float((a + b) ** math.log2(p))

@@ -3,8 +3,15 @@
 A ``Decomposition`` entry, registered under the ``BFSConfig.decomposition``
 string, declares what the session API (``core/engine.py``) needs to run a
 search: the partition and graph types it takes, the grid it needs, the
-LevelArgs builder, the whole-search body and its plan checks.  This slice
-registers "2d", the paper's checkerboard (§4.4).
+LevelArgs factory, the whole-search body and its plan checks.
+Registered:
+
+  "2d"  the paper's checkerboard (§4.4), grid (pr, pc)
+  "1d"  row strips (Alg. 1/2 baseline), grid (p, 1): expand = one dense
+        bitmap allgather, no fold, transpose or rotation
+  "1ds" the same strips with the sparse owner-directed exchange, capped
+        buckets (``PlanStatics.cap_x``) with a dense fallback
+        (core/steps_1d_sparse.py)
 """
 from __future__ import annotations
 
@@ -16,10 +23,14 @@ import torch
 
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core import collectives
-from repro_torch.core.partition import Partition2D
+from repro_torch.core.partition import Partition1D, Partition2D
 from repro_torch.core.steps import (LevelArgs, bottomup_level, topdown_level,
                                     zero_counters)
-from repro_torch.graph.formats import BlockedGraph
+from repro_torch.core.steps_1d import (LevelArgs1D, bottomup_level_1d,
+                                       topdown_level_1d)
+from repro_torch.core.steps_1d_sparse import (bottomup_level_1ds,
+                                              topdown_level_1ds)
+from repro_torch.graph.formats import Blocked1DGraph, BlockedGraph
 
 MAX_LEVELS = 64
 
@@ -31,6 +42,8 @@ class PlanStatics:
     """Scalars a plan resolves once from the graph and the config."""
     cap_seg: int = 0          # 2D bottom-up sub-step edge window
     cap_f: int = 0            # kernel mode: frontier bound (0 = nc)
+    cap_x: int = 0            # 1ds sparse exchange: ids per send bucket
+    expand_chunks: int = 1    # 1d/1ds: top-down expand in this many steps
 
 
 @dataclass(frozen=True)
@@ -39,6 +52,7 @@ class Decomposition:
     partition_cls: type
     graph_cls: type
     axis_sizes: Callable      # (part) -> (pr, pc) the grid must have
+    #                           ((p, 1) for the strips)
     make_level_args: Callable  # (part, cfg, ops, statics, graph, device)
     body: Callable            # (g, root, *, part, args, cfg) -> search output
     validate: Callable        # (part, statics) -> None (raises on bad plan)
@@ -81,15 +95,21 @@ def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
                  bu_level):
     """Beamer's direction heuristics, per-level stats and counter
     accumulation over the (pi, front, lv) -> (pi, front, ctr) steps.
+    ``gidx`` holds the global vertex ids in the layout of ``pi`` and
+    ``front``: ``(pr, pc, chunk)`` for 2D, ``(p, chunk)`` for the strips.
 
     The loop is a Python loop.  Each level ends with one host read: the
     next frontier's size and the frontier and unvisited edge masses,
     which the next level's direction decision and the loop's exit need
     (the JAX package keeps them on the device inside a while loop).  A
-    top-down level in local_mode="kernel" adds two reads per block, so
-    2*pr*pc in all: the frontier's column count (``torch.nonzero``) and
-    its edge total, which sizes the kernel's grid (``spmsv/ops.py``).
-    Bottom-up levels and dense discovery read nothing more.
+    2D top-down level in local_mode="kernel" adds two reads per block,
+    so 2*pr*pc in all: the frontier's column count (``torch.nonzero``)
+    and its edge total, which sizes the kernel's grid
+    (``spmsv/ops.py``).  A "1ds" top-down level adds one: the largest
+    send count (the overflow predicate, which picks the level's branch)
+    with the send total.  The strip kernels' grids are fixed by the
+    graph, so "1d" reads nothing more, and neither do bottom-up levels
+    or dense discovery.
 
     The masses are summed exactly in int64 and cast to float32.  The JAX
     package sums them in float32, which is exact up to 2**24 and beyond
@@ -156,3 +176,76 @@ register_decomposition(Decomposition(
     axis_sizes=lambda part: (part.pr, part.pc),
     make_level_args=_make_args_2d, body=_bfs_body_2d,
     validate=_validate_2d))
+
+
+# ---------------------------------------------------------------------------
+# 1D row-strip entries ("1d", "1ds")
+# ---------------------------------------------------------------------------
+
+
+def _make_strip_body(td_step, bu_step):
+    """The whole-search body of a strip entry: global ids in the (p,
+    chunk) strip layout, the shared loop over the given level steps."""
+
+    def body(g, root, *, part: Partition1D, args: LevelArgs1D,
+             cfg: BFSConfig):
+        gidx = torch.arange(part.n, dtype=torch.int32,
+                            device=g["deg_A"].device).reshape(part.p,
+                                                              part.chunk)
+        return _search_loop(
+            g, gidx, root, n_total=part.n, cfg=cfg,
+            td_level=lambda pi, f, lv: td_step(g, pi, f, args, lv),
+            bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv))
+
+    return body
+
+
+def _make_args_strip(part, cfg, ops, statics: PlanStatics, graph,
+                     device) -> LevelArgs1D:
+    return LevelArgs1D(part=part, ops=ops,
+                       nnz=graph.nnz.cpu().numpy().astype(np.int64),
+                       expand_chunks=statics.expand_chunks,
+                       cap_x=statics.cap_x, codec=cfg.frontier_codec)
+
+
+def _validate_strip_chunks(part, statics: PlanStatics) -> None:
+    """The pipelined expand splits each owner's chunk/32 packed words
+    into expand_chunks equal sub-chunks; a ragged last one would
+    mis-align the owner-major layout."""
+    c = statics.expand_chunks
+    words = part.chunk // 32
+    if c > 1 and words % c != 0:
+        raise ValueError(
+            f"expand_chunks={c} does not divide the per-device strip's "
+            f"packed word count ({words} = chunk {part.chunk} / 32); "
+            f"pick a divisor of {words}")
+
+
+def _validate_1ds(part, statics: PlanStatics) -> None:
+    if statics.cap_x <= 0:
+        raise ValueError(
+            "1ds decomposition needs cap_x > 0 (plan_bfs derives it from "
+            "the graph via comm_model.plan_cap_x; graph-less plans must "
+            "pass cap_x explicitly)")
+    if statics.cap_x > part.chunk:
+        raise ValueError(
+            f"cap_x={statics.cap_x} exceeds the owned chunk "
+            f"({part.chunk}); a bucket can never hold more frontier ids "
+            f"than a processor owns")
+    _validate_strip_chunks(part, statics)
+    c = statics.expand_chunks
+    if c > 1 and statics.cap_x % c != 0:
+        raise ValueError(
+            f"expand_chunks={c} does not divide cap_x={statics.cap_x}; "
+            f"the chunked sparse exchange splits the send bucket into "
+            f"expand_chunks equal sub-buckets")
+
+
+for _name, _td, _bu, _validate in (
+        ("1d", topdown_level_1d, bottomup_level_1d, _validate_strip_chunks),
+        ("1ds", topdown_level_1ds, bottomup_level_1ds, _validate_1ds)):
+    register_decomposition(Decomposition(
+        name=_name, partition_cls=Partition1D, graph_cls=Blocked1DGraph,
+        axis_sizes=lambda part: (part.p, 1),
+        make_level_args=_make_args_strip, body=_make_strip_body(_td, _bu),
+        validate=_validate))

@@ -5,15 +5,16 @@ then run BFS from 16-64 roots", so a session has three stages:
 
   plan    ``plan_bfs(graph, cfg, mesh) -> BFSPlan`` resolves the
           Decomposition entry (core/decomp.py) and the LocalOps entry
-          (core/local_ops.py), pulls the static scalars (cap_seg) from
-          the graph, and checks graph,
-          partition, mesh and config up front.
+          (core/local_ops.py), pulls the static scalars (cap_seg, and
+          for "1ds" the planned bucket capacity cap_x) from the graph,
+          and checks graph, partition, mesh and config up front.
 
   compile ``BFSPlan.compile() -> BFSEngine`` ships the graph arrays to
           the mesh's device ONCE, builds the search program once (the
-          level arguments and, for ``local_mode="kernel"``, the CUDA
-          kernels) and warms it up with one search; ``ship_s`` and
-          ``compile_s`` report the two costs apart.
+          level arguments and, for ``local_mode="kernel"``, every CUDA
+          kernel the LocalOps entry can launch) and warms it up with
+          one search; ``ship_s`` and ``compile_s`` report the two costs
+          apart.
 
   run     ``BFSEngine.run(root)`` / ``run_many(roots)`` reuse both.
 """
@@ -27,8 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import BFSConfig
+from repro_torch.core import comm_model
 from repro_torch.core.decomp import Decomposition, PlanStatics, get_decomposition
 from repro_torch.core.local_ops import LocalOps, get_local_ops
+from repro_torch.core.steps_1d_sparse import CODECS
+from repro_torch.kernels import build
 
 
 @dataclass
@@ -40,10 +44,15 @@ class BFSResult:
     #                              used, measured expand words that level
 
 
-# the config values this slice runs; the rest wait for later slices
-_PORTED = {"decomposition": ("2d",), "fold_mode": ("reduce", "alltoall"),
+# the config values the port runs; the rest wait for later slices
+_PORTED = {"decomposition": ("2d", "1d", "1ds"),
+           "fold_mode": ("reduce", "alltoall"),
            "compact_updates": (False,), "use_edge_dst": (False,),
-           "instrument": (True,), "expand_chunks": (1,)}
+           "instrument": (True,)}
+# the (decomposition, local_mode, storage) entries of the JAX package
+# that wait for a later slice of the port
+_WAITING = {("1d", "kernel", "csr"): "needs the (p, n+1) strip col_ptr",
+            ("1ds", "kernel", "csr"): "needs the (p, n+1) strip col_ptr"}
 
 
 @dataclass(frozen=True)
@@ -67,7 +76,8 @@ class BFSPlan:
 
     def build_fn(self, graph_arrays: Dict[str, torch.Tensor]):
         """The single-root search program over shipped arrays:
-        fn(root) -> (pi (pr, pc, chunk), n_levels, counters, level_stats)."""
+        fn(root) -> (pi in the grid layout, (pr, pc, chunk) or (p, chunk),
+        n_levels, counters, level_stats)."""
         args = self.entry.make_level_args(self.part, self.cfg, self.ops,
                                           self.statics, self.graph,
                                           self.mesh.device)
@@ -81,19 +91,33 @@ class BFSPlan:
         return BFSEngine(self)
 
 
-def _check_ported(cfg: BFSConfig) -> None:
+def _check_ported(cfg: BFSConfig, local_mode: str) -> None:
     for field, ported in _PORTED.items():
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"cfg.{field}={getattr(cfg, field)!r} is not ported yet; "
                 f"this port runs {field} in {ported}")
+    if cfg.frontier_codec not in CODECS:
+        raise ValueError(f"cfg.frontier_codec={cfg.frontier_codec!r} is not "
+                         f"a frontier codec; have {CODECS}")
+    if cfg.expand_chunks < 1:
+        raise ValueError(f"cfg.expand_chunks={cfg.expand_chunks} must be "
+                         f">= 1 (1 = unpipelined expand)")
+    if cfg.decomposition == "2d" and cfg.expand_chunks != 1:
+        raise NotImplementedError(
+            f"cfg.expand_chunks={cfg.expand_chunks} is not ported yet for "
+            f"decomposition='2d' (the R/G ring); this port runs 1 there")
+    combo = (cfg.decomposition, local_mode, cfg.storage)
+    if combo in _WAITING:
+        raise NotImplementedError(
+            f"LocalOps {combo} is not ported yet: it {_WAITING[combo]}")
 
 
 def plan_for_part(part, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
-                  cap_seg: int = 0, cap_f: int = 0) -> BFSPlan:
+                  cap_seg: int = 0, cap_f: int = 0, cap_x: int = 0) -> BFSPlan:
     """A graph-less plan from a partition and static capacities; every
     check that needs no arrays."""
-    _check_ported(cfg)
+    _check_ported(cfg, local_mode)
     entry = get_decomposition(cfg.decomposition)
     if not isinstance(part, entry.partition_cls):
         raise TypeError(
@@ -103,25 +127,36 @@ def plan_for_part(part, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
         raise ValueError(f"mesh grid {mesh.pr}x{mesh.pc} but the partition "
                          f"needs {entry.axis_sizes(part)}")
     ops = get_local_ops(cfg.decomposition, local_mode, cfg.storage)
-    statics = PlanStatics(cap_seg=cap_seg, cap_f=cap_f)
+    statics = PlanStatics(cap_seg=cap_seg, cap_f=cap_f, cap_x=cap_x,
+                          expand_chunks=cfg.expand_chunks)
     entry.validate(part, statics)
     return BFSPlan(part=part, cfg=cfg, mesh=mesh, entry=entry, ops=ops,
                    statics=statics)
 
 
 def plan_bfs(graph, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
-             cap_f: int = 0) -> BFSPlan:
+             cap_f: int = 0, cap_x: int = 0) -> BFSPlan:
     """Plan a traversal session over a concrete blocked graph: resolve the
     entries, pull the statics from the graph, and check that the graph
-    carries every array the chosen local format ships."""
-    _check_ported(cfg)
+    carries every array the chosen local format ships.  ``cap_x`` (the
+    "1ds" bucket capacity) is planned from the graph when not given:
+    ``comm_model.plan_cap_x`` at the packed codec's width
+    ``codec_bits(chunk)``, or 64 bits for raw ids."""
+    _check_ported(cfg, local_mode)
     entry = get_decomposition(cfg.decomposition)
     if not isinstance(graph, entry.graph_cls):
         raise TypeError(
             f"cfg.decomposition={cfg.decomposition!r} does not match "
             f"graph type {type(graph).__name__}")
-    plan = plan_for_part(graph.part, cfg, mesh, local_mode=local_mode,
-                         cap_f=cap_f, cap_seg=graph.cap_seg)
+    part = graph.part
+    if cap_x <= 0:
+        bits = comm_model.codec_bits(part.chunk) \
+            if cfg.frontier_codec == "packed" else 64
+        cap_x = comm_model.plan_cap_x(part.n, part.p, int(graph.m),
+                                      bits=bits)
+    plan = plan_for_part(part, cfg, mesh, local_mode=local_mode,
+                         cap_f=cap_f, cap_seg=getattr(graph, "cap_seg", 0),
+                         cap_x=cap_x)
     arrays = graph.device_arrays()
     missing = [k for k in plan.keys if k not in arrays]
     if missing:
@@ -161,11 +196,18 @@ class BFSEngine:
         _sync(dev)
         t1 = time.perf_counter()
         self.ship_s = t1 - t0
+        if dev.type == "cuda" and plan.ops.kernels:
+            build.build_libraries(k.name for k in plan.ops.kernels)
+            for k in plan.ops.kernels:
+                k.load()
         self._fn = plan.build_fn(self._gdev)
         self.trace_count += 1
-        # warm-up from the highest-degree vertex: every level kind runs
-        # once, so the kernels are built, loaded and launched before the
-        # first timed root
+        # warm-up from the highest-degree vertex: with the direction
+        # heuristics on, it runs top-down (for "1ds", the sparse exchange
+        # of the one-vertex frontier) and then bottom-up on the hub's
+        # neighbourhood, so every level kind has run before the first
+        # timed root; the kernels are built and loaded above whichever
+        # levels it reaches
         self._fn(int(torch.argmax(self._gdev["deg_A"].reshape(-1))))
         _sync(dev)
         self.compile_s = time.perf_counter() - t1
@@ -201,6 +243,11 @@ class BFSEngine:
 
     def run(self, root: int) -> BFSResult:
         return self.to_result(self.search(root))
+
+    def run_batch(self, roots: Sequence[int]):
+        """The JAX package's pod-batched search waits for a later slice."""
+        raise NotImplementedError("run_batch is not ported yet; use "
+                                  "run_many for sequential roots")
 
     def run_many(self, roots: Sequence[int]) -> List[BFSResult]:
         """The Graph500 loop: sequential searches from many roots against

@@ -42,6 +42,42 @@ def test_bits(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return ((words[idx >> 5] >> (idx & 31)) & 1).to(torch.bool)
 
 
+def pack_ids(mask: torch.Tensor, cap: int, offset, sentinel: int
+             ) -> torch.Tensor:
+    """Sparse frontier compaction, batched over leading dims: ``(...,
+    chunk)`` bool -> ``(..., cap)`` int32 holding ``offset + position``
+    of the first ``cap`` set bits in ascending order and ``sentinel`` in
+    the unused slots; set bits past ``cap`` are dropped (callers detect
+    that overflow themselves).  ``offset`` is an int or a tensor that
+    broadcasts against ``(..., 1)``.  One pass over all rows: a running
+    count ranks each set bit, and one scatter drops it into its slot.
+    The count runs over the flattened mask (a 1-D scan runs device-wide;
+    a per-row scan of few long rows leaves the card mostly idle), minus
+    each row's count before it."""
+    chunk = mask.shape[-1]
+    m = mask.reshape(-1, chunk)
+    cum = torch.cumsum(m.reshape(-1), 0, dtype=torch.int32).reshape(m.shape)
+    rank = cum - (cum[:, :1] - m[:, :1].to(torch.int32)) - 1
+    slot = torch.where(m & (rank < cap), rank, cap).to(torch.int64)
+    pos = torch.arange(chunk, dtype=torch.int32, device=mask.device)
+    local = torch.full((m.shape[0], cap + 1), chunk, dtype=torch.int32,
+                       device=mask.device)
+    # every unset or dropped bit lands in the spare column ``cap``
+    local.scatter_(1, slot, pos.expand(m.shape[0], chunk))
+    local = local[:, :cap].reshape(*mask.shape[:-1], cap)
+    return torch.where(local < chunk, local + offset,
+                       sentinel).to(torch.int32)
+
+
+def unpack_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Global ids -> the packed n-bit bitmap, (n//32,) int32 words; ids
+    outside [0, n) (the ``pack_ids`` sentinel) are dropped."""
+    ids = ids.reshape(-1).to(torch.int64)
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=ids.device)
+    mask[torch.where((ids >= 0) & (ids < n), ids, n)] = True
+    return pack_bits(mask[:n])
+
+
 def transpose_vector(x: torch.Tensor, perm) -> torch.Tensor:
     """The paper's TransposeVector: one permute moving each processor's
     whole chunk from layout A to layout B (or back, with the inverse

@@ -1,44 +1,78 @@
-"""LocalOps: the local-discovery layer behind the 2D decomposition.
+"""LocalOps: the local-discovery layer behind the decompositions.
 
 An entry, registered under ``(decomposition, local_mode, storage)``,
 declares which graph arrays a session ships (``keys``), the top-down
-SpMSV closure and the bottom-up sub-step closure.  Registered here:
+SpMSV closure, the bottom-up sub-step closure, for the 1D strips the
+per-sub-chunk SpMSV of the pipelined expand (``topdown_chunk``), for
+"1ds" the packed codec's ``encode`` and ``decode``, and the CUDA kernels
+a session loads at compile (``kernels``).  Registered here:
 
   ("2d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
   ("2d", "kernel", "csr")           the hand-written CUDA kernels
+  ("1d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
+  ("1d", "kernel", "dcsc")          the strip SpMSV kernels over the
+                                    strip DCSC + the bottom-up kernel
+  ("1ds", ...)                      mirrors of the "1d" entries: the
+                                    sparse exchange changes the expand,
+                                    not local discovery
 
-Closure signatures (arrays are one processor's block):
+2D closure signatures (arrays are one processor's block):
 
   topdown(g, f_words, f_mask, nr, col_offset, args)
       -> (cand (nr,) int32 candidate parents,
           edges examined, a 0-d int64 tensor)
+
+The 1D top-down closures take ALL p strips at once (the stacked ``(p,
+...)`` arrays; col_offset is 0 since strip ids are global), so a kernel
+launch covers the whole simulated mesh:
+
+  topdown(g, f_words, args)                 -> (cand (p, chunk), ex)
+  topdown_chunk(g, g_sub, k, n_chunks, args) -> (cand (p, chunk), ex)
+
+``f_words`` is the packed (n/32,) frontier every strip received and
+``g_sub`` the owner-major (p * w_sub,) words of pipelined step k.  The
+bottom-up closure is per block or per strip in both decompositions:
+
   bottomup(rp_seg, ue_win, f_words, cvec, col_offset, n_edges, ve_win)
       -> (chunk,) int32 newly discovered parents (INT_INF = none)
 
 ``f_words`` is the packed frontier over the block's column range, and
-``f_mask`` its unpacked bool form.  ``args`` is the ``LevelArgs``.
+``f_mask`` its unpacked bool form.  ``args`` is the LevelArgs.  The
+"1ds" codec closures take all p buckets at once:
+
+  encode(off (p, cap), count (p,), chunk)      -> (p, 1 + W) int32 words
+  decode(recv (p * (1 + W),), chunk, cap, n, p) -> (p * cap,) int32 ids
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.frontier import unpack_bits
 from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.bottomup.ref import bottomup_substep as bu_ref
+from repro_torch.kernels.frontier_codec import ops as codec_ops
+from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as spmsv_ops
+from repro_torch.kernels.spmsv import strip
 from repro_torch.kernels.spmsv.ref import spmsv_dense
 
 
 @dataclass(frozen=True)
 class LocalOps:
-    decomposition: str            # "2d"
+    decomposition: str            # "2d" | "1d" | "1ds"
     local_mode: str               # "dense" | "kernel"
     storage: str                  # "csr" | "dcsc"
     keys: Tuple[str, ...]         # graph arrays a session ships
     topdown: Callable             # SpMSV closure (see module docstring)
     bottomup: Callable            # bottom-up sub-step closure
+    topdown_chunk: Callable = None  # 1D: SpMSV of one pipelined sub-chunk
+    encode: Callable = None       # 1ds: packed codec, p buckets at once
+    decode: Callable = None       # 1ds: the gathered buckets -> global ids
+    kernels: Tuple = ()           # CudaKernels a session loads at compile
 
 
 _REGISTRY: Dict[Tuple[str, str, str], LocalOps] = {}
@@ -90,6 +124,49 @@ def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
     return cand, ex
 
 
+def _td_dense_1d(g, f_words, args):
+    """Edge-parallel scan of every strip (oracle path): work O(nnz)
+    whatever the frontier, so it examines every stored edge."""
+    f_mask = unpack_bits(f_words)
+    nr = args.part.chunk
+    cand = torch.stack([spmsv_dense(g["edge_src"][i], g["row_idx"][i],
+                                    g["nnz"][i], f_mask, nr, 0)
+                        for i in range(args.part.p)])
+    return cand, g["nnz"].sum(dtype=torch.int64)
+
+
+def _td_strip_dcsc(g, f_words, args):
+    """The strip SpMSV kernel: walks every strip's non-empty global
+    columns against the allgathered bitmap, one launch for all p."""
+    return strip.spmsv_strip_dcsc(g["jc"], g["cp"], g["nzc"], g["row_idx"],
+                                  f_words, args.part.chunk)
+
+
+def _td_strip_dcsc_chunk(g, g_sub, k, n_chunks, args):
+    """The per-sub-chunk strip SpMSV kernel of the pipelined expand: it
+    reads the raw owner-major sub-chunk words, so no full-size bitmap is
+    built; the caller min-combines the steps."""
+    part = args.part
+    return strip.spmsv_strip_dcsc_chunk(g["jc"], g["cp"], g["nzc"],
+                                        g["row_idx"], g_sub, part.chunk,
+                                        n=part.n, k=k, n_chunks=n_chunks)
+
+
+def _encode_kernel(off, count, chunk):
+    """The codec's encode kernel: all p buckets in one launch."""
+    return codec_ops.encode_offsets(off, count, chunk)
+
+
+def _decode_kernel(recv, chunk, cap, n, p):
+    """The codec's decode kernel: the gathered buckets, decoded once."""
+    return codec_ops.decode_buckets(recv, chunk, cap, n, p)
+
+
+def _decode_plain(recv, chunk, cap, n, p):
+    """The plain decode under the kernel wrapper's signature."""
+    return codec_ref.decode_buckets(recv, chunk, cap, n)
+
+
 # ---------------------------------------------------------------------------
 # Bottom-up sub-step closures
 # ---------------------------------------------------------------------------
@@ -115,4 +192,37 @@ for _storage in ("csr", "dcsc"):
 
 register_local_ops(LocalOps(
     decomposition="2d", local_mode="kernel", storage="csr",
-    keys=_KERNEL_CSR_KEYS_2D, topdown=_td_kernel_csr, bottomup=_bu_kernel))
+    keys=_KERNEL_CSR_KEYS_2D, topdown=_td_kernel_csr, bottomup=_bu_kernel,
+    kernels=(spmsv_ops.KERNEL, bu_ops.KERNEL)))
+
+_DENSE_KEYS_1D = ("edge_src", "row_idx", "nnz", "deg_A", "col_idx",
+                  "row_ptr", "edge_dst")
+_KERNEL_DCSC_KEYS_1D = ("jc", "cp", "nzc", "row_idx", "nnz", "deg_A",
+                        "col_idx", "row_ptr")
+
+for _storage in ("csr", "dcsc"):
+    register_local_ops(LocalOps(
+        decomposition="1d", local_mode="dense", storage=_storage,
+        keys=_DENSE_KEYS_1D, topdown=_td_dense_1d, bottomup=bu_ref))
+
+register_local_ops(LocalOps(
+    decomposition="1d", local_mode="kernel", storage="dcsc",
+    keys=_KERNEL_DCSC_KEYS_1D, topdown=_td_strip_dcsc, bottomup=_bu_kernel,
+    topdown_chunk=_td_strip_dcsc_chunk,
+    kernels=(strip.KERNEL, strip.KERNEL_CHUNK, bu_ops.KERNEL)))
+
+# "1ds" traverses the same strips with the same local discovery; only
+# the expand collective differs (core/steps_1d_sparse.py).  A kernel
+# session encodes and decodes the packed buckets with the codec kernels,
+# a dense one with their plain versions (as the JAX package's dense
+# sessions run its jnp codec)
+for _combo in [k for k in sorted(_REGISTRY) if k[0] == "1d"]:
+    _ops = _REGISTRY[_combo]
+    if _ops.local_mode == "kernel":
+        _codec = dict(encode=_encode_kernel, decode=_decode_kernel,
+                      kernels=_ops.kernels + (codec_ops.ENCODE,
+                                              codec_ops.DECODE))
+    else:
+        _codec = dict(encode=codec_ref.encode_offsets, decode=_decode_plain)
+    register_local_ops(dataclasses.replace(_ops, decomposition="1ds",
+                                           **_codec))

@@ -1,4 +1,12 @@
-"""The paper's 2D (pr x pc) Eq. (1) checkerboard partition.
+"""Vertex partitions: the 1D row strips and the paper's 2D (pr x pc)
+Eq. (1) checkerboard.
+
+1D (the Buluc & Madduri baseline): processor i owns the vertex chunk
+V_i = [i*chunk, (i+1)*chunk) and the row strip T[V_i, :] -- every edge
+into its vertices.  There is one vector layout, so the expand is one
+allgather of the frontier and there is no fold or transpose.
+
+2D:
 
 Vertex-vector layouts:
 
@@ -17,6 +25,26 @@ edge u->v.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class Partition1D:
+    """1D row decomposition over ``p`` processors (one mesh axis)."""
+    n: int        # padded vertex count
+    n_orig: int   # original vertex count
+    p: int
+
+    @property
+    def chunk(self) -> int:      # owned vertices per processor (= nr)
+        return self.n // self.p
+
+    @property
+    def nr(self) -> int:         # rows per strip
+        return self.chunk
+
+    @property
+    def nc(self) -> int:         # cols per strip: all of them
+        return self.n
 
 
 @dataclass(frozen=True)
@@ -49,12 +77,21 @@ class Partition2D:
                 for k in range(self.p)]
 
 
-def make_partition(n_orig: int, pr: int, pc: int, align: int = 128) -> Partition2D:
-    """Pad n so chunk = n/(pr*pc) is a multiple of ``align`` (a multiple
-    of 32, so bitmap words tile chunks exactly)."""
+def _padded_n(n_orig: int, p: int, align: int) -> int:
+    """n padded so chunk = n/p is a multiple of ``align`` (a multiple of
+    32, so bitmap words tile chunks exactly)."""
     if align % 32:
         raise ValueError("align must be a multiple of 32 (bitmap words)")
-    p = pr * pc
     quantum = p * align
-    n = ((max(n_orig, 1) + quantum - 1) // quantum) * quantum
-    return Partition2D(n=n, n_orig=n_orig, pr=pr, pc=pc)
+    return ((max(n_orig, 1) + quantum - 1) // quantum) * quantum
+
+
+def make_partition(n_orig: int, pr: int, pc: int, align: int = 128) -> Partition2D:
+    return Partition2D(n=_padded_n(n_orig, pr * pc, align), n_orig=n_orig,
+                       pr=pr, pc=pc)
+
+
+def make_partition_1d(n_orig: int, p: int, align: int = 128) -> Partition1D:
+    """The same padding as ``make_partition``, so a p-strip and a
+    (pr, pc) partition with pr*pc == p agree on the padded n."""
+    return Partition1D(n=_padded_n(n_orig, p, align), n_orig=n_orig, p=p)

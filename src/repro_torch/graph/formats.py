@@ -1,5 +1,6 @@
-"""Blocked 2D graph storage: CSR/CSC per block + DCSC/DCSR compressions,
-built on the device of the edge list.
+"""Blocked graph storage, built on the device of the edge list: the 2D
+checkerboard (CSR/CSC per block + DCSC/DCSR compressions) and the 1D
+row strips (``Blocked1DGraph``, below ``build_blocked``).
 
 The adjacency block of processor (i,j) is T[R_i, C_j], T[v,u]=1 iff edge
 u->v.  Two orientations are stored, as the paper stores each undirected
@@ -22,7 +23,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.partition import Partition2D, make_partition
+from repro_torch.core.partition import (Partition1D, Partition2D,
+                                        make_partition, make_partition_1d)
 from repro_torch.graph.rmat import EdgeList
 
 
@@ -172,3 +174,137 @@ def build_blocked(edges: EdgeList, pr: int, pc: int, align: int = 128,
         deg_A=_blk(deg.reshape(p, chunk)),
         cap=cap, cap_seg=cap_seg, maxdeg_col=maxdeg_col,
     )
+
+
+# ---------------------------------------------------------------------------
+# 1D row strips
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Blocked1DGraph:
+    """1D row-strip storage: strip i holds T[V_i, :] (every edge into its
+    owned vertices) in both orientations, each array padded to the
+    common capacity ``cap`` (strip 0's nnz on R-MAT, where the low ids
+    are the heavy ones) with the strips stacked on the leading dim.
+
+    Source ids are GLOBAL (a strip spans every column), so top-down and
+    bottom-up run with ``col_offset = 0`` against the whole allgathered
+    frontier.  The top-down pointers are the strip DCSC ``(jc, cp)``
+    over the strip's non-empty global source columns; ``edge_src`` and
+    ``edge_dst`` (what the dense oracle path reads) are built only on
+    request.  The arrays are those of the JAX package's
+    ``build_blocked_1d`` element for element (its optional ``(p, n+1)``
+    ``col_ptr`` is not ported yet)."""
+    part: Partition1D
+    m_input: int
+    m: int
+    # --- top-down orientation (by strip, global source u, local dest) ---
+    row_idx: torch.Tensor   # (p, cap) i32 local dest v
+    # --- bottom-up orientation (CSR by local dest row v) ---
+    row_ptr: torch.Tensor   # (p, chunk+1) i32
+    col_idx: torch.Tensor   # (p, cap) i32 GLOBAL source u, CSR order
+    # --- strip DCSC ---
+    jc: torch.Tensor        # (p, cap_nzc)   i32 non-empty GLOBAL source cols
+    cp: torch.Tensor        # (p, cap_nzc+1) i32 ptrs into row_idx
+    # --- per-strip / per-vertex metadata ---
+    nnz: torch.Tensor       # (p,) i32
+    nzc: torch.Tensor       # (p,) i32
+    deg_A: torch.Tensor     # (p, chunk) i32 out-degree of owned vertices
+    cap: int
+    cap_nzc: int
+    maxdeg_col: int         # max column-segment length over all strips
+    edge_src: "torch.Tensor | None" = None  # (p, cap) i32 GLOBAL source u
+    edge_dst: "torch.Tensor | None" = None  # (p, cap) i32 local dest v, CSR
+
+    def device_arrays(self) -> Dict[str, torch.Tensor]:
+        """Every tensor field by name (the edge lists only when built)."""
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+
+
+def _strips(flat: torch.Tensor, nnz, cap: int) -> torch.Tensor:
+    """Edges in strip order, flat -> (p, cap) int32, zero padded."""
+    out = torch.zeros((len(nnz), cap), dtype=torch.int32, device=flat.device)
+    start = 0
+    for b, k in enumerate(nnz):
+        out[b, :k] = flat[start:start + k]
+        start += k
+    return out
+
+
+def build_blocked_1d(edges: EdgeList, p: int, align: int = 128,
+                     cap_pad: int = 128,
+                     with_edge_lists: bool = True) -> Blocked1DGraph:
+    """Partition the edges u->v by the owner of the destination v into p
+    row strips, on the edges' device.  ``with_edge_lists=False`` skips
+    ``edge_src``/``edge_dst`` (two more capacity-wide arrays that only
+    the dense oracle path reads), which a kernel session at scale 24
+    leaves out to fit the card."""
+    part = make_partition_1d(edges.n, p, align)
+    n, chunk = part.n, part.chunk
+    dev = edges.src.device
+    src, dst = edges.src, edges.dst                    # int32
+    nnz_t = torch.bincount(torch.div(dst, chunk, rounding_mode="floor"),
+                           minlength=p)
+    nnz = [int(x) for x in nnz_t.tolist()]
+    cap = _round_up(max(max(nnz), 1), cap_pad)
+    deg = torch.bincount(src, minlength=n)
+
+    # top-down orientation: sorted by (strip, u, v_loc).  The key is
+    # (strip*n + u)*chunk + v_loc; built in place, so one int64 key and
+    # one int32 temporary exist at a time
+    key = torch.div(dst, chunk, rounding_mode="floor").to(torch.int64)
+    key.mul_(n).add_(src).mul_(chunk).add_(dst.remainder(chunk))
+    key = torch.sort(key).values
+    row_idx = _strips(key.remainder(chunk).to(torch.int32), nnz, cap)
+    su = key.div_(chunk, rounding_mode="floor")        # strip*n + u
+    del key
+    # strip DCSC: the (strip, u) runs of the sorted edges are the
+    # non-empty columns; edges of one strip are contiguous, so a run's
+    # start minus its strip's start is its pointer into row_idx
+    cols, counts = torch.unique_consecutive(su, return_counts=True)
+    if with_edge_lists:
+        edge_src = _strips(su.remainder_(n).to(torch.int32), nnz, cap)
+    del su
+    col_strip = torch.div(cols, n, rounding_mode="floor")
+    nzc_t = torch.bincount(col_strip, minlength=p)
+    nzc = [int(x) for x in nzc_t.tolist()]
+    cap_nzc = _round_up(max(max(nzc), 1), 8)
+    maxdeg_col = int(counts.max()) if counts.numel() else 0
+    starts = torch.cumsum(counts, 0) - counts          # global run starts
+    strip_base = torch.cumsum(nnz_t, 0) - nnz_t
+    starts -= strip_base[col_strip]
+    jc = torch.full((p, cap_nzc), n, dtype=torch.int32, device=dev)
+    cp = torch.zeros((p, cap_nzc + 1), dtype=torch.int32, device=dev)
+    start = 0
+    for b, k in enumerate(nzc):
+        jc[b, :k] = cols[start:start + k] - b * n
+        cp[b, :k] = starts[start:start + k]
+        cp[b, k:] = nnz[b]
+        start += k
+    del cols, counts, col_strip, starts
+
+    # bottom-up orientation: CSR by (strip, v_loc, u), i.e. sorted by
+    # the key dst*n + u, so every row lists its sources ascending (the
+    # bottom-up first hit is the row's minimum because of it)
+    key = dst.to(torch.int64).mul_(n).add_(src)
+    key = torch.sort(key).values
+    col_idx = _strips(key.remainder(n).to(torch.int32), nnz, cap)
+    dsts = key.div_(n, rounding_mode="floor")
+    del key
+    if with_edge_lists:
+        edge_dst = _strips(dsts.remainder_(chunk).to(torch.int32), nnz, cap)
+    del dsts
+    row_ptr = torch.zeros((p, chunk + 1), dtype=torch.int32, device=dev)
+    row_ptr[:, 1:] = torch.cumsum(
+        torch.bincount(dst, minlength=n).reshape(p, chunk), dim=1)
+
+    return Blocked1DGraph(
+        part=part, m_input=edges.m_input, m=edges.m,
+        row_idx=row_idx, row_ptr=row_ptr, col_idx=col_idx, jc=jc, cp=cp,
+        nnz=nnz_t.to(torch.int32), nzc=nzc_t.to(torch.int32),
+        deg_A=deg.reshape(p, chunk).to(torch.int32).contiguous(),
+        cap=cap, cap_nzc=cap_nzc, maxdeg_col=maxdeg_col,
+        edge_src=edge_src if with_edge_lists else None,
+        edge_dst=edge_dst if with_edge_lists else None)

@@ -1,7 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-interface.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
+interface (sources may share a ``.cuh`` header there).  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed by
 a hash of the source and the flags, and loaded with ``ctypes``.  Pointers
 and the stream go in as ``c_void_p``; each C entry returns
@@ -39,7 +39,10 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path, keyed by the source, the shared headers of
+    ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

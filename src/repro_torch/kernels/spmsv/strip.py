@@ -1,0 +1,210 @@
+"""The 1D strip SpMSV over the strip DCSC: wrappers of the CUDA kernels
+``csrc/spmsv_strip_min.cu`` (the whole allgathered frontier bitmap) and
+``csrc/spmsv_strip_chunk_min.cu`` (one sub-chunk of the pipelined
+expand), their plain PyTorch versions, and the port's copies of the JAX
+package's ``_dcsc_edges_examined`` and ``_dcsc_edges_examined_chunk``.
+
+Every function takes all p strips at once: ``jc (p, cap_nzc)``, ``cp (p,
+cap_nzc+1)``, ``nzc (p,)``, ``row_idx (p, cap)``, and returns the ``(p,
+nr)`` int32 candidates (for each local row the smallest global frontier
+column with an edge into it, else INT_INF) and the edges examined, a 0-d
+int64 tensor: the frontier columns' segment lengths.  A slot is live when
+``slot < nzc``, ``jc < n`` (the sentinel) and its column is in the
+frontier.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.frontier import INT_INF, test_bits
+from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+
+_COMMON = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int]
+KERNEL = CudaKernel("spmsv_strip_min", _COMMON + [ctypes.c_void_p])
+KERNEL_CHUNK = CudaKernel("spmsv_strip_chunk_min", _COMMON + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def _slots_alive(jc: torch.Tensor, nzc: torch.Tensor, n: int) -> torch.Tensor:
+    slot = torch.arange(jc.shape[1], device=jc.device)
+    return (slot < nzc.reshape(-1, 1)) & (jc < n)
+
+
+def live_slots(jc, nzc, f_words) -> torch.Tensor:
+    """(p, cap_nzc) bool: the slots whose column is in the bitmap."""
+    n = f_words.shape[0] * 32
+    return _slots_alive(jc, nzc, n) & test_bits(f_words, jc.clamp(max=n - 1))
+
+
+def live_slots_chunk(jc, nzc, f_sub, k: int, n_chunks: int, chunk: int,
+                     n: int) -> torch.Tensor:
+    """(p, cap_nzc) bool: the slots whose column lies in sub-chunk k and
+    is set in the owner-major sub-chunk words ``f_sub``."""
+    wpc = chunk // 32
+    w_sub = wpc // n_chunks
+    uc = jc.clamp(max=n - 1).to(torch.int64)
+    wi = uc >> 5
+    owner = torch.div(wi, wpc, rounding_mode="floor")
+    lw = wi - owner * wpc
+    in_rng = (lw >= k * w_sub) & (lw < (k + 1) * w_sub)
+    pos = torch.where(in_rng, owner * w_sub + (lw - k * w_sub), 0)
+    bit = ((f_sub[pos] >> (uc & 31)) & 1).to(torch.bool)
+    return _slots_alive(jc, nzc, n) & in_rng & bit
+
+
+def _examined(cp, live) -> torch.Tensor:
+    return torch.where(live, cp[:, 1:] - cp[:, :-1], 0).sum(dtype=torch.int64)
+
+
+def dcsc_edges_examined(jc, cp, nzc, f_words) -> torch.Tensor:
+    """Sum of the frontier columns' segment lengths, straight off the
+    compressed pointers (padded slots have empty segments)."""
+    return _examined(cp, live_slots(jc, nzc, f_words))
+
+
+def dcsc_edges_examined_chunk(jc, cp, nzc, f_sub, k: int, n_chunks: int,
+                              chunk: int, n: int) -> torch.Tensor:
+    """The same for one pipelined sub-chunk; the sums of the n_chunks
+    steps add up to ``dcsc_edges_examined``."""
+    return _examined(cp, live_slots_chunk(jc, nzc, f_sub, k, n_chunks,
+                                          chunk, n))
+
+
+def gather_segments_plain(jc, cp, row_idx, live, nr: int):
+    """Every edge of the live slots: (rows, cols, edge count) with
+    ``rows`` the flat int64 index of its candidate in (p*nr) and
+    ``cols`` its int32 global source column."""
+    p, cap_nzc = jc.shape
+    dev = jc.device
+    lens = torch.where(live, cp[:, 1:] - cp[:, :-1], 0).reshape(-1).to(
+        torch.int64)
+    total = int(lens.sum())
+    sl = torch.repeat_interleave(torch.arange(p * cap_nzc, device=dev), lens)
+    offs = torch.cumsum(lens, 0) - lens
+    strip = torch.div(sl, cap_nzc, rounding_mode="floor")
+    pos = (strip * row_idx.shape[1] + cp[:, :-1].reshape(-1)[sl]
+           + torch.arange(total, device=dev) - offs[sl])
+    return strip * nr + row_idx.reshape(-1)[pos], jc.reshape(-1)[sl], total
+
+
+def gather_min_plain(jc, cp, row_idx, live, nr: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expand every live slot into its edges, then scatter-min the
+    column ids into the strips' (p, nr) candidates."""
+    rows, cols, total = gather_segments_plain(jc, cp, row_idx, live, nr)
+    out = torch.full((jc.shape[0] * nr,), INT_INF, dtype=torch.int32,
+                     device=jc.device)
+    out.scatter_reduce_(0, rows, cols, reduce="amin")
+    return out.reshape(jc.shape[0], nr), torch.tensor(total,
+                                                      device=jc.device)
+
+
+def _check(jc, cp, nzc, row_idx, words, nr):
+    for name, t in (("jc", jc), ("cp", cp), ("nzc", nzc),
+                    ("row_idx", row_idx), ("frontier words", words)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    p = jc.shape[0]
+    if (jc.dim() != 2 or cp.shape != (p, jc.shape[1] + 1)
+            or nzc.shape != (p,) or row_idx.dim() != 2
+            or row_idx.shape[0] != p or words.dim() != 1 or nr <= 0):
+        raise ValueError(f"strip shapes disagree: jc {tuple(jc.shape)}, cp "
+                         f"{tuple(cp.shape)}, nzc {tuple(nzc.shape)}, "
+                         f"row_idx {tuple(row_idx.shape)}, words "
+                         f"{tuple(words.shape)}, nr {nr}")
+
+
+def _outputs(p: int, nr: int, dev):
+    return (torch.full((p, nr), INT_INF, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+def launch(jc, cp, nzc, row_idx, f_words, nr: int):
+    """The kernel's launch on checked CUDA tensors."""
+    p, cap_nzc = jc.shape
+    cand, ex = _outputs(p, nr, jc.device)
+    KERNEL.launch(jc.data_ptr(), cp.data_ptr(), nzc.data_ptr(),
+                  row_idx.data_ptr(), f_words.data_ptr(), cand.data_ptr(),
+                  ex.data_ptr(), p, cap_nzc, row_idx.shape[1], nr,
+                  f_words.shape[0] * 32, stream_handle(jc.device))
+    return cand, ex[0]
+
+
+def spmsv_strip_dcsc_plain(jc, cp, nzc, row_idx, f_words, nr: int):
+    return gather_min_plain(jc, cp, row_idx, live_slots(jc, nzc, f_words),
+                            nr)
+
+
+def spmsv_strip_dcsc(jc: torch.Tensor, cp: torch.Tensor, nzc: torch.Tensor,
+                     row_idx: torch.Tensor, f_words: torch.Tensor, nr: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strip SpMSV against the whole ``(n/32,)`` frontier bitmap:
+    ``(cand (p, nr) int32, edges examined)``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _check(jc, cp, nzc, row_idx, f_words, nr)
+    tensors = (jc, cp, nzc, row_idx, f_words)
+    if all(t.device.type == "cpu" for t in tensors):
+        return spmsv_strip_dcsc_plain(jc, cp, nzc, row_idx, f_words, nr)
+    KERNEL.load()
+    require_cuda(*tensors)
+    return launch(jc, cp, nzc, row_idx, f_words, nr)
+
+
+def _sub_dims(f_sub, n: int, p: int, n_chunks: int):
+    wpc = (n // p) // 32
+    w_sub = wpc // n_chunks
+    if n_chunks < 1 or wpc % n_chunks or f_sub.shape[0] != p * w_sub:
+        raise ValueError(
+            f"sub-chunk buffer has {f_sub.shape[0]} words, expected "
+            f"p*w_sub = {p}*{w_sub} for n={n}, n_chunks={n_chunks}")
+    return wpc, w_sub
+
+
+def launch_chunk(jc, cp, nzc, row_idx, f_sub, nr: int, n: int, k: int,
+                 n_chunks: int):
+    """The chunk kernel's launch on checked CUDA tensors."""
+    p, cap_nzc = jc.shape
+    wpc, w_sub = _sub_dims(f_sub, n, p, n_chunks)
+    cand, ex = _outputs(p, nr, jc.device)
+    KERNEL_CHUNK.launch(jc.data_ptr(), cp.data_ptr(), nzc.data_ptr(),
+                        row_idx.data_ptr(), f_sub.data_ptr(),
+                        cand.data_ptr(), ex.data_ptr(), p, cap_nzc,
+                        row_idx.shape[1], nr, n, wpc, w_sub, k,
+                        stream_handle(jc.device))
+    return cand, ex[0]
+
+
+def spmsv_strip_dcsc_chunk_plain(jc, cp, nzc, row_idx, f_sub, nr: int,
+                                 n: int, k: int, n_chunks: int):
+    live = live_slots_chunk(jc, nzc, f_sub, k, n_chunks, n // jc.shape[0],
+                            n)
+    return gather_min_plain(jc, cp, row_idx, live, nr)
+
+
+def spmsv_strip_dcsc_chunk(jc: torch.Tensor, cp: torch.Tensor,
+                           nzc: torch.Tensor, row_idx: torch.Tensor,
+                           f_sub: torch.Tensor, nr: int, *, n: int, k: int,
+                           n_chunks: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strip SpMSV of pipelined step ``k`` of ``n_chunks``, against
+    the raw owner-major ``(p * w_sub,)`` sub-chunk words (w_sub =
+    (n/p/32)/n_chunks): ``(cand (p, nr) int32, edges examined)``.  The
+    caller min-combines the steps.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    _check(jc, cp, nzc, row_idx, f_sub, nr)
+    _sub_dims(f_sub, n, jc.shape[0], n_chunks)
+    if not 0 <= k < n_chunks:
+        raise ValueError(f"step k={k} outside [0, {n_chunks})")
+    tensors = (jc, cp, nzc, row_idx, f_sub)
+    if all(t.device.type == "cpu" for t in tensors):
+        return spmsv_strip_dcsc_chunk_plain(jc, cp, nzc, row_idx, f_sub, nr,
+                                            n, k, n_chunks)
+    KERNEL_CHUNK.load()
+    require_cuda(*tensors)
+    return launch_chunk(jc, cp, nzc, row_idx, f_sub, nr, n, k, n_chunks)

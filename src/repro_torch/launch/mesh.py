@@ -1,11 +1,13 @@
 """The simulated mesh: a (pr, pc) processor grid on one device.
 
-The JAX package runs its 2D checkerboard on a real (pr, pc) device mesh.
-The port runs it on one card: every per-processor array carries the grid
-as its two leading dims, exactly as ``BlockedGraph`` stores its blocks,
-and each collective is a tensor op over those dims
-(``core/collectives.py``).  A ``SimMesh`` only says how large the grid is
-and which device holds it.
+The JAX package runs its 2D checkerboard on a real (pr, pc) device mesh
+and its 1D strips on a single axis of p devices.  The port runs both on
+one card: every per-processor array carries the grid as its leading
+dims, exactly as ``BlockedGraph`` ((pr, pc, ...)) and ``Blocked1DGraph``
+((p, ...)) store their blocks, and each collective is a tensor op over
+those dims (``core/collectives.py``, ``core/steps_1d.py``).  A
+``SimMesh`` only says how large the grid is and which device holds it;
+a p-strip mesh is the grid (p, 1).
 """
 from __future__ import annotations
 
@@ -36,3 +38,9 @@ def make_local_mesh(pr: int = 1, pc: int = 1, device="cuda") -> SimMesh:
     if pr < 1 or pc < 1:
         raise ValueError(f"grid {pr}x{pc} must have positive sides")
     return SimMesh(pr=pr, pc=pc, device=resolve_device(device))
+
+
+def make_local_mesh_1d(p: int, device="cuda") -> SimMesh:
+    """The p-strip mesh of the 1D decompositions: grid (p, 1), the
+    counterpart of the JAX package's single "data" axis of size p."""
+    return make_local_mesh(p, 1, device=device)

@@ -10,9 +10,12 @@ import torch
 
 from repro_torch.core.frontier import pack_bits
 from repro_torch.graph import rmat
-from repro_torch.graph.formats import build_blocked
+from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.kernels.bottomup import ops as bu_ops
+from repro_torch.kernels.frontier_codec import ops as codec_ops
+from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as sp_ops
+from repro_torch.kernels.spmsv import strip
 
 pytestmark = pytest.mark.cuda
 
@@ -90,4 +93,77 @@ def test_launch_counts_grow(graph, dev):
         torch.zeros(chunk, dtype=torch.int32, device=dev), 0,
         int(graph.seg_ptr[0, 0, 1]))
     rmat.rmat_edges_counter(8, 16, count=64, device=dev)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+
+
+@pytest.fixture(scope="module")
+def graph_1d(dev):
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    return build_blocked_1d(e, 16, align=32, cap_pad=32)
+
+
+def _strip_fronts(n, dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    fronts = [torch.zeros(n, dtype=torch.bool, device=dev),
+              torch.arange(n, device=dev) == 0]
+    for frac in (0.01, 0.3, 1.0):
+        fronts.append(torch.rand(n, generator=g, device=dev) < frac)
+    return fronts
+
+
+def test_strip_kernels_match_plain(graph_1d, dev):
+    g, part = graph_1d, graph_1d.part
+    for mask in _strip_fronts(part.n, dev):
+        fw = pack_bits(mask)
+        got = strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx, fw,
+                                     part.chunk)
+        want = strip.spmsv_strip_dcsc_plain(g.jc, g.cp, g.nzc, g.row_idx,
+                                            fw, part.chunk)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+        words = fw.reshape(part.p, -1)
+        for c in (2, 4):
+            for k in range(c):
+                sub = words.reshape(part.p, c, -1)[:, k].reshape(-1)
+                sub = sub.contiguous()
+                got = strip.spmsv_strip_dcsc_chunk(
+                    g.jc, g.cp, g.nzc, g.row_idx, sub, part.chunk,
+                    n=part.n, k=k, n_chunks=c)
+                want = strip.spmsv_strip_dcsc_chunk_plain(
+                    g.jc, g.cp, g.nzc, g.row_idx, sub, part.chunk, part.n,
+                    k, c)
+                assert torch.equal(got[0], want[0])
+                assert int(got[1]) == int(want[1])
+
+
+@pytest.mark.parametrize("chunk,cap", [(2, 33), (1000, 40), (1 << 20, 97)])
+def test_codec_kernels_match_plain(dev, chunk, cap):
+    g = torch.Generator(device=dev).manual_seed(chunk)
+    p = 5
+    off = torch.randint(0, chunk, (p, cap), generator=g, device=dev,
+                        dtype=torch.int32)
+    count = torch.tensor([0, 1, cap // 2, cap, cap + 9], dtype=torch.int32,
+                         device=dev)
+    got = codec_ops.encode_offsets(off, count, chunk)
+    want = codec_ref.encode_offsets(off, count, chunk)
+    assert torch.equal(got, want)
+    n = p * chunk
+    got = codec_ops.decode_buckets(want.reshape(-1), chunk, cap, n, p)
+    assert torch.equal(got, codec_ref.decode_buckets(want.reshape(-1), chunk,
+                                                     cap, n))
+
+
+def test_strip_and_codec_launch_counts_grow(graph_1d, dev):
+    kernels = (strip.KERNEL, strip.KERNEL_CHUNK, codec_ops.ENCODE,
+               codec_ops.DECODE)
+    before = [k.launches for k in kernels]
+    g, part = graph_1d, graph_1d.part
+    fw = torch.zeros(part.n // 32, dtype=torch.int32, device=dev)
+    strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx, fw, part.chunk)
+    strip.spmsv_strip_dcsc_chunk(g.jc, g.cp, g.nzc, g.row_idx,
+                                 fw[: part.n // 64], part.chunk, n=part.n,
+                                 k=1, n_chunks=2)
+    off = torch.zeros((part.p, 32), dtype=torch.int32, device=dev)
+    cnt = torch.ones(part.p, dtype=torch.int32, device=dev)
+    buf = codec_ops.encode_offsets(off, cnt, part.chunk)
+    codec_ops.decode_buckets(buf.reshape(-1), part.chunk, 32, part.n, part.p)
     assert [k.launches for k in kernels] == [b + 1 for b in before]

@@ -128,9 +128,12 @@ def test_plan_errors_up_front(graphs):
         plan_bfs(g_t, BFSConfig(storage="dcsc"), mesh, local_mode="kernel")
     for bad in (dict(fold_mode="bitmap"), dict(instrument=False),
                 dict(expand_chunks=2), dict(compact_updates=True),
-                dict(use_edge_dst=True), dict(decomposition="1d")):
+                dict(use_edge_dst=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             plan_bfs(g_t, BFSConfig(**bad), mesh)
+    # "1d" is ported: a 2D graph is the wrong graph type for it
+    with pytest.raises(TypeError, match="graph type"):
+        plan_bfs(g_t, BFSConfig(decomposition="1d"), mesh)
     eng = plan_bfs(g_t, BFSConfig(), mesh).compile()
     with pytest.raises(ValueError, match="out of range"):
         eng.run(t.n)
@@ -146,6 +149,9 @@ def test_cap_f_smaller_than_frontier_raises(graphs):
 
 def test_registry_lists_the_ported_combos():
     assert local_ops.registered_combos() == (
+        ("1d", "dense", "csr"), ("1d", "dense", "dcsc"),
+        ("1d", "kernel", "dcsc"), ("1ds", "dense", "csr"),
+        ("1ds", "dense", "dcsc"), ("1ds", "kernel", "dcsc"),
         ("2d", "dense", "csr"), ("2d", "dense", "dcsc"),
         ("2d", "kernel", "csr"))
 

@@ -1,0 +1,156 @@
+"""The port's 1D strip sessions ("1d", and "1ds" with both codecs and
+the pipelined expand): against the JAX package's dense sessions on 16
+forced host devices (one subprocess), against the pinned scale-14/p=16
+``wire_expand`` totals of the reference's acceptance run, against the
+port's own 2D sessions (the same parents), and the plan checks."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import BFSConfig
+from repro_torch.core.engine import plan_bfs
+from repro_torch.core.ref import TreeValidator, validate_parents
+from repro_torch.graph.formats import build_blocked, build_blocked_1d
+from repro_torch.graph.rmat import rmat_graph
+from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+
+_HERE = os.path.dirname(__file__)
+
+
+def _cfg(dec="1ds", **kw):
+    return BFSConfig(decomposition=dec, storage="dcsc", **kw)
+
+
+@pytest.fixture(scope="module")
+def small():
+    e = rmat_graph(11, 16, seed=1, device="cpu")
+    deg = e.out_degrees().numpy()
+    roots = [int(r) for r in np.flatnonzero(deg > 0)[[0, 40, 200]]]
+    return e, build_blocked_1d(e, 16, align=32, cap_pad=32), roots
+
+
+def test_sessions_match_reference_on_16_strips():
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable,
+                        os.path.join(_HERE, "_torch_dist_1d_main.py")],
+                       capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, f"{r.stdout}\n{r.stderr}"
+    assert "OK torch-dist-1d" in r.stdout
+
+
+@pytest.mark.parametrize("local_mode", ["dense", "kernel"])
+def test_pinned_scale_14_wire_totals(local_mode):
+    """The reference's pinned acceptance config (``_dist_bfs_main.py``
+    mode ``onedsparse``): R-MAT scale 14, edge factor 4, seed 14, 16
+    strips, top-down only, a low-degree root, planned bucket caps.  Its
+    measured totals: packed 10313.9 < raw 12150.0 < dense 23040.0."""
+    e = rmat_graph(14, 4, seed=14, device="cpu")
+    deg = e.out_degrees().numpy()
+    root = int(np.flatnonzero((deg > 0) & (deg <= 32))[0])
+    g = build_blocked_1d(e, 16, align=32, cap_pad=32)
+    mesh = make_local_mesh_1d(16, device="cpu")
+    got, parents = {}, []
+    for label, dec, codec in (("packed", "1ds", "packed"),
+                              ("raw", "1ds", "none"),
+                              ("dense", "1d", "packed")):
+        res = plan_bfs(g, _cfg(dec, frontier_codec=codec,
+                               direction_optimizing=False), mesh,
+                       local_mode=local_mode).compile().run(root)
+        assert res.counters["wire_expand"] == \
+            res.level_stats[:res.n_levels, 4].sum()
+        got[label] = round(float(res.counters["wire_expand"]), 1)
+        parents.append(res.parents)
+    assert got == {"packed": 10313.9, "raw": 12150.0, "dense": 23040.0}
+    assert all(np.array_equal(parents[0], q) for q in parents[1:])
+
+
+def test_strip_parents_equal_2d_parents(small):
+    """With a 1x1 grid and p strips both decompositions take the min
+    source in top-down, the first (ascending) hit in bottom-up and the
+    same global sums in the heuristics: the same parents and levels."""
+    e, g, roots = small
+    two_d = plan_bfs(build_blocked(e, 1, 1, align=32, cap_pad=32),
+                     BFSConfig(), make_local_mesh(1, 1, device="cpu"),
+                     local_mode="kernel").compile()
+    mesh = make_local_mesh_1d(16, device="cpu")
+    engines = [plan_bfs(g, _cfg(**kw), mesh, local_mode="kernel").compile()
+               for kw in (dict(), dict(expand_chunks=4),
+                          dict(frontier_codec="none", expand_chunks=2))]
+    engines.append(plan_bfs(g, _cfg("1d"), mesh,
+                            local_mode="kernel").compile())
+    for root in roots:
+        want = two_d.run(root)
+        for eng in engines:
+            got = eng.run(root)
+            assert np.array_equal(got.parents, want.parents), root
+            assert got.n_levels == want.n_levels
+            assert np.array_equal(got.level_stats[:, :4],
+                                  want.level_stats[:, :4])
+
+
+def test_session_contract_and_trees(small):
+    e, g, roots = small
+    plan = plan_bfs(g, _cfg(expand_chunks=2), make_local_mesh_1d(
+        16, device="cpu"), local_mode="kernel")
+    assert plan.statics.cap_x == 32 and plan.statics.expand_chunks == 2
+    eng = plan.compile()
+    assert (eng.ship_count, eng.trace_count) == (1, 1)
+    assert set(eng._gdev) == set(plan.keys)
+    res = eng.run_many(roots * 2)
+    assert (eng.ship_count, eng.trace_count) == (1, 1)
+    tv = TreeValidator(e.n, e.src, e.dst)
+    for root, r in zip(roots, res):
+        assert validate_parents(e.n, e.src.numpy(), e.dst.numpy(), root,
+                                r.parents) == (True, "ok")
+        assert tv.check(root, torch.from_numpy(r.parents)) == (True, "ok")
+        assert r.parents.shape == (e.n,)
+    assert np.array_equal(res[0].parents, res[len(roots)].parents)
+    with pytest.raises(NotImplementedError, match="run_batch"):
+        eng.run_batch(roots)
+    with pytest.raises(ValueError, match="out of range"):
+        eng.run(e.n)
+
+
+def test_plan_errors_up_front(small):
+    e, g, roots = small
+    mesh = make_local_mesh_1d(16, device="cpu")
+    for storage in ("csr",):
+        for dec in ("1d", "1ds"):
+            with pytest.raises(NotImplementedError, match="col_ptr"):
+                plan_bfs(g, BFSConfig(decomposition=dec, storage=storage),
+                         mesh, local_mode="kernel")
+    for bad in (dict(instrument=False), dict(use_edge_dst=True),
+                dict(compact_updates=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            plan_bfs(g, _cfg(**bad), mesh)
+    with pytest.raises(ValueError, match="frontier codec"):
+        plan_bfs(g, _cfg(frontier_codec="varint"), mesh)
+    with pytest.raises(ValueError, match=">= 1"):
+        plan_bfs(g, _cfg(expand_chunks=0), mesh)
+    with pytest.raises(ValueError, match="does not divide the per-device"):
+        plan_bfs(g, _cfg(expand_chunks=3), mesh)
+    with pytest.raises(ValueError, match="does not divide cap_x"):
+        plan_bfs(g, _cfg(expand_chunks=4), mesh, cap_x=6)
+    with pytest.raises(ValueError, match="exceeds the owned chunk"):
+        plan_bfs(g, _cfg(), mesh, cap_x=g.part.chunk + 32)
+    with pytest.raises(ValueError, match="mesh grid"):
+        plan_bfs(g, _cfg(), make_local_mesh(4, 4, device="cpu"))
+    with pytest.raises(TypeError, match="graph type"):
+        plan_bfs(g, BFSConfig(), make_local_mesh(16, 1, device="cpu"))
+    lean = build_blocked_1d(e, 16, align=32, cap_pad=32,
+                            with_edge_lists=False)
+    with pytest.raises(ValueError, match="lacks arrays"):
+        plan_bfs(lean, _cfg(), mesh, local_mode="dense")
+    plan_bfs(lean, _cfg(), mesh, local_mode="kernel")
+
+
+def test_mesh_1d_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_local_mesh_1d(16)
