@@ -2,11 +2,11 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card and hold
 every kernel of those paths against its plain PyTorch version.
 
-    python3 chip_smoke.py            # the full run: Graph500 scale 24
+    python3 chip_smoke.py    # Graph500 scale 24, then the serving paths
 
 Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
-  2 build        nvcc of the seven kernels (in parallel), ptxas report
+  2 build        nvcc of the nine kernels (in parallel), ptxas report
   3 2D path      one Graph500 session at full width on the 2D grid 1x1:
                  counter R-MAT (kernel) -> preprocess -> build_blocked ->
                  plan_bfs(local_mode="kernel") -> compile -> 16 roots,
@@ -38,6 +38,23 @@ Phases, in the order they run:
                  time beside the plain version's, the library yardstick
                  and the bound
  10 profile      device busy and idle share of one 1ds search
+ 11 AutoInt      the registered autoint config (11,238,400-row table)
+                 scoring the three recsys shapes: 200 serve_p99 batches,
+                 4 serve_bulk batches, 16 retrieval_cand queries against
+                 1M candidates; the lookup through kernel 8 as bags of
+                 one; logits equal the plain lookup's bit for bit
+ 12 kernel 8     against its plain version, tolerance 0, at the path's
+                 shapes and multi-hot (f32/bf16, sum/mean, weighted or
+                 not), with times, F.embedding(_bag) and the bound
+ 13 smollm-135m  the registered config served through Server: 8
+                 requests, 32 new tokens each, attention through kernel
+                 9; prefill and teacher-forced decode logits against the
+                 plain-attention path within LOGIT_TOL_BF16
+ 14 kernel 9     against its plain version within ATTN_TOL at the path's
+                 calls and over the JAX test's sweep plus a window-4096
+                 shape, with times, SDPA and the bound
+ 15 profiles     busy share and top kernels of one serve_p99 batch, one
+                 serve_bulk batch and one decode step
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.  Any failed check exits non-zero; nothing is caught.  It
 exits non-zero without a CUDA card, and where the repository's ``src``
@@ -46,6 +63,7 @@ is missing.  The full record goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -121,16 +139,25 @@ def smi_line() -> str:
 
 
 @contextlib.contextmanager
-def recording(targets):
-    """Record every call of the given module functions, ``(module,
+def recording(targets, every: int = 1, clone: bool = False):
+    """Record the calls of the given module functions, ``(module,
     attribute, label)``, while the block runs: a list of (label, args,
-    kwargs).  The calls still run."""
+    kwargs) of every ``every``-th call.  With ``clone`` the tensor
+    arguments are copied as the call sees them, so that later writes
+    (a KV cache filled by the next batch) do not change them.  The
+    calls still run."""
     calls = []
+    seen = [0]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def copy(x):
+        return x.clone() if clone and isinstance(x, torch.Tensor) else x
 
     def wrap(fn, label):
         def rec(*a, **kw):
-            calls.append((label, a, kw))
+            if seen[0] % every == 0:
+                calls.append((label, tuple(copy(x) for x in a), kw))
+            seen[0] += 1
             return fn(*a, **kw)
         return rec
 
@@ -202,21 +229,21 @@ def decode_bytes(recv, p: int, cap: int, bits: int) -> int:
     return 4 * p + 4 * payload + 4 * p * cap
 
 
-def profile_search(engine, root: int) -> dict:
-    """Device busy and idle share of one search: the kernels that
-    torch.profiler saw on the card over the search's unprofiled time."""
+def profile_call(fn, label: str = "search") -> dict:
+    """Device busy and idle share of one call of ``fn``: the kernels that
+    torch.profiler saw on the card over the call's unprofiled time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     ts = time.perf_counter()
-    engine.search(root)
+    fn()
     torch.cuda.synchronize()
-    plain_search_ms = (time.perf_counter() - ts) * 1e3
+    plain_ms = (time.perf_counter() - ts) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
-        engine.search(root)
+        fn()
         torch.cuda.synchronize()
-        prof_search_ms = (time.perf_counter() - ts) * 1e3
+        prof_ms = (time.perf_counter() - ts) * 1e3
     busy_us, by_name = 0.0, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -226,26 +253,628 @@ def profile_search(engine, root: int) -> dict:
     if busy_us > 0:
         busy_ms = busy_us / 1e3
         print(f"device busy {busy_ms:.4f} ms in {len(by_name)} kinds of "
-              f"kernel; search {prof_search_ms:.3f} ms under the profiler, "
-              f"{plain_search_ms:.3f} ms without it: busy "
-              f"{busy_ms / plain_search_ms:.1%}, idle "
-              f"{1 - busy_ms / plain_search_ms:.1%} of the unprofiled search")
+              f"kernel; {label} {prof_ms:.3f} ms under the profiler, "
+              f"{plain_ms:.3f} ms without it: busy "
+              f"{busy_ms / plain_ms:.1%}, idle "
+              f"{1 - busy_ms / plain_ms:.1%} of the unprofiled {label}")
         for nm, us in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
             print(f"  {us / 1e3:9.4f} ms  {nm[:90]}")
     else:
         busy_ms = None
         print("the profiler recorded no device time: busy share not measured")
-    return {"busy_ms": busy_ms, "search_ms": plain_search_ms,
-            "profiled_search_ms": prof_search_ms,
+    return {"busy_ms": busy_ms, "call_ms": plain_ms, "profiled_ms": prof_ms,
             "by_name_ms": {k: v / 1e3 for k, v in by_name.items()}}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is False; this script runs "
-              "the port on a CUDA card", flush=True)
-        return 2
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn`` on the card alone: the calls queue behind a spin
+    kernel of about 10 ms (``torch.cuda._sleep``), so the host's issue
+    time hides behind it and the events time the device work back to
+    back.  ``cuda_ms`` includes the issue time where it is the longer."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
+
+# ------------------------------------------------------------------ NN side
+# the serving paths of phases 11-15: AutoInt scoring at the registered
+# width and smollm-135m prefill/decode (the serving launcher's two archs)
+AI_P99 = 200                  # serve_p99 batches
+AI_BULK = 4                   # serve_bulk batches
+AI_QUERIES = 16               # retrieval_cand queries
+AI_PEAK_GIB = 30.0            # PERF.md section 2
+MH_BAGS, MH_WIDTH = 65536, 32  # kernel 8's multi-hot bags
+LM_REQUESTS, LM_NEW = 8, 32   # requests, new tokens each
+LM_MAX_BATCH, LM_BUCKET, LM_MAX_LEN = 4, 128, 2048
+LM_PEAK_GIB = 4.0             # PERF.md section 2
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+# kernel 9 at the mixtral config's window: (BH, Sq, Sk, dh, causal,
+# window, q_offset, dtype)
+WINDOW_CASE = (8, 8192, 8192, 128, True, 4096, 0, torch.bfloat16)
+# kernel 9 against its plain version: float32, the order of the sums
+# (the JAX kernel test's 2e-5); bfloat16, both sides round float32
+# results that differ by that much to bf16, at most one ulp (2**-7 of
+# the value) apart
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2e-5)}
+
+
+def attn_close(got, want) -> float:
+    """Max |got - want|; fails past the dtype's tolerance."""
+    rtol, atol = ATTN_TOL[want.dtype]
+    d = (got.float() - want.float()).abs()
+    bad = d > atol + rtol * want.float().abs()
+    check(not bool(bad.any()), f"kernel 9 off its plain version by "
+                               f"{float(d.max())} at {int(bad.sum())} "
+                               f"elements (rtol {rtol}, atol {atol})")
+    return float(d.max())
+
+
+def attn_bound(q, k, causal, window, q_offset) -> tuple:
+    """(bound ms, by, flops, bytes) of one attention call on these
+    inputs: q read and the output written once, the keys and values
+    that some query's mask reaches read once; 4 dh flops per live
+    (query, key) pair, over the dense bf16 peak."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(sk, qpos + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    keys = int(max(hi.max() - lo.min(), 0))
+    elt = q.element_size()
+    nbytes = 2 * b * sq * hq * dh * elt + 2 * b * hkv * keys * dh * elt
+    flops = 4 * dh * pairs * b * hq
+    tb, tf_ = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(tb, tf_), ("bytes" if tb >= tf_ else "operations"), flops, \
+        nbytes
+
+
+def sdpa(q, k, v, causal, window, q_offset):
+    """The library yardstick: a zero-argument call of
+    F.scaled_dot_product_attention on the same (B, S, H, dh) inputs.  The
+    mask is built here, outside the call that is timed, and only where
+    some (query, key) pair is masked out by an offset causal edge or a
+    window; a decode row over all its keys takes no mask."""
+    import torch.nn.functional as F
+    sq, sk = q.shape[1], k.shape[1]
+    mask, is_causal = None, causal and q_offset == 0 and sq == sk \
+        and window is None
+    if not is_causal and (causal or window is not None):
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        if bool(mask.all()):
+            mask = None
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=gqa)
+
+
+def serve_autoint(dev, kernels) -> dict:
+    """Phase 11: AutoInt at the registered width over the three recsys
+    shapes, through kernel 8; returns what phases 12 and 15 use."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.models import embedding
+    from repro_torch.models.autoint import AutoInt
+    cfg = get_config("autoint")
+    shp = {s.name: s for s in cfg.shapes}
+    t0 = time.perf_counter()
+
+    def batches(n, size, step0):
+        return [torch.from_numpy(recsys_batch(cfg, size, step0 + i)["idx"])
+                .pin_memory() for i in range(n)]
+    p99 = batches(AI_P99, shp["serve_p99"].batch, 0)
+    bulk = batches(AI_BULK, shp["serve_bulk"].batch, AI_P99)
+    queries = batches(AI_QUERIES, shp["retrieval_cand"].batch, 10_000)
+    t1 = time.perf_counter()
+    model = AutoInt(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_cand = shp["retrieval_cand"].n_candidates
+    cand = torch.randn(n_cand, cfg.n_heads * cfg.d_attn, generator=gen,
+                       device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tab = model.table
+    print(f"autoint: {cfg.n_sparse} fields, embed_dim {cfg.embed_dim}, "
+          f"{cfg.n_attn_layers} attention layers of {cfg.n_heads} heads x "
+          f"d_attn {cfg.d_attn}, MLP {cfg.mlp_hidden}; table "
+          f"{tuple(tab.shape)} float32 ({cfg.n_embed_rows()} rows rounded "
+          f"up), {tab.numel() * 4 / 1e6:.1f} MB on the card; {n_cand} "
+          f"candidates of width {cand.shape[1]}")
+    print(f"batches from recsys_batch (host, pinned): {t1 - t0:.3f} s; "
+          f"model and candidates made on the card: {t2 - t1:.3f} s")
+
+    def score(idx_host):
+        """One request batch: host ids in, host p(click) out."""
+        with torch.inference_mode():
+            idx = idx_host.to(dev, non_blocking=True)
+            return torch.sigmoid(model(idx)).cpu()
+
+    def query(idx_host):
+        with torch.inference_mode():
+            u = model.user_tower(idx_host.to(dev, non_blocking=True))
+            s = AutoInt.retrieval_scores(u, cand)
+        torch.cuda.synchronize()
+        return s
+
+    def timed(fn, xs):
+        out = []
+        for x in xs:
+            ts = time.perf_counter()
+            fn(x)
+            out.append((time.perf_counter() - ts) * 1e3)
+        return out
+    score(p99[0])                                  # warm-up
+    score(bulk[0])
+    query(queries[0])
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p99_ms = timed(score, p99)
+    bulk_ms = timed(score, bulk)
+    q_ms = timed(query, queries)
+    launches = eb_ops.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = shp["serve_bulk"].batch
+    print(f"serve_p99: {AI_P99} batches of {shp['serve_p99'].batch} rows, "
+          f"ms per batch (host ids in, host scores out) median "
+          f"{float(np.median(p99_ms)):.4f}, p99 "
+          f"{float(np.percentile(p99_ms, 99)):.4f}, min {min(p99_ms):.4f}, "
+          f"max {max(p99_ms):.4f}")
+    print(f"serve_bulk: {AI_BULK} batches of {rows} rows: ms "
+          f"{[round(x, 3) for x in bulk_ms]}, "
+          f"{AI_BULK * rows / (sum(bulk_ms) / 1e3):.6e} rows/s")
+    print(f"retrieval_cand: {AI_QUERIES} single queries against {n_cand} "
+          f"candidates: ms per query median {float(np.median(q_ms)):.4f}, "
+          f"min {min(q_ms):.4f}, max {max(q_ms):.4f}")
+    print(f"peak device memory of the AutoInt path: {peak:.3f} GiB "
+          f"(limit {AI_PEAK_GIB})")
+    print(f"launches of embedding_bag on the AutoInt path: {launches}")
+    check(launches == AI_P99 + AI_BULK + AI_QUERIES,
+          f"embedding_bag launched {launches} times on the AutoInt path")
+    check(peak < AI_PEAK_GIB, f"AutoInt peak {peak:.2f} GiB >= "
+                              f"{AI_PEAK_GIB} GiB")
+    for label, x in (("serve_p99", p99[0]), ("serve_bulk", bulk[0])):
+        with torch.inference_mode():
+            idx = x.to(dev)
+            got = model(idx)
+            plain = model.logits(tab[embedding.flat_indices(cfg, idx).long()])
+        check(torch.equal(got, plain), f"{label} logits through kernel 8 "
+                                       f"differ from the plain lookup's")
+        check(bool(torch.isfinite(got).all()), f"{label} logits not finite")
+        del got, plain
+    print("logits through kernel 8 equal the plain lookup's (tab[rows]) bit "
+          "for bit on a serve_p99 and a serve_bulk batch; all finite")
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "model": model, "p99": p99, "bulk": bulk,
+            "queries": queries, "score": score, "launches": launches,
+            "record": {"p99_ms": p99_ms, "bulk_ms": bulk_ms,
+                       "query_ms": q_ms, "peak_gib": peak,
+                       "launches": launches,
+                       "rows_per_s": AI_BULK * rows / (sum(bulk_ms) / 1e3)}}
+
+
+def check_kernel8(ai, dev) -> dict:
+    """Phase 12: kernel 8 against its plain version, bit for bit, at the
+    AutoInt path's shapes and multi-hot, with times; returns the kernels
+    line's row (path totals: per-shape times x the path's launches)."""
+    import itertools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.models import embedding
+    cfg, tab = ai["cfg"], ai["model"].table
+    plain_tab = tab.detach()
+    d = tab.shape[1]
+    worst = 0.0
+
+    def same(got, want, label):
+        e = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"embedding_bag {label}: kernel != "
+                                      f"plain (max err {e})")
+        return e
+
+    def distinct_rows(ids):
+        return int(torch.unique(ids[ids >= 0]).numel())
+
+    def rows_of(xs):
+        return [embedding.flat_indices(cfg, x.to(dev)).reshape(-1, 1)
+                .contiguous() for x in xs]
+    # bags of one at the path's three shapes; the serve_p99 and
+    # retrieval launches cycle through different batches, so the table
+    # rows they read come cold as in serving
+    shapes = {"serve_p99": (rows_of(ai["p99"][:64]), AI_P99),
+              "serve_bulk": (rows_of(ai["bulk"][:1]), AI_BULK),
+              "retrieval_cand": (rows_of(ai["queries"]), AI_QUERIES)}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for label, (rows, count) in shapes.items():
+        longs = [r[:, 0].long() for r in rows]
+        for r, lr in zip(rows[:4], longs):
+            got = eb_ops.launch(tab, r, None, "sum")
+            worst = max(worst, same(got, eb_ref.embedding_bag(tab, r), label))
+            check(torch.equal(got, F.embedding(lr, tab)),
+                  f"embedding_bag {label}: kernel != F.embedding")
+        cyc = itertools.cycle(range(len(rows)))
+        k_ms = cuda_ms(lambda: eb_ops.launch(tab, rows[next(cyc)], None,
+                                             "sum"), reps=50)
+        p_ms = cuda_ms(lambda: eb_ref.embedding_bag(tab, rows[next(cyc)]),
+                       reps=5)
+        # the library call as serving makes it: on the plain tensor under
+        # inference_mode; and, for the record, on the nn.Parameter with
+        # autograd on, as the first timing of this yardstick did
+        with torch.inference_mode():
+            l_ms = cuda_ms(lambda: F.embedding(longs[next(cyc)], plain_tab),
+                           reps=50)
+            # the two gathers PyTorch has: F.embedding is index_select
+            sel_ms = cuda_ms(lambda: plain_tab.index_select(
+                0, longs[next(cyc)]), reps=50)
+            idx_ms = cuda_ms(lambda: plain_tab[longs[next(cyc)]], reps=50)
+        l_grad_ms = cuda_ms(lambda: F.embedding(longs[next(cyc)], tab),
+                            reps=50)
+        n = rows[0].shape[0]
+        # ids read, each distinct row read once, the output written once;
+        # the timed launches cycle through the batches, so the mean
+        nbytes = sum(4 * n + distinct_rows(r) * d * 4 + n * d * 4
+                     for r in rows) / len(rows)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                         ("library_ms", l_ms)):
+            tot[key] += count * val
+        print(f"embedding_bag {label:>14}: {n} bags of one, float32: "
+              f"kernel == plain == F.embedding; kernel {k_ms:.5f} ms, plain "
+              f"{p_ms:.5f} ms, library (F.embedding) {l_ms:.5f} ms "
+              f"({l_grad_ms:.5f} ms on the nn.Parameter with autograd on), "
+              f"bound {b_ms:.5f} ms ({nbytes:.0f} bytes, {len(rows)} "
+              f"batches); {count} launches a path")
+        print(f"    {label} library gathers: index_select {sel_ms:.5f} ms, "
+              f"advanced indexing tab[ids] {idx_ms:.5f} ms")
+        with torch.inference_mode():
+            kd_ms = device_ms(lambda: eb_ops.launch(tab, rows[next(cyc)],
+                                                    None, "sum"))
+            ld_ms = device_ms(lambda: F.embedding(longs[next(cyc)],
+                                                  plain_tab))
+        print(f"    {label} on the card alone (queued behind a spin "
+              f"kernel): kernel {kd_ms:.5f} ms, F.embedding {ld_ms:.5f} ms")
+        ai["record"][f"k8_{label}"] = {"bags": n, "ms": k_ms, "plain_ms": p_ms,
+                                       "library_ms": l_ms,
+                                       "library_grad_ms": l_grad_ms,
+                                       "index_select_ms": sel_ms,
+                                       "index_ms": idx_ms,
+                                       "device_ms": kd_ms,
+                                       "device_library_ms": ld_ms,
+                                       "bound_ms": b_ms, "bytes": nbytes}
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    ids = torch.randint(0, tab.shape[0], (MH_BAGS, MH_WIDTH), generator=g,
+                        device=dev, dtype=torch.int32)
+    lens = torch.randint(0, MH_WIDTH + 1, (MH_BAGS,), generator=g, device=dev)
+    ids[torch.arange(MH_WIDTH, device=dev)[None, :] >= lens[:, None]] = -1
+    w = torch.rand(MH_BAGS, MH_WIDTH, generator=g, device=dev)
+    valid = ids >= 0
+    packed, psw = ids[valid].long(), w[valid]
+    offsets = torch.cumsum(lens, 0) - lens
+    n_valid = int(valid.sum())
+    n_rows = distinct_rows(ids)
+    mh = {}
+    for t in (plain_tab, plain_tab.to(torch.bfloat16)):
+        for mode in ("sum", "mean"):
+            for ww in (w, None):
+                label = (f"multi-hot {str(t.dtype)[6:]} {mode}"
+                         f"{' weighted' if ww is not None else ''}")
+                # through the multi-hot entry point of models/embedding
+                got = embedding.embedding_bag(t, ids, ww, mode)
+                worst = max(worst, same(got, eb_ref.embedding_bag(
+                    t, ids, ww, mode), label))
+                k_ms = cuda_ms(lambda: eb_ops.launch(t, ids, ww, mode))
+                p_ms = cuda_ms(lambda: eb_ref.embedding_bag(t, ids, ww, mode),
+                               reps=3)
+                lib = None
+                if t.dtype == torch.float32 or ww is None:
+                    if ww is None or mode == "sum":
+                        def run_lib():
+                            return F.embedding_bag(
+                                packed, t, offsets, mode=mode,
+                                per_sample_weights=None if ww is None
+                                else psw)
+                        with torch.inference_mode():
+                            lib = cuda_ms(run_lib)
+                elt = t.element_size()
+                nbytes = 4 * ids.numel() * (1 if ww is None else 2) \
+                    + n_rows * d * elt + MH_BAGS * d * elt
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                print(f"embedding_bag {label}: {MH_BAGS} bags of up to "
+                      f"{MH_WIDTH} ids ({n_valid} valid, {n_rows} distinct "
+                      f"rows): kernel == plain; "
+                      f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, library "
+                      + (f"{lib:.5f} ms" if lib is not None else "none")
+                      + f", bound {b_ms:.5f} ms ({nbytes} bytes)")
+                mh[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib,
+                             "bound_ms": b_ms}
+    ai["record"]["k8_multi_hot"] = mh
+    print(f"kernel 8 equals its plain version bit for bit in all "
+          f"{3 + len(mh)} cases; over the AutoInt path's "
+          f"{AI_P99 + AI_BULK + AI_QUERIES} "
+          f"launches: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+          f"ms, library {tot['library_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms")
+    return dict(tot, max_abs_err=worst, bound_by="bytes")
+
+
+def serve_lm(dev, kernels) -> dict:
+    """Phase 13: smollm-135m at the registered width through the server,
+    attention through kernel 9; the kernel path against the plain one."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import make_lm_server
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.server import Request
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1025, LM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    server = make_lm_server(cfg, params, dev, max_batch=LM_MAX_BATCH,
+                            max_len=LM_MAX_LEN, bucket=LM_BUCKET)
+    kv_bytes = 2 * cfg.n_layers * LM_MAX_BATCH * LM_MAX_LEN \
+        * cfg.n_kv_heads * cfg.d_head * 2
+    print(f"smollm-135m: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}: {n_par} parameters "
+          f"(n_params() {cfg.n_params()}), made on the card in "
+          f"{time.perf_counter() - t0:.3f} s; KV cache ({LM_MAX_BATCH}, "
+          f"{LM_MAX_LEN}) = {kv_bytes / 1e6:.1f} MB")
+    print(f"{LM_REQUESTS} requests, prompt lengths {lens.tolist()} "
+          f"(default_rng(0)), {LM_NEW} new tokens each, max_batch "
+          f"{LM_MAX_BATCH}, bucket {LM_BUCKET}")
+    log, state = [], {}
+    pre, dec = server.prefill_fn, server.decode_fn
+
+    def timed_prefill(tokens):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = pre(tokens)
+        torch.cuda.synchronize()
+        state["cache"] = out[0]
+        log.append(("prefill", (time.perf_counter() - ts) * 1e3,
+                    tokens.clone(), None, out[1].clone()))
+        return out
+
+    def timed_decode(c, tok, pos):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = dec(c, tok, pos)
+        torch.cuda.synchronize()
+        log.append(("decode", (time.perf_counter() - ts) * 1e3, tok.clone(),
+                    pos, out[1].clone()))
+        return out
+    server.prefill_fn, server.decode_fn = timed_prefill, timed_decode
+    with torch.inference_mode():
+        server.serve([Request(prompt=prompts[0][:40], max_new_tokens=2)])
+    log.clear()
+    reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # layer 0 of each call, its q, k and v copied as that call saw them
+    with recording([(fa_ops, "flash_attention_gqa", "flash_attention")],
+                   every=cfg.n_layers, clone=True) as calls, \
+            torch.inference_mode():
+        ts = time.perf_counter()
+        done = server.serve(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - ts
+    launches = fa_ops.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    copies = sum(x.numel() * x.element_size() for _, a, _ in calls
+                 for x in a if isinstance(x, torch.Tensor)) / 2**30
+    n_calls = len(log)
+    check(len(calls) == n_calls, f"recorded {len(calls)} layer-0 calls of "
+                                 f"kernel 9 for {n_calls} model calls")
+    check(launches == n_calls * cfg.n_layers,
+          f"flash_attention launched {launches} times for {n_calls} prefill "
+          f"and decode calls of {cfg.n_layers} layers")
+    pre_ms = [x[1] for x in log if x[0] == "prefill"]
+    dec_ms = [x[1] for x in log if x[0] == "decode"]
+    n_gen = sum(len(r.out) for r in done)
+    check(n_gen == LM_REQUESTS * LM_NEW and all(
+        ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done),
+        "served tokens missing or out of the vocabulary")
+    print(f"prefill ms per batch {[round(x, 3) for x in pre_ms]} (buckets "
+          f"{[int(x[2].shape[1]) for x in log if x[0] == 'prefill']})")
+    print(f"decode ms per step ({len(dec_ms)} steps of {LM_MAX_BATCH} rows) "
+          f"median {float(np.median(dec_ms)):.4f}, min {min(dec_ms):.4f}, "
+          f"max {max(dec_ms):.4f}")
+    print(f"served {LM_REQUESTS} requests in {serve_s:.4f} s: {n_gen} "
+          f"generated tokens, {n_gen / serve_s:.3f} tokens/s end to end; "
+          f"decode {LM_MAX_BATCH / (float(np.median(dec_ms)) / 1e3):.3f} "
+          f"tokens/s at the median step")
+    print(f"peak device memory of the LM path: {peak:.3f} GiB (limit "
+          f"{LM_PEAK_GIB}), with the recorded layer-0 copies of q, k and v "
+          f"for phase 14 ({copies:.3f} GiB by the end)")
+    print(f"launches of flash_attention on the LM path: {launches} "
+          f"({n_calls} prefill and decode calls x {cfg.n_layers} layers)")
+    check(peak < LM_PEAK_GIB, f"LM peak {peak:.2f} GiB >= {LM_PEAK_GIB}")
+    # the plain path (the JAX model's chunked attention over the cache),
+    # teacher-forced on the kernel path's tokens, logit by logit
+    gaps = []
+    with torch.inference_mode():
+        for kind, _, tok, pos, logits in log:
+            if kind == "prefill":
+                c = tf.init_kv_cache(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
+                c, want = tf.prefill(params, tok, c, cfg,
+                                     attn=tf.plain_attention)
+            else:
+                c, want = tf.decode_step(params, c, tok, pos, cfg,
+                                         attn=tf.plain_attention)
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
+            gap = tf.logit_gap(logits, want)
+            gaps.append((kind, gap))
+            for key, lim in tf.LOGIT_TOL_BF16.items():
+                check(gap[key] <= lim, f"{kind} logits at pos {pos}: "
+                                       f"{key} gap {gap[key]:.5f} > {lim}")
+    pg = [g for k, g in gaps if k == "prefill"]
+    dg = [g for k, g in gaps if k == "decode"]
+    print(f"kernel path vs plain path (chunked attention), logit gaps over "
+          f"max|logit|: prefill max {[round(g['max'], 5) for g in pg]}; "
+          f"teacher-forced decode ({len(dg)} steps) max of max "
+          f"{max(g['max'] for g in dg):.5f}, max of mean "
+          f"{max(g['mean'] for g in dg):.5f} (limits "
+          f"{tf.LOGIT_TOL_BF16})")
+    return {"cfg": cfg, "params": params, "cache": state["cache"],
+            "decode": dec, "calls": calls,
+            "launches": launches,
+            "record": {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                       "serve_s": serve_s, "tokens_per_s": n_gen / serve_s,
+                       "peak_gib": peak, "copies_gib": copies,
+                       "launches": launches, "gaps": gaps,
+                       "prompt_lens": lens.tolist()}}
+
+
+def check_kernel9(lm, dev) -> dict:
+    """Phase 14: kernel 9 against its plain version within ATTN_TOL at
+    the LM path's calls (layer 0 of each, times the layers) and over the
+    JAX test's sweep plus a window-4096 shape; times and bounds."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    n_layers = lm["cfg"].n_layers
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "flops": 0, "bytes": 0, "device_ms": 0.0,
+           "device_library_ms": 0.0}
+    worst = 0.0
+    rows = []
+    for _, (q, k, v), kw in lm["calls"]:
+        causal, window, q_off = kw["causal"], kw["window"], kw["q_offset"]
+        want = fa_ref.attention_gqa(q, k, v, causal=causal, window=window,
+                                    q_offset=q_off)
+        worst = max(worst, attn_close(
+            fa_ops.launch(q, k, v, causal, window, q_off), want))
+        k_ms = cuda_ms(lambda: fa_ops.launch(q, k, v, causal, window, q_off),
+                       reps=10)
+        p_ms = cuda_ms(lambda: fa_ref.attention_gqa(
+            q, k, v, causal=causal, window=window, q_offset=q_off), reps=2)
+        lib = sdpa(q, k, v, causal, window, q_off)
+        l_err = float((lib().transpose(1, 2).float() - want.float()).abs()
+                      .max())
+        l_ms = cuda_ms(lib, reps=5)
+        kd_ms = device_ms(lambda: fa_ops.launch(q, k, v, causal, window,
+                                                q_off))
+        ld_ms = device_ms(lib)
+        b_ms, by, flops, nbytes = attn_bound(q, k, causal, window, q_off)
+        for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                         ("library_ms", l_ms), ("flops", flops),
+                         ("bytes", nbytes), ("device_ms", kd_ms),
+                         ("device_library_ms", ld_ms)):
+            tot[key] += n_layers * val
+        rows.append({"b": q.shape[0], "sq": q.shape[1], "sk": k.shape[1],
+                     "hq": q.shape[2], "hkv": k.shape[2], "q_offset": q_off,
+                     "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                     "library_err": l_err, "bound_ms": b_ms, "by": by,
+                     "device_ms": kd_ms, "device_library_ms": ld_ms})
+    for r in rows:
+        if r["sq"] > 1:
+            print(f"flash_attention prefill B={r['b']} S={r['sq']} heads "
+                  f"{r['hq']}/{r['hkv']}: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library (SDPA, no mask) {r['library_ms']:.4f} ms "
+                  f"(max |SDPA - plain| {r['library_err']:.3e}), bound "
+                  f"{r['bound_ms']:.5f} ms ({r['by']}) a layer")
+    dec = [r for r in rows if r["sq"] == 1]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        tot[f"decode_{key}"] = sum(r[key] for r in dec) * n_layers
+    print(f"flash_attention decode, {len(dec)} steps (Sk "
+          f"{min(r['sk'] for r in dec)}-{max(r['sk'] for r in dec)}), summed "
+          f"over the steps and {n_layers} layers: kernel "
+          f"{tot['decode_ms']:.4f} ms, plain {tot['decode_plain_ms']:.4f} ms, "
+          f"library {tot['decode_library_ms']:.4f} ms, bound "
+          f"{tot['decode_bound_ms']:.5f} ms; median step a layer "
+          f"{float(np.median([r['ms'] for r in dec])):.5f} ms, SDPA (no "
+          f"mask: a decode row reaches all its keys) "
+          f"{float(np.median([r['library_ms'] for r in dec])):.5f} ms (max "
+          f"|SDPA - plain| {max(r['library_err'] for r in dec):.3e})")
+    print(f"over the LM path's {len(rows) * n_layers} launches: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"({tot['flops'] / 1e9:.3f} GFLOP, {tot['bytes'] / 1e9:.4f} GB); "
+          f"{tot['flops'] / (tot['ms'] / 1e3) / 1e12:.3f} TFLOP/s achieved")
+    print(f"on the card alone (queued behind a spin kernel), over the same "
+          f"launches: kernel {tot['device_ms']:.4f} ms (prefill "
+          f"{[round(r['device_ms'], 5) for r in rows if r['sq'] > 1]} a "
+          f"layer, decode median "
+          f"{float(np.median([r['device_ms'] for r in dec])):.5f}), SDPA "
+          f"{tot['device_library_ms']:.4f} ms (prefill "
+          f"{[round(r['device_library_ms'], 5) for r in rows if r['sq'] > 1]}"
+          f", decode median "
+          f"{float(np.median([r['device_library_ms'] for r in dec])):.5f})")
+    lm["record"]["k9_device_totals"] = {
+        "kernel_ms": tot["device_ms"], "library_ms": tot["device_library_ms"]}
+    sweep = [(128, 128, 64, True, None, 0), (64, 64, 32, False, None, 0),
+             (128, 256, 64, True, 64, 0), (1, 256, 64, True, None, 255),
+             (64, 192, 128, True, None, 128), (96, 100, 64, True, None, 4)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = [(3, sq, sk, dh, c, w, o, dt) for sq, sk, dh, c, w, o in sweep
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(WINDOW_CASE)
+    sweep_rec = []
+    for bh, sq, sk, dh, causal, window, q_off, dt in cases:
+        q = torch.randn(bh, sq, 1, dh, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(bh, sk, 1, dh, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        e = attn_close(fa_ops.launch(q, k, v, causal, window, q_off),
+                       fa_ref.attention_gqa(q, k, v, causal=causal,
+                                            window=window, q_offset=q_off))
+        worst = max(worst, e)
+        k_ms = cuda_ms(lambda: fa_ops.launch(q, k, v, causal, window, q_off),
+                       reps=10)
+        l_ms = cuda_ms(sdpa(q, k, v, causal, window, q_off), reps=5)
+        b_ms, by, _, _ = attn_bound(q, k, causal, window, q_off)
+        print(f"flash_attention sweep BH={bh} Sq={sq} Sk={sk} dh={dh} "
+              f"causal={causal} window={window} q_offset={q_off} "
+              f"{str(dt)[6:]}: max |kernel - plain| {e:.3e}; kernel "
+              f"{k_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({by})")
+        sweep_rec.append({"case": [bh, sq, sk, dh, causal, window, q_off,
+                                   str(dt)], "err": e, "ms": k_ms,
+                          "library_ms": l_ms, "bound_ms": b_ms})
+    print(f"kernel 9 agrees with its plain version within "
+          f"{ATTN_TOL[torch.float32]} "
+          f"(float32) and {ATTN_TOL[torch.bfloat16]} (bfloat16) (rtol, atol) "
+          f"on {len(rows)} path calls and {len(cases)} sweep cases")
+    lm["record"]["k9_calls"] = rows
+    lm["record"]["k9_sweep"] = sweep_rec
+    by = "operations" if tot["flops"] / BF16_FLOPS_PER_S \
+        >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"
+    return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "library_ms": tot["library_ms"],
+            "max_abs_err": worst, "bound_by": by}
+
+
+def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
+    """Phases 3-10: the Graph500 paths (2D, then 1ds on 16 strips), their
+    kernels and profiles.  Returns the launches on each path, each
+    kernel's largest error, the per-kernel times and whether rmat_counter
+    is bound by operations.  Everything it made on the card dies with
+    it."""
     from repro_torch.configs.base import BFSConfig
     from repro_torch.core.comm_model import codec_bits, rmat_strip_skew
     from repro_torch.core.engine import plan_bfs
@@ -254,69 +883,11 @@ def main() -> int:
     from repro_torch.core.ref import TreeValidator
     from repro_torch.graph import rmat
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
-    from repro_torch.kernels import build
     from repro_torch.kernels.bottomup import ops as bu_ops
     from repro_torch.kernels.frontier_codec import ops as codec_ops
     from repro_torch.kernels.spmsv import ops as sp_ops
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
-
-    kernels = {"spmsv_csr_min": sp_ops.KERNEL,
-               "bottomup_substep": bu_ops.KERNEL,
-               "rmat_counter": rmat.RMAT_COUNTER,
-               "spmsv_strip_min": strip.KERNEL,
-               "spmsv_strip_chunk_min": strip.KERNEL_CHUNK,
-               "codec_encode": codec_ops.ENCODE,
-               "codec_decode": codec_ops.DECODE}
-    replaces = {
-        "spmsv_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
-        "bottomup_substep": "src/repro/kernels/bottomup/bottomup.py:89",
-        "rmat_counter": "src/repro/graph/rmat.py:225",
-        "spmsv_strip_min": "src/repro/kernels/spmsv/strip.py:66",
-        "spmsv_strip_chunk_min": "src/repro/kernels/spmsv/strip.py:139",
-        "codec_encode":
-            "src/repro/kernels/frontier_codec/frontier_codec.py:58",
-        "codec_decode":
-            "src/repro/kernels/frontier_codec/frontier_codec.py:93"}
-    path_2d = ("spmsv_csr_min", "bottomup_substep", "rmat_counter")
-    path_1ds = ("bottomup_substep", "rmat_counter", "spmsv_strip_min",
-                "spmsv_strip_chunk_min", "codec_encode", "codec_decode")
-    dev = torch.device("cuda")
-    record = {"scale": SCALE}
-    t_start = time.perf_counter()
-
-    # ---------------------------------------------------------------- 1
-    phase("1 device")
-    name = torch.cuda.get_device_name(0)
-    smi_nl = smi_line()
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    sm_mhz = float(smi("clocks.max.sm", "csv,noheader,nounits"))
-    instr_per_s = INSTR_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
-    print(f"device: {name} (count {torch.cuda.device_count()}); torch "
-          f"{torch.__version__}, cuda {torch.version.cuda}")
-    print(f"nvidia-smi: {smi_nl}")
-    print(f"bounds use {HBM_BYTES_PER_S / 1e12} TB/s (published H100 SXM "
-          f"peak) and an instruction rate of {INSTR_PER_CLOCK_PER_SM} x "
-          f"{n_sm} SMs x {sm_mhz} MHz max SM clock = "
-          f"{instr_per_s / 1e12:.3f} T instructions/s")
-    record["device"] = {"name": name, "smi": smi_nl, "sms": n_sm,
-                        "sm_mhz_max": sm_mhz, "torch": torch.__version__,
-                        "cuda": torch.version.cuda}
-
-    # ---------------------------------------------------------------- 2
-    phase("2 build")
-    t0 = time.perf_counter()
-    libs = build.build_libraries(kernels)
-    record["build_s"] = time.perf_counter() - t0
-    for k in kernels:
-        print(f"{k}: {libs[k].name}")
-        for line in build.build_log(k).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
-        kernels[k].load()
-    print(f"nvcc for sm_90a, all {len(kernels)} in parallel: "
-          f"{record['build_s']:.2f} s")
-
     # ---------------------------------------------------------------- 3
     phase(f"3 2D path: Graph500 session, scale {SCALE}, grid 1x1, "
           f"local_mode='kernel'")
@@ -620,7 +1191,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 7
     phase("7 profile of one 2D search")
-    record["profile"] = profile_search(engine, roots[0])
+    record["profile"] = profile_call(lambda: engine.search(roots[0]))
 
     # ---------------------------------------------------------------- 8
     phase(f"8 1ds path: the same Graph500 graph on {STRIPS} simulated "
@@ -940,8 +1511,137 @@ def main() -> int:
     record["profile_1ds"] = {}
     for c in STRIP_CHUNKS:
         print(f"-- expand_chunks={c}, root {roots[0]}")
-        record["profile_1ds"][c] = profile_search(runs[c]["engine"],
-                                                  roots[0])
+        eng = runs[c]["engine"]
+        record["profile_1ds"][c] = profile_call(
+            lambda: eng.search(roots[0]))
+    return launches, launches_1ds, errs, per, ro > rb
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False; this script runs "
+              "the port on a CUDA card", flush=True)
+        return 2
+
+    from repro_torch.graph import rmat
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bottomup import ops as bu_ops
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.frontier_codec import ops as codec_ops
+    from repro_torch.kernels.spmsv import ops as sp_ops
+    from repro_torch.kernels.spmsv import strip
+
+    kernels = {"spmsv_csr_min": sp_ops.KERNEL,
+               "bottomup_substep": bu_ops.KERNEL,
+               "rmat_counter": rmat.RMAT_COUNTER,
+               "spmsv_strip_min": strip.KERNEL,
+               "spmsv_strip_chunk_min": strip.KERNEL_CHUNK,
+               "codec_encode": codec_ops.ENCODE,
+               "codec_decode": codec_ops.DECODE,
+               "embedding_bag": eb_ops.KERNEL,
+               "flash_attention": fa_ops.KERNEL}
+    replaces = {
+        "spmsv_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
+        "bottomup_substep": "src/repro/kernels/bottomup/bottomup.py:89",
+        "rmat_counter": "src/repro/graph/rmat.py:225",
+        "spmsv_strip_min": "src/repro/kernels/spmsv/strip.py:66",
+        "spmsv_strip_chunk_min": "src/repro/kernels/spmsv/strip.py:139",
+        "codec_encode":
+            "src/repro/kernels/frontier_codec/frontier_codec.py:58",
+        "codec_decode":
+            "src/repro/kernels/frontier_codec/frontier_codec.py:93",
+        "embedding_bag":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:41",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:79"}
+    path_2d = ("spmsv_csr_min", "bottomup_substep", "rmat_counter")
+    path_1ds = ("bottomup_substep", "rmat_counter", "spmsv_strip_min",
+                "spmsv_strip_chunk_min", "codec_encode", "codec_decode")
+    dev = torch.device("cuda")
+    record = {"scale": SCALE}
+    t_start = time.perf_counter()
+
+    # ---------------------------------------------------------------- 1
+    phase("1 device")
+    name = torch.cuda.get_device_name(0)
+    smi_nl = smi_line()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_mhz = float(smi("clocks.max.sm", "csv,noheader,nounits"))
+    instr_per_s = INSTR_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
+    print(f"device: {name} (count {torch.cuda.device_count()}); torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}")
+    print(f"nvidia-smi: {smi_nl}")
+    print(f"bounds use {HBM_BYTES_PER_S / 1e12} TB/s (published H100 SXM "
+          f"peak) and an instruction rate of {INSTR_PER_CLOCK_PER_SM} x "
+          f"{n_sm} SMs x {sm_mhz} MHz max SM clock = "
+          f"{instr_per_s / 1e12:.3f} T instructions/s")
+    record["device"] = {"name": name, "smi": smi_nl, "sms": n_sm,
+                        "sm_mhz_max": sm_mhz, "torch": torch.__version__,
+                        "cuda": torch.version.cuda}
+
+    # ---------------------------------------------------------------- 2
+    phase("2 build")
+    t0 = time.perf_counter()
+    libs = build.build_libraries(kernels)
+    record["build_s"] = time.perf_counter() - t0
+    for k in kernels:
+        print(f"{k}: {libs[k].name}")
+        for line in build.build_log(k).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+        kernels[k].load()
+    print(f"nvcc for sm_90a, all {len(kernels)} in parallel: "
+          f"{record['build_s']:.2f} s")
+    launches, launches_1ds, errs, per, rmat_by_ops = graph_paths(
+        dev, kernels, record, instr_per_s, path_2d, path_1ds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"\ndevice memory still allocated after the graph paths: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    # --------------------------------------------------------------- 11
+    phase("11 AutoInt serving at the registered width: serve_p99, "
+          "serve_bulk, retrieval_cand, lookup through kernel 8")
+    ai = serve_autoint(dev, kernels)
+    record["autoint"] = ai["record"]
+
+    # --------------------------------------------------------------- 12
+    phase("12 kernel 8 (embedding_bag) against its plain version at the "
+          "AutoInt path's shapes and multi-hot, tolerance 0, and timed")
+    per["embedding_bag"] = check_kernel8(ai, dev)
+
+    # --------------------------------------------------------------- 13
+    phase("13 smollm-135m serving at the registered width: 8 requests, "
+          "prefill and decode, attention through kernel 9")
+    lm = serve_lm(dev, kernels)
+    record["smollm"] = lm["record"]
+
+    # --------------------------------------------------------------- 14
+    phase("14 kernel 9 (flash_attention) against its plain version at the "
+          "LM path's calls and over the sweep, and timed")
+    per["flash_attention"] = check_kernel9(lm, dev)
+
+    # --------------------------------------------------------------- 15
+    phase("15 profiles of one serve_p99 batch, one serve_bulk batch and "
+          "one decode step")
+    record["profile_nn"] = {}
+    for label, x in (("serve_p99 batch", ai["p99"][1]),
+                     ("serve_bulk batch", ai["bulk"][1])):
+        print(f"-- {label}")
+        record["profile_nn"][label] = profile_call(
+            lambda: ai["score"](x), label)
+    print("-- decode step (4 rows at position 1500)")
+    tok = torch.ones(LM_MAX_BATCH, 1, dtype=torch.int32, device=dev)
+
+    def decode_once():
+        with torch.inference_mode():
+            lm["decode"](lm["cache"], tok, 1500)
+    record["profile_nn"]["decode step"] = profile_call(decode_once,
+                                                       "decode step")
+    launches_nn = {"embedding_bag": ai["launches"],
+                   "flash_attention": lm["launches"]}
+    errs.update({k: per[k]["max_abs_err"] for k in launches_nn})
 
     record["total_s"] = time.perf_counter() - t_start
     print(f"total {record['total_s']:.1f} s")
@@ -953,13 +1653,15 @@ def main() -> int:
         "name": k, "route": "cuda",
         "source": str(kernels[k].source.relative_to(ROOT)),
         "replaces": replaces[k],
-        "launches": launches.get(k, 0) + launches_1ds.get(k, 0),
+        "launches": (launches.get(k, 0) + launches_1ds.get(k, 0)
+                     + launches_nn.get(k, 0)),
         "max_abs_err": errs[k], "ms": per[k]["ms"],
         "plain_ms": per[k]["plain_ms"], "bound_ms": per[k]["bound_ms"],
-        "bound_by": ("operations" if k == "rmat_counter" and ro > rb
-                     else "bytes"),
+        "bound_by": per[k].get("bound_by", (
+            "operations" if k == "rmat_counter" and rmat_by_ops
+            else "bytes")),
         "library_ms": (per[k]["library_ms"] if k.startswith("spmsv")
-                       else None),
+                       or k in launches_nn else None),
     } for k in kernels]}
     print(smi_line())
     print(json.dumps(line))

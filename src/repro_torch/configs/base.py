@@ -1,8 +1,13 @@
-"""The traversal configuration of the PyTorch port.
+"""The configurations of the PyTorch port: the traversal's ``BFSConfig``
+and the serving archs' ``LMConfig`` and ``RecsysConfig`` with their
+registry.
 
-``BFSConfig`` carries the same fields and defaults as the JAX package's,
-so one config object describes a session in either package.  The port
-runs ``instrument=True`` with ``compact_updates`` and ``use_edge_dst``
+Each config carries the same fields and defaults as the JAX package's,
+so one config object describes a session in either package.  The
+registry holds the archs the port runs (``autoint`` and
+``smollm-135m``); ``get_config`` names any other arch as not ported yet.
+
+The port runs ``instrument=True`` with ``compact_updates`` and ``use_edge_dst``
 off, and
 
   * ``decomposition="2d"`` with ``fold_mode`` "reduce" or "alltoall"
@@ -17,8 +22,41 @@ ports it, as it rejects the local format ``("1d"|"1ds", "kernel",
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+@dataclass(frozen=True)
+class LMShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+LM_SHAPES: Tuple[LMShape, ...] = (
+    LMShape("train_4k", 4096, 256, "train"),
+    LMShape("prefill_32k", 32768, 32, "prefill"),
+    LMShape("decode_32k", 32768, 128, "decode"),
+    LMShape("long_500k", 524288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
+class RecsysShape:
+    name: str
+    batch: int
+    n_candidates: int = 0
+    kind: str = "train"  # "train" | "serve" | "retrieval"
+
+
+RECSYS_SHAPES: Tuple[RecsysShape, ...] = (
+    RecsysShape("train_batch", 65536, kind="train"),
+    RecsysShape("serve_p99", 512, kind="serve"),
+    RecsysShape("serve_bulk", 262144, kind="serve"),
+    RecsysShape("retrieval_cand", 1, n_candidates=1_000_000, kind="retrieval"),
+)
 
 
 @dataclass(frozen=True)
@@ -63,3 +101,129 @@ class BFSConfig:
     @property
     def kind(self) -> str:
         return "bfs"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    arch: str
+    family: str            # "dense" | "moe"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0
+    rope_theta: float = 10000.0
+    swa_window: Optional[int] = None      # sliding-window attention
+    moe: Optional[MoEConfig] = None
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    remat_policy: str = "full"         # "none" | "full" | "dots"
+    opt_state_dtype: str = "float32"
+    loss_bf16: bool = False            # bf16 logits matmul, f32 accumulate
+    fsdp: bool = False                 # shard dense weights over dp too
+    shapes: Tuple[LMShape, ...] = LM_SHAPES
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def kind(self) -> str:
+        return "lm"
+
+    def n_params(self) -> int:
+        """Total parameter count (embedding + blocks)."""
+        d, L = self.d_model, self.n_layers
+        attn = d * (self.n_heads * self.d_head) \
+            + 2 * d * (self.n_kv_heads * self.d_head) \
+            + (self.n_heads * self.d_head) * d
+        if self.moe is not None:
+            ff = self.moe.n_experts * 3 * d * self.moe.d_ff_expert \
+                + d * self.moe.n_experts
+        else:
+            ff = 3 * d * self.d_ff
+        return L * (attn + ff + 2 * d) + self.vocab * d + d
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    arch: str
+    n_sparse: int
+    embed_dim: int
+    n_attn_layers: int
+    n_heads: int
+    d_attn: int
+    vocab_sizes: Tuple[int, ...] = ()
+    mlp_hidden: Tuple[int, ...] = (256, 128)
+    dtype: str = "float32"
+    shapes: Tuple[RecsysShape, ...] = RECSYS_SHAPES
+
+    def __post_init__(self):
+        if not self.vocab_sizes:
+            # Criteo-like mix: a few huge tables, many medium/small ones.
+            sizes = []
+            for i in range(self.n_sparse):
+                if i % 8 == 0:
+                    sizes.append(2_000_000)
+                elif i % 4 == 0:
+                    sizes.append(200_000)
+                elif i % 2 == 0:
+                    sizes.append(20_000)
+                else:
+                    sizes.append(2_000)
+            object.__setattr__(self, "vocab_sizes", tuple(sizes))
+
+    @property
+    def kind(self) -> str:
+        return "recsys"
+
+    def n_embed_rows(self) -> int:
+        return sum(self.vocab_sizes)
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Any] = {}
+
+
+def register(cfg: Any) -> Any:
+    if cfg.arch in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.arch}")
+    _REGISTRY[cfg.arch] = cfg
+    return cfg
+
+
+def get_config(arch: str) -> Any:
+    _ensure_loaded()
+    if arch not in _REGISTRY:
+        raise KeyError(f"arch {arch!r} is not ported yet (or unknown); "
+                       f"the port runs {sorted(_REGISTRY)}")
+    return _REGISTRY[arch]
+
+
+def list_archs() -> Sequence[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def reduced(cfg: Any, **overrides: Any) -> Any:
+    """A smoke-test-sized variant of a config (same family, tiny dims)."""
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _ensure_loaded() -> None:
+    # Importing the per-arch modules populates the registry (once: a
+    # module body runs at its first import only).
+    from repro_torch.configs import autoint, smollm_135m  # noqa: F401

@@ -1,6 +1,8 @@
 """On a CUDA card: each of the port's CUDA kernels against its plain
-PyTorch version, tolerance 0 (the outputs are integers).  Imports no
-JAX, so it runs where the port runs:
+PyTorch version: tolerance 0 for the graph kernels (integer outputs)
+and for the EmbeddingBag (the same float32 operations in the same
+order); the attention kernel within ``ATTN_TOL``.  Imports no JAX, so
+it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,6 +14,10 @@ from repro_torch.core.frontier import pack_bits
 from repro_torch.graph import rmat
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.kernels.bottomup import ops as bu_ops
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.frontier_codec import ops as codec_ops
 from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as sp_ops
@@ -167,3 +173,76 @@ def test_strip_and_codec_launch_counts_grow(graph_1d, dev):
     buf = codec_ops.encode_offsets(off, cnt, part.chunk)
     codec_ops.decode_buckets(buf.reshape(-1), part.chunk, 32, part.n, part.p)
     assert [k.launches for k in kernels] == [b + 1 for b in before]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("n_bags,width,weighted", [
+    (300, 1, False), (257, 7, True), (64, 32, False), (1000, 3, True)])
+def test_embedding_bag_kernel_matches_plain(dev, dtype, mode, n_bags, width,
+                                            weighted):
+    g = torch.Generator(device=dev).manual_seed(n_bags + width)
+    v, d = 500, 16
+    table = torch.randn(v, d, generator=g, device=dev).to(dtype)
+    ids = torch.randint(-1, v + 3, (n_bags, width), generator=g, device=dev,
+                        dtype=torch.int32)      # padding and ids >= V
+    ids[::5] = -1
+    w = torch.rand(n_bags, width, generator=g, device=dev) \
+        if weighted else None
+    got = eb_ops.embedding_bag(table, ids, w, mode=mode)
+    want = eb_ref.embedding_bag(table, ids, w, mode=mode)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+# float32: the plain softmax's order of sums differs (the JAX kernel
+# test's 2e-5); bfloat16: both sides round float32 results that differ by
+# that much to bf16, at most one ulp apart, 2**-7 of the value
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=2.0 ** -7, atol=2e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,dh,causal,window,q_off", [
+    (128, 128, 64, True, None, 0), (64, 64, 32, False, None, 0),
+    (128, 256, 64, True, 64, 0), (1, 256, 64, True, None, 255),
+    (64, 192, 128, True, None, 128), (96, 100, 64, True, None, 4),
+    (5, 77, 16, False, 9, 70)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, sq, sk, dh, causal,
+                                              window, q_off):
+    g = torch.Generator(device=dev).manual_seed(sq + sk + dh)
+    q, k, v = (torch.randn(3, s, dh, generator=g, device=dev).to(dtype)
+               for s in (sq, sk, sk))
+    got = fa_ops.flash_attention_gqa(
+        q[:, :, None], k[:, :, None], v[:, :, None], causal=causal,
+        window=window, q_offset=q_off)[:, :, 0]
+    want = fa_ref.attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_off)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gqa_on_a_cache_slice(dev, dtype):
+    """The serving call: strided views of the first kv_len keys of a
+    longer (B, max_len, Hkv, dh) cache, 9 query heads over 3 kv heads."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(2, 33, 9, 64, generator=g, device=dev).to(dtype)
+    ck, cv = (torch.randn(2, 200, 3, 64, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    for q_off, sq in ((0, 33), (100, 1), (150, 33)):
+        kv_len = q_off + sq
+        args = (q[:, :sq], ck[:, :kv_len], cv[:, :kv_len])
+        got = fa_ops.flash_attention_gqa(*args, q_offset=q_off)
+        want = fa_ref.attention_gqa(*args, q_offset=q_off)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **ATTN_TOL[dtype])
+
+
+def test_nn_launch_counts_grow(dev):
+    before = (eb_ops.KERNEL.launches, fa_ops.KERNEL.launches)
+    eb_ops.embedding_bag(torch.ones(4, 8, device=dev),
+                         torch.zeros(3, 1, dtype=torch.int32, device=dev))
+    x = torch.ones(1, 4, 1, 16, device=dev)
+    fa_ops.flash_attention_gqa(x, x, x)
+    assert (eb_ops.KERNEL.launches, fa_ops.KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
