@@ -3,6 +3,7 @@
 every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py    # Graph500 scale 24, then the serving paths
+                             # and smollm-135m prefill_32k
 
 Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
@@ -50,11 +51,22 @@ Phases, in the order they run:
                  requests, 32 new tokens each, attention through kernel
                  9; prefill and teacher-forced decode logits against the
                  plain-attention path within LOGIT_TOL_BF16
- 14 kernel 9     against its plain version within ATTN_TOL at the path's
-                 calls and over the JAX test's sweep plus a window-4096
-                 shape, with times, SDPA and the bound
+ 14 kernel 9     against its plain version within ``ref.tolerance`` at
+                 the path's calls and over the JAX test's sweep plus a
+                 window-4096 shape, with times, SDPA, the bound, each
+                 decode launch's blocks and the shortest decode timed
+                 with 32 and 16 keys a split at least
  15 profiles     busy share and top kernels of one serve_p99 batch, one
                  serve_bulk batch and one decode step
+ 16 prefill_32k  smollm-135m at the registered width: one prefill of 32
+                 x 32,768 random tokens into a 32,768-long cache, launch
+                 count read around exactly this; its time, attention's
+                 share (kernel 9 at layer 0, alone, x 30 layers), peak
+                 memory and a profile of one more pass; layer 0's call
+                 of kernel 9 launched again at its full shape, its first
+                 and last 128 query rows of sequences 0 and 31 against
+                 the plain version, and timed beside the plain version
+                 (in pieces), SDPA and the bound
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.  Any failed check exits non-zero; nothing is caught.  It
 exits non-zero without a CUDA card, and where the repository's ``src``
@@ -295,27 +307,33 @@ MH_BAGS, MH_WIDTH = 65536, 32  # kernel 8's multi-hot bags
 LM_REQUESTS, LM_NEW = 8, 32   # requests, new tokens each
 LM_MAX_BATCH, LM_BUCKET, LM_MAX_LEN = 4, 128, 2048
 LM_PEAK_GIB = 4.0             # PERF.md section 2
+PREFILL_32K_PEAK_GIB = 60.0   # PERF.md section 2
+PLAIN_ROWS = 2048             # query rows of each piece in which
+                              # prefill_32k's plain attention is timed
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 # kernel 9 at the mixtral config's window: (BH, Sq, Sk, dh, causal,
 # window, q_offset, dtype)
 WINDOW_CASE = (8, 8192, 8192, 128, True, 4096, 0, torch.bfloat16)
-# kernel 9 against its plain version: float32, the order of the sums
-# (the JAX kernel test's 2e-5); bfloat16, both sides round float32
-# results that differ by that much to bf16, at most one ulp (2**-7 of
-# the value) apart
-ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2e-5)}
+# kernel 9 against its plain version: kernels/flash_attention/ref.py's
+# TOL and tolerance(): float32 (rtol, atol) (2e-5, 2e-5), the order of
+# the sums; bfloat16 2**-7 |want| + 2e-5 + 1.25 * 2**-8 A, A the plain
+# version over |v| (the tensor cores take P rounded to bf16)
 
 
-def attn_close(got, want) -> float:
-    """Max |got - want|; fails past the dtype's tolerance."""
-    rtol, atol = ATTN_TOL[want.dtype]
-    d = (got.float() - want.float()).abs()
-    bad = d > atol + rtol * want.float().abs()
+def attn_close(got, q, k, v, causal, window, q_offset) -> tuple:
+    """(max |got - want|, max |got - want| / bound); fails past
+    ``ref.tolerance``."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = fa_ref.attention_gqa(q, k, v, **kw).float()
+    d = (got.float() - want).abs()
+    ratio = d / fa_ref.tolerance(q, k, v, **kw)
+    bad = ~(ratio <= 1.0)
     check(not bool(bad.any()), f"kernel 9 off its plain version by "
                                f"{float(d.max())} at {int(bad.sum())} "
-                               f"elements (rtol {rtol}, atol {atol})")
-    return float(d.max())
+                               f"elements ({fa_ref.TOL[q.dtype]})")
+    return float(d.max()), float(ratio.max())
 
 
 def attn_bound(q, k, causal, window, q_offset) -> tuple:
@@ -752,7 +770,7 @@ def serve_lm(dev, kernels) -> dict:
 
 
 def check_kernel9(lm, dev) -> dict:
-    """Phase 14: kernel 9 against its plain version within ATTN_TOL at
+    """Phase 14: kernel 9 against its plain version within tolerance at
     the LM path's calls (layer 0 of each, times the layers) and over the
     JAX test's sweep plus a window-4096 shape; times and bounds."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -762,13 +780,15 @@ def check_kernel9(lm, dev) -> dict:
            "flops": 0, "bytes": 0, "device_ms": 0.0,
            "device_library_ms": 0.0}
     worst = 0.0
+    ratio = {"path": 0.0, "sweep float32": 0.0, "sweep bfloat16": 0.0}
     rows = []
     for _, (q, k, v), kw in lm["calls"]:
         causal, window, q_off = kw["causal"], kw["window"], kw["q_offset"]
         want = fa_ref.attention_gqa(q, k, v, causal=causal, window=window,
                                     q_offset=q_off)
-        worst = max(worst, attn_close(
-            fa_ops.launch(q, k, v, causal, window, q_off), want))
+        e, r = attn_close(fa_ops.launch(q, k, v, causal, window, q_off), q,
+                          k, v, causal, window, q_off)
+        worst, ratio["path"] = max(worst, e), max(ratio["path"], r)
         k_ms = cuda_ms(lambda: fa_ops.launch(q, k, v, causal, window, q_off),
                        reps=10)
         p_ms = cuda_ms(lambda: fa_ref.attention_gqa(
@@ -781,6 +801,12 @@ def check_kernel9(lm, dev) -> dict:
                                                 q_off))
         ld_ms = device_ms(lib)
         b_ms, by, flops, nbytes = attn_bound(q, k, causal, window, q_off)
+        path, n_split = fa_ops.plan(q.shape[0], k.shape[2],
+                                    q.shape[2] // k.shape[2], q.shape[1],
+                                    k.shape[1], q.dtype, causal, window,
+                                    q_off)
+        blocks = (q.shape[0] * k.shape[2] * n_split if path == "split" else
+                  q.shape[0] * q.shape[2] * -(-q.shape[1] // 64))
         for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
                          ("library_ms", l_ms), ("flops", flops),
                          ("bytes", nbytes), ("device_ms", kd_ms),
@@ -790,11 +816,13 @@ def check_kernel9(lm, dev) -> dict:
                      "hq": q.shape[2], "hkv": k.shape[2], "q_offset": q_off,
                      "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                      "library_err": l_err, "bound_ms": b_ms, "by": by,
-                     "device_ms": kd_ms, "device_library_ms": ld_ms})
+                     "device_ms": kd_ms, "device_library_ms": ld_ms,
+                     "path": path, "n_split": n_split, "blocks": blocks})
     for r in rows:
         if r["sq"] > 1:
             print(f"flash_attention prefill B={r['b']} S={r['sq']} heads "
-                  f"{r['hq']}/{r['hkv']}: "
+                  f"{r['hq']}/{r['hkv']} ({r['path']}, {r['blocks']} "
+                  f"blocks): "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library (SDPA, no mask) {r['library_ms']:.4f} ms "
                   f"(max |SDPA - plain| {r['library_err']:.3e}), bound "
@@ -826,6 +854,33 @@ def check_kernel9(lm, dev) -> dict:
           f"{[round(r['device_library_ms'], 5) for r in rows if r['sq'] > 1]}"
           f", decode median "
           f"{float(np.median([r['device_library_ms'] for r in dec])):.5f})")
+    blocks = sorted((r["blocks"], r["sk"]) for r in dec)
+    print(f"decode launches (key splits, {fa_ops.MIN_SPLIT_KEYS} keys a "
+          f"split at least, {fa_ops.TARGET_BLOCKS} blocks wanted): "
+          f"{blocks[0][0]} blocks at Sk {blocks[0][1]} to {blocks[-1][0]} "
+          f"at Sk {blocks[-1][1]}, median "
+          f"{int(np.median([b for b, _ in blocks]))}")
+    # the 32-key floor against 16 keys a split at the shortest cache,
+    # where 16 keys reach the wanted blocks: on the card alone
+    _, (q, k, v), kw = min(lm["calls"], key=lambda c: (
+        c[1][0].shape[1] > 1, c[1][1].shape[1]))
+    floor_ms = {}
+    for keys in (fa_ops.MIN_SPLIT_KEYS, 16):
+        saved, fa_ops.MIN_SPLIT_KEYS = fa_ops.MIN_SPLIT_KEYS, keys
+        try:
+            _, n = fa_ops.plan(q.shape[0], k.shape[2],
+                               q.shape[2] // k.shape[2], 1, k.shape[1],
+                               q.dtype, kw["causal"], kw["window"],
+                               kw["q_offset"])
+            floor_ms[keys] = (q.shape[0] * k.shape[2] * n, device_ms(
+                lambda: fa_ops.launch(q, k, v, kw["causal"], kw["window"],
+                                      kw["q_offset"])))
+        finally:
+            fa_ops.MIN_SPLIT_KEYS = saved
+    print(f"decode at Sk {k.shape[1]} on the card alone: " + ", ".join(
+        f"{keys} keys a split at least {b} blocks {t:.5f} ms"
+        for keys, (b, t) in floor_ms.items()))
+    lm["record"]["k9_split_floor"] = {str(x): y for x, y in floor_ms.items()}
     lm["record"]["k9_device_totals"] = {
         "kernel_ms": tot["device_ms"], "library_ms": tot["device_library_ms"]}
     sweep = [(128, 128, 64, True, None, 0), (64, 64, 32, False, None, 0),
@@ -840,33 +895,156 @@ def check_kernel9(lm, dev) -> dict:
         q = torch.randn(bh, sq, 1, dh, generator=g, device=dev).to(dt)
         k, v = (torch.randn(bh, sk, 1, dh, generator=g, device=dev).to(dt)
                 for _ in range(2))
-        e = attn_close(fa_ops.launch(q, k, v, causal, window, q_off),
-                       fa_ref.attention_gqa(q, k, v, causal=causal,
-                                            window=window, q_offset=q_off))
+        e, r = attn_close(fa_ops.launch(q, k, v, causal, window, q_off), q,
+                          k, v, causal, window, q_off)
         worst = max(worst, e)
+        key = f"sweep {str(dt)[6:]}"
+        ratio[key] = max(ratio[key], r)
         k_ms = cuda_ms(lambda: fa_ops.launch(q, k, v, causal, window, q_off),
                        reps=10)
         l_ms = cuda_ms(sdpa(q, k, v, causal, window, q_off), reps=5)
         b_ms, by, _, _ = attn_bound(q, k, causal, window, q_off)
         print(f"flash_attention sweep BH={bh} Sq={sq} Sk={sk} dh={dh} "
               f"causal={causal} window={window} q_offset={q_off} "
-              f"{str(dt)[6:]}: max |kernel - plain| {e:.3e}; kernel "
+              f"{str(dt)[6:]}: max |kernel - plain| {e:.3e} ({r:.4f} of "
+              f"the bound); kernel "
               f"{k_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.5f} ms "
               f"({by})")
         sweep_rec.append({"case": [bh, sq, sk, dh, causal, window, q_off,
                                    str(dt)], "err": e, "ms": k_ms,
                           "library_ms": l_ms, "bound_ms": b_ms})
     print(f"kernel 9 agrees with its plain version within "
-          f"{ATTN_TOL[torch.float32]} "
-          f"(float32) and {ATTN_TOL[torch.bfloat16]} (bfloat16) (rtol, atol) "
-          f"on {len(rows)} path calls and {len(cases)} sweep cases")
+          f"{fa_ref.TOL[torch.float32]} (float32) and "
+          f"{fa_ref.TOL[torch.bfloat16]} (bfloat16) (rtol, atol, vtol) on "
+          f"{len(rows)} path calls and {len(cases)} sweep cases; max "
+          f"|kernel - plain| / bound: " + ", ".join(
+              f"{k} {x:.4f}" for k, x in ratio.items()))
     lm["record"]["k9_calls"] = rows
+    lm["record"]["k9_bound_ratio"] = ratio
     lm["record"]["k9_sweep"] = sweep_rec
     by = "operations" if tot["flops"] / BF16_FLOPS_PER_S \
         >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"
     return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "library_ms": tot["library_ms"],
+            "flops": tot["flops"], "bytes": tot["bytes"],
             "max_abs_err": worst, "bound_by": by}
+
+
+def prefill_32k(dev, kernels, params) -> dict:
+    """Phase 16: smollm-135m's prefill_32k shape (configs/base.py
+    LM_SHAPES) through ``transformer.prefill`` at the registered width:
+    32 x 32,768 random tokens into a cache of 32,768.  Kernel 9 is
+    launched again at layer 0's call, its output held against its plain
+    version on the first and last 128 query rows of the first and last
+    sequences, and timed (ms, plain, library, bound; each x the
+    layers)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import LM_SHAPES, get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import transformer as tf
+    cfg = get_config("smollm-135m")
+    shape = next(x for x in LM_SHAPES if x.name == "prefill_32k")
+    b, s_len = shape.global_batch, shape.seq_len
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    tokens = torch.randint(1, cfg.vocab, (b, s_len), generator=g,
+                           device=dev, dtype=torch.int32)
+    cache = tf.init_kv_cache(cfg, b, s_len, device=dev)
+    kv_gb = sum(x.numel() * x.element_size() for x in cache.values()) / 1e9
+    print(f"smollm-135m prefill_32k: {b} x {s_len} tokens, KV cache ({b}, "
+          f"{s_len}) = {kv_gb:.2f} GB; decode_32k (128 x 32,768, a 96.6 GB "
+          f"cache) does not fit one card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    # layer 0's call, its q copied (k and v are layer 0 of the cache,
+    # which later layers leave as they are)
+    with recording([(fa_ops, "flash_attention_gqa", "flash_attention")],
+                   every=cfg.n_layers) as calls, torch.inference_mode():
+        ts = time.perf_counter()
+        cache, logits = tf.prefill(params, tokens, cache, cfg)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - ts
+        q0 = calls[0][1][0]
+    launches = {k: v.launches for k, v in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"a prefill of {cfg.n_layers} layers")
+    check(tuple(logits.shape) == (b, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill_32k logits {tuple(logits.shape)} not finite")
+    check(peak < PREFILL_32K_PEAK_GIB,
+          f"prefill_32k peak {peak:.2f} GiB >= {PREFILL_32K_PEAK_GIB}")
+    k0, v0 = cache["k"][0], cache["v"][0]
+    # layer 0's launch at the path's shape and grid, its output checked
+    # on rows with few keys and with all 32,768
+    out = fa_ops.launch(q0, k0, v0, True, None, 0)
+    rows, errs = 128, []
+    for i in (0, b - 1):
+        for r0 in (0, s_len - rows):
+            errs.append((i, r0) + attn_close(
+                out[i:i + 1, r0:r0 + rows], q0[i:i + 1, r0:r0 + rows],
+                k0[i:i + 1], v0[i:i + 1], True, None, r0))
+    del out
+    for i, r0, e, r in errs:
+        print(f"kernel 9 at prefill_32k's shape, sequence {i}, query rows "
+              f"{r0}-{r0 + rows - 1} over their causal keys: max |kernel "
+              f"- plain| {e:.3e}, {r:.4f} of the bound")
+    kd_ms = device_ms(lambda: fa_ops.launch(q0, k0, v0, True, None, 0),
+                      reps=3)
+    k_ms = cuda_ms(lambda: fa_ops.launch(q0, k0, v0, True, None, 0),
+                   reps=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    ld_ms = device_ms(lib, reps=3)
+    l_ms = cuda_ms(lib, reps=2)
+    # the plain version over the whole call does not fit the card (its
+    # scores alone are 1.24 TB): timed over the call in pieces of
+    # PLAIN_ROWS query rows of one sequence (rows are independent)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(b):
+        for r0 in range(0, s_len, PLAIN_ROWS):
+            fa_ref.attention_gqa(q0[i:i + 1, r0:r0 + PLAIN_ROWS],
+                                 k0[i:i + 1], v0[i:i + 1], causal=True,
+                                 q_offset=r0)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, by, flops, nbytes = attn_bound(q0, k0, True, None, 0)
+    attn_s = kd_ms * cfg.n_layers / 1e3
+    n_tok = b * s_len
+    print(f"prefill_32k: {total_s:.4f} s ({n_tok / total_s:.1f} tokens/s), "
+          f"peak device memory {peak:.3f} GiB (limit "
+          f"{PREFILL_32K_PEAK_GIB}); flash_attention launches "
+          f"{launches['flash_attention']}")
+    print(f"kernel 9 at layer 0: {k_ms:.4f} ms (plain, in pieces of "
+          f"{PLAIN_ROWS} rows, {p_ms:.1f} ms; SDPA {l_ms:.4f} ms); on the "
+          f"card alone {kd_ms:.4f} ms (SDPA "
+          f"{ld_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, "
+          f"{flops / (kd_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{flops / (kd_ms / 1e3) / BF16_FLOPS_PER_S:.1%} of the bf16 "
+          f"peak); x {cfg.n_layers} layers {attn_s:.4f} s, "
+          f"{attn_s / total_s:.1%} of the prefill")
+    print("-- profile of one more prefill_32k pass")
+    with torch.inference_mode():
+        prof = profile_call(lambda: tf.prefill(params, tokens, cache, cfg),
+                            "prefill_32k")
+    n = cfg.n_layers
+    return {"s": total_s, "tokens_per_s": n_tok / total_s, "peak_gib": peak,
+            "launches": launches["flash_attention"], "k9_layer_ms": kd_ms,
+            "sdpa_layer_ms": ld_ms, "bound_layer_ms": b_ms,
+            "attention_s": attn_s, "attention_share": attn_s / total_s,
+            "slice_err": max(e for _, _, e, _ in errs),
+            "slice_ratio": max(r for _, _, _, r in errs),
+            "slices": errs, "kv_gb": kv_gb, "profile": prof,
+            # kernel 9's launches here, as the kernels line sums them
+            "ms": k_ms * n, "plain_ms": p_ms * n, "bound_ms": b_ms * n,
+            "library_ms": l_ms * n, "flops": flops * n, "bytes": nbytes * n}
 
 
 def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
@@ -1593,6 +1771,16 @@ def main() -> int:
         kernels[k].load()
     print(f"nvcc for sm_90a, all {len(kernels)} in parallel: "
           f"{record['build_s']:.2f} s")
+    # kernel 9's bf16 prefill runs on the tensor cores: its SASS holds
+    # warpgroup MMAs
+    sass = subprocess.run(
+        [str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(libs["flash_attention"])], capture_output=True, text=True,
+        timeout=120, check=True).stdout
+    record["flash_attention_hgmma"] = sass.count("HGMMA")
+    print(f"flash_attention SASS: {record['flash_attention_hgmma']} HGMMA "
+          f"instructions")
+    check(record["flash_attention_hgmma"] > 0, "no HGMMA in kernel 9")
     launches, launches_1ds, errs, per, rmat_by_ops = graph_paths(
         dev, kernels, record, instr_per_s, path_2d, path_1ds)
     gc.collect()
@@ -1642,6 +1830,31 @@ def main() -> int:
     launches_nn = {"embedding_bag": ai["launches"],
                    "flash_attention": lm["launches"]}
     errs.update({k: per[k]["max_abs_err"] for k in launches_nn})
+
+    # --------------------------------------------------------------- 16
+    phase("16 smollm-135m prefill_32k: 32 x 32,768 tokens, attention "
+          "through kernel 9")
+    params = lm["params"]
+    del ai, lm, tok, decode_once
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory still allocated: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    record["prefill_32k"] = p32 = prefill_32k(dev, kernels, params)
+    launches_nn["flash_attention"] += p32["launches"]
+    errs["flash_attention"] = max(errs["flash_attention"], p32["slice_err"])
+    # the kernels line covers all of kernel 9's launches: the LM path's
+    # and prefill_32k's
+    fa = per["flash_attention"]
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms", "flops",
+                "bytes"):
+        fa[key] += p32[key]
+    fa["bound_by"] = "operations" if fa["flops"] / BF16_FLOPS_PER_S \
+        >= fa["bytes"] / HBM_BYTES_PER_S else "bytes"
+    print(f"kernel 9 over its {launches_nn['flash_attention']} launches "
+          f"(LM path and prefill_32k): {fa['ms']:.4f} ms, plain "
+          f"{fa['plain_ms']:.4f} ms, library {fa['library_ms']:.4f} ms, "
+          f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']})")
 
     record["total_s"] = time.perf_counter() - t_start
     print(f"total {record['total_s']:.1f} s")

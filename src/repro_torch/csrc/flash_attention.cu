@@ -1,41 +1,63 @@
 // Blocked online-softmax (flash) attention with a causal mask, a sliding
-// window and a query offset, over strided (batch, head, seq, dh) views:
+// window and a query offset, over strided (batch, seq, head, dh) views:
 // query head h reads kv head h / rep (grouped-query attention without
 // repeating the cache).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel
-// (pl.pallas_call at :79, _kernel at :23).  As there, a block owns one
-// (batch*head, query tile) and walks the key tiles from the window's
-// lower edge to the causal frontier min(Sk, q0 + bq), skipping every
-// tile outside them, and masks inside a tile exactly as _kernel:44-49
-// does (k < Sk, k <= q under causality, q - k < window).  What differs
-// on Hopper: the TPU kernel fed 128x128 tiles to the matrix unit and
-// kept (m, l, acc) for the tile in VMEM; here the tile of keys and
-// values is staged through shared memory in float32 and the arithmetic
-// runs on the CUDA cores.  The block's 64 groups of dh/16 threads each
-// hold 16 dims of one query row's q and acc, score 8 keys at a time
-// (partial dot products summed over the group by shuffles) and update
-// the row's running (m, l, acc) once per 8 keys.  A short query tile
-// (decode: Sq = 1) would leave most groups idle, so with bq rows a
-// tile's keys are split over 64/bq groups per row and their (m, l, acc)
-// are merged through shared memory at the end.  q_offset and the window
-// are launch arguments, so decode reuses one build at every position.
-// Masked keys are -inf and a row that no key reaches gets zeros (the
-// jnp ref.py's answer; the Pallas kernel's finite -1e30 gives such a row
-// the mean of the values it visited).
+// (pl.pallas_call at :79, _kernel at :23).  As there, the keys are walked
+// in tiles from the window's lower edge to the causal frontier, a tile
+// outside them is skipped, and inside a tile the masks are _kernel:44-49's
+// (k < Sk, k <= q under causality, q - k < window).  A row that no key
+// reaches gets zeros (the jnp ref.py's answer).  The TPU kernel fed
+// 128 x 128 tiles to the matrix unit with (m, l, acc) in VMEM, one grid
+// step after another.  On Hopper one C call takes one of three paths:
 //
-// Bound on the card: at the serving shapes, operations (4 dh flops per
-// live (query, key) pair against the card's dense bf16 rate) for
-// prefill and bytes (K and V read once) for decode.  This first kernel
-// runs on the CUDA cores in float32, far below the tensor cores' rate;
-// wgmma and TMA are later work.
+// * Prefill, bf16 (rep * Sq > 16 rows): bound by operations (4 dh flops a
+//   live (query, key) pair against the tensor cores' dense bf16 rate).
+//   One warpgroup owns 64 query rows of one (batch, head).  TMA brings
+//   the Q tile once and K and V tiles of 128 keys (64 at dh 128) through
+//   a ring of two stages (an mbarrier each), straight from the strided
+//   4-D views (the tensor maps are encoded per call; each view's strides
+//   must be multiples of 16 bytes).  The tiles land swizzled in rows of
+//   min(dh, 64) elements (32, 64 or 128 bytes), the width the wgmma
+//   descriptors name.
+//   S = Q K^T is wgmma m64nNk16 (N the tile's keys) with both operands
+//   K-major in shared memory; the online softmax runs on S's float32
+//   fragments in registers (a row's scores sit on a quad of threads: max
+//   and sum go through two shuffles; exp2 on the special-function unit
+//   alone); P is rounded to bf16 in registers and is the register A
+//   operand of O += P V, V the MN-major B operand; O stays in float32
+//   registers and is divided by l at the end.  Tiles wholly inside the
+//   masks take no per-element mask.  Blocks start from the last query
+//   tile, the longest under causality.
+// * Decode and short queries, bf16 (rep * Sq <= 16 rows): bound by bytes
+//   (K and V read once).  A 64-row wgmma tile would be mostly empty, and
+//   a block per query head gave 36 blocks for 132 SMs.  Here a block
+//   takes the rep query heads of one kv head and all Sq rows over one
+//   contiguous range of keys, so each K/V row is read once, with 16-byte
+//   loads, and the grid is (batch * kv heads, n_split).  Each block
+//   writes float32 partials (m, l, acc) to scratch; a second kernel on
+//   the stream, launched as its programmatic dependent so that its launch
+//   overlaps the splits, merges them (a split whose keys are all masked
+//   carries m = -inf and weight 0).  The wrapper picks n_split
+//   (ops.py::plan) and allocates the scratch.
+// * float32 (no serving path; the tests and the sweep): the CUDA cores,
+//   64 thread groups a block, each holding 16 dims of one query row; a
+//   short query tile splits each row's keys over 64 / bq groups, merged
+//   through shared memory.
+//
+// q_offset and the window are launch arguments, so decode reuses one
+// build at every position.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------ float32
 
 constexpr int kGroups = 64;   // query-row groups per block
 constexpr int kDims = 16;     // dims of q and acc per thread
@@ -51,18 +73,9 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kGroups * DH / kDims)
-    flash_attention_kernel(const Args a) {
+    float32_kernel(const Args a) {
   constexpr int TPG = DH / kDims;       // threads per group
   constexpr int BK = 4096 / DH;         // keys per shared tile
   constexpr int TILE = BK * DH;
@@ -82,10 +95,10 @@ __global__ void __launch_bounds__(kGroups * DH / kDims)
   const bool live = row < a.sq;
   const int q0 = a.q_offset + blockIdx.y * bq;
   const int qpos = a.q_offset + row;
-  const T* qp = (const T*)a.q + b * a.st[0] + h * a.st[1];
-  const T* kp = (const T*)a.k + b * a.st[3] + hk * a.st[4];
-  const T* vp = (const T*)a.v + b * a.st[6] + hk * a.st[7];
-  T* op = (T*)a.o + b * a.st[9] + h * a.st[10];
+  const float* qp = (const float*)a.q + b * a.st[0] + h * a.st[1];
+  const float* kp = (const float*)a.k + b * a.st[3] + hk * a.st[4];
+  const float* vp = (const float*)a.v + b * a.st[6] + hk * a.st[7];
+  float* op = (float*)a.o + b * a.st[9] + h * a.st[10];
   const unsigned lane = tid & 31;
   const unsigned gmask =
       TPG == 32 ? 0xffffffffu : ((1u << TPG) - 1u) << (lane & ~(TPG - 1));
@@ -93,8 +106,7 @@ __global__ void __launch_bounds__(kGroups * DH / kDims)
   float q[kDims], acc[kDims];
 #pragma unroll
   for (int i = 0; i < kDims; ++i) {
-    q[i] = live ? to_float(qp[row * a.st[2] + t * kDims + i]) * a.scale
-                : 0.0f;
+    q[i] = live ? qp[row * a.st[2] + t * kDims + i] * a.scale : 0.0f;
     acc[i] = 0.0f;
   }
   float m = -INFINITY, l = 0.0f;
@@ -109,8 +121,8 @@ __global__ void __launch_bounds__(kGroups * DH / kDims)
       const int j = i / DH, d = i % DH, kpos = k0 + j;
       float kx = 0.0f, vx = 0.0f;
       if (kpos < a.sk) {
-        kx = to_float(kp[kpos * a.st[5] + d]);
-        vx = to_float(vp[kpos * a.st[8] + d]);
+        kx = kp[kpos * a.st[5] + d];
+        vx = vp[kpos * a.st[8] + d];
       }
       ks[i] = kx;
       vs[i] = vx;
@@ -162,7 +174,7 @@ __global__ void __launch_bounds__(kGroups * DH / kDims)
       const float den = fmaxf(l, 1e-30f);
 #pragma unroll
       for (int i = 0; i < kDims; ++i)
-        store(op + row * a.st[11] + t * kDims + i, acc[i] / den);
+        op[row * a.st[11] + t * kDims + i] = acc[i] / den;
     }
     return;
   }
@@ -192,41 +204,749 @@ __global__ void __launch_bounds__(kGroups * DH / kDims)
         asum += aa[gg * DH + d] * f;
       }
     }
-    store(op + orow * a.st[11] + d, asum / fmaxf(lsum, 1e-30f));
+    op[orow * a.st[11] + d] = asum / fmaxf(lsum, 1e-30f);
   }
 }
 
-template <typename T, int DH>
-void launch(const Args& a, int n_bh, cudaStream_t stream) {
-  const dim3 grid(n_bh, (a.sq + a.bq - 1) / a.bq);
-  flash_attention_kernel<T, DH><<<grid, kGroups * DH / kDims, 0, stream>>>(a);
+
+// ------------------------------------------------- bf16 prefill (wgmma)
+constexpr int kRows = 64;     // query rows of a block: one warpgroup
+constexpr int kStages = 2;    // K/V tiles in flight (3 and 4 measured
+                              // slower: fewer blocks fit an SM)
+
+struct PrefillArgs {
+  __nv_bfloat16* o;
+  int64_t o_st[3];  // (batch, head, seq) strides of o in elements
+  int hq, rep, sq, sk, q_offset, window, causal;
+  float scale_log2;  // dh^-0.5 * log2(e): the scores in base 2
+};
+
+// The shared-memory layout of a dh: rows of min(dh, 64) elements (a
+// "panel", as wide as its swizzle), dh / 64 panels side by side for
+// dh = 128.
+template <int DH>
+struct Tiles {
+  static constexpr int kPanelCols = DH < 64 ? DH : 64;
+  static constexpr int kPanelBytes = 2 * kPanelCols;
+  static constexpr int kPanels = DH / kPanelCols;
+  static constexpr int kQBytes = kPanels * kRows * kPanelBytes;
+  // keys of a K/V tile: 128 where the registers allow (128 keys
+  // measured 1-10% faster at dh 64; tools/flash_attention_ab.py)
+  static constexpr int kKeys = DH <= 64 ? 128 : 64;
+  static constexpr int kKVBytes = kPanels * kKeys * kPanelBytes;
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  // the wgmma descriptor's layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint64_t kLayout =
+      kPanelBytes == 128 ? 1 : (kPanelBytes == 64 ? 2 : 3);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-int dispatch(const Args& a, int n_bh, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 16: launch<T, 16>(a, n_bh, stream); break;
-    case 32: launch<T, 32>(a, n_bh, stream); break;
-    case 64: launch<T, 64>(a, n_bh, stream); break;
-    case 128: launch<T, 128>(a, n_bh, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-  return 0;
 }
 
-}  // namespace
+// one box of a 4-D tensor map, coordinates innermost first
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
 
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, const long long* strides, int batch,
-                               int hq, int rep, int sq, int sk, int dh,
-                               int q_offset, int window, int causal, int bq,
-                               float scale, int bf16, void* stream) {
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = o;
-  for (int i = 0; i < 12; ++i) a.st[i] = strides[i];
+// a wgmma shared-memory descriptor: start, leading and stride byte
+// offsets in 16-byte units, the swizzle
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator
+// registers across a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special-function unit alone (exp2f adds range handling);
+// -inf gives 0, and a weight below 2^-126 flushes to 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// S (64 x N) = A (64 x 16, K-major, shared) B^T (N x 16, K-major,
+// shared); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  if constexpr (N == 128) wgmma_ss_n128(d, a, b, scale_d);
+}
+
+// O (64 x N) += A (64 x 16, bf16 registers) B (16 x N, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31"
+      "},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63"
+      "},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+}
+
+// K and V tile i (keys k0..k0 + 63 of kv head hk) into stage i % kStages
+template <int DH>
+__device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, uint32_t ks,
+                                        uint32_t vs, uint32_t kbar,
+                                        uint32_t vbar, int i, int k0, int hk,
+                                        int b) {
+  using L = Tiles<DH>;
+  const int s = i % kStages;
+  mbar_expect(kbar + 8 * s, L::kKVBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_load(ks + s * L::kKVBytes + p * L::kKeys * L::kPanelBytes, kmap,
+             kbar + 8 * s, p * L::kPanelCols, hk, k0, b);
+  mbar_expect(vbar + 8 * s, L::kKVBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_load(vs + s * L::kKVBytes + p * L::kKeys * L::kPanelBytes, vmap,
+             vbar + 8 * s, p * L::kPanelCols, hk, k0, b);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128)
+    prefill_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const PrefillArgs a) {
+  using L = Tiles<DH>;
+  constexpr int PB = L::kPanelBytes, PC = L::kPanelCols, kKeys = L::kKeys;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + L::kQBytes;
+  const uint32_t vs = ks + kStages * L::kKVBytes;
+  const uint32_t qbar = vs + kStages * L::kKVBytes;
+  const uint32_t kbar = qbar + 8, vbar = kbar + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int bh = blockIdx.y, b = bh / a.hq, h = bh % a.hq, hk = h / a.rep;
+  const int rows = min(kRows, a.sq - q0);
+  const int qlo = a.q_offset + q0, qhi = qlo + rows - 1;  // live rows
+  const int hi = a.causal ? min(a.sk, qhi + 1) : a.sk;
+  const int lo = a.window > 0 ? max(0, qlo - (a.window - 1)) : 0;
+  const int t0 = lo / kKeys;
+  const int n_tiles = hi > lo ? (hi + kKeys - 1) / kKeys - t0 : 0;
+
+  if (tid == 0) {
+    mbar_init(qbar);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kbar + 8 * s);
+      mbar_init(vbar + 8 * s);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(qbar, L::kQBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load(qs + p * kRows * PB, &qmap, qbar, p * PC, h, q0, b);
+    for (int i = 0; i < min(kStages, n_tiles); ++i)
+      load_kv<DH>(&kmap, &vmap, ks, vs, kbar, vbar, i, (t0 + i) * kKeys, hk,
+                  b);
+  }
+
+  // this thread's rows of the tile: r0 and r0 + 8; its columns of each
+  // group of 8: c0 and c0 + 1 (the wgmma accumulator layout)
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages, k0 = (t0 + i) * kKeys;
+    const uint32_t parity = (i / kStages) & 1;
+    mbar_wait(kbar + 8 * s, parity);
+    float sc[kKeys / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      // 16 dims: a 32-byte step inside a panel, or the next panel
+      const uint32_t off = (kk * 16 % PC) * 2;
+      const uint32_t pq = (kk * 16 / PC) * kRows * PB;
+      const uint32_t pk = (kk * 16 / PC) * kKeys * PB;
+      wgmma_ss<kKeys>(sc, smem_desc(qs + pq + off, 16, 8 * PB, L::kLayout),
+                   smem_desc(ks + s * L::kKVBytes + pk + off, 16, 8 * PB,
+                             L::kLayout),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<kKeys / 2>(sc);
+
+    // sc[4j + 2i + c]: row r0 + 8i, key k0 + 8j + c0 + c
+    const bool edge = k0 + kKeys > a.sk ||
+                      (a.causal && k0 + kKeys - 1 > qlo) ||
+                      (a.window > 0 && qhi - k0 >= a.window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qlo + r0 + 8 * (e >> 1);
+          const int kpos = k0 + 8 * j + c0 + (e & 1);
+          bool ok = kpos < a.sk;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window > 0) ok = ok && qpos - kpos < a.window;
+          if (!ok) sc[4 * j + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * a.scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+      const float corr = fast_exp2(m[r] - m_use);
+      m[r] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = sc[4 * j + 2 * r + c];
+          x = fast_exp2(fmaf(x, a.scale_log2, -m_use));
+          sum += x;
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j + 2 * r] *= corr;
+        o[4 * j + 2 * r + 1] *= corr;
+      }
+    }
+    // P in bf16 as wgmma's A fragments: keys 16kk.. of rows r0, r0 + 8
+    uint32_t pa[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+
+    mbar_wait(vbar + 8 * s, parity);
+    fence_regs<DH / 2>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      // 16 keys: 16 rows of the panels further; the panels DH / 64 apart
+      wgmma_rs<DH>(o, pa[kk],
+                   smem_desc(vs + s * L::kKVBytes + kk * 16 * PB,
+                             kKeys * PB, 8 * PB, L::kLayout));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<DH / 2>(o);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + kStages < n_tiles)
+      load_kv<DH>(&kmap, &vmap, ks, vs, kbar, vbar, i + kStages,
+                  k0 + kStages * kKeys, hk, b);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum > 0.0f ? 1.0f / sum : 0.0f;
+    const int row = r0 + 8 * r;
+    if (row >= rows) continue;
+    __nv_bfloat16* op =
+        a.o + b * a.o_st[0] + h * a.o_st[1] + (q0 + row) * a.o_st[2] + c0;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// ------------------------------------------- bf16 decode (key splits)
+constexpr int kSplitRows = 16;  // the most rows (rep * Sq) a block takes
+constexpr int kSplitKeys = 64;  // keys of a shared tile
+
+struct SplitArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  float* part;     // (batch * kv heads, n_split, rep * Sq, dh + 2): acc, m, l
+  int64_t st[12];  // strides in elements: (batch, head, seq) of q, k, v, o
+  int hkv, rep, sq, q_offset, window, causal;
+  int lo, hi, span, n_split;  // split s takes keys [lo + s span, ..) < hi
+  float scale;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(128) split_kernel(const SplitArgs a) {
+  constexpr int G = DH / 8;       // lanes per key row, 16 bytes each
+  constexpr int KPW = 32 / G;     // key rows a warp scores at once
+  constexpr int NACC = kSplitRows * DH / 128;
+  constexpr int LOADS = kSplitKeys * G / 128;  // 16-byte loads a thread
+  __shared__ __align__(16) float qs[kSplitRows][DH];
+  __shared__ __align__(16) __nv_bfloat16 ks[kSplitKeys][DH];
+  __shared__ __align__(16) __nv_bfloat16 vs[kSplitKeys][DH];
+  __shared__ float ps[kSplitRows][kSplitKeys];
+  __shared__ float ms[kSplitRows], ls[kSplitRows], cs[kSplitRows];
+
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bk = blockIdx.x, split = blockIdx.y;
+  const int b = bk / a.hkv, hk = bk % a.hkv;
+  const int nr = a.rep * a.sq;  // row r: head hk * rep + r / Sq, query r % Sq
+  const int k_begin = a.lo + split * a.span;
+  const int k_end = min(a.hi, k_begin + a.span);
+  const __nv_bfloat16* kp = a.k + b * a.st[3] + hk * a.st[4];
+  const __nv_bfloat16* vp = a.v + b * a.st[6] + hk * a.st[7];
+
+  if (tid < nr) {
+    ms[tid] = -INFINITY;
+    ls[tid] = 0.0f;
+  }
+  float acc[NACC], qv[NACC];  // element tid + 128 i of the (rows, DH) tile
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int e = tid + 128 * i, r = e / DH;
+    acc[i] = 0.0f;
+    qv[i] = r < nr ? __bfloat162float(
+                         a.q[b * a.st[0] + (hk * a.rep + r / a.sq) * a.st[1] +
+                             (r % a.sq) * a.st[2] + e % DH]) *
+                         a.scale
+                   : 0.0f;
+  }
+
+  for (int kt = k_begin; kt < k_end; kt += kSplitKeys) {
+    __syncthreads();
+    uint4 kx[LOADS], vx[LOADS];
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int c = tid + 128 * i, j = c / G, t = c % G, kpos = kt + j;
+      kx[i] = vx[i] = make_uint4(0, 0, 0, 0);
+      if (kpos < k_end) {
+        kx[i] = *reinterpret_cast<const uint4*>(kp + kpos * a.st[5] + 8 * t);
+        vx[i] = *reinterpret_cast<const uint4*>(vp + kpos * a.st[8] + 8 * t);
+      }
+    }
+    if (kt == k_begin) {  // q's loads went out with the first tile's
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        const int e = tid + 128 * i;
+        if (e < nr * DH) qs[e / DH][e % DH] = qv[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int c = tid + 128 * i, j = c / G, t = c % G;
+      *reinterpret_cast<uint4*>(&ks[j][8 * t]) = kx[i];
+      *reinterpret_cast<uint4*>(&vs[j][8 * t]) = vx[i];
+    }
+    __syncthreads();
+    // scores: G lanes a key row, 8 dims each, summed by shuffles
+    for (int j0 = warp * KPW; j0 < kSplitKeys; j0 += 4 * KPW) {
+      const int j = j0 + lane / G, t = lane % G, kpos = kt + j;
+      const uint4 raw = *reinterpret_cast<const uint4*>(&ks[j][8 * t]);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float kf[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(k2[i]);
+        kf[2 * i] = f.x;
+        kf[2 * i + 1] = f.y;
+      }
+      for (int r = 0; r < nr; ++r) {
+        float part = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) part = fmaf(qs[r][8 * t + i], kf[i], part);
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (t == 0) {
+          const int qpos = a.q_offset + r % a.sq;
+          bool ok = kpos < k_end;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window > 0) ok = ok && qpos - kpos < a.window;
+          ps[r][j] = ok ? part : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+    // the online softmax of each row: a warp a row, two keys a lane
+    for (int r = warp; r < nr; r += 4) {
+      const float s0 = ps[r][lane], s1 = ps[r][lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = ms[r], m_new = fmaxf(m_old, mx);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+      const float p0 = expf(s0 - m_use), p1 = expf(s1 - m_use);
+      ps[r][lane] = p0;
+      ps[r][lane + 32] = p1;
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_use);
+        cs[r] = corr;
+        ls[r] = ls[r] * corr + sum;
+        ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      const int e = tid + 128 * i, r = e / DH, d = e % DH;
+      if (r < nr) {
+        float x = acc[i] * cs[r];
+#pragma unroll 8
+        for (int j = 0; j < kSplitKeys; ++j)
+          x = fmaf(ps[r][j], __bfloat162float(vs[j][d]), x);
+        acc[i] = x;
+      }
+    }
+  }
+  __syncthreads();
+  float* out = a.part + ((int64_t)bk * a.n_split + split) * nr * (DH + 2);
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int e = tid + 128 * i, r = e / DH, d = e % DH;
+    if (r < nr) out[r * (DH + 2) + d] = acc[i];
+  }
+  if (tid < nr) {
+    out[tid * (DH + 2) + DH] = ms[tid];
+    out[tid * (DH + 2) + DH + 1] = ls[tid];
+  }
+}
+
+// The splits' partials merged into one output row of one (batch, kv
+// head): a block a row, a thread a dim, the splits taken 16 at a time
+// (their loads in flight together) into a running (max, l, acc).
+// Launched as a programmatic dependent of split_kernel, so its launch
+// overlaps the splits' and it waits for their writes here.
+template <int DH>
+__global__ void __launch_bounds__(DH) merge_kernel(const SplitArgs a) {
+  constexpr int kBatch = 16;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int bk = blockIdx.x, r = blockIdx.y, d = threadIdx.x;
+  const int b = bk / a.hkv, hk = bk % a.hkv, nr = a.rep * a.sq;
+  const float* part =
+      a.part + ((int64_t)bk * a.n_split * nr + r) * (DH + 2);
+  const int step = nr * (DH + 2);  // from one split's row to the next's
+  float mx = -INFINITY, lsum = 0.0f, x = 0.0f;
+  for (int s0 = 0; s0 < a.n_split; s0 += kBatch) {
+    float mv[kBatch], lv[kBatch], av[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float* p = part + (s0 + j) * step;
+      const bool in = s0 + j < a.n_split;
+      mv[j] = in ? p[DH] : -INFINITY;
+      lv[j] = in ? p[DH + 1] : 0.0f;
+      av[j] = in ? p[d] : 0.0f;
+    }
+    float m_new = mx;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) m_new = fmaxf(m_new, mv[j]);
+    if (m_new == -INFINITY) continue;  // no split so far reached a key
+    const float c = expf(mx - m_new);
+    lsum *= c;
+    x *= c;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float f = expf(mv[j] - m_new);  // 0 for a split with no key
+      lsum = fmaf(lv[j], f, lsum);
+      x = fmaf(av[j], f, x);
+    }
+    mx = m_new;
+  }
+  a.o[b * a.st[9] + (hk * a.rep + r / a.sq) * a.st[10] +
+      (r % a.sq) * a.st[11] + d] =
+      __float2bfloat16_rn(lsum > 0.0f ? x / lsum : 0.0f);
+}
+
+// ------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded: the
+// library links no libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// The tensor map of a (batch, seq, heads, dh) bf16 view with element
+// strides st = (batch, head, seq): boxes of `rows` rows of one panel of
+// one head.  A dim of size 1 takes a packed stride (it is never stepped).
+template <int DH>
+int encode(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+           const int64_t* st, int rows) {
+  using L = Tiles<DH>;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  int64_t elems[3] = {st[1], st[2], st[0]};
+  cuuint64_t strides[3];
+  int64_t packed = DH;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) elems[i] = (packed + 7) / 8 * 8;
+    strides[i] = (cuuint64_t)(2 * elems[i]);
+    packed = elems[i] * (int64_t)dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)L::kPanelCols, 1, (cuuint32_t)rows,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      L::kPanelBytes == 128
+          ? CU_TENSOR_MAP_SWIZZLE_128B
+          : (L::kPanelBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch_prefill(const void* q, const void* k, const void* v, void* o,
+                   const int64_t* st, int batch, int hq, int rep, int sq,
+                   int sk, int q_offset, int window, int causal, float scale,
+                   cudaStream_t stream) {
+  using L = Tiles<DH>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefill_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap qmap, kmap, vmap;
+  const int hkv = hq / rep;
+  int err = encode<DH>(&qmap, q, batch, sq, hq, st, kRows);
+  if (!err) err = encode<DH>(&kmap, k, batch, sk, hkv, st + 3, L::kKeys);
+  if (!err) err = encode<DH>(&vmap, v, batch, sk, hkv, st + 6, L::kKeys);
+  if (err) return err;
+  PrefillArgs a;
+  a.o = (__nv_bfloat16*)o;
+  for (int i = 0; i < 3; ++i) a.o_st[i] = st[9 + i];
   a.hq = hq;
   a.rep = rep;
   a.sq = sq;
@@ -234,14 +954,117 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   a.q_offset = q_offset;
   a.window = window;
   a.causal = causal;
-  a.bq = bq;
-  a.scale = scale;
-  if (batch > 0 && hq > 0 && sq > 0) {
-    const int n_bh = batch * hq;
-    const int err =
-        bf16 ? dispatch<__nv_bfloat16>(a, n_bh, dh, (cudaStream_t)stream)
-             : dispatch<float>(a, n_bh, dh, (cudaStream_t)stream);
-    if (err) return err;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid((sq + kRows - 1) / kRows, batch * hq);
+  prefill_kernel<DH><<<grid, 128, L::kSmem, stream>>>(qmap, kmap, vmap, a);
+  return 0;
+}
+
+template <int DH>
+int launch_split(const SplitArgs& a, int batch, cudaStream_t stream) {
+  split_kernel<DH><<<dim3(batch * a.hkv, a.n_split), 128, 0, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * a.hkv, a.rep * a.sq);
+  cfg.blockDim = dim3(DH);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, merge_kernel<DH>, a);
+}
+
+template <int DH>
+void launch_cuda_cores(const Args& a, int n_bh, cudaStream_t stream) {
+  const dim3 grid(n_bh, (a.sq + a.bq - 1) / a.bq);
+  float32_kernel<DH><<<grid, kGroups * DH / kDims, 0, stream>>>(a);
+}
+
+}  // namespace
+
+// path 0: float32 on the CUDA cores (bq rows a query tile); 1: bf16
+// prefill on the tensor cores; 2: bf16 key splits (n_split blocks a kv
+// head, split s over keys [lo + s span, ..) < hi, partials in `part`).
+// One call launches the path's kernels on `stream`.
+extern "C" int flash_attention(const void* q, const void* k, const void* v,
+                               void* o, void* part, const long long* strides,
+                               int batch, int hq, int rep, int sq, int sk,
+                               int dh, int q_offset, int window, int causal,
+                               int path, int bq, int n_split, int lo, int hi,
+                               int span, float scale, void* stream) {
+  if (batch <= 0 || hq <= 0 || sq <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  int64_t st[12];
+  for (int i = 0; i < 12; ++i) st[i] = strides[i];
+  int err = 0;
+  if (path == 0) {
+    Args a;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.o = o;
+    for (int i = 0; i < 12; ++i) a.st[i] = st[i];
+    a.hq = hq;
+    a.rep = rep;
+    a.sq = sq;
+    a.sk = sk;
+    a.q_offset = q_offset;
+    a.window = window;
+    a.causal = causal;
+    a.bq = bq;
+    a.scale = scale;
+    switch (dh) {
+      case 16: launch_cuda_cores<16>(a, batch * hq, s); break;
+      case 32: launch_cuda_cores<32>(a, batch * hq, s); break;
+      case 64: launch_cuda_cores<64>(a, batch * hq, s); break;
+      case 128: launch_cuda_cores<128>(a, batch * hq, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (path == 1) {
+    switch (dh) {
+#define PREFILL(D)                                                      \
+  case D:                                                               \
+    err = launch_prefill<D>(q, k, v, o, st, batch, hq, rep, sq, sk,     \
+                            q_offset, window, causal, scale, s);        \
+    break;
+      PREFILL(16)
+      PREFILL(32)
+      PREFILL(64)
+      PREFILL(128)
+#undef PREFILL
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (path == 2) {
+    if (rep * sq > kSplitRows) return (int)cudaErrorInvalidValue;
+    SplitArgs a;
+    a.q = (const __nv_bfloat16*)q;
+    a.k = (const __nv_bfloat16*)k;
+    a.v = (const __nv_bfloat16*)v;
+    a.o = (__nv_bfloat16*)o;
+    a.part = (float*)part;
+    for (int i = 0; i < 12; ++i) a.st[i] = st[i];
+    a.hkv = hq / rep;
+    a.rep = rep;
+    a.sq = sq;
+    a.q_offset = q_offset;
+    a.window = window;
+    a.causal = causal;
+    a.lo = lo;
+    a.hi = hi;
+    a.span = span;
+    a.n_split = n_split;
+    a.scale = scale;
+    switch (dh) {
+      case 16: err = launch_split<16>(a, batch, s); break;
+      case 32: err = launch_split<32>(a, batch, s); break;
+      case 64: err = launch_split<64>(a, batch, s); break;
+      case 128: err = launch_split<128>(a, batch, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,23 @@
 """Blocked online-softmax attention (kernel 9): the wrapper of the CUDA
-kernel ``csrc/flash_attention.cu``; its plain PyTorch version is
+kernels ``csrc/flash_attention.cu``; its plain PyTorch version is
 ``kernels/flash_attention/ref.py``.
 
 ``flash_attention_gqa`` takes the model's (B, S, H, dh) layout with
 fewer kv heads than query heads, and strided views (a slice of the KV
 cache) as they are; the Pallas kernel's (BH, S, dh) layout is the case
 of one head, ``x[:, :, None]``.  The Pallas tiling arguments (``bq``,
-``bk``, ``interpret``) have no counterpart: the query tile is chosen
-from Sq here.
+``bk``, ``interpret``) have no counterpart: ``plan`` picks the path and
+its split from the shapes.
+
+One call launches one of three paths (``plan``): bf16 prefill on the
+tensor cores, bf16 decode with the keys split over blocks and a merge
+(``split_attention_plain`` is its plain twin, for the tests), and
+float32 on the CUDA cores.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,14 +26,19 @@ from repro_torch.kernels.flash_attention import ref
 
 KERNEL = CudaKernel("flash_attention", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 32, 64, 128)
-_GROUPS = 64          # query-row groups of a block (kGroups in the source)
+_GROUPS = 64          # query-row groups of a float32 block (kGroups)
+SPLIT_MAX_ROWS = 16   # rep * Sq of a key-split block (kSplitRows)
+MIN_SPLIT_KEYS = 32   # the fewest keys a split takes
+TARGET_BLOCKS = 264   # two waves of the H100's 132 SMs
+PATHS = {"cuda_cores": 0, "wgmma": 1, "split": 2}
 
 
 def _check(q, k, v, window, q_offset):
@@ -52,13 +62,102 @@ def _check(q, k, v, window, q_offset):
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
+def _check_aligned(path: str, q, k, v) -> None:
+    """The bf16 paths read 16-byte rows: TMA boxes (prefill; every stride
+    of a dim longer than 1 a multiple of 16 bytes) or 16-byte loads of K
+    and V rows (split)."""
+    views = (q, k, v) if path == "wgmma" else (k, v)
+    for x in views:
+        bad = x.data_ptr() % 16 or any(
+            x.stride(i) * x.element_size() % 16 for i in range(3)
+            if x.shape[i] > 1)
+        if bad:
+            raise ValueError(f"the {path} path needs 16-byte aligned rows "
+                             f"and strides, got strides {x.stride()} at "
+                             f"address {x.data_ptr():#x}")
+
+
 def query_tile(sq: int) -> int:
-    """Rows of the block's query tile: 64, or the power of two at or
-    above Sq for short queries (whose keys the groups then split)."""
+    """Rows of the float32 block's query tile: 64, or the power of two at
+    or above Sq for short queries (whose keys the groups then split)."""
     bq = 1
     while bq < min(sq, _GROUPS):
         bq *= 2
     return bq
+
+
+def live_keys(sq: int, sk: int, causal: bool, window: Optional[int],
+              q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the keys some query row's mask reaches."""
+    hi = min(sk, q_offset + sq) if causal else sk
+    lo = max(0, q_offset - window + 1) if window else 0
+    return lo, max(lo, hi)
+
+
+def plan(b: int, hkv: int, rep: int, sq: int, sk: int, dtype,
+         causal: bool = True, window: Optional[int] = None,
+         q_offset: int = 0) -> Tuple[str, int]:
+    """(path, n_split): float32 -> "cuda_cores"; bf16 with more than
+    SPLIT_MAX_ROWS rows a kv head (rep * Sq) -> "wgmma"; else "split",
+    into n_split ranges of the live keys, enough for B * Hkv * n_split >=
+    TARGET_BLOCKS while each keeps MIN_SPLIT_KEYS keys."""
+    if dtype == torch.float32:
+        return "cuda_cores", 1
+    if rep * sq > SPLIT_MAX_ROWS:
+        return "wgmma", 1
+    lo, hi = live_keys(sq, sk, causal, window, q_offset)
+    want = -(-TARGET_BLOCKS // (b * hkv))
+    return "split", max(1, min(want, (hi - lo) // MIN_SPLIT_KEYS))
+
+
+def split_ranges(sq: int, sk: int, causal: bool, window: Optional[int],
+                 q_offset: int, n_split: int) -> Tuple[int, int, int]:
+    """(lo, hi, span): split s takes keys [lo + s span, lo + (s+1) span)
+    cut at hi."""
+    lo, hi = live_keys(sq, sk, causal, window, q_offset)
+    return lo, hi, -(-(hi - lo) // n_split)
+
+
+def split_attention_plain(q, k, v, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          n_split: int = 1) -> torch.Tensor:
+    """The plain twin of the split path, in float32: per split, the
+    partials (m, l, acc) of each (batch, query head, row) over its key
+    range, then their merge, as ``split_kernel`` and ``merge_kernel`` do;
+    a split with no live key carries m = -inf and weight 0."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    lo, hi, span = split_ranges(sq, sk, causal, window, q_offset, n_split)
+    qf = q.float().transpose(1, 2) * dh ** -0.5            # (B, Hq, Sq, dh)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        a, e = lo + s * span, min(hi, lo + (s + 1) * span)
+        kpos = torch.arange(a, max(a, e), device=q.device)[None, :]
+        mask = kpos < e
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (qpos - kpos < window)
+        sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, a:max(a, e)])
+        sc = torch.where(mask, sc, float("-inf"))
+        m = sc.amax(-1) if sc.shape[-1] else torch.full(
+            sc.shape[:-1], float("-inf"), device=q.device)
+        p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, a:max(a, e)]))
+    m = torch.stack(ms)
+    mx = m.amax(0)
+    f = torch.exp(m - torch.where(torch.isfinite(mx), mx, 0.0))
+    lsum = (torch.stack(ls) * f).sum(0)
+    asum = (torch.stack(accs) * f[..., None]).sum(0)
+    out = torch.where(lsum[..., None] > 0,
+                      asum / lsum.clamp(min=1e-30)[..., None], 0.0)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def launch(q, k, v, causal: bool, window: Optional[int],
@@ -67,14 +166,26 @@ def launch(q, k, v, causal: bool, window: Optional[int],
     layout: the (B, Sq, Hq, dh) result, contiguous."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    path, n_split = plan(b, hkv, rep, sq, sk, q.dtype, causal, window,
+                         q_offset)
+    lo = hi = span = 0
+    part = None
+    if path != "cuda_cores":
+        _check_aligned(path, q, k, v)
+    if path == "split":
+        lo, hi, span = split_ranges(sq, sk, causal, window, q_offset,
+                                    n_split)
+        part = torch.empty(b * hkv * n_split * rep * sq * (dh + 2),
+                           dtype=torch.float32, device=q.device)
     out = torch.empty(b, sq, hq, dh, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *[x.stride(i) for x in (q, k, v, out) for i in (0, 2, 1)])
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  strides, b, hq, hq // hkv, sq, sk, dh, q_offset,
-                  0 if window is None else window, int(causal),
-                  query_tile(sq), dh ** -0.5, int(q.dtype == torch.bfloat16),
-                  stream_handle(q.device))
+                  None if part is None else part.data_ptr(), strides, b, hq,
+                  rep, sq, sk, dh, q_offset, 0 if window is None else window,
+                  int(causal), PATHS[path], query_tile(sq), n_split, lo, hi,
+                  span, dh ** -0.5, stream_handle(q.device))
     return out
 
 

@@ -6,6 +6,7 @@ a query offset, the twin of the JAX package's
 A query row with no key inside its mask gets zeros, as that ``ref.py``
 gives.  ``attention_gqa`` is the same function over the model's layout:
 (B, S, H, dh) tensors, query head h reading kv head ``h // (Hq // Hkv)``.
+``tolerance`` is how far the kernel may sit from it.
 """
 from __future__ import annotations
 
@@ -50,3 +51,31 @@ def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     heads(v, sk), causal=causal, window=window,
                     q_offset=q_offset)
     return out.reshape(b, hq, sq, dh).transpose(1, 2)
+
+
+# How far kernel 9 may sit from this plain version, (rtol, atol, vtol):
+# |got - want| <= rtol |want| + atol + vtol A, with A this function over
+# |v|.  float32: the order of the sums (the JAX kernel test's 2e-5).
+# bfloat16: each side rounds its output to bf16 (2**-8 |want| each), and
+# the tensor cores take P rounded to bf16 before P V while l sums the
+# unrounded P, so out = sum bf16(p_j) v_j / l is off by at most
+# sum |bf16(p_j) - p_j| |v_j| / l <= 2**-8 A; a quarter more covers
+# ex2.approx and the order of the float32 sums over up to 32,768 keys.
+TOL = {torch.float32: (2e-5, 2e-5, 0.0),
+       torch.bfloat16: (2.0 ** -7, 2e-5, 1.25 * 2.0 ** -8)}
+
+
+def tolerance(q, k, v, *, causal: bool = True,
+              window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """The float32 bound on |got - attention_gqa(q, k, v, ...)|, element
+    by element, for q's dtype (TOL)."""
+    rtol, atol, vtol = TOL[q.dtype]
+    want = attention_gqa(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset).float()
+    bound = rtol * want.abs() + atol
+    if vtol:
+        bound += vtol * attention_gqa(q, k, v.abs(), causal=causal,
+                                      window=window,
+                                      q_offset=q_offset).float()
+    return bound

@@ -1,7 +1,7 @@
 """On a CUDA card: each of the port's CUDA kernels against its plain
 PyTorch version: tolerance 0 for the graph kernels (integer outputs)
 and for the EmbeddingBag (the same float32 operations in the same
-order); the attention kernel within ``ATTN_TOL``.  Imports no JAX, so
+order); the attention kernel within ``fa_ref.tolerance``.  Imports no JAX, so
 it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -195,50 +195,97 @@ def test_embedding_bag_kernel_matches_plain(dev, dtype, mode, n_bags, width,
     assert torch.equal(got, want)
 
 
-# float32: the plain softmax's order of sums differs (the JAX kernel
-# test's 2e-5); bfloat16: both sides round float32 results that differ by
-# that much to bf16, at most one ulp apart, 2**-7 of the value
-ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
-            torch.bfloat16: dict(rtol=2.0 ** -7, atol=2e-5)}
+def assert_attention_close(got, q, k, v, **kw):
+    """Kernel 9 within ``fa_ref.tolerance`` of its plain version: float32
+    (rtol, atol) (2e-5, 2e-5); bfloat16 2**-7 |want| + 2**-7 A + 2e-5,
+    A the plain version over |v| (P rounded to bf16 before P V)."""
+    want = fa_ref.attention_gqa(q, k, v, **kw).float()
+    d = (got.float() - want).abs()
+    bound = fa_ref.tolerance(q, k, v, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((d <= bound).all()), \
+        f"off by {float(d.max())} at {int((d > bound).sum())} elements"
 
 
+# bf16 cases at the head dims 16-128 on both sides of the boundary
+# between the key-split path (rep * Sq <= 16) and the tensor cores
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,dh,causal,window,q_off", [
     (128, 128, 64, True, None, 0), (64, 64, 32, False, None, 0),
     (128, 256, 64, True, 64, 0), (1, 256, 64, True, None, 255),
     (64, 192, 128, True, None, 128), (96, 100, 64, True, None, 4),
-    (5, 77, 16, False, 9, 70)])
+    (5, 77, 16, False, 9, 70), (16, 300, 16, True, None, 284),
+    (17, 300, 16, True, None, 283), (16, 130, 32, True, 40, 114),
+    (17, 130, 32, True, 40, 113), (16, 500, 64, True, None, 484),
+    (17, 500, 64, False, None, 0), (16, 700, 128, True, 100, 684),
+    (17, 700, 128, True, None, 683), (70, 90, 64, False, 20, 5)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, sq, sk, dh, causal,
                                               window, q_off):
     g = torch.Generator(device=dev).manual_seed(sq + sk + dh)
-    q, k, v = (torch.randn(3, s, dh, generator=g, device=dev).to(dtype)
+    q, k, v = (torch.randn(3, s, 1, dh, generator=g, device=dev).to(dtype)
                for s in (sq, sk, sk))
-    got = fa_ops.flash_attention_gqa(
-        q[:, :, None], k[:, :, None], v[:, :, None], causal=causal,
-        window=window, q_offset=q_off)[:, :, 0]
-    want = fa_ref.attention(q, k, v, causal=causal, window=window,
-                            q_offset=q_off)
-    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    got = fa_ops.flash_attention_gqa(q, k, v, **kw)
+    assert_attention_close(got, q, k, v, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_gqa_on_a_cache_slice(dev, dtype):
     """The serving call: strided views of the first kv_len keys of a
-    longer (B, max_len, Hkv, dh) cache, 9 query heads over 3 kv heads."""
+    longer (B, max_len, Hkv, dh) cache, 9 query heads over 3 kv heads:
+    decode (Sq 1, the key splits in bf16), Sq 33 and 70 (the tensor
+    cores in bf16)."""
     g = torch.Generator(device=dev).manual_seed(5)
-    q = torch.randn(2, 33, 9, 64, generator=g, device=dev).to(dtype)
+    q = torch.randn(2, 70, 9, 64, generator=g, device=dev).to(dtype)
     ck, cv = (torch.randn(2, 200, 3, 64, generator=g, device=dev).to(dtype)
               for _ in range(2))
-    for q_off, sq in ((0, 33), (100, 1), (150, 33)):
+    for q_off, sq in ((0, 33), (100, 1), (150, 33), (0, 70), (130, 70),
+                      (199, 1)):
         kv_len = q_off + sq
         args = (q[:, :sq], ck[:, :kv_len], cv[:, :kv_len])
         got = fa_ops.flash_attention_gqa(*args, q_offset=q_off)
-        want = fa_ref.attention_gqa(*args, q_offset=q_off)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **ATTN_TOL[dtype])
+        assert_attention_close(got, *args, q_offset=q_off)
+
+
+def test_flash_attention_one_kv_head_decode_on_the_tensor_cores(dev):
+    """32 query heads over one kv head: a decode row is 32 rows of one kv
+    head, more than a key split takes, so it runs on the tensor cores
+    with one live row in each 64-row tile."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(2, 1, 32, 64, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(2, 300, 1, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    assert fa_ops.plan(2, 1, 32, 1, 300, torch.bfloat16, True, None,
+                       299)[0] == "wgmma"
+    got = fa_ops.flash_attention_gqa(q, k, v, q_offset=299)
+    assert_attention_close(got, q, k, v, q_offset=299)
+
+
+@pytest.mark.parametrize("window", [1, 3, 20])
+def test_flash_attention_window_narrower_than_a_split(dev, window,
+                                                      monkeypatch):
+    """Decode of 5 rows a query head (15 a kv head) under a window, the
+    live keys cut into splits of one key or more: a split outside a
+    row's window carries m = -inf for that row and must merge with
+    weight 0 (the planner's 32-key floor is lifted here, so that such
+    splits occur at all)."""
+    monkeypatch.setattr(fa_ops, "MIN_SPLIT_KEYS", 1)
+    g = torch.Generator(device=dev).manual_seed(window)
+    q = torch.randn(4, 5, 9, 64, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(4, 1500, 3, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(window=window, q_offset=1495)
+    path, n = fa_ops.plan(4, 3, 3, 5, 1500, torch.bfloat16, True, **kw)
+    lo, hi, span = fa_ops.split_ranges(5, 1500, True, window, 1495, n)
+    # the first split lies before the last row's window
+    assert path == "split" and n > 1 and lo + span <= 1499 - window
+    got = fa_ops.flash_attention_gqa(q, k, v, **kw)
+    assert_attention_close(got, q, k, v, **kw)
 
 
 def test_nn_launch_counts_grow(dev):
+    """One launch a call on every path of kernel 9 (the key-split path's
+    C entry launches the splits and the merge)."""
     before = (eb_ops.KERNEL.launches, fa_ops.KERNEL.launches)
     eb_ops.embedding_bag(torch.ones(4, 8, device=dev),
                          torch.zeros(3, 1, dtype=torch.int32, device=dev))
@@ -246,3 +293,10 @@ def test_nn_launch_counts_grow(dev):
     fa_ops.flash_attention_gqa(x, x, x)
     assert (eb_ops.KERNEL.launches, fa_ops.KERNEL.launches) == \
         (before[0] + 1, before[1] + 1)
+    q = torch.ones(2, 1, 9, 64, device=dev).bfloat16()
+    kv = torch.ones(2, 600, 3, 64, device=dev).bfloat16()
+    for sq in (1, 600):
+        n = fa_ops.KERNEL.launches
+        fa_ops.flash_attention_gqa(q.expand(2, sq, 9, 64).contiguous(), kv,
+                                   kv, q_offset=600 - sq)
+        assert fa_ops.KERNEL.launches == n + 1
