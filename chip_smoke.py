@@ -21,23 +21,34 @@ Phases, in the order they run:
                  bucket capacity) at scale 16: kernel and dense sessions
                  agree in parents, levels, stats, counters
   6 kernel times level by level on one 2D search: kernel, plain,
-                 library yardstick and bound, each in ms
+                 library yardstick and bound, each in ms (kernel 2 on
+                 the card alone, per launch beside its bound); kernel 2
+                 on the synthetic cases of kernels/edge_cases.py at the
+                 path's width, tolerance 0
   7 profile      device busy and idle share of one 2D search
   8 1ds path     the same Graph500 graph on a 16-strip simulated mesh:
                  counter R-MAT -> build_blocked_1d -> plan_bfs("1ds",
                  "kernel", "dcsc", packed codec) -> compile -> 16 roots,
                  with expand_chunks 1 and then 4, launch counts read
-                 around exactly this; every tree validated on the card,
+                 around exactly this, one bottom-up launch a bottom-up
+                 level; every tree validated on the card,
                  the two runs' parents identical, and on 2 roots parents
                  and levels equal to the 2D path's; then 2 roots with
                  buckets of 64 ids, whose wider top-down levels take the
-                 dense fallback, with the same parents
+                 dense fallback, with the same parents; then 2 roots
+                 top-down only (the paper's 1D baseline), with the same
+                 parents; the walk each kernel-4 call of these searches
+                 takes, both walks required, and the calls near the
+                 walk threshold timed with each walk forced
   9 kernels      level by level on one 1ds search per expand_chunks:
                  each kernel call (the frontiers, sub-chunks and buckets
                  of real levels, and the large frontier of a bottom-up
                  level) against its plain version, tolerance 0, and its
                  time beside the plain version's, the library yardstick
-                 and the bound
+                 and the bound (kernels 2 and 4 on the card alone); the
+                 walk each kernel-4 call took, as the kernel reports it;
+                 then kernels 2 and 4 on the synthetic cases at the
+                 path's widths, kernel 4 with each walk forced
  10 profile      device busy and idle share of one 1ds search
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
@@ -68,12 +79,21 @@ Phases, in the order they run:
                  the plain version, and timed beside the plain version
                  (in pieces), SDPA and the bound
 Then the card's name and power limit, the ``kernels`` JSON line and the
-result line.  Any failed check exits non-zero; nothing is caught.  It
-exits non-zero without a CUDA card, and where the repository's ``src``
-is missing.  The full record goes to ``chiprun_out/chip_smoke.json``.
+result line.
+
+    python3 chip_smoke.py --kernel-times [--tree DIR]
+
+times kernels 2 and 4 alone at the scale-24 paths' calls, and each
+search whole, for this checkout or another one (``DIR``, for example a
+``git archive`` of a parent commit, so that two trees compare on one
+card in one call); see ``kernel_times``.  Any failed check
+exits non-zero; nothing is caught.  It exits non-zero without a CUDA
+card, and where the repository's ``src`` is missing.  The full record
+goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -203,12 +223,6 @@ def bottomup_bytes(rp, uew, fw, cv):
     nbytes = 4 * (cv.numel() + 1) + 4 * cv.numel() + 4 * fw.numel() \
         + 4 * read + 4 * cv.numel()
     return nbytes, n_live, read
-
-
-def popcount(words: torch.Tensor) -> int:
-    """Set bits of int32 words."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    return int(((words.unsqueeze(-1) >> shifts) & 1).sum())
 
 
 def strip_bytes(nzc, cap_nzc: int, live, edges: int, n_words: int,
@@ -1061,6 +1075,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.core.ref import TreeValidator
     from repro_torch.graph import rmat
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
+    from repro_torch.kernels import edge_cases
     from repro_torch.kernels.bottomup import ops as bu_ops
     from repro_torch.kernels.frontier_codec import ops as codec_ops
     from repro_torch.kernels.spmsv import ops as sp_ops
@@ -1331,11 +1346,14 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             del col, v, vals
         else:
             rp, uew, fw, cv, coff, ne = a
-            k_ms = cuda_ms(lambda: bu_ops.launch(rp, uew, fw, cv, coff, ne))
+            k_ms = device_ms(lambda: bu_ops.launch(rp, uew, fw, cv, coff,
+                                                   ne))
             p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_plain(
                 rp, uew, fw, cv, coff, ne), reps=3)
             nbytes, n_live, read = bottomup_bytes(rp, uew, fw, cv)
-            desc = f"{n_live} live rows, {read} edges read to the first hit"
+            over = k_ms / (nbytes / HBM_BYTES_PER_S * 1e3)
+            desc = (f"{n_live} live rows, {read} edges read to the first "
+                    f"hit, on the card alone {over:.2f}x its bound")
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row["ms"] += k_ms
         row["plain_ms"] += p_ms
@@ -1366,6 +1384,23 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
               + (f", library {r['library_ms']:.4f} ms"
                  if k == "spmsv_csr_min" else ""))
     record["kernel_times"] = per
+    # the synthetic cases at the 2D path's width (one segment of 2^24
+    # rows): rows of 0-1,100 edges with first hits past edge 32, an edge
+    # count cutting a row, all rows completed, the frontier in the last
+    # word
+    for name, (rp, ci, fw, cv, ne) in edge_cases.bottomup_cases(
+            1, part.chunk, device=dev, gap=256).items():
+        args = (rp[0], ci[0], fw, cv[0], part.nc, int(ne[0]))
+        got = bu_ops.launch(*args)
+        want = bu_ops.bottomup_substep_plain(*args)
+        e = max_err(got, want)
+        errs["bottomup_substep"] = max(errs["bottomup_substep"], e)
+        print(f"bottomup_substep  case {name:>9} ({part.chunk} rows, "
+              f"{int(ne[0])} edges): {int((want != INT_INF).sum())} "
+              f"parents found, max |kernel - plain| = {e}")
+        del got, want, args, rp, ci, fw, cv, ne
+    check(errs["bottomup_substep"] == 0, "bottomup_substep disagrees with "
+          "its plain version on the 2D-width cases")
 
     # ---------------------------------------------------------------- 7
     phase("7 profile of one 2D search")
@@ -1394,13 +1429,33 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     part = graph.part
     mesh = make_local_mesh_1d(STRIPS, device=dev)
     dense_words = np.float32((STRIPS - 1) * (part.n / 64.0))
-    runs = {}
+    runs, walks_8, near_8 = {}, [], []
+
+    def tally_walks(eng, roots_, c):
+        """The walk of every kernel-4 call of the searches from
+        ``roots_``, run again untimed; the calls within 4x of the
+        threshold are timed with each walk forced."""
+        cap = strip.list_capacity(graph.cap_nzc, c)
+        with recording([(strip, "spmsv_strip_dcsc_chunk",
+                         "spmsv_strip_chunk_min")]) as k4_calls:
+            for r in roots_:
+                eng.search(r)
+        for _, a, kw in k4_calls:
+            ids = strip.popcount(a[4])
+            walks_8.append(strip.chunk_walk(a[4], cap))
+            if ids > cap // 4:
+                near_8.append((ids, cap, walks_8[-1], *(
+                    device_ms(lambda: strip.launch_chunk(
+                        *a, kw["n"], kw["k"], c, list_cap=lc))
+                    for lc in (part.n // c, 0))))
+
     for c in STRIP_CHUNKS:
         cfg = BFSConfig(decomposition="1ds", storage="dcsc",
                         frontier_codec="packed", expand_chunks=c)
         eng = plan_bfs(graph, cfg, mesh, local_mode="kernel").compile()
         run = {"engine": eng, "search_ms": [], "levels": [], "modes": [],
                "overflowed": [], "wire_expand": [], "parents": []}
+        bu_before = kernels["bottomup_substep"].launches
         for r in roots:
             torch.cuda.synchronize()
             ts = time.perf_counter()
@@ -1415,8 +1470,12 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                                       and st[i, 4] == dense_words])
             run["wire_expand"].append(float(out[2]["wire_expand"]))
             run["parents"].append(out[0].reshape(-1)[: part.n_orig])
+        run["bu_launches"] = kernels["bottomup_substep"].launches - bu_before
+        run["bu_levels"] = sum(m.count(1) for m in run["modes"])
         runs[c] = run
     launches_1ds = {k: kernels[k].launches for k in path_1ds}
+    for c in STRIP_CHUNKS[1:]:
+        tally_walks(runs[c]["engine"], roots, c)
     peak_1ds = torch.cuda.max_memory_allocated() / 2**30
     nnz = graph.nnz.tolist()
     cap_x = runs[STRIP_CHUNKS[0]]["engine"].plan.statics.cap_x
@@ -1453,12 +1512,20 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             "ship_s": eng.ship_s, "compile_s": eng.compile_s,
             "search_ms": ms, "teps_hmean": hm, "levels": run["levels"],
             "modes": run["modes"], "overflowed": run["overflowed"],
-            "wire_expand": run["wire_expand"]}
+            "wire_expand": run["wire_expand"],
+            "bu_launches": run["bu_launches"]}
     print(f"peak device memory of the 1ds path (generation, build and "
           f"both sessions): {peak_1ds:.3f} GiB")
     print(f"launches in the 1ds path: {launches_1ds}")
     for k, n in launches_1ds.items():
         check(n > 0, f"kernel {k} was never launched on the 1ds path")
+    for c, run in runs.items():
+        print(f"expand_chunks={c}: {run['bu_launches']} bottomup_substep "
+              f"launches over the {N_ROOTS} searches' {run['bu_levels']} "
+              f"bottom-up levels")
+        check(run["bu_launches"] == run["bu_levels"],
+              f"expand_chunks={c}: not one bottom-up launch per bottom-up "
+              f"level")
     check(peak_1ds < 75.0, f"1ds-path peak {peak_1ds:.2f} GiB >= 75 GiB")
     t3 = time.perf_counter()
     validator = TreeValidator(edges.n, edges.src, edges.dst)
@@ -1509,6 +1576,47 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                   f"planned-cap run's")
         del eng
     rec_1ds["overflow_small_cap"] = {"cap_x": OVER_CAP, "levels": over_rec}
+    # the paper's 1D baseline traverses top-down only: its wide levels
+    # are the kernel-4 calls that walk the columns.  Each strip min-picks
+    # the smallest frontier in-neighbour in either direction, so the
+    # parents equal the direction-optimizing run's
+    c = STRIP_CHUNKS[-1]
+    n_diro = len(walks_8)
+    eng = plan_bfs(graph, BFSConfig(
+        decomposition="1ds", storage="dcsc", frontier_codec="packed",
+        expand_chunks=c, direction_optimizing=False), mesh,
+        local_mode="kernel").compile()
+    td_rec = {}
+    for i, r in enumerate(roots[:2]):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = eng.search(r)
+        torch.cuda.synchronize()
+        td_rec[r] = (time.perf_counter() - ts) * 1e3
+        check(torch.equal(out[0].reshape(-1)[: part.n_orig],
+                          runs[c]["parents"][i]),
+              f"top-down-only parents differ at root {r}")
+        print(f"top-down only, expand_chunks={c}, root {r}: {out[1]} "
+              f"levels, search {td_rec[r]:.3f} ms: parents equal the "
+              f"direction-optimizing run's")
+    tally_walks(eng, roots[:2], c)
+    del eng
+    rec_1ds["topdown_only_ms"] = td_rec
+    print(f"spmsv_strip_chunk_min: {n_diro} launches on the {N_ROOTS} "
+          f"direction-optimizing searches ({walks_8[:n_diro].count(1)} "
+          f"frontier walks, {walks_8[:n_diro].count(2)} column walks), "
+          f"{len(walks_8) - n_diro} on the 2 top-down-only ones "
+          f"({walks_8[n_diro:].count(1)} frontier, "
+          f"{walks_8[n_diro:].count(2)} column): each call's frontier "
+          f"count against strip.list_capacity (phase 9 reads the kernel's "
+          f"own report)")
+    for ids, cap, w, f_ms, c_ms in near_8:
+        print(f"  a call of {ids} ids (threshold {cap}) takes the "
+              f"{'frontier' if w == strip.WALK_FRONTIER else 'column'} "
+              f"walk; forced, on the card alone: frontier walk "
+              f"{f_ms:.4f} ms, column walk {c_ms:.4f} ms")
+    check(set(walks_8) == {strip.WALK_FRONTIER, strip.WALK_COLUMNS},
+          "a walk of spmsv_strip_chunk_min was not taken on the 1ds path")
     for run in runs.values():
         del run["parents"]
     torch.cuda.empty_cache()
@@ -1524,17 +1632,22 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                (strip, "spmsv_strip_dcsc_chunk", "spmsv_strip_chunk_min"),
                (codec_ops, "encode_offsets", "codec_encode"),
                (codec_ops, "decode_buckets", "codec_decode"),
-               (bu_ops, "bottomup_substep", "bottomup_substep")]
+               (bu_ops, "bottomup_substep_strips", "bottomup_substep")]
     per_1ds = {c: {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                        "library_ms": 0.0, "calls": 0}
                    for _, _, k in targets} for c in STRIP_CHUNKS}
     nr = part.chunk
 
+    walks = {strip.WALK_FRONTIER: 0, strip.WALK_COLUMNS: 0}
+    walk_name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS:
+                 "columns"}
+
     def strip_call(kname, a, kw, label, row):
         """Compare one strip SpMSV call with its plain version and time
-        kernel, plain and the library scatter."""
+        kernel, plain and the library scatter; the chunk kernel on the
+        card alone, with the walk it took."""
         jc, cp, nzc, ridx, words = a[:5]
-        n_front = popcount(words)
+        n_front = strip.popcount(words)
         if kname == "spmsv_strip_min":
             live = strip.live_slots(jc, nzc, words)
 
@@ -1557,20 +1670,31 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                     *a, kw["n"], kw["k"], kw["n_chunks"])
         got, want = run_k(), run_p()
         e = max(max_err(got[0], want[0]), abs(int(got[1]) - int(want[1])))
+        walk = ""
+        if kname == "spmsv_strip_chunk_min":
+            w = int(got[2])
+            check(w == strip.chunk_walk(
+                words, strip.list_capacity(jc.shape[1], kw["n_chunks"])),
+                f"{label}: walk {w} is not the threshold's")
+            if row is not None:
+                walks[w] += 1
+            walk = f", {walk_name[w]} walk"
         rows_, cols_, total = strip.gather_segments_plain(jc, cp, ridx,
                                                           live, nr)
 
         def run_lib():
             torch.full((jc.shape[0] * nr,), INT_INF, dtype=torch.int32,
                        device=dev).scatter_reduce_(0, rows_, cols_, "amin")
-        k_ms, p_ms = cuda_ms(run_k), cuda_ms(run_p, reps=1)
+        k_ms = (device_ms(run_k) if kname == "spmsv_strip_chunk_min"
+                else cuda_ms(run_k))
+        p_ms = cuda_ms(run_p, reps=1)
         lib_ms = cuda_ms(run_lib, reps=5)
         nbytes = strip_bytes(nzc, jc.shape[1], live, total, words.numel(),
                              n_front, nr)
         if row is not None:
             row["library_ms"] += lib_ms
         print(f"  {label}: {n_front} frontier vertices, {int(live.sum())} "
-              f"live columns, {total} edges: "
+              f"live columns, {total} edges{walk}: "
               f"max |kernel - plain| = {e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes)")
@@ -1618,22 +1742,29 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                       f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} "
                       f"bytes)")
             else:
-                rp, uew, fw, cv, coff, ne = a
+                rp, ci, fw, cv, ne = a
                 if big_fw is None:
                     big_fw = fw
-                got = bu_ops.launch(*a)
-                want = bu_ops.bottomup_substep_plain(*a)
+                got = bu_ops.launch_strips(*a)
+                want = bu_ops.bottomup_substep_strips_plain(*a)
                 e = max_err(got, want)
                 del got, want
-                k_ms = cuda_ms(lambda: bu_ops.launch(*a))
-                p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_plain(*a),
-                               reps=1)
-                nbytes, n_live, read = bottomup_bytes(rp, uew, fw, cv)
-                print(f"  {label} (strip window of {ne} edges): {n_live} "
-                      f"live rows, {read} edges read to the first hit: max "
-                      f"|kernel - plain| = {e}; kernel {k_ms:.4f} ms, plain "
-                      f"{p_ms:.4f} ms, bound "
-                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+                k_ms = device_ms(lambda: bu_ops.launch_strips(*a))
+                p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_strips_plain(
+                    *a), reps=1)
+                # bottomup_bytes strip by strip, the frontier read once,
+                # plus the p edge counts
+                nbytes, n_live, read = 4 * ne.numel(), 0, 0
+                for j in range(rp.shape[0]):
+                    b, lv, rd = bottomup_bytes(rp[j], ci[j], fw, cv[j])
+                    nbytes += b - (4 * fw.numel() if j else 0)
+                    n_live, read = n_live + lv, read + rd
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                print(f"  {label} (all {rp.shape[0]} strips, one launch): "
+                      f"{n_live} live rows, {read} edges read to the first "
+                      f"hit: max |kernel - plain| = {e}; kernel {k_ms:.4f} "
+                      f"ms on the card alone ({k_ms / b_ms:.2f}x its bound), "
+                      f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms")
             errs[kname] = max(errs[kname], e)
             row["ms"] += k_ms
             row["plain_ms"] += p_ms
@@ -1661,6 +1792,50 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             {"n": part.n, "k": k, "n_chunks": c},
             f"spmsv_strip_chunk_min, large frontier, step {k} of {c}", None)
         errs["spmsv_strip_chunk_min"] = max(errs["spmsv_strip_chunk_min"], e)
+    print(f"walks of the recorded spmsv_strip_chunk_min calls, as the "
+          f"kernel reported them: {walks[strip.WALK_FRONTIER]} frontier, "
+          f"{walks[strip.WALK_COLUMNS]} columns")
+    record["kernel4_walks"] = {walk_name[w]: n for w, n in walks.items()}
+    record["kernel4_walks_16_roots"] = {
+        walk_name[w]: walks_8.count(w) for w in walk_name}
+    record["kernel4_near_threshold"] = near_8
+    # the synthetic cases at the path's widths (16 strips of 2^20 rows):
+    # kernel 2's stacked launch on rows of 0-1,100 edges, a cut row,
+    # completed rows and a last-word frontier; kernel 4 on an empty
+    # strip, a 10^4-edge column, sub-range ends, the last word and the
+    # empty frontier, each step with its own threshold and both walks
+    # forced (a threshold of 0 ids and of every id)
+    for name, a in edge_cases.bottomup_cases(part.p, part.chunk, device=dev,
+                                             gap=256).items():
+        got = bu_ops.launch_strips(*a)
+        want = bu_ops.bottomup_substep_strips_plain(*a)
+        e = max_err(got, want)
+        errs["bottomup_substep"] = max(errs["bottomup_substep"], e)
+        print(f"bottomup_substep case {name:>9}, {part.p} strips: "
+              f"{int((want != INT_INF).sum())} parents found, max |kernel "
+              f"- plain| = {e}")
+        del got, want, a
+    sg, hub, empty = edge_cases.strip_graph(part.p, part.chunk, device=dev,
+                                            edge_factor=1)
+    c = STRIP_CHUNKS[-1]
+    for name, fw in edge_cases.strip_frontiers(part.p, part.chunk, hub,
+                                               device=dev).items():
+        e_case, seen = 0, set()
+        for k in range(c):
+            sub = fw.reshape(part.p, c, -1)[:, k].reshape(-1).contiguous()
+            args = (sg.jc, sg.cp, sg.nzc, sg.row_idx, sub, nr)
+            want = strip.spmsv_strip_dcsc_chunk_plain(*args, part.n, k, c)
+            for cap in (None, 0, part.n // c):
+                got = strip.launch_chunk(*args, part.n, k, c, list_cap=cap)
+                e_case = max(e_case, max_err(got[0], want[0]),
+                             abs(int(got[1]) - int(want[1])))
+                seen.add(walk_name[int(got[2])])
+        errs["spmsv_strip_chunk_min"] = max(errs["spmsv_strip_chunk_min"],
+                                            e_case)
+        print(f"spmsv_strip_chunk_min case {name:>14}, {c} steps (strip "
+              f"{empty} empty, a {edge_cases.HUB_EDGES}-edge column): walks "
+              f"{sorted(seen)}, max |kernel - plain| = {e_case}")
+    del sg
     for c in STRIP_CHUNKS:
         spmsv = "spmsv_strip_min" if c == 1 else "spmsv_strip_chunk_min"
         for k in (spmsv, "codec_encode", "codec_decode"):
@@ -1695,11 +1870,96 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     return launches, launches_1ds, errs, per, ro > rb
 
 
+def kernel_times(tree: Path) -> int:
+    """Kernels 2 and 4 of the checkout at ``tree`` on the card alone, at
+    their real calls on the scale-24 paths, from the first root: one 2D
+    search (grid 1x1), one 1ds search on 16 strips per expand_chunks (1
+    and 4) and one 1ds C=4 search top-down only (the paper's 1D
+    baseline, where kernel 4 takes its column walk).  Each recorded call
+    is launched again through its public wrapper and timed with
+    ``device_ms``; the sums are per search.  Each search is also timed
+    whole on the host clock (median of 5).  Prints the card's name and
+    power limit, then one JSON line."""
+    # ahead of this checkout's src, so that ``tree``'s port is imported
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    from repro_torch.configs.base import BFSConfig
+    from repro_torch.core.engine import plan_bfs
+    from repro_torch.graph import rmat
+    from repro_torch.graph.formats import build_blocked, build_blocked_1d
+    from repro_torch.kernels.bottomup import ops as bu
+    from repro_torch.kernels.spmsv import strip
+    from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+    dev = torch.device("cuda")
+    out = {"tree": str(tree), "device": torch.cuda.get_device_name(0),
+           "smi": smi_line()}
+    # kernel 2's public entries; a tree from before the stacked entry
+    # launches the single-segment one once per strip
+    k2_targets = [(bu, nm, nm) for nm in ("bottomup_substep",
+                                          "bottomup_substep_strips")
+                  if hasattr(bu, nm)]
+    k4_targets = [(strip, "spmsv_strip_dcsc_chunk", "k4")]
+
+    def timed_search(eng, root):
+        with recording(k2_targets + k4_targets) as calls:
+            eng.search(root)
+        torch.cuda.synchronize()
+        k2 = [device_ms(lambda: getattr(bu, nm)(*a, **kw))
+              for nm, a, kw in calls if nm != "k4"]
+        k4 = [device_ms(lambda: strip.spmsv_strip_dcsc_chunk(*a, **kw))
+              for nm, a, kw in calls if nm == "k4"]
+        del calls
+        wall = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            eng.search(root)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - ts) * 1e3)
+        return {"search_ms": float(np.median(wall)),
+                "k2": {"launches": len(k2), "ms": sum(k2),
+                       "per_launch_ms": k2},
+                "k4": {"launches": len(k4), "ms": sum(k4)}}
+
+    edges = rmat.rmat_graph(SCALE, EDGE_FACTOR, seed=SEED,
+                            generator="counter", device=dev)
+    root = rmat.random_source(edges, np.random.default_rng(0))
+    graph = build_blocked(edges, 1, 1)
+    eng = plan_bfs(graph, BFSConfig(), make_local_mesh(1, 1, device=dev),
+                   local_mode="kernel").compile()
+    out["2d"] = timed_search(eng, root)
+    del eng, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False)
+    mesh = make_local_mesh_1d(STRIPS, device=dev)
+    for label, c, diro in (("1ds_c1", 1, True), ("1ds_c4", 4, True),
+                           ("1ds_c4_topdown", 4, False)):
+        cfg = BFSConfig(decomposition="1ds", storage="dcsc",
+                        frontier_codec="packed", expand_chunks=c,
+                        direction_optimizing=diro)
+        eng = plan_bfs(graph, cfg, mesh, local_mode="kernel").compile()
+        out[label] = timed_search(eng, root)
+        del eng
+        torch.cuda.empty_cache()
+    print(out["smi"])
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time kernels 2 and 4 (see kernel_times)")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="with --kernel-times: the checkout to time")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this script runs "
               "the port on a CUDA card", flush=True)
         return 2
+    if args.kernel_times:
+        return kernel_times(args.tree)
 
     from repro_torch.graph import rmat
     from repro_torch.kernels import build

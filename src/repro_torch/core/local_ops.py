@@ -37,8 +37,13 @@ bottom-up closure is per block or per strip in both decompositions:
       -> (chunk,) int32 newly discovered parents (INT_INF = none)
 
 ``f_words`` is the packed frontier over the block's column range, and
-``f_mask`` its unpacked bool form.  ``args`` is the LevelArgs.  The
-"1ds" codec closures take all p buckets at once:
+``f_mask`` its unpacked bool form.  ``args`` is the LevelArgs.  A 1D
+kernel entry also scans all p strips of a bottom-up level in one launch
+(a dense entry leaves it None and runs ``bottomup`` strip by strip):
+
+  bottomup_strips(g, f_words, cvec (p, chunk), args) -> (p, chunk) int32
+
+The "1ds" codec closures take all p buckets at once:
 
   encode(off (p, cap), count (p,), chunk)      -> (p, 1 + W) int32 words
   decode(recv (p * (1 + W),), chunk, cap, n, p) -> (p * cap,) int32 ids
@@ -70,6 +75,7 @@ class LocalOps:
     topdown: Callable             # SpMSV closure (see module docstring)
     bottomup: Callable            # bottom-up sub-step closure
     topdown_chunk: Callable = None  # 1D: SpMSV of one pipelined sub-chunk
+    bottomup_strips: Callable = None  # 1D: the sub-step of all p strips
     encode: Callable = None       # 1ds: packed codec, p buckets at once
     decode: Callable = None       # 1ds: the gathered buckets -> global ids
     kernels: Tuple = ()           # CudaKernels a session loads at compile
@@ -179,6 +185,13 @@ def _bu_kernel(rp_seg, ue_win, f_words, cvec, col_offset, n_edges, ve_win):
                                    n_edges)
 
 
+def _bu_kernel_strips(g, f_words, cvec, args):
+    """The CUDA scan over all p strips in one launch, with the strips'
+    edge counts from the shipped (p,) ``nnz``."""
+    return bu_ops.bottomup_substep_strips(g["row_ptr"], g["col_idx"],
+                                          f_words, cvec, g["nnz"])
+
+
 _DENSE_KEYS_2D = ("edge_src", "row_idx", "nnz", "deg_A", "col_idx",
                   "row_ptr", "seg_ptr", "edge_dst")
 _KERNEL_CSR_KEYS_2D = ("col_ptr", "row_idx", "nnz", "deg_A", "col_idx",
@@ -208,7 +221,7 @@ for _storage in ("csr", "dcsc"):
 register_local_ops(LocalOps(
     decomposition="1d", local_mode="kernel", storage="dcsc",
     keys=_KERNEL_DCSC_KEYS_1D, topdown=_td_strip_dcsc, bottomup=_bu_kernel,
-    topdown_chunk=_td_strip_dcsc_chunk,
+    topdown_chunk=_td_strip_dcsc_chunk, bottomup_strips=_bu_kernel_strips,
     kernels=(strip.KERNEL, strip.KERNEL_CHUNK, bu_ops.KERNEL)))
 
 # "1ds" traverses the same strips with the same local discovery; only

@@ -10,7 +10,8 @@ chunk/32)`` words to ``(n/32,)``, which every strip receives whole.
            allgather is a 1D level's whole wire volume.
   local  : top-down, the strip SpMSV of the LocalOps entry over all
            strips at once; bottom-up, the scan of each strip's unvisited
-           rows, strip by strip.  Children are always locally owned (a
+           rows, all strips in one launch on a kernel entry, strip by
+           strip on a dense one.  Children are always locally owned (a
            strip holds every edge into its vertices), so the update is
            local and fold-free.
 
@@ -36,7 +37,7 @@ class LevelArgs1D(NamedTuple):
     """Static per-plan context threaded into the 1D (and 1ds) steps."""
     part: "object"            # Partition1D
     ops: "object"             # LocalOps entry
-    nnz: np.ndarray           # (p,) host copy of graph.nnz
+    nnz: np.ndarray           # (p,) host copy of graph.nnz (dense entries)
     expand_chunks: int = 1    # pipelined expand: top-down sub-chunk steps
     cap_x: int = 0            # 1ds: ids per send bucket
     codec: str = "none"       # 1ds: bucket encoding, "none" | "packed"
@@ -152,7 +153,9 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     """One 1D bottom-up level: the same bitmap allgather, then each
     strip scans its unvisited rows for an in-neighbour in the frontier
     -- one sub-step over the whole strip, no rotation (the strip holds
-    every potential parent edge).  One bottom-up launch per strip."""
+    every potential parent edge).  An entry with a ``bottomup_strips``
+    closure scans all p strips in one launch; any other runs its
+    ``bottomup`` closure strip by strip."""
     part = args.part
     ctr = zero_counters()
     f_words, wire = expand_frontier_1d(front)
@@ -160,10 +163,13 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     ctr["use_expand"] = _F32(comm_model.expand_1d_level_words(part.n, part.p))
 
     cvec = (pi != -1).to(torch.int32)
-    seg_par = torch.stack([
-        args.ops.bottomup(g["row_ptr"][i], g["col_idx"][i], f_words, cvec[i],
-                          0, int(args.nnz[i]), None)
-        for i in range(part.p)])
+    if args.ops.bottomup_strips is not None:
+        seg_par = args.ops.bottomup_strips(g, f_words, cvec, args)
+    else:
+        seg_par = torch.stack([
+            args.ops.bottomup(g["row_ptr"][i], g["col_idx"][i], f_words,
+                              cvec[i], 0, int(args.nnz[i]), None)
+            for i in range(part.p)])
     pi, newly = update(pi, seg_par)
 
     row_lens = g["row_ptr"][:, 1:] - g["row_ptr"][:, :-1]

@@ -1,0 +1,197 @@
+"""Synthetic inputs that break the walks of the bottom-up sub-step
+(``kernels/bottomup``) and of the pipelined strip SpMSV
+(``kernels/spmsv/strip.py``), at any width: the CPU tests run them
+through the plain versions, the card tests and ``chip_smoke.py`` through
+the kernels as well.  Every case comes from a numpy seed.
+
+Bottom-up (``bottomup_cases``): stacked strips ``row_ptr (p, chunk+1)``,
+``col_idx (p, cap)``, one frontier bitmap ``f_words (p*chunk/32,)``,
+``cvec (p, chunk)`` and ``n_edges (p,)``.  Every ``gap``-th row has
+edges, with lengths cycling through ``ROW_LENGTHS`` (0, 1, 31, 32, 33
+and past 1,024) and the first frontier hit at none, the first edge, edge
+33, the last edge or edge 1,050, cycling independently; the rest are
+empty.  Sources ascend within a row; the frontier is every vertex
+whose id is 31 mod 32 (bit 31 of every word).  The cases:
+
+  lengths    that layout, 10% of the rows completed
+  cut        the same, each strip's edge count ending halfway through
+             its last row of more than 1,024 edges
+  completed  every row completed
+  last word  the frontier only in the last word; rows with a hit end on
+             a source there
+
+Strip SpMSV (``strip_graph`` and ``strip_frontiers``): a p-strip graph
+with random edges, three edges out of both ends of every sub-range of
+``SUB_STEPS`` steps of every owner, a hub column of ``HUB_EDGES`` edges
+into one strip, and one strip that no edge enters (nzc 0); frontiers
+empty, those sub-range ends, the hub alone, the last word, 1%, 30% and
+all.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.frontier import pack_bits
+from repro_torch.graph.formats import build_blocked_1d
+from repro_torch.graph.rmat import EdgeList
+
+ROW_LENGTHS = (0, 1, 31, 32, 33, 1100, 2, 40, 64, 8, 9, 16, 17, 1030)
+HITS = (-1, 0, 33, "last", 1050)      # first hit: none, edge i, last edge
+GAP = 16                              # every GAP-th row has edges
+M = 32                                # frontier: ids that are M-1 mod M
+SUB_STEPS = 4                         # sub-range ends of 4, 2 and 1 steps
+HUB_EDGES = 10_000
+
+
+def _hit(length: int, mode) -> int:
+    if length == 0 or mode == -1:
+        return -1
+    if mode == "last":
+        return length - 1
+    return mode if mode < length else -1
+
+
+def bottomup_cases(p: int, chunk: int, device="cpu", seed: int = 0,
+                   gap: int = GAP) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """name -> (row_ptr, col_idx, f_words, cvec, n_edges), int32 on
+    ``device``; every ``gap``-th row has edges.  The longest rows need
+    p*chunk > (1,100 + 2) * M + 64 sources, so that they fit below the
+    last word."""
+    n = p * chunk
+    longest = max(ROW_LENGTHS)
+    if n <= (longest + 2) * M + 64 or chunk % 32:
+        raise ValueError(f"p*chunk={n} too small for rows of {longest} "
+                         f"edges, or chunk={chunk} not a multiple of 32")
+    rng = np.random.default_rng(seed)
+    rows = p * chunk
+    lens = np.zeros(rows, np.int64)
+    hits = np.full(rows, -1, np.int64)
+    sel = np.arange(0, rows, gap)
+    i = np.arange(sel.shape[0])
+    lens[sel] = np.asarray(ROW_LENGTHS)[i % len(ROW_LENGTHS)]
+    hits[sel] = [_hit(int(ln), HITS[j % len(HITS)])
+                 for ln, j in zip(lens[sel], i)]
+    # sources: row base (a multiple of M) + t*M + r, r < M-1 before the
+    # hit, r = M-1 at it, any r after it; they ascend within a row
+    e_row = np.repeat(np.arange(rows), lens)
+    starts = np.cumsum(lens) - lens
+    t = np.arange(e_row.shape[0]) - starts[e_row]
+    base = rng.integers(0, (n - (lens + 2) * M) // M, rows) * M
+    h = hits[e_row]
+    r = np.where(t < h, rng.integers(0, M - 1, t.shape[0]),
+                 rng.integers(0, M, t.shape[0]))
+    r = np.where(h < 0, rng.integers(0, M - 1, t.shape[0]), r)
+    r = np.where(t == h, M - 1, r)
+    src = base[e_row] + t * M + r
+
+    def stacked(src, lens, cvec, cut):
+        lens2 = lens.reshape(p, chunk)
+        row_ptr = np.zeros((p, chunk + 1), np.int64)
+        row_ptr[:, 1:] = np.cumsum(lens2, axis=1)
+        nnz = row_ptr[:, -1]
+        cap = max(int(nnz.max()), 1)
+        col_idx = np.zeros((p, cap), np.int64)
+        for s in range(p):
+            lo = s * chunk
+            e0, e1 = starts[lo], starts[lo] + nnz[s]
+            col_idx[s, :nnz[s]] = src[e0:e1]
+        n_edges = nnz.copy()
+        if cut:
+            for s in range(p):
+                long_rows = np.flatnonzero(lens2[s] > 1024)
+                if long_rows.size:
+                    rr = long_rows[-1]
+                    n_edges[s] = row_ptr[s, rr] + lens2[s, rr] // 2
+        return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                     for a in (row_ptr, col_idx, cvec, n_edges))
+
+    mask = np.zeros(n, bool)
+    mask[M - 1::M] = True
+    f_words = pack_bits(torch.from_numpy(mask)).to(device)
+    done = (rng.random(rows) < 0.1).astype(np.int64).reshape(p, chunk)
+    cases = {}
+    for name, cv, cut in (("lengths", done, False), ("cut", done, True),
+                          ("completed", np.ones_like(done), False)):
+        rp, ci, cv, ne = stacked(src, lens, cv, cut)
+        cases[name] = (rp, ci, f_words, cv, ne)
+    # the last word: rows with a hit end on a source in it instead, the
+    # only frontier vertices
+    last = src.copy()
+    ends = starts + lens - 1
+    with_hit = (lens > 0) & (hits >= 0)
+    last[ends[with_hit]] = n - 32 + rng.integers(0, 32,
+                                                 int(with_hit.sum()))
+    mask = np.zeros(n, bool)
+    mask[n - 32:] = True
+    f_last = pack_bits(torch.from_numpy(mask)).to(device)
+    rp, ci, cv, ne = stacked(last, lens, np.zeros_like(done), False)
+    cases["last word"] = (rp, ci, f_last, cv, ne)
+    return cases
+
+
+def sub_range_ends(p: int, chunk: int) -> np.ndarray:
+    """Both ends of every sub-range of SUB_STEPS steps of every owner:
+    o*chunk + k*sub and o*chunk + (k+1)*sub - 1."""
+    sub = chunk // SUB_STEPS
+    o = np.arange(p)[:, None] * chunk
+    k = np.arange(SUB_STEPS)[None, :] * sub
+    return np.concatenate([(o + k).ravel(), (o + k + sub - 1).ravel()])
+
+
+def strip_graph(p: int, chunk: int, device="cpu", seed: int = 0,
+                edge_factor: int = 4):
+    """(graph, hub id, empty strip): the p-strip build of a random edge
+    list, plus three edges out of every sub-range end and a hub of
+    HUB_EDGES edges into strip 1, with no edge into the last strip."""
+    n = p * chunk
+    if chunk < HUB_EDGES or chunk % (32 * SUB_STEPS) or p < 3:
+        raise ValueError(f"chunk={chunk} must be a multiple of "
+                         f"{32 * SUB_STEPS} and hold {HUB_EDGES} rows, p "
+                         f"at least 3")
+    rng = np.random.default_rng(seed)
+    empty = p - 1
+    m = edge_factor * n
+    src = [rng.integers(0, n, m)]
+    dst = [rng.integers(0, empty * chunk, m)]
+    ends = sub_range_ends(p, chunk)
+    src.append(np.repeat(ends, 3))
+    dst.append(rng.integers(0, empty * chunk, 3 * ends.shape[0]))
+    hub = int(rng.integers(0, n))
+    src.append(np.full(HUB_EDGES, hub))
+    dst.append(chunk + np.arange(HUB_EDGES))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    keep = src != dst
+    key = np.unique(src[keep] * n + dst[keep])
+    edges = EdgeList(n=n, src=torch.from_numpy((key // n).astype(np.int32))
+                     .to(device),
+                     dst=torch.from_numpy((key % n).astype(np.int32))
+                     .to(device), m_input=int(keep.sum()))
+    return build_blocked_1d(edges, p, align=32, cap_pad=32), hub, empty
+
+
+def strip_frontiers(p: int, chunk: int, hub: int, device="cpu",
+                    seed: int = 0) -> Dict[str, torch.Tensor]:
+    """name -> the (p*chunk/32,) int32 frontier bitmap."""
+    n = p * chunk
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in ("empty", "sub-range ends", "hub", "last word", "1%", "30%",
+                 "all"):
+        mask = np.zeros(n, bool)
+        if name == "sub-range ends":
+            mask[sub_range_ends(p, chunk)] = True
+        elif name == "hub":
+            mask[hub] = True
+        elif name == "last word":
+            mask[n - 32:] = True
+        elif name == "1%":
+            mask = rng.random(n) < 0.01
+        elif name == "30%":
+            mask = rng.random(n) < 0.3
+        elif name == "all":
+            mask[:] = True
+        out[name] = pack_bits(torch.from_numpy(mask)).to(device)
+    return out

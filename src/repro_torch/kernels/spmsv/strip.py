@@ -1,8 +1,10 @@
 """The 1D strip SpMSV over the strip DCSC: wrappers of the CUDA kernels
 ``csrc/spmsv_strip_min.cu`` (the whole allgathered frontier bitmap) and
 ``csrc/spmsv_strip_chunk_min.cu`` (one sub-chunk of the pipelined
-expand), their plain PyTorch versions, and the port's copies of the JAX
-package's ``_dcsc_edges_examined`` and ``_dcsc_edges_examined_chunk``.
+expand, which walks the frontier or step k's columns, whichever is
+cheaper), their plain PyTorch versions, and the port's copies of the
+JAX package's ``_dcsc_edges_examined`` and
+``_dcsc_edges_examined_chunk``.
 
 Every function takes all p strips at once: ``jc (p, cap_nzc)``, ``cp (p,
 cap_nzc+1)``, ``nzc (p,)``, ``row_idx (p, cap)``, and returns the ``(p,
@@ -19,15 +21,20 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.frontier import INT_INF, test_bits
+from repro_torch.core.frontier import INT_INF, test_bits, unpack_bits
 from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
-_COMMON = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_longlong, ctypes.c_int,
-                                   ctypes.c_int]
-KERNEL = CudaKernel("spmsv_strip_min", _COMMON + [ctypes.c_void_p])
-KERNEL_CHUNK = CudaKernel("spmsv_strip_chunk_min", _COMMON + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+KERNEL = CudaKernel("spmsv_strip_min", [ctypes.c_void_p] * 7 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p])
+KERNEL_CHUNK = CudaKernel("spmsv_strip_chunk_min", [ctypes.c_void_p] * 8 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p])
+
+# the chunk kernel's walks, as its stats[2] reports them
+WALK_FRONTIER, WALK_COLUMNS = 1, 2
+MAX_CHUNK_STRIPS = 32          # the chunk kernel's tile prefix, p*p slots
 
 
 def _slots_alive(jc: torch.Tensor, nzc: torch.Tensor, n: int) -> torch.Tensor:
@@ -166,18 +173,78 @@ def _sub_dims(f_sub, n: int, p: int, n_chunks: int):
     return wpc, w_sub
 
 
+# a binary-search probe of the frontier walk against a slot of the
+# column walk: a probe costs about a fifth of a slot (the searches' first
+# steps hit the cache), from the crossover of the two walks forced on
+# the calls of the scale-24 1ds searches on an H100 (chip_smoke.py phase
+# 8, PERF.md)
+PROBE_COST = (1, 5)
+
+
+def list_capacity(cap_nzc: int, n_chunks: int) -> int:
+    """The chunk kernel's walk threshold, and the length of its frontier
+    id list: the frontier walk binary-searches each id in every strip's
+    jc, about L = bit_length(cap_nzc) probes a strip, where the column
+    walk tests about cap_nzc / n_chunks slots a strip; so a step walks
+    the frontier while count * L * PROBE_COST <= cap_nzc / n_chunks."""
+    num, den = PROBE_COST
+    return max(1, cap_nzc * den // (n_chunks * num
+                                     * max(1, cap_nzc.bit_length())))
+
+
+def chunk_scratch(p: int, nr: int, list_cap: int, dev):
+    """The chunk kernel's outputs and scratch: the (p, nr) candidates at
+    INT_INF, the (3,) int64 stats at 0 (edges examined, frontier count,
+    walk taken), and the int32 scratch of list_cap frontier ids and the
+    2*p*p slot-range bounds of the (strip, owner) pairs (the kernel
+    writes all it reads)."""
+    cand = torch.full((p, nr), INT_INF, dtype=torch.int32, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    scratch = torch.empty(list_cap + 2 * p * p, dtype=torch.int32,
+                          device=dev)
+    return cand, stats, scratch
+
+
+def frontier_ids_chunk(f_sub, p: int, chunk: int, k: int) -> torch.Tensor:
+    """The global ids of the set bits of step k's owner-major sub-chunk
+    words, ascending: owner o's bit j is o*chunk + k*sub + j (sub the
+    sub-chunk's width).  The kernel builds the same set, unordered."""
+    sub = f_sub.shape[0] // p * 32
+    j = torch.nonzero(unpack_bits(f_sub)).reshape(-1)
+    owner = torch.div(j, sub, rounding_mode="floor")
+    return (owner * chunk + k * sub + (j - owner * sub)).to(torch.int32)
+
+
+def chunk_walk(f_sub, list_cap: int) -> int:
+    """The walk the chunk kernel takes on these words: the frontier walk
+    while the step's frontier holds at most list_cap ids."""
+    return WALK_FRONTIER if popcount(f_sub) <= list_cap else WALK_COLUMNS
+
+
+def popcount(words: torch.Tensor) -> int:
+    """Set bits of int32 words."""
+    return int(unpack_bits(words).sum())
+
+
 def launch_chunk(jc, cp, nzc, row_idx, f_sub, nr: int, n: int, k: int,
-                 n_chunks: int):
-    """The chunk kernel's launch on checked CUDA tensors."""
+                 n_chunks: int, list_cap: int = None):
+    """The chunk kernel's launch on checked CUDA tensors: (cand, edges
+    examined, walk taken), the last two 0-d int64 tensors on the card.
+    ``list_cap`` overrides the walk threshold (``list_capacity``)."""
     p, cap_nzc = jc.shape
-    wpc, w_sub = _sub_dims(f_sub, n, p, n_chunks)
-    cand, ex = _outputs(p, nr, jc.device)
+    _, w_sub = _sub_dims(f_sub, n, p, n_chunks)
+    if p > MAX_CHUNK_STRIPS:
+        raise ValueError(f"the chunk kernel takes at most "
+                         f"{MAX_CHUNK_STRIPS} strips, got {p}")
+    if list_cap is None:
+        list_cap = list_capacity(cap_nzc, n_chunks)
+    cand, stats, scratch = chunk_scratch(p, nr, list_cap, jc.device)
     KERNEL_CHUNK.launch(jc.data_ptr(), cp.data_ptr(), nzc.data_ptr(),
                         row_idx.data_ptr(), f_sub.data_ptr(),
-                        cand.data_ptr(), ex.data_ptr(), p, cap_nzc,
-                        row_idx.shape[1], nr, n, wpc, w_sub, k,
-                        stream_handle(jc.device))
-    return cand, ex[0]
+                        cand.data_ptr(), stats.data_ptr(),
+                        scratch.data_ptr(), p, cap_nzc, row_idx.shape[1], nr,
+                        n // p, w_sub, k, list_cap, stream_handle(jc.device))
+    return cand, stats[0], stats[2]
 
 
 def spmsv_strip_dcsc_chunk_plain(jc, cp, nzc, row_idx, f_sub, nr: int,
@@ -207,4 +274,4 @@ def spmsv_strip_dcsc_chunk(jc: torch.Tensor, cp: torch.Tensor,
                                             n, k, n_chunks)
     KERNEL_CHUNK.load()
     require_cuda(*tensors)
-    return launch_chunk(jc, cp, nzc, row_idx, f_sub, nr, n, k, n_chunks)
+    return launch_chunk(jc, cp, nzc, row_idx, f_sub, nr, n, k, n_chunks)[:2]

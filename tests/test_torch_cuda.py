@@ -10,9 +10,12 @@ Without a card every test skips (the kernels have no CPU mode)."""
 import pytest
 import torch
 
+from repro_torch.configs.base import BFSConfig
+from repro_torch.core.engine import plan_bfs
 from repro_torch.core.frontier import pack_bits
 from repro_torch.graph import rmat
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
+from repro_torch.kernels import edge_cases as ec
 from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
@@ -22,6 +25,7 @@ from repro_torch.kernels.frontier_codec import ops as codec_ops
 from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as sp_ops
 from repro_torch.kernels.spmsv import strip
+from repro_torch.launch.mesh import make_local_mesh_1d
 
 pytestmark = pytest.mark.cuda
 
@@ -159,8 +163,10 @@ def test_codec_kernels_match_plain(dev, chunk, cap):
 
 
 def test_strip_and_codec_launch_counts_grow(graph_1d, dev):
+    """One launch a call, the stacked bottom-up entry's for all p strips
+    too; and in a 1ds session one bottom-up launch a bottom-up level."""
     kernels = (strip.KERNEL, strip.KERNEL_CHUNK, codec_ops.ENCODE,
-               codec_ops.DECODE)
+               codec_ops.DECODE, bu_ops.KERNEL)
     before = [k.launches for k in kernels]
     g, part = graph_1d, graph_1d.part
     fw = torch.zeros(part.n // 32, dtype=torch.int32, device=dev)
@@ -172,7 +178,74 @@ def test_strip_and_codec_launch_counts_grow(graph_1d, dev):
     cnt = torch.ones(part.p, dtype=torch.int32, device=dev)
     buf = codec_ops.encode_offsets(off, cnt, part.chunk)
     codec_ops.decode_buckets(buf.reshape(-1), part.chunk, 32, part.n, part.p)
+    bu_ops.bottomup_substep_strips(
+        g.row_ptr, g.col_idx, fw,
+        torch.zeros((part.p, part.chunk), dtype=torch.int32, device=dev),
+        g.nnz)
     assert [k.launches for k in kernels] == [b + 1 for b in before]
+    eng = plan_bfs(g, BFSConfig(decomposition="1ds", storage="dcsc"),
+                   make_local_mesh_1d(part.p, device=dev),
+                   local_mode="kernel").compile()
+    root = int(torch.nonzero(g.deg_A.reshape(-1))[0])
+    n = bu_ops.KERNEL.launches
+    res = eng.run(root)
+    n_bu = int((res.level_stats[:res.n_levels, 2] == 1).sum())
+    assert n_bu > 0 and bu_ops.KERNEL.launches == n + n_bu
+
+
+def test_stacked_bottomup_kernel_matches_plain(graph_1d, dev):
+    g, part = graph_1d, graph_1d.part
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for ff in (0.0, 0.05, 0.5, 1.0):
+        fw = pack_bits(torch.rand(part.n, generator=gen, device=dev) < ff)
+        for df in (0.0, 0.5, 1.0):
+            cv = (torch.rand(part.p, part.chunk, generator=gen, device=dev)
+                  < df).to(torch.int32)
+            got = bu_ops.launch_strips(g.row_ptr, g.col_idx, fw, cv, g.nnz)
+            want = bu_ops.bottomup_substep_strips_plain(
+                g.row_ptr, g.col_idx, fw, cv, g.nnz)
+            assert torch.equal(got, want), (ff, df)
+
+
+def test_bottomup_kernel_on_edge_cases(dev):
+    """Rows of 0-1,100 edges with first hits past edge 32, an edge count
+    cutting a row, all rows completed, the frontier in the last word:
+    the stacked launch and the single-segment launch of each strip."""
+    for name, (rp, ci, fw, cv, ne) in ec.bottomup_cases(
+            2, 1 << 15, device=dev).items():
+        got = bu_ops.launch_strips(rp, ci, fw, cv, ne)
+        want = bu_ops.bottomup_substep_strips_plain(rp, ci, fw, cv, ne)
+        assert torch.equal(got, want), name
+        for i in range(rp.shape[0]):
+            one = bu_ops.launch(rp[i], ci[i], fw, cv[i], 777, int(ne[i]))
+            assert torch.equal(one, bu_ops.bottomup_substep_plain(
+                rp[i], ci[i], fw, cv[i], 777, int(ne[i]))), (name, i)
+
+
+def test_strip_chunk_kernel_walks_match_plain(dev):
+    """Both walks (the threshold at its default, at 0 ids and at every
+    id) on an empty strip, a 10^4-edge column, sub-range ends, the last
+    word and the empty frontier, for 1, 2 and 4 steps."""
+    p, chunk = 4, 1 << 14
+    g, hub, _ = ec.strip_graph(p, chunk, device=dev)
+    n = g.part.n
+    walks = set()
+    for name, fw in ec.strip_frontiers(p, chunk, hub, device=dev).items():
+        for c in (1, 2, 4):
+            words = fw.reshape(p, c, -1)
+            for k in range(c):
+                sub = words[:, k].reshape(-1).contiguous()
+                want = strip.spmsv_strip_dcsc_chunk_plain(
+                    g.jc, g.cp, g.nzc, g.row_idx, sub, chunk, n, k, c)
+                for cap in (strip.list_capacity(g.cap_nzc, c), 0, n // c):
+                    cand, ex, walk = strip.launch_chunk(
+                        g.jc, g.cp, g.nzc, g.row_idx, sub, chunk, n, k, c,
+                        list_cap=cap)
+                    assert torch.equal(cand, want[0]), (name, c, k, cap)
+                    assert int(ex) == int(want[1]), (name, c, k, cap)
+                    assert int(walk) == strip.chunk_walk(sub, cap)
+                    walks.add(int(walk))
+    assert walks == {strip.WALK_FRONTIER, strip.WALK_COLUMNS}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
