@@ -7,7 +7,11 @@ every kernel of those paths against its plain PyTorch version.
 
 Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
-  2 build        nvcc of the nine kernels (in parallel), ptxas report
+  2 build        nvcc of the nine kernels and the integer-rate benchmark
+                 (in parallel), ptxas report; kernel 7's instructions per
+                 level in its SASS, and the integer instruction rate the
+                 card reaches on its level body (csrc/int_rate.cu), which
+                 kernel 7's bound uses
   3 2D path      one Graph500 session at full width on the 2D grid 1x1:
                  counter R-MAT (kernel) -> preprocess -> build_blocked ->
                  plan_bfs(local_mode="kernel") -> compile -> 16 roots,
@@ -35,20 +39,22 @@ Phases, in the order they run:
                  the two runs' parents identical, and on 2 roots parents
                  and levels equal to the 2D path's; then 2 roots with
                  buckets of 64 ids, whose wider top-down levels take the
-                 dense fallback, with the same parents; then 2 roots
-                 top-down only (the paper's 1D baseline), with the same
-                 parents; the walk each kernel-4 call of these searches
-                 takes, both walks required, and the calls near the
-                 walk threshold timed with each walk forced
+                 dense fallback, with the same parents; then 2 roots per
+                 expand_chunks top-down only (the paper's 1D baseline),
+                 with the same parents; the walk each kernel-3 and
+                 kernel-4 call of these searches takes, and the calls
+                 near the walk threshold timed with each walk forced
   9 kernels      level by level on one 1ds search per expand_chunks:
                  each kernel call (the frontiers, sub-chunks and buckets
                  of real levels, and the large frontier of a bottom-up
-                 level) against its plain version, tolerance 0, and its
-                 time beside the plain version's, the library yardstick
-                 and the bound (kernels 2 and 4 on the card alone); the
-                 walk each kernel-4 call took, as the kernel reports it;
-                 then kernels 2 and 4 on the synthetic cases at the
-                 path's widths, kernel 4 with each walk forced
+                 level) against its plain version, tolerance 0, kernel 3
+                 with each walk forced as well, and its time beside the
+                 plain version's, the library yardstick and the bound
+                 (kernels 2-4 on the card alone); the walk each strip
+                 SpMSV call took, as the kernel reports it, both walks of
+                 kernels 3 and 4 required over phases 8-9; then kernels
+                 2-4 on the synthetic cases at the path's widths,
+                 kernels 3 and 4 with each walk forced
  10 profile      device busy and idle share of one 1ds search
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
@@ -57,7 +63,9 @@ Phases, in the order they run:
                  one; logits equal the plain lookup's bit for bit
  12 kernel 8     against its plain version, tolerance 0, at the path's
                  shapes and multi-hot (f32/bf16, sum/mean, weighted or
-                 not), with times, F.embedding(_bag) and the bound
+                 not), with times, F.embedding(_bag) and the bound; its
+                 public entry host-timed beside F.embedding; a bf16 table
+                 and one of D 32 at the serve_bulk shape
  13 smollm-135m  the registered config served through Server: 8
                  requests, 32 new tokens each, attention through kernel
                  9; prefill and teacher-forced decode logits against the
@@ -66,7 +74,9 @@ Phases, in the order they run:
                  the path's calls and over the JAX test's sweep plus a
                  window-4096 shape, with times, SDPA, the bound, each
                  decode launch's blocks and the shortest decode timed
-                 with 32 and 16 keys a split at least
+                 with 32 and 16 keys a split at least; head dim 80
+                 (padded to 128) on each path, timed beside dh 64 and
+                 128
  15 profiles     busy share and top kernels of one serve_p99 batch, one
                  serve_bulk batch and one decode step
  16 prefill_32k  smollm-135m at the registered width: one prefill of 32
@@ -83,8 +93,10 @@ result line.
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-times kernels 2 and 4 alone at the scale-24 paths' calls, and each
-search whole, for this checkout or another one (``DIR``, for example a
+times kernels 2, 3 and 4 alone at the scale-24 paths' calls, and each
+search whole, and kernel 8 at the AutoInt shapes (on the card alone, and
+its public entry host-timed beside F.embedding), for this checkout or
+another one (``DIR``, for example a
 ``git archive`` of a parent commit, so that two trees compare on one
 card in one call); see ``kernel_times``.  Any failed check
 exits non-zero; nothing is caught.  It exits non-zero without a CUDA
@@ -118,12 +130,18 @@ STRIP_CHUNKS = (1, 4)         # its expand_chunks runs
 OVER_CAP = 64                 # a bucket capacity that makes levels overflow
 # H100 SXM published memory rate (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-# instruction issue: four warp schedulers per SM, one warp instruction each
-# per clock (NVIDIA H100 architecture white paper), so at most 128 thread
-# instructions per clock per SM whatever the mix; times the card's SM count
-# and its maximum SM clock (nvidia-smi) this is the integer kernels' peak
-INSTR_PER_CLOCK_PER_SM = 128
+# 32-bit integer instructions: a GH100 SM has 64 INT32 lanes (against 128
+# FP32 lanes), and the CUDA C++ programming guide's throughput table gives
+# 64 results per clock per SM at compute capability 9.0 for 32-bit integer
+# add, multiply-add, shift, logic and compare: every instruction of
+# rmat_counter's fmix32 loop (IMAD, SHF, LOP3, ISETP, SEL).  Times the
+# card's SM count and its maximum SM clock (nvidia-smi) this is the
+# integer kernels' peak; phase 2 measures the rate the card reaches on the
+# same instruction mix (csrc/int_rate.cu), and kernel 7's bound uses that
+INSTR_PER_CLOCK_PER_SM = 64
 RMAT_INSTR_PER_EDGE_LEVEL = 9  # the least per edge and level, rmat_counter.cu
+INT_RATE_ITERS = 4096          # loop iterations of one int_rate launch
+INT_RATE_LAUNCHES = 10
 TIMED_REPS = 20
 
 
@@ -168,6 +186,88 @@ def smi(query: str, fmt: str = "csv,noheader") -> str:
 
 def smi_line() -> str:
     return smi("name,power.limit")
+
+
+def sass(lib: Path) -> str:
+    from repro_torch.kernels import build
+    return subprocess.run(
+        [str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+
+
+def sass_addresses(text: str, pattern: str):
+    """The addresses of the SASS instructions whose line holds
+    ``pattern``."""
+    return [_address(line) for line in text.splitlines()
+            if pattern in line and line.strip().startswith("/*")]
+
+
+def _address(line: str) -> int:
+    t = line.strip()
+    return int(t[2:t.index("*/")], 16)
+
+
+def sass_loop_instructions(text: str) -> int:
+    """Instructions of the SASS's one loop: from the target of its
+    backward branch to the branch, 16 bytes each."""
+    for line in text.splitlines():
+        parts = line.split()
+        if "BRA" in parts and line.strip().startswith("/*"):
+            at = _address(line)
+            to = int(parts[parts.index("BRA") + 1].rstrip(";"), 16)
+            if to < at:
+                return (at - to) // 16 + 1
+    raise ValueError("no backward branch in the SASS")
+
+
+def measure_int_rate(lib: Path, n_sm: int) -> dict:
+    """The thread instructions per clock per SM that the card reaches on
+    rmat_counter's level body (csrc/int_rate.cu): a full grid of it timed
+    with CUDA events, its instructions counted in its SASS, the SM clock
+    sampled with nvidia-smi while the launches run."""
+    import ctypes
+
+    from repro_torch.graph import rmat
+    lib_c = ctypes.CDLL(str(lib))
+    fn = lib_c.int_rate
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] + [ctypes.c_uint] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    text = sass(lib)
+    per_iter = sass_loop_instructions(text)
+    imad = sass_addresses(text, "0x7feb352d")
+    levels = len(imad)
+    salts = (ctypes.c_uint * levels)(
+        *[rmat.level_salt(SEED, lv) for lv in range(levels)])
+    t1, t2, t3 = rmat.rmat_thresholds(0.57, 0.19, 0.19)
+    blocks, threads = n_sm * 8, 256
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(out.data_ptr(), blocks, threads, INT_RATE_ITERS, salts, t1,
+                 t2, t3, stream)
+        check(err == 0, f"int_rate: CUDA error {err}")
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(INT_RATE_LAUNCHES):
+        run()
+    end.record()
+    mhz = float(smi("clocks.sm", "csv,noheader,nounits"))  # under load
+    end.synchronize()
+    ms = start.elapsed_time(end) / INT_RATE_LAUNCHES
+    instr = blocks * threads * INT_RATE_ITERS * per_iter
+    rate_max = instr / (ms / 1e3) / n_sm / (
+        float(smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6)
+    rate = instr / (ms / 1e3) / n_sm / (mhz * 1e6)
+    return {"levels": levels, "instr_per_iter": per_iter,
+            "instr_per_level": per_iter / levels, "ms": ms,
+            "sm_mhz_under_load": mhz, "per_clock_per_sm": rate,
+            "per_clock_per_sm_at_max_clock": rate_max}
 
 
 @contextlib.contextmanager
@@ -559,6 +659,13 @@ def check_kernel8(ai, dev) -> dict:
             sel_ms = cuda_ms(lambda: plain_tab.index_select(
                 0, longs[next(cyc)]), reps=50)
             idx_ms = cuda_ms(lambda: plain_tab[longs[next(cyc)]], reps=50)
+            # kernel 8 as the library call is timed: on the plain tensor
+            # under inference_mode, its launch and its public entry (the
+            # checks, the device test, the launch)
+            ki_ms = cuda_ms(lambda: eb_ops.launch(plain_tab, rows[next(cyc)],
+                                                  None, "sum"), reps=50)
+            pub_ms = cuda_ms(lambda: eb_ops.embedding_bag(
+                plain_tab, rows[next(cyc)]), reps=50)
         l_grad_ms = cuda_ms(lambda: F.embedding(longs[next(cyc)], tab),
                             reps=50)
         n = rows[0].shape[0]
@@ -578,6 +685,9 @@ def check_kernel8(ai, dev) -> dict:
               f"batches); {count} launches a path")
         print(f"    {label} library gathers: index_select {sel_ms:.5f} ms, "
               f"advanced indexing tab[ids] {idx_ms:.5f} ms")
+        print(f"    {label} host-timed under inference_mode beside "
+              f"F.embedding {l_ms:.5f} ms: kernel 8's launch {ki_ms:.5f} ms, "
+              f"its public entry embedding_bag {pub_ms:.5f} ms")
         with torch.inference_mode():
             kd_ms = device_ms(lambda: eb_ops.launch(tab, rows[next(cyc)],
                                                     None, "sum"))
@@ -589,10 +699,43 @@ def check_kernel8(ai, dev) -> dict:
                                        "library_ms": l_ms,
                                        "library_grad_ms": l_grad_ms,
                                        "index_select_ms": sel_ms,
+                                       "inference_ms": ki_ms,
+                                       "entry_ms": pub_ms,
                                        "index_ms": idx_ms,
                                        "device_ms": kd_ms,
                                        "device_library_ms": ld_ms,
                                        "bound_ms": b_ms, "bytes": nbytes}
+    # kernel 8's other layouts at the serve_bulk shape: a bf16 copy of
+    # the table (2 lanes of 8 elements a row) and a float32 table of D 32
+    # (8 lanes of 4), bit for bit, on the card alone beside F.embedding
+    bulk = shapes["serve_bulk"][0][0]
+    lbulk = bulk[:, 0].long()
+    n = bulk.shape[0]
+    layouts = {}
+    for label, t in (("bf16 D 16", plain_tab.to(torch.bfloat16)),
+                     ("float32 D 32", torch.cat([plain_tab, -plain_tab], 1))):
+        got = eb_ops.launch(t, bulk, None, "sum")
+        worst = max(worst, same(got, eb_ref.embedding_bag(t, bulk), label))
+        check(torch.equal(got, F.embedding(lbulk, t)),
+              f"embedding_bag {label}: kernel != F.embedding")
+        del got
+        vec, lanes = eb_ops.layout(t.shape[1], t.element_size(),
+                                   t.data_ptr() % eb_ops.VECTOR_BYTES == 0)
+        with torch.inference_mode():
+            kd_ms = device_ms(lambda: eb_ops.launch(t, bulk, None, "sum"))
+            ld_ms = device_ms(lambda: F.embedding(lbulk, t))
+        row_b = t.shape[1] * t.element_size()
+        nbytes = 4 * n + distinct_rows(bulk) * row_b + n * row_b
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"embedding_bag serve_bulk, {label} ({vec} elements a lane, "
+              f"{lanes} lanes a bag): {n} bags of one: kernel == plain == "
+              f"F.embedding; on the card alone kernel {kd_ms:.5f} ms, "
+              f"F.embedding {ld_ms:.5f} ms, bound {b_ms:.5f} ms "
+              f"({nbytes} bytes)")
+        layouts[label] = {"device_ms": kd_ms, "device_library_ms": ld_ms,
+                          "bound_ms": b_ms, "vec": vec, "lanes": lanes}
+        del t
+    ai["record"]["k8_bulk_layouts"] = layouts
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     ids = torch.randint(0, tab.shape[0], (MH_BAGS, MH_WIDTH), generator=g,
                         device=dev, dtype=torch.int32)
@@ -641,7 +784,7 @@ def check_kernel8(ai, dev) -> dict:
                              "bound_ms": b_ms}
     ai["record"]["k8_multi_hot"] = mh
     print(f"kernel 8 equals its plain version bit for bit in all "
-          f"{3 + len(mh)} cases; over the AutoInt path's "
+          f"{3 + len(layouts) + len(mh)} cases; over the AutoInt path's "
           f"{AI_P99 + AI_BULK + AI_QUERIES} "
           f"launches: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
           f"ms, library {tot['library_ms']:.4f} ms, bound "
@@ -927,10 +1070,43 @@ def check_kernel9(lm, dev) -> dict:
         sweep_rec.append({"case": [bh, sq, sk, dh, causal, window, q_off,
                                    str(dt)], "err": e, "ms": k_ms,
                           "library_ms": l_ms, "bound_ms": b_ms})
+    # a head dim the kernel runs zero-padded to 128 (stablelm-3b's 80, 32
+    # heads) beside 64 and 128 at the same shapes, on each path
+    ratio["head dim 80"] = 0.0
+    pad_rec = {}
+    for label, (b, sq, sk, q_off, dt), want_path in (
+            ("prefill bf16", (4, 512, 512, 0, torch.bfloat16), "wgmma"),
+            ("decode bf16", (4, 1, 1500, 1499, torch.bfloat16), "split"),
+            ("float32", (2, 128, 128, 0, torch.float32), "cuda_cores")):
+        check(fa_ops.plan(b, 32, 1, sq, sk, dt, True, None, q_off)[0]
+              == want_path, f"{label} does not take the {want_path} path")
+        times = {}
+        for dh in (64, 80, 128):
+            q = torch.randn(b, sq, 32, dh, generator=g, device=dev).to(dt)
+            k, v = (torch.randn(b, sk, 32, dh, generator=g, device=dev)
+                    .to(dt) for _ in range(2))
+            e, r = attn_close(fa_ops.launch(q, k, v, True, None, q_off), q,
+                              k, v, True, None, q_off)
+            worst = max(worst, e)
+            if dh == 80:
+                ratio["head dim 80"] = max(ratio["head dim 80"], r)
+                err80 = (e, r)
+            times[dh] = device_ms(lambda: fa_ops.launch(q, k, v, True, None,
+                                                        q_off))
+            del q, k, v
+        print(f"flash_attention {label} ({want_path}) B={b} Sq={sq} Sk={sk} "
+              f"32 heads: dh 80 (padded to 128) max |kernel - plain| "
+              f"{err80[0]:.3e} ({err80[1]:.4f} of the bound); on the card "
+              f"alone dh 64 {times[64]:.5f} ms, dh 80 {times[80]:.5f} ms, "
+              f"dh 128 {times[128]:.5f} ms")
+        pad_rec[label] = {"err": err80[0], "ratio": err80[1],
+                          "device_ms": {str(d): t for d, t in times.items()}}
+    lm["record"]["k9_head_dim_80"] = pad_rec
     print(f"kernel 9 agrees with its plain version within "
           f"{fa_ref.TOL[torch.float32]} (float32) and "
           f"{fa_ref.TOL[torch.bfloat16]} (bfloat16) (rtol, atol, vtol) on "
-          f"{len(rows)} path calls and {len(cases)} sweep cases; max "
+          f"{len(rows)} path calls, {len(cases)} sweep cases and "
+          f"{3 * len(pad_rec)} head-dim cases; max "
           f"|kernel - plain| / bound: " + ", ".join(
               f"{k} {x:.4f}" for k, x in ratio.items()))
     lm["record"]["k9_calls"] = rows
@@ -1375,7 +1551,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           f"{per['rmat_counter']['ms']:.4f} ms, plain "
           f"{per['rmat_counter']['plain_ms']:.4f} ms, bound "
           f"max({rb:.4f} ms bytes, {ro:.4f} ms issuing "
-          f"{RMAT_INSTR_PER_EDGE_LEVEL} instructions per edge and level)")
+          f"{RMAT_INSTR_PER_EDGE_LEVEL} instructions per edge and level at "
+          f"the measured integer rate): "
+          f"{max(rb, ro) / per['rmat_counter']['ms']:.1%} of its bound")
     for k in ("spmsv_csr_min", "bottomup_substep"):
         r = per[k]
         print(f"{k}: {r['calls']} launches in one search: kernel "
@@ -1429,25 +1607,36 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     part = graph.part
     mesh = make_local_mesh_1d(STRIPS, device=dev)
     dense_words = np.float32((STRIPS - 1) * (part.n / 64.0))
-    runs, walks_8, near_8 = {}, [], []
+    runs = {}
+    # the walk of every strip SpMSV call (kernel 3 at C=1, kernel 4 at
+    # C=4) of the searches phase 8 runs, by kernel and search kind
+    walks_8 = {"spmsv_strip_min": {}, "spmsv_strip_chunk_min": {}}
+    near_8 = {"spmsv_strip_min": [], "spmsv_strip_chunk_min": []}
 
-    def tally_walks(eng, roots_, c):
-        """The walk of every kernel-4 call of the searches from
+    def tally_walks(eng, roots_, c, kind):
+        """The walk of every strip SpMSV call of the searches from
         ``roots_``, run again untimed; the calls within 4x of the
         threshold are timed with each walk forced."""
         cap = strip.list_capacity(graph.cap_nzc, c)
-        with recording([(strip, "spmsv_strip_dcsc_chunk",
-                         "spmsv_strip_chunk_min")]) as k4_calls:
+        kname = "spmsv_strip_min" if c == 1 else "spmsv_strip_chunk_min"
+        fn = "spmsv_strip_dcsc" if c == 1 else "spmsv_strip_dcsc_chunk"
+        with recording([(strip, fn, kname)]) as calls:
             for r in roots_:
                 eng.search(r)
-        for _, a, kw in k4_calls:
+        walks = walks_8[kname].setdefault(kind, [])
+        for _, a, kw in calls:
             ids = strip.popcount(a[4])
-            walks_8.append(strip.chunk_walk(a[4], cap))
-            if ids > cap // 4:
-                near_8.append((ids, cap, walks_8[-1], *(
-                    device_ms(lambda: strip.launch_chunk(
-                        *a, kw["n"], kw["k"], c, list_cap=lc))
-                    for lc in (part.n // c, 0))))
+            walks.append(strip.chunk_walk(a[4], cap))
+            if ids <= cap // 4:
+                continue
+            if c == 1:
+                timed = [device_ms(lambda: strip.launch(*a, list_cap=lc))
+                         for lc in (part.n, 0)]
+            else:
+                timed = [device_ms(lambda: strip.launch_chunk(
+                    *a, kw["n"], kw["k"], c, list_cap=lc))
+                    for lc in (part.n // c, 0)]
+            near_8[kname].append((kind, ids, cap, walks[-1], *timed))
 
     for c in STRIP_CHUNKS:
         cfg = BFSConfig(decomposition="1ds", storage="dcsc",
@@ -1474,8 +1663,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         run["bu_levels"] = sum(m.count(1) for m in run["modes"])
         runs[c] = run
     launches_1ds = {k: kernels[k].launches for k in path_1ds}
-    for c in STRIP_CHUNKS[1:]:
-        tally_walks(runs[c]["engine"], roots, c)
+    for c in STRIP_CHUNKS:
+        tally_walks(runs[c]["engine"], roots, c, "direction-optimizing")
     peak_1ds = torch.cuda.max_memory_allocated() / 2**30
     nnz = graph.nnz.tolist()
     cap_x = runs[STRIP_CHUNKS[0]]["engine"].plan.statics.cap_x
@@ -1577,46 +1766,45 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         del eng
     rec_1ds["overflow_small_cap"] = {"cap_x": OVER_CAP, "levels": over_rec}
     # the paper's 1D baseline traverses top-down only: its wide levels
-    # are the kernel-4 calls that walk the columns.  Each strip min-picks
-    # the smallest frontier in-neighbour in either direction, so the
-    # parents equal the direction-optimizing run's
-    c = STRIP_CHUNKS[-1]
-    n_diro = len(walks_8)
-    eng = plan_bfs(graph, BFSConfig(
-        decomposition="1ds", storage="dcsc", frontier_codec="packed",
-        expand_chunks=c, direction_optimizing=False), mesh,
-        local_mode="kernel").compile()
+    # are the strip SpMSV calls that walk the columns.  Each strip
+    # min-picks the smallest frontier in-neighbour in either direction,
+    # so the parents equal the direction-optimizing run's
     td_rec = {}
-    for i, r in enumerate(roots[:2]):
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        out = eng.search(r)
-        torch.cuda.synchronize()
-        td_rec[r] = (time.perf_counter() - ts) * 1e3
-        check(torch.equal(out[0].reshape(-1)[: part.n_orig],
-                          runs[c]["parents"][i]),
-              f"top-down-only parents differ at root {r}")
-        print(f"top-down only, expand_chunks={c}, root {r}: {out[1]} "
-              f"levels, search {td_rec[r]:.3f} ms: parents equal the "
-              f"direction-optimizing run's")
-    tally_walks(eng, roots[:2], c)
-    del eng
+    for c in STRIP_CHUNKS:
+        eng = plan_bfs(graph, BFSConfig(
+            decomposition="1ds", storage="dcsc", frontier_codec="packed",
+            expand_chunks=c, direction_optimizing=False), mesh,
+            local_mode="kernel").compile()
+        for i, r in enumerate(roots[:2]):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = eng.search(r)
+            torch.cuda.synchronize()
+            td_rec[f"{c}/{r}"] = (time.perf_counter() - ts) * 1e3
+            check(torch.equal(out[0].reshape(-1)[: part.n_orig],
+                              runs[c]["parents"][i]),
+                  f"top-down-only parents differ at root {r}, C={c}")
+            print(f"top-down only, expand_chunks={c}, root {r}: {out[1]} "
+                  f"levels, search {td_rec[f'{c}/{r}']:.3f} ms: parents "
+                  f"equal the direction-optimizing run's")
+        tally_walks(eng, roots[:2], c, "top-down only")
+        del eng
     rec_1ds["topdown_only_ms"] = td_rec
-    print(f"spmsv_strip_chunk_min: {n_diro} launches on the {N_ROOTS} "
-          f"direction-optimizing searches ({walks_8[:n_diro].count(1)} "
-          f"frontier walks, {walks_8[:n_diro].count(2)} column walks), "
-          f"{len(walks_8) - n_diro} on the 2 top-down-only ones "
-          f"({walks_8[n_diro:].count(1)} frontier, "
-          f"{walks_8[n_diro:].count(2)} column): each call's frontier "
-          f"count against strip.list_capacity (phase 9 reads the kernel's "
-          f"own report)")
-    for ids, cap, w, f_ms, c_ms in near_8:
-        print(f"  a call of {ids} ids (threshold {cap}) takes the "
-              f"{'frontier' if w == strip.WALK_FRONTIER else 'column'} "
-              f"walk; forced, on the card alone: frontier walk "
-              f"{f_ms:.4f} ms, column walk {c_ms:.4f} ms")
-    check(set(walks_8) == {strip.WALK_FRONTIER, strip.WALK_COLUMNS},
-          "a walk of spmsv_strip_chunk_min was not taken on the 1ds path")
+    name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS: "column"}
+    for kname, by_kind in walks_8.items():
+        for kind, ws in by_kind.items():
+            print(f"{kname}: {len(ws)} launches on the "
+                  f"{N_ROOTS if kind[0] == 'd' else 2} {kind} searches "
+                  f"({ws.count(1)} frontier walks, {ws.count(2)} column "
+                  f"walks): each call's frontier count against "
+                  f"strip.list_capacity (phase 9 reads the kernel's own "
+                  f"report)")
+        for kind, ids, cap, w, f_ms, c_ms in near_8[kname]:
+            print(f"  {kind}: a call of {ids} ids (threshold {cap}) takes "
+                  f"the {name[w]} walk; forced, on the card alone: frontier "
+                  f"walk {f_ms:.4f} ms, column walk {c_ms:.4f} ms")
+    rec_1ds["walks"] = walks_8
+    rec_1ds["near_threshold"] = near_8
     for run in runs.values():
         del run["parents"]
     torch.cuda.empty_cache()
@@ -1638,21 +1826,25 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                    for _, _, k in targets} for c in STRIP_CHUNKS}
     nr = part.chunk
 
-    walks = {strip.WALK_FRONTIER: 0, strip.WALK_COLUMNS: 0}
+    # the walks of the recorded calls, as the kernels reported them
+    walks = {k: {strip.WALK_FRONTIER: 0, strip.WALK_COLUMNS: 0}
+             for k in ("spmsv_strip_min", "spmsv_strip_chunk_min")}
     walk_name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS:
                  "columns"}
 
     def strip_call(kname, a, kw, label, row):
-        """Compare one strip SpMSV call with its plain version and time
-        kernel, plain and the library scatter; the chunk kernel on the
-        card alone, with the walk it took."""
+        """Compare one strip SpMSV call with its plain version, with the
+        walk threshold at its default and forced to each walk (kernel 3),
+        and time kernel (on the card alone), plain and the library
+        scatter; the walk the call took, as the kernel reports it."""
         jc, cp, nzc, ridx, words = a[:5]
         n_front = strip.popcount(words)
         if kname == "spmsv_strip_min":
             live = strip.live_slots(jc, nzc, words)
+            cap = strip.list_capacity(jc.shape[1], 1)
 
-            def run_k():
-                return strip.launch(*a)
+            def run_k(list_cap=None):
+                return strip.launch(*a, list_cap=list_cap)
 
             def run_p():
                 return strip.spmsv_strip_dcsc_plain(*a)
@@ -1660,42 +1852,49 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             live = strip.live_slots_chunk(jc, nzc, words, kw["k"],
                                           kw["n_chunks"], part.chunk,
                                           part.n)
+            cap = strip.list_capacity(jc.shape[1], kw["n_chunks"])
 
-            def run_k():
+            def run_k(list_cap=None):
                 return strip.launch_chunk(*a, kw["n"], kw["k"],
-                                          kw["n_chunks"])
+                                          kw["n_chunks"], list_cap=list_cap)
 
             def run_p():
                 return strip.spmsv_strip_dcsc_chunk_plain(
                     *a, kw["n"], kw["k"], kw["n_chunks"])
-        got, want = run_k(), run_p()
-        e = max(max_err(got[0], want[0]), abs(int(got[1]) - int(want[1])))
-        walk = ""
-        if kname == "spmsv_strip_chunk_min":
-            w = int(got[2])
-            check(w == strip.chunk_walk(
-                words, strip.list_capacity(jc.shape[1], kw["n_chunks"])),
-                f"{label}: walk {w} is not the threshold's")
-            if row is not None:
-                walks[w] += 1
-            walk = f", {walk_name[w]} walk"
+        want = run_p()
+        e, w = 0, None
+        # kernel 3 on every call with each walk forced as well: a
+        # threshold of every id and of none
+        for lc in ((None, part.n, 0) if kname == "spmsv_strip_min"
+                   else (None,)):
+            got = run_k(lc)
+            e = max(e, max_err(got[0], want[0]),
+                    abs(int(got[1]) - int(want[1])))
+            check(int(got[2]) == strip.chunk_walk(
+                words, cap if lc is None else lc),
+                f"{label}: walk {int(got[2])} is not the threshold's")
+            if lc is None:
+                w = int(got[2])
+        if row is not None:
+            walks[kname][w] += 1
         rows_, cols_, total = strip.gather_segments_plain(jc, cp, ridx,
                                                           live, nr)
 
         def run_lib():
             torch.full((jc.shape[0] * nr,), INT_INF, dtype=torch.int32,
                        device=dev).scatter_reduce_(0, rows_, cols_, "amin")
-        k_ms = (device_ms(run_k) if kname == "spmsv_strip_chunk_min"
-                else cuda_ms(run_k))
+        k_ms = device_ms(run_k)
         p_ms = cuda_ms(run_p, reps=1)
         lib_ms = cuda_ms(run_lib, reps=5)
         nbytes = strip_bytes(nzc, jc.shape[1], live, total, words.numel(),
                              n_front, nr)
         if row is not None:
             row["library_ms"] += lib_ms
+        forced = " (each walk forced too)" if kname == "spmsv_strip_min" \
+            else ""
         print(f"  {label}: {n_front} frontier vertices, {int(live.sum())} "
-              f"live columns, {total} edges{walk}: "
-              f"max |kernel - plain| = {e}; kernel {k_ms:.4f} ms, plain "
+              f"live columns, {total} edges, {walk_name[w]} walk{forced}"
+              f": max |kernel - plain| = {e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes)")
         return e, k_ms, p_ms, nbytes
@@ -1792,13 +1991,22 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             {"n": part.n, "k": k, "n_chunks": c},
             f"spmsv_strip_chunk_min, large frontier, step {k} of {c}", None)
         errs["spmsv_strip_chunk_min"] = max(errs["spmsv_strip_chunk_min"], e)
-    print(f"walks of the recorded spmsv_strip_chunk_min calls, as the "
-          f"kernel reported them: {walks[strip.WALK_FRONTIER]} frontier, "
-          f"{walks[strip.WALK_COLUMNS]} columns")
-    record["kernel4_walks"] = {walk_name[w]: n for w, n in walks.items()}
-    record["kernel4_walks_16_roots"] = {
-        walk_name[w]: walks_8.count(w) for w in walk_name}
-    record["kernel4_near_threshold"] = near_8
+    for kname, ws in walks.items():
+        print(f"walks of the recorded {kname} calls, as the kernel "
+              f"reported them: {ws[strip.WALK_FRONTIER]} frontier, "
+              f"{ws[strip.WALK_COLUMNS]} columns")
+    record["strip_walks_phase9"] = {
+        k: {walk_name[w]: n for w, n in ws.items()} for k, ws in walks.items()}
+    # both walks of each strip kernel ran on the path's calls: kernel 4
+    # on phase 8's searches, kernel 3 on phase 8's or on phase 9's
+    # unforced calls
+    seen = {k: {w for ws in by_kind.values() for w in ws}
+            for k, by_kind in walks_8.items()}
+    seen["spmsv_strip_min"] |= {w for w, n in walks["spmsv_strip_min"].items()
+                                if n}
+    for k, ws in seen.items():
+        check(ws == {strip.WALK_FRONTIER, strip.WALK_COLUMNS},
+              f"a walk of {k} was not taken on the 1ds path's calls")
     # the synthetic cases at the path's widths (16 strips of 2^20 rows):
     # kernel 2's stacked launch on rows of 0-1,100 edges, a cut row,
     # completed rows and a last-word frontier; kernel 4 on an empty
@@ -1820,6 +2028,18 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     c = STRIP_CHUNKS[-1]
     for name, fw in edge_cases.strip_frontiers(part.p, part.chunk, hub,
                                                device=dev).items():
+        args = (sg.jc, sg.cp, sg.nzc, sg.row_idx, fw, nr)
+        want = strip.spmsv_strip_dcsc_plain(*args)
+        e_case, seen = 0, set()
+        for cap in (None, 0, part.n):
+            got = strip.launch(*args, list_cap=cap)
+            e_case = max(e_case, max_err(got[0], want[0]),
+                         abs(int(got[1]) - int(want[1])))
+            seen.add(walk_name[int(got[2])])
+        errs["spmsv_strip_min"] = max(errs["spmsv_strip_min"], e_case)
+        print(f"spmsv_strip_min case {name:>14} (strip {empty} empty, a "
+              f"{edge_cases.HUB_EDGES}-edge column): walks {sorted(seen)}, "
+              f"max |kernel - plain| = {e_case}")
         e_case, seen = 0, set()
         for k in range(c):
             sub = fw.reshape(part.p, c, -1)[:, k].reshape(-1).contiguous()
@@ -1871,15 +2091,18 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
 
 
 def kernel_times(tree: Path) -> int:
-    """Kernels 2 and 4 of the checkout at ``tree`` on the card alone, at
-    their real calls on the scale-24 paths, from the first root: one 2D
-    search (grid 1x1), one 1ds search on 16 strips per expand_chunks (1
-    and 4) and one 1ds C=4 search top-down only (the paper's 1D
-    baseline, where kernel 4 takes its column walk).  Each recorded call
-    is launched again through its public wrapper and timed with
-    ``device_ms``; the sums are per search.  Each search is also timed
-    whole on the host clock (median of 5).  Prints the card's name and
-    power limit, then one JSON line."""
+    """Kernels 2, 3, 4 and 8 of the checkout at ``tree`` on the card alone,
+    at their real calls on the scale-24 paths, from the first root: one
+    2D search (grid 1x1), one 1ds search on 16 strips per expand_chunks
+    (1 and 4) and one 1ds search top-down only per expand_chunks (the
+    paper's 1D baseline, where kernels 3 and 4 take their column walks).
+    Each recorded call is launched again through its public wrapper and
+    timed with ``device_ms``; the sums are per search.  Each search is
+    also timed whole on the host clock (median of 5).  Kernel 8 at the
+    AutoInt path's three shapes (bags of one into the registered
+    11,238,400 x 16 float32 table): on the card alone, and host-timed
+    through its public entry beside ``F.embedding`` on the same rows.
+    Prints the card's name and power limit, then one JSON line."""
     # ahead of this checkout's src, so that ``tree``'s port is imported
     sys.path.insert(0, str(tree.resolve() / "src"))
     from repro_torch.configs.base import BFSConfig
@@ -1897,16 +2120,23 @@ def kernel_times(tree: Path) -> int:
     k2_targets = [(bu, nm, nm) for nm in ("bottomup_substep",
                                           "bottomup_substep_strips")
                   if hasattr(bu, nm)]
-    k4_targets = [(strip, "spmsv_strip_dcsc_chunk", "k4")]
+    strip_targets = [(strip, "spmsv_strip_dcsc", "k3"),
+                     (strip, "spmsv_strip_dcsc_chunk", "k4")]
 
     def timed_search(eng, root):
-        with recording(k2_targets + k4_targets) as calls:
+        with recording(k2_targets + strip_targets) as calls:
             eng.search(root)
         torch.cuda.synchronize()
-        k2 = [device_ms(lambda: getattr(bu, nm)(*a, **kw))
-              for nm, a, kw in calls if nm != "k4"]
-        k4 = [device_ms(lambda: strip.spmsv_strip_dcsc_chunk(*a, **kw))
-              for nm, a, kw in calls if nm == "k4"]
+        fns = {"k3": strip.spmsv_strip_dcsc,
+               "k4": strip.spmsv_strip_dcsc_chunk}
+        t = {"k2": [], "k3": [], "k4": []}
+        ids = {"k3": [], "k4": []}
+        for nm, a, kw in calls:
+            fn = fns.get(nm) or getattr(bu, nm)
+            t[nm if nm in fns else "k2"].append(
+                device_ms(lambda: fn(*a, **kw)))
+            if nm in ids:
+                ids[nm].append(strip.popcount(a[4]))
         del calls
         wall = []
         for _ in range(5):
@@ -1915,10 +2145,14 @@ def kernel_times(tree: Path) -> int:
             eng.search(root)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - ts) * 1e3)
-        return {"search_ms": float(np.median(wall)),
-                "k2": {"launches": len(k2), "ms": sum(k2),
-                       "per_launch_ms": k2},
-                "k4": {"launches": len(k4), "ms": sum(k4)}}
+        res = {"search_ms": float(np.median(wall))}
+        for k, ts_ in t.items():
+            res[k] = {"launches": len(ts_), "ms": sum(ts_)}
+        res["k2"]["per_launch_ms"] = t["k2"]
+        for k in ids:
+            res[k]["per_launch_ms"] = t[k]
+            res[k]["ids"] = ids[k]
+        return res
 
     edges = rmat.rmat_graph(SCALE, EDGE_FACTOR, seed=SEED,
                             generator="counter", device=dev)
@@ -1934,6 +2168,7 @@ def kernel_times(tree: Path) -> int:
     graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False)
     mesh = make_local_mesh_1d(STRIPS, device=dev)
     for label, c, diro in (("1ds_c1", 1, True), ("1ds_c4", 4, True),
+                           ("1ds_c1_topdown", 1, False),
                            ("1ds_c4_topdown", 4, False)):
         cfg = BFSConfig(decomposition="1ds", storage="dcsc",
                         frontier_codec="packed", expand_chunks=c,
@@ -1942,15 +2177,61 @@ def kernel_times(tree: Path) -> int:
         out[label] = timed_search(eng, root)
         del eng
         torch.cuda.empty_cache()
+    del graph, mesh, edges
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k8"] = kernel8_times(dev)
     print(out["smi"])
     print(json.dumps(out))
     return 0
 
 
+def kernel8_times(dev) -> dict:
+    """Kernel 8 of the imported port at the AutoInt path's shapes, bags
+    of one: per shape, the card-alone time of a launch (``device_ms``,
+    cycling through the batches) and the host-timed call of the public
+    entry ``embedding_bag`` beside ``F.embedding`` (``cuda_ms``, both
+    under inference_mode, in turns)."""
+    import itertools
+
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.models import embedding
+    cfg = get_config("autoint")
+    shp = {s.name: s for s in cfg.shapes}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tab = embedding.init_table(cfg, gen, dev)
+    res = {}
+    for label, n_batches, step0 in (("serve_p99", 64, 0),
+                                    ("serve_bulk", 1, AI_P99),
+                                    ("retrieval_cand", AI_QUERIES, 10_000)):
+        rows = [embedding.flat_indices(cfg, torch.from_numpy(recsys_batch(
+            cfg, shp[label].batch, step0 + i)["idx"]).to(dev))
+            .reshape(-1, 1).to(torch.int32).contiguous()
+            for i in range(n_batches)]
+        longs = [r[:, 0].long() for r in rows]
+        cyc = itertools.cycle(range(n_batches))
+        with torch.inference_mode():
+            kd = device_ms(lambda: eb_ops.embedding_bag(tab, rows[next(cyc)]))
+            ld = device_ms(lambda: F.embedding(longs[next(cyc)], tab))
+            host = {"kernel": [], "library": []}
+            for _ in range(2):
+                host["kernel"].append(cuda_ms(lambda: eb_ops.embedding_bag(
+                    tab, rows[next(cyc)]), reps=100))
+                host["library"].append(cuda_ms(lambda: F.embedding(
+                    longs[next(cyc)], tab), reps=100))
+        res[label] = {"bags": rows[0].shape[0], "device_ms": kd,
+                      "device_library_ms": ld, "host_ms": host}
+        del rows, longs
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time kernels 2 and 4 (see kernel_times)")
+                    help="only time kernels 2, 3, 4 and 8 (see kernel_times)")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --kernel-times: the checkout to time")
     args = ap.parse_args()
@@ -2011,9 +2292,10 @@ def main() -> int:
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(f"nvidia-smi: {smi_nl}")
     print(f"bounds use {HBM_BYTES_PER_S / 1e12} TB/s (published H100 SXM "
-          f"peak) and an instruction rate of {INSTR_PER_CLOCK_PER_SM} x "
+          f"peak); the integer rate's peak is {INSTR_PER_CLOCK_PER_SM} x "
           f"{n_sm} SMs x {sm_mhz} MHz max SM clock = "
-          f"{instr_per_s / 1e12:.3f} T instructions/s")
+          f"{instr_per_s / 1e12:.3f} T instructions/s (phase 2 measures "
+          f"the rate kernel 7's bound uses)")
     record["device"] = {"name": name, "smi": smi_nl, "sms": n_sm,
                         "sm_mhz_max": sm_mhz, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
@@ -2021,7 +2303,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     phase("2 build")
     t0 = time.perf_counter()
-    libs = build.build_libraries(kernels)
+    libs = build.build_libraries([*kernels, "int_rate"])
     record["build_s"] = time.perf_counter() - t0
     for k in kernels:
         print(f"{k}: {libs[k].name}")
@@ -2029,20 +2311,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
         kernels[k].load()
-    print(f"nvcc for sm_90a, all {len(kernels)} in parallel: "
-          f"{record['build_s']:.2f} s")
+    print(f"nvcc for sm_90a, all {len(kernels)} and the integer-rate "
+          f"benchmark in parallel: {record['build_s']:.2f} s")
     # kernel 9's bf16 prefill runs on the tensor cores: its SASS holds
     # warpgroup MMAs
-    sass = subprocess.run(
-        [str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass",
-         str(libs["flash_attention"])], capture_output=True, text=True,
-        timeout=120, check=True).stdout
-    record["flash_attention_hgmma"] = sass.count("HGMMA")
+    record["flash_attention_hgmma"] = sass(libs["flash_attention"]).count(
+        "HGMMA")
     print(f"flash_attention SASS: {record['flash_attention_hgmma']} HGMMA "
           f"instructions")
     check(record["flash_attention_hgmma"] > 0, "no HGMMA in kernel 9")
+    # kernel 7's instructions per level in its SASS (the unrolled levels
+    # sit one multiply by 0x7feb352d apart) and the integer rate the card
+    # reaches on them, which kernel 7's bound uses
+    imad = sass_addresses(sass(libs["rmat_counter"]), "0x7feb352d")
+    rmat_per_level = (imad[-1] - imad[0]) / 16 / (len(imad) - 1)
+    ir = measure_int_rate(libs["int_rate"], n_sm)
+    ir["rmat_counter_instr_per_level"] = rmat_per_level
+    record["int_rate"] = ir
+    rmat_instr_per_s = ir["per_clock_per_sm"] * n_sm * sm_mhz * 1e6
+    print(f"rmat_counter SASS: {rmat_per_level:.2f} instructions per level "
+          f"(its bound counts the least, {RMAT_INSTR_PER_EDGE_LEVEL})")
+    print(f"integer rate on rmat_counter's level body (int_rate.cu, "
+          f"{ir['instr_per_iter']} SASS instructions an iteration of "
+          f"{ir['levels']} levels, {ir['instr_per_level']:.2f} a level): "
+          f"{ir['ms']:.4f} ms a launch at {ir['sm_mhz_under_load']} MHz "
+          f"(nvidia-smi under load): {ir['per_clock_per_sm']:.2f} thread "
+          f"instructions per clock per SM ("
+          f"{ir['per_clock_per_sm_at_max_clock']:.2f} at the {sm_mhz} MHz "
+          f"maximum; the table's peak {INSTR_PER_CLOCK_PER_SM}); kernel 7's "
+          f"bound uses {ir['per_clock_per_sm']:.2f} x {n_sm} SMs x "
+          f"{sm_mhz} MHz = {rmat_instr_per_s / 1e12:.3f} T instructions/s")
     launches, launches_1ds, errs, per, rmat_by_ops = graph_paths(
-        dev, kernels, record, instr_per_s, path_2d, path_1ds)
+        dev, kernels, record, rmat_instr_per_s, path_2d, path_1ds)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"\ndevice memory still allocated after the graph paths: "

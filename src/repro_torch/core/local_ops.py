@@ -142,8 +142,9 @@ def _td_dense_1d(g, f_words, args):
 
 
 def _td_strip_dcsc(g, f_words, args):
-    """The strip SpMSV kernel: walks every strip's non-empty global
-    columns against the allgathered bitmap, one launch for all p."""
+    """The strip SpMSV kernel against the allgathered bitmap, one launch
+    for all p: it walks the frontier's ids or the strips' columns,
+    whichever is cheaper."""
     return strip.spmsv_strip_dcsc(g["jc"], g["cp"], g["nzc"], g["row_idx"],
                                   f_words, args.part.chunk)
 

@@ -4,8 +4,10 @@ Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
 interface (sources may share a ``.cuh`` header there).  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed by
 a hash of the source and the flags, and loaded with ``ctypes``.  Pointers
-and the stream go in as ``c_void_p``; each C entry returns
-``cudaGetLastError()`` and ``CudaKernel.launch`` raises when it is not 0.
+and the stream go in as ``c_void_p`` (kernel 8, whose host call is its
+cost at serving sizes, takes its values packed into one int64 block);
+each C entry returns ``cudaGetLastError()`` and ``CudaKernel.launch``
+raises when it is not 0.
 """
 from __future__ import annotations
 
@@ -121,14 +123,19 @@ class CudaKernel:
         self.launches += 1
 
 
-def stream_handle(device) -> ctypes.c_void_p:
+def stream_handle(device) -> int:
+    """The raw handle of the current stream on the CUDA ``device``, for a
+    kernel's ``c_void_p`` stream argument.  Read without building a
+    ``torch.cuda.Stream`` object, which costs microseconds a launch."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    idx = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)
 
 
 def require_cuda(*tensors) -> None:
     """The kernel path takes CUDA tensors on one device, and nothing else."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+    dev = tensors[0].device
+    if not tensors[0].is_cuda or any(t.device != dev for t in tensors[1:]):
         raise ValueError(f"kernel inputs must all lie on one CUDA device, "
-                         f"got {sorted(str(d) for d in devs)}")
+                         f"got {sorted({str(t.device) for t in tensors})}")

@@ -13,6 +13,12 @@ One call launches one of three paths (``plan``): bf16 prefill on the
 tensor cores, bf16 decode with the keys split over blocks and a merge
 (``split_attention_plain`` is its plain twin, for the tests), and
 float32 on the CUDA cores.
+
+The kernels are built for head dims 16, 32, 64 and 128.  Any other dh up
+to 128 runs at the next of those widths (``padded_dim``): q, k and v are
+zero-padded in the head dim, which adds nothing to Q K^T and gives zero
+output columns, the softmax scale stays dh^-0.5 of the real dh, and the
+result is sliced back to dh.  The plain version takes any dh.
 """
 from __future__ import annotations
 
@@ -52,14 +58,30 @@ def _check(q, k, v, window, q_offset):
         raise ValueError(f"k and v must be (B, Sk >= 1, Hkv, dh) with Hkv "
                          f"dividing Hq, got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {_HEAD_DIMS}")
+    if dh < 1:
+        raise ValueError(f"head dim must be >= 1, got {dh}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
+def padded_dim(dh: int) -> int:
+    """The head dim the kernel runs a head dim of ``dh`` at: the least of
+    16, 32, 64, 128 at or above it; past 128 the kernel has no width."""
+    for width in _HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"head dim {dh} > {_HEAD_DIMS[-1]}: the CUDA kernel "
+                     f"takes head dims up to {_HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (B, S, H, dh) zero-padded to (B, S, H, width): a fresh
+    contiguous tensor, whose rows are 16-byte aligned."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[3]))
 
 
 def _check_aligned(path: str, q, k, v) -> None:
@@ -163,7 +185,26 @@ def split_attention_plain(q, k, v, causal: bool = True,
 def launch(q, k, v, causal: bool, window: Optional[int],
            q_offset: int) -> torch.Tensor:
     """The kernel's launch on checked CUDA tensors in the (B, S, H, dh)
-    layout: the (B, Sq, Hq, dh) result, contiguous."""
+    layout: the (B, Sq, Hq, dh) result, contiguous at the kernel's head
+    dims; at another dh, the slice of the result at ``padded_dim(dh)``."""
+    return at_kernel_width(_launch, q, k, v, causal, window, q_offset)
+
+
+def at_kernel_width(fn, q, k, v, *args) -> torch.Tensor:
+    """``fn(q, k, v, *args, scale)`` at the kernel's head dim: with q, k
+    and v zero-padded to ``padded_dim(dh)`` where dh is not one of its
+    widths, ``scale`` dh^-0.5 of the real dh, and the result sliced back
+    to dh."""
+    dh = q.shape[3]
+    width = padded_dim(dh)
+    if width == dh:
+        return fn(q, k, v, *args, dh ** -0.5)
+    out = fn(*(pad_head_dim(x, width) for x in (q, k, v)), *args, dh ** -0.5)
+    return out[..., :dh]
+
+
+def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
+            scale: float) -> torch.Tensor:
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -185,7 +226,7 @@ def launch(q, k, v, causal: bool, window: Optional[int],
                   None if part is None else part.data_ptr(), strides, b, hq,
                   rep, sq, sk, dh, q_offset, 0 if window is None else window,
                   int(causal), PATHS[path], query_tile(sq), n_split, lo, hi,
-                  span, dh ** -0.5, stream_handle(q.device))
+                  span, scale, stream_handle(q.device))
     return out
 
 
@@ -195,11 +236,13 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q (B, Sq, Hq, dh) over k, v (B, Sk, Hkv, dh), query
     head h reading kv head h // (Hq // Hkv), query row i at absolute
     position ``q_offset + i``; -> (B, Sq, Hq, dh) in q's dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version, at any head dim; CUDA tensors launch
+    the kernel, at head dims up to 128 (``padded_dim``)."""
     _check(q, k, v, window, q_offset)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention_gqa(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
+    padded_dim(q.shape[3])
     KERNEL.load()
     require_cuda(q, k, v)
     return launch(q, k, v, causal, window, q_offset)

@@ -1,10 +1,10 @@
 """The 1D strip SpMSV over the strip DCSC: wrappers of the CUDA kernels
 ``csrc/spmsv_strip_min.cu`` (the whole allgathered frontier bitmap) and
 ``csrc/spmsv_strip_chunk_min.cu`` (one sub-chunk of the pipelined
-expand, which walks the frontier or step k's columns, whichever is
-cheaper), their plain PyTorch versions, and the port's copies of the
-JAX package's ``_dcsc_edges_examined`` and
-``_dcsc_edges_examined_chunk``.
+expand), which both walk the frontier's ids or the columns, whichever is
+cheaper, chosen on the card (``csrc/strip_walk.cuh``); their plain
+PyTorch versions; and the port's copies of the JAX package's
+``_dcsc_edges_examined`` and ``_dcsc_edges_examined_chunk``.
 
 Every function takes all p strips at once: ``jc (p, cap_nzc)``, ``cp (p,
 cap_nzc+1)``, ``nzc (p,)``, ``row_idx (p, cap)``, and returns the ``(p,
@@ -24,15 +24,15 @@ import torch
 from repro_torch.core.frontier import INT_INF, test_bits, unpack_bits
 from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
-KERNEL = CudaKernel("spmsv_strip_min", [ctypes.c_void_p] * 7 + [
+KERNEL = CudaKernel("spmsv_strip_min", [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 KERNEL_CHUNK = CudaKernel("spmsv_strip_chunk_min", [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p])
 
-# the chunk kernel's walks, as its stats[2] reports them
+# the walks of both kernels, as their stats[2] reports them
 WALK_FRONTIER, WALK_COLUMNS = 1, 2
 MAX_CHUNK_STRIPS = 32          # the chunk kernel's tile prefix, p*p slots
 
@@ -127,20 +127,21 @@ def _check(jc, cp, nzc, row_idx, words, nr):
                          f"{tuple(words.shape)}, nr {nr}")
 
 
-def _outputs(p: int, nr: int, dev):
-    return (torch.full((p, nr), INT_INF, dtype=torch.int32, device=dev),
-            torch.zeros(1, dtype=torch.int64, device=dev))
-
-
-def launch(jc, cp, nzc, row_idx, f_words, nr: int):
-    """The kernel's launch on checked CUDA tensors."""
+def launch(jc, cp, nzc, row_idx, f_words, nr: int, list_cap: int = None):
+    """The kernel's launch on checked CUDA tensors: (cand, edges examined,
+    walk taken), the last two 0-d int64 tensors on the card.
+    ``list_cap`` overrides the walk threshold (``list_capacity`` at one
+    step); any number of strips."""
     p, cap_nzc = jc.shape
-    cand, ex = _outputs(p, nr, jc.device)
+    if list_cap is None:
+        list_cap = list_capacity(cap_nzc, 1)
+    cand, stats, ids = walk_scratch(p, nr, list_cap, jc.device)
     KERNEL.launch(jc.data_ptr(), cp.data_ptr(), nzc.data_ptr(),
                   row_idx.data_ptr(), f_words.data_ptr(), cand.data_ptr(),
-                  ex.data_ptr(), p, cap_nzc, row_idx.shape[1], nr,
-                  f_words.shape[0] * 32, stream_handle(jc.device))
-    return cand, ex[0]
+                  stats.data_ptr(), ids.data_ptr(), p, cap_nzc,
+                  row_idx.shape[1], nr, f_words.shape[0] * 32, list_cap,
+                  stream_handle(jc.device))
+    return cand, stats[0], stats[2]
 
 
 def spmsv_strip_dcsc_plain(jc, cp, nzc, row_idx, f_words, nr: int):
@@ -160,7 +161,7 @@ def spmsv_strip_dcsc(jc: torch.Tensor, cp: torch.Tensor, nzc: torch.Tensor,
         return spmsv_strip_dcsc_plain(jc, cp, nzc, row_idx, f_words, nr)
     KERNEL.load()
     require_cuda(*tensors)
-    return launch(jc, cp, nzc, row_idx, f_words, nr)
+    return launch(jc, cp, nzc, row_idx, f_words, nr)[:2]
 
 
 def _sub_dims(f_sub, n: int, p: int, n_chunks: int):
@@ -176,33 +177,42 @@ def _sub_dims(f_sub, n: int, p: int, n_chunks: int):
 # a binary-search probe of the frontier walk against a slot of the
 # column walk: a probe costs about a fifth of a slot (the searches' first
 # steps hit the cache), from the crossover of the two walks forced on
-# the calls of the scale-24 1ds searches on an H100 (chip_smoke.py phase
-# 8, PERF.md)
+# the calls of the scale-24 1ds searches on an H100 at 4 steps (kernel
+# 4), and checked at one step (kernel 3: the frontier walk ahead at
+# 369,777-824,653 ids, the column walk from 3,046,908; threshold
+# 1,442,928) (chip_smoke.py phase 8, PERF.md)
 PROBE_COST = (1, 5)
 
 
 def list_capacity(cap_nzc: int, n_chunks: int) -> int:
-    """The chunk kernel's walk threshold, and the length of its frontier
-    id list: the frontier walk binary-searches each id in every strip's
-    jc, about L = bit_length(cap_nzc) probes a strip, where the column
-    walk tests about cap_nzc / n_chunks slots a strip; so a step walks
-    the frontier while count * L * PROBE_COST <= cap_nzc / n_chunks."""
+    """The walk threshold of both kernels (kernel 3 at n_chunks = 1), and
+    the length of their frontier id list: the frontier walk
+    binary-searches each id in every strip's jc, about L =
+    bit_length(cap_nzc) probes a strip, where the column walk tests about
+    cap_nzc / n_chunks slots a strip; so a step walks the frontier while
+    count * L * PROBE_COST <= cap_nzc / n_chunks."""
     num, den = PROBE_COST
     return max(1, cap_nzc * den // (n_chunks * num
                                      * max(1, cap_nzc.bit_length())))
 
 
-def chunk_scratch(p: int, nr: int, list_cap: int, dev):
-    """The chunk kernel's outputs and scratch: the (p, nr) candidates at
-    INT_INF, the (3,) int64 stats at 0 (edges examined, frontier count,
-    walk taken), and the int32 scratch of list_cap frontier ids and the
-    2*p*p slot-range bounds of the (strip, owner) pairs (the kernel
-    writes all it reads)."""
+def walk_scratch(p: int, nr: int, list_cap: int, dev, n_ranges: int = 0):
+    """The outputs and scratch of either kernel: the (p, nr) candidates
+    at INT_INF, the (4,) int64 stats at 0 (edges examined, frontier
+    count, walk taken, the walk's work counter), and the int32 scratch
+    of list_cap frontier ids and 2 slot bounds for each of ``n_ranges``
+    ranges (the kernel writes all it reads)."""
     cand = torch.full((p, nr), INT_INF, dtype=torch.int32, device=dev)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    scratch = torch.empty(list_cap + 2 * p * p, dtype=torch.int32,
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    scratch = torch.empty(list_cap + 2 * n_ranges, dtype=torch.int32,
                           device=dev)
     return cand, stats, scratch
+
+
+def chunk_scratch(p: int, nr: int, list_cap: int, dev):
+    """The chunk kernel's: ``walk_scratch`` with the slot ranges of the
+    p*p (strip, owner) pairs."""
+    return walk_scratch(p, nr, list_cap, dev, n_ranges=p * p)
 
 
 def frontier_ids_chunk(f_sub, p: int, chunk: int, k: int) -> torch.Tensor:
@@ -215,10 +225,11 @@ def frontier_ids_chunk(f_sub, p: int, chunk: int, k: int) -> torch.Tensor:
     return (owner * chunk + k * sub + (j - owner * sub)).to(torch.int32)
 
 
-def chunk_walk(f_sub, list_cap: int) -> int:
-    """The walk the chunk kernel takes on these words: the frontier walk
-    while the step's frontier holds at most list_cap ids."""
-    return WALK_FRONTIER if popcount(f_sub) <= list_cap else WALK_COLUMNS
+def chunk_walk(f_words, list_cap: int) -> int:
+    """The walk either kernel takes on these frontier words (a step's
+    sub-chunk words or the whole bitmap): the frontier walk while they
+    hold at most list_cap ids."""
+    return WALK_FRONTIER if popcount(f_words) <= list_cap else WALK_COLUMNS
 
 
 def popcount(words: torch.Tensor) -> int:

@@ -48,6 +48,12 @@ def _close(got, want, dtype):
     (64, 192, 128, True, None, 128),  # chunked-prefill continuation
     (96, 100, 64, True, None, 4),     # ragged Sk
     (17, 40, 16, False, 8, 3),        # window without causality
+    # head dims the CUDA kernel runs zero-padded: the plain version
+    # takes any dh
+    (40, 40, 8, True, None, 0),
+    (33, 70, 48, True, 16, 37),
+    (64, 96, 80, True, None, 32),
+    (1, 130, 80, True, 50, 129),
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_plain_matches_jax_ref(Sq, Sk, dh, causal, window, q_off, dtype):
@@ -71,6 +77,9 @@ _CASES = [
     (2, 24, 4, 1, 16, 96, 48, None, 32),      # prefill continuation
     (2, 64, 4, 2, 16, 64, 0, 16, 1024),       # window, one chunk
     (1, 1, 4, 2, 32, 80, 70, 8, 2048),        # decode under a window
+    (2, 24, 4, 2, 80, 64, 30, None, 32),      # stablelm-3b's head dim
+    (3, 1, 6, 2, 48, 64, 37, 16, 2048),       # decode, dh 48, window
+    (2, 16, 4, 4, 8, 32, 0, None, 1024),      # dh 8
 ]
 
 
@@ -142,7 +151,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     v = torch.zeros(1, 6, 2, 16)
     kw = {}
     if bad == "dh":
-        q, k, v = q[..., :8], k[..., :8], v[..., :8]
+        # past 128 the kernel has no width: raised for tensors off the
+        # CPU before the library is loaded (meta tensors stand in for
+        # CUDA ones); the CPU's plain version takes it
+        meta = dict(device="meta")
+        q, k, v = (torch.zeros(1, s, h, 160, **meta)
+                   for s, h in ((4, 4), (6, 2), (6, 2)))
+        assert fa_ops.flash_attention_gqa(*(torch.ones(x.shape)
+                                            for x in (q, k, v))).shape \
+            == q.shape
     elif bad == "dtype":
         k = k.double()
     elif bad == "heads":
@@ -160,3 +177,53 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_query_tile():
     assert [fa_ops.query_tile(s) for s in (1, 2, 3, 17, 64, 65, 1024)] \
         == [1, 2, 4, 32, 64, 64, 64]
+
+
+def test_padded_dim_is_the_next_kernel_width():
+    assert [fa_ops.padded_dim(d) for d in (1, 8, 16, 17, 32, 48, 64, 80,
+                                           96, 127, 128)] \
+        == [16, 16, 16, 32, 32, 64, 64, 128, 128, 128, 128]
+    for dh in (129, 160, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.padded_dim(dh)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_gqa(*(torch.zeros(1, 4, 2, 0)
+                                     for _ in range(3)))
+
+
+def test_pad_head_dim_adds_zero_columns():
+    x = torch.randn(2, 5, 3, 80)[:, 1:4]                 # a strided view
+    y = fa_ops.pad_head_dim(x, 128)
+    assert y.shape == (2, 3, 3, 128) and y.is_contiguous()
+    assert torch.equal(y[..., :80], x) and not y[..., 80:].any()
+
+
+def _plain_at_width(q, k, v, causal, window, q_offset, scale):
+    """The plain version on the padded tensors with the softmax scale the
+    kernel is given: q scaled by ``scale`` / width^-0.5, so that the
+    plain version's own width^-0.5 gives ``scale``."""
+    q = (q.double() * (scale / q.shape[3] ** -0.5)).to(q.dtype)
+    return fa_ref.attention_gqa(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+
+@pytest.mark.parametrize("dh", [8, 48, 80])
+def test_kernel_width_call_pads_scales_by_the_real_dh_and_slices(dh):
+    """The wrapper's padding around the launch, with the plain version in
+    the kernel's place: the result is the attention at the real dh; with
+    the padded width's scale it would not be."""
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, s, 4, dh)).astype(
+        np.float32)) for s in (24, 40, 40))
+    args = (True, 16, 16)
+    got = fa_ops.at_kernel_width(_plain_at_width, q, k, v, *args)
+    want = fa_ref.attention_gqa(q, k, v, causal=True, window=16,
+                                q_offset=16)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    width = fa_ops.padded_dim(dh)
+    wrong = fa_ops.at_kernel_width(
+        lambda *a: _plain_at_width(*a[:-1], width ** -0.5), q, k, v, *args)
+    assert not np.allclose(wrong.numpy(), want.numpy(), rtol=2e-5,
+                           atol=2e-5)

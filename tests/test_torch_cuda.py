@@ -248,6 +248,55 @@ def test_strip_chunk_kernel_walks_match_plain(dev):
     assert walks == {strip.WALK_FRONTIER, strip.WALK_COLUMNS}
 
 
+def _strip_walks_match_plain(g, fronts, chunk):
+    """Kernel 3 against its plain version on every frontier with the
+    walk threshold at its default, at 0 ids and at every id; returns
+    the walks taken."""
+    n = g.part.n
+    walks = set()
+    for name, fw in fronts.items():
+        want = strip.spmsv_strip_dcsc_plain(g.jc, g.cp, g.nzc, g.row_idx, fw,
+                                            chunk)
+        for cap in (None, 0, n):
+            cand, ex, walk = strip.launch(g.jc, g.cp, g.nzc, g.row_idx, fw,
+                                          chunk, list_cap=cap)
+            assert torch.equal(cand, want[0]), (name, cap)
+            assert int(ex) == int(want[1]), (name, cap)
+            lc = strip.list_capacity(g.cap_nzc, 1) if cap is None else cap
+            assert int(walk) == strip.chunk_walk(fw, lc), (name, cap)
+            walks.add(int(walk))
+    return walks
+
+
+def test_strip_kernel_walks_match_plain(dev):
+    """Kernel 3, both walks, on an empty strip, a 10^4-edge column,
+    sub-range ends, the last word and the empty frontier."""
+    p, chunk = 4, 1 << 14
+    g, hub, _ = ec.strip_graph(p, chunk, device=dev)
+    walks = _strip_walks_match_plain(
+        g, ec.strip_frontiers(p, chunk, hub, device=dev), chunk)
+    assert walks == {strip.WALK_FRONTIER, strip.WALK_COLUMNS}
+
+
+def test_strip_kernel_takes_40_strips(dev):
+    """Kernel 3 has no cap on the strips (kernel 4 takes 32 at most)."""
+    p, chunk = 40, 1 << 14
+    assert p > strip.MAX_CHUNK_STRIPS
+    g, hub, _ = ec.strip_graph(p, chunk, device=dev, edge_factor=1)
+    fronts = ec.strip_frontiers(p, chunk, hub, device=dev)
+    walks = _strip_walks_match_plain(
+        g, {k: fronts[k] for k in ("hub", "sub-range ends", "30%")}, chunk)
+    assert walks == {strip.WALK_FRONTIER, strip.WALK_COLUMNS}
+
+
+def test_strip_kernel_walks_on_a_real_graph(graph_1d, dev):
+    g, part = graph_1d, graph_1d.part
+    fronts = {i: pack_bits(m) for i, m in enumerate(_strip_fronts(part.n,
+                                                                  dev))}
+    walks = _strip_walks_match_plain(g, fronts, part.chunk)
+    assert walks == {strip.WALK_FRONTIER, strip.WALK_COLUMNS}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 @pytest.mark.parametrize("n_bags,width,weighted", [
@@ -266,6 +315,31 @@ def test_embedding_bag_kernel_matches_plain(dev, dtype, mode, n_bags, width,
     want = eb_ref.embedding_bag(table, ids, w, mode=mode)
     assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [16, 8, 32, 17, 3, 1100])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_embedding_bag_kernel_layouts_match_plain(dev, dtype, dim, offset):
+    """Every layout of kernel 8: 16-byte lanes (float32 D 8, 16, 32; bf16
+    D 16, 32), one element a lane (an odd D, or a table that starts off
+    16 bytes, a view at row ``offset``), and rows wider than a block of
+    lanes (D 1,100); bags of one and of 5, sum and weighted mean."""
+    g = torch.Generator(device=dev).manual_seed(dim + offset)
+    base = torch.randn(301, dim, generator=g, device=dev).to(dtype)
+    table = base[offset:]
+    aligned = table.data_ptr() % eb_ops.VECTOR_BYTES == 0
+    vec, lanes = eb_ops.layout(dim, table.element_size(), aligned)
+    if offset == 0 and dim * table.element_size() % 16 == 0:
+        assert vec * table.element_size() == 16
+    for n_bags, width in ((1000, 1), (257, 5)):
+        ids = torch.randint(-1, 305, (n_bags, width), generator=g, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand(n_bags, width, generator=g, device=dev)
+        for ww, mode in ((None, "sum"), (w, "mean")):
+            got = eb_ops.embedding_bag(table, ids, ww, mode=mode)
+            want = eb_ref.embedding_bag(table, ids, ww, mode=mode)
+            assert torch.equal(got, want), (n_bags, width, mode, vec, lanes)
 
 
 def assert_attention_close(got, q, k, v, **kw):
@@ -354,6 +428,40 @@ def test_flash_attention_window_narrower_than_a_split(dev, window,
     assert path == "split" and n > 1 and lo + span <= 1499 - window
     got = fa_ops.flash_attention_gqa(q, k, v, **kw)
     assert_attention_close(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype,sq,sk,q_off,window", [
+    (torch.bfloat16, 96, 160, 64, None),     # prefill: the tensor cores
+    (torch.bfloat16, 1, 700, 699, None),     # decode: the key splits
+    (torch.bfloat16, 1, 700, 699, 100),
+    (torch.float32, 40, 90, 50, 30),         # float32: the CUDA cores
+    (torch.float32, 1, 300, 299, None)])
+@pytest.mark.parametrize("dh", [80, 48, 8])
+def test_flash_attention_kernel_at_head_dims_it_pads(dev, dtype, sq, sk,
+                                                     q_off, window, dh):
+    """Head dims outside 16/32/64/128 run zero-padded to the next width
+    on every path, within ``fa_ref.tolerance``, with the real dh's
+    scale; GQA over strided cache slices, as the model calls it."""
+    g = torch.Generator(device=dev).manual_seed(dh + sq)
+    q = torch.randn(2, sq, 6, dh, generator=g, device=dev).to(dtype)
+    ck, cv = (torch.randn(2, sk + 20, 2, dh, generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    k, v = ck[:, :sk], cv[:, :sk]
+    kw = dict(causal=True, window=window, q_offset=q_off)
+    path = fa_ops.plan(2, 2, 3, sq, sk, dtype, **kw)[0]
+    assert path == {(torch.float32, True): "cuda_cores",
+                    (torch.float32, False): "cuda_cores",
+                    (torch.bfloat16, True): "split",
+                    (torch.bfloat16, False): "wgmma"}[(dtype, sq == 1)]
+    got = fa_ops.flash_attention_gqa(q, k, v, **kw)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_attention_close(got, q, k, v, **kw)
+
+
+def test_flash_attention_kernel_rejects_head_dims_past_128(dev):
+    x = torch.zeros(1, 4, 2, 160, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention_gqa(x, x, x)
 
 
 def test_nn_launch_counts_grow(dev):

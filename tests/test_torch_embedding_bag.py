@@ -135,3 +135,39 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         t = t.int()
     with pytest.raises(ValueError):
         eb_ops.embedding_bag(t, ids, w, mode=mode)
+
+
+# the launch's layout: (D, element bytes, table 16-byte aligned) ->
+# (elements a lane, lanes a bag)
+@pytest.mark.parametrize("dim,elt,aligned,want", [
+    (16, 4, True, (4, 4)),        # the AutoInt table: 4 lanes of float4
+    (16, 2, True, (8, 2)),        # bf16: 2 lanes of 8
+    (8, 4, True, (4, 2)),
+    (32, 4, True, (4, 8)),
+    (32, 2, True, (8, 4)),
+    (17, 4, True, (1, 17)),       # an odd D: one element a lane
+    (12, 2, True, (1, 12)),       # 24 bytes: not whole vectors
+    (16, 4, False, (1, 16)),      # a table view off 16 bytes
+    (1100, 4, True, (4, 256)),    # wider than a block of lanes
+    (3000, 4, False, (1, 256)),
+])
+def test_layout(dim, elt, aligned, want):
+    assert eb_ops.layout(dim, elt, aligned) == want
+
+
+@pytest.mark.parametrize("n_bags,dim,vec,lanes,want", [
+    (10_223_616, 16, 4, 4, (39_936, 1)),   # serve_bulk: 256 bags a block
+    (19_968, 16, 4, 4, (78, 1)),           # serve_p99
+    (257, 16, 8, 2, (1, 1)),               # bf16: 512 bags a block
+    (1, 17, 1, 17, (1, 1)),
+    (61, 17, 1, 17, (2, 1)),               # 15 bags side by side, 60 a block
+    (1000, 1100, 4, 256, (250, 2)),        # 275 vectors: 2 slices of 256
+    (0, 16, 4, 4, (0, 1)),
+])
+def test_grid_covers_every_bag_and_vector(n_bags, dim, vec, lanes, want):
+    gx, gy = eb_ops.grid(n_bags, dim, vec, lanes)
+    assert (gx, gy) == want
+    per_block = eb_ops.BLOCK // lanes * eb_ops.BAGS_PER_THREAD
+    assert gx * per_block >= n_bags > (gx - 1) * per_block or n_bags == 0
+    assert gy * lanes >= dim // vec
+

@@ -303,7 +303,7 @@ def test_strip_chunk_launch_prep(st_case):
     cand, stats, scratch = strip.chunk_scratch(ST_P, ST_CHUNK, cap, "cpu")
     assert cand.shape == (ST_P, ST_CHUNK) and cand.dtype == torch.int32
     assert bool((cand == INT_INF).all())
-    assert stats.dtype == torch.int64 and stats.tolist() == [0, 0, 0]
+    assert stats.dtype == torch.int64 and stats.tolist() == [0, 0, 0, 0]
     # the ids, then 2 slot-range bounds per (strip, owner)
     assert scratch.dtype == torch.int32
     assert scratch.numel() == cap + 2 * ST_P * ST_P
@@ -320,3 +320,92 @@ def test_strip_chunk_walk_rule(st_case):
     assert strip.chunk_walk(sub("all"), 0) == strip.WALK_COLUMNS
     assert strip.chunk_walk(sub("empty"), 0) == strip.WALK_FRONTIER
     assert strip.popcount(sub("all")) == ST_P * ST_CHUNK // 4
+
+
+# ---------------------------------------------------------------------------
+# Strip SpMSV against the whole bitmap (kernel 3): the walks of kernel 4
+# at one step, any number of strips
+# ---------------------------------------------------------------------------
+
+
+def _oracle_whole(g, fw, p):
+    """Candidates and edges examined of every strip from the JAX
+    package's ``spmsv_dense`` and ``_dcsc_edges_examined``."""
+    f = unpack_bits(fw).numpy()
+    chunk = g.part.chunk
+    want = np.stack([np.asarray(r_spmsv_dense(
+        jnp.asarray(g.edge_src[i].numpy()), jnp.asarray(g.row_idx[i].numpy()),
+        jnp.asarray(g.nnz[i].numpy()), jnp.asarray(f), chunk, jnp.int32(0)))
+        for i in range(p)])
+    ex = sum(float(_dcsc_edges_examined(
+        jnp.asarray(g.jc[i].numpy()), jnp.asarray(g.cp[i].numpy()),
+        jnp.asarray(g.nzc[i].numpy()), jnp.asarray(f))) for i in range(p))
+    return want, ex
+
+
+@pytest.mark.parametrize("front", ["empty", "sub-range ends", "hub",
+                                   "last word", "1%", "30%", "all"])
+def test_strip_plain_on_edge_cases_matches_oracles(st_case, front):
+    """Kernel 3's entry (its plain version on the CPU) on the synthetic
+    cases: an empty strip, a 10^4-edge column, sub-range ends, the last
+    word; equal to the chunk entry at one step."""
+    g, _, _, fronts = st_case
+    fw = fronts[front]
+    cand, ex = strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx, fw,
+                                      ST_CHUNK)
+    want, want_ex = _oracle_whole(g, fw, ST_P)
+    assert np.array_equal(cand.numpy(), want) and int(ex) == want_ex
+    one = strip.spmsv_strip_dcsc_chunk(g.jc, g.cp, g.nzc, g.row_idx, fw,
+                                       ST_CHUNK, n=g.part.n, k=0, n_chunks=1)
+    assert torch.equal(one[0], cand) and int(one[1]) == int(ex)
+
+
+def test_strip_launch_prep(st_case):
+    """Kernel 3's threshold is list_capacity at one step, its scratch the
+    id list alone (no slot ranges), and its walk the same rule on the
+    whole bitmap."""
+    g, _, _, fronts = st_case
+    cap = strip.list_capacity(g.cap_nzc, 1)
+    L = g.cap_nzc.bit_length()
+    num, den = strip.PROBE_COST
+    # the frontier walk while count * L * num/den <= cap_nzc
+    assert cap * L * num <= g.cap_nzc * den < (cap + 1) * L * num
+    assert cap >= 4 * strip.list_capacity(g.cap_nzc, 4) - 4
+    cand, stats, ids = strip.walk_scratch(ST_P, ST_CHUNK, cap, "cpu")
+    assert cand.shape == (ST_P, ST_CHUNK) and bool((cand == INT_INF).all())
+    assert stats.dtype == torch.int64 and stats.tolist() == [0, 0, 0, 0]
+    assert ids.dtype == torch.int32 and ids.numel() == cap
+    assert strip.chunk_walk(fronts["empty"], cap) == strip.WALK_FRONTIER
+    assert strip.chunk_walk(fronts["hub"], cap) == strip.WALK_FRONTIER
+    assert strip.chunk_walk(fronts["all"], cap) == strip.WALK_COLUMNS
+    assert strip.chunk_walk(fronts["hub"], 0) == strip.WALK_COLUMNS
+    assert strip.chunk_walk(fronts["all"], g.part.n) == strip.WALK_FRONTIER
+    n_set = strip.popcount(fronts["30%"])
+    assert strip.chunk_walk(fronts["30%"], n_set) == strip.WALK_FRONTIER
+    assert strip.chunk_walk(fronts["30%"], n_set - 1) == strip.WALK_COLUMNS
+
+
+def test_strip_takes_40_strips():
+    """No cap on the strips for kernel 3 (kernel 4's tile prefix caps it
+    at MAX_CHUNK_STRIPS): 40 strips through the entry and the launch
+    prep."""
+    p, chunk = 40, 1 << 14
+    assert p > strip.MAX_CHUNK_STRIPS
+    g, hub, empty = ec.strip_graph(p, chunk, edge_factor=1)
+    fronts = ec.strip_frontiers(p, chunk, hub)
+    cap = strip.list_capacity(g.cap_nzc, 1)
+    cand, stats, ids = strip.walk_scratch(p, chunk, cap, "cpu")
+    assert cand.shape == (p, chunk) and ids.numel() == cap
+    for front in ("hub", "30%"):
+        got, ex = strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx,
+                                         fronts[front], chunk)
+        want, want_ex = _oracle_whole(g, fronts[front], p)
+        assert np.array_equal(got.numpy(), want) and int(ex) == want_ex
+        assert bool((got[empty] == INT_INF).all())
+    assert strip.chunk_walk(fronts["hub"], cap) == strip.WALK_FRONTIER
+    assert strip.chunk_walk(fronts["30%"], cap) == strip.WALK_COLUMNS
+    # the chunk kernel's wrapper refuses what its tile prefix cannot hold
+    meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        strip.launch_chunk(meta(p, 8), meta(p, 9), meta(p), meta(p, 30),
+                           meta(p), 32, p * 32, 0, 1)
