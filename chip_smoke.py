@@ -9,9 +9,10 @@ Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
   2 build        nvcc of the nine kernels and the integer-rate benchmark
                  (in parallel), ptxas report; kernel 7's instructions per
-                 level in its SASS, and the integer instruction rate the
-                 card reaches on its level body (csrc/int_rate.cu), which
-                 kernel 7's bound uses
+                 level in the SASS of its scale-24 build, and the integer
+                 instruction rate the card reaches on its level body
+                 (csrc/int_rate.cu), which kernel 7's bound uses unless
+                 the kernel itself issues faster (phase 6)
   3 2D path      one Graph500 session at full width on the 2D grid 1x1:
                  counter R-MAT (kernel) -> preprocess -> build_blocked ->
                  plan_bfs(local_mode="kernel") -> compile -> 16 roots,
@@ -74,9 +75,9 @@ Phases, in the order they run:
                  the path's calls and over the JAX test's sweep plus a
                  window-4096 shape, with times, SDPA, the bound, each
                  decode launch's blocks and the shortest decode timed
-                 with 32 and 16 keys a split at least; head dim 80
-                 (padded to 128) on each path, timed beside dh 64 and
-                 128
+                 with 32 and 16 keys a split at least; head dims 80
+                 (padded to 128) and 160, 256, 320 (the wide kernel)
+                 on each path's shape, timed beside dh 64 and 128
  15 profiles     busy share and top kernels of one serve_p99 batch, one
                  serve_bulk batch and one decode step
  16 prefill_32k  smollm-135m at the registered width: one prefill of 32
@@ -93,10 +94,12 @@ result line.
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-times kernels 2, 3 and 4 alone at the scale-24 paths' calls, and each
-search whole, and kernel 8 at the AutoInt shapes (on the card alone, and
-its public entry host-timed beside F.embedding), for this checkout or
-another one (``DIR``, for example a
+times kernels 2-9 on the card alone: 2-6 at the scale-24 paths' calls
+(5 and 6 host-timed as well), each search whole, kernel 7 on the full
+scale-24 stream (also host-timed), kernel 8 at the AutoInt shapes (on the
+card alone, and its public entry host-timed beside F.embedding) and
+kernel 9 at dh 64, 80 and 128 on its three paths' shapes, for this
+checkout or another one (``DIR``, for example a
 ``git archive`` of a parent commit, so that two trees compare on one
 card in one call); see ``kernel_times``.  Any failed check
 exits non-zero; nothing is caught.  It exits non-zero without a CUDA
@@ -134,10 +137,11 @@ HBM_BYTES_PER_S = 3.35e12
 # FP32 lanes), and the CUDA C++ programming guide's throughput table gives
 # 64 results per clock per SM at compute capability 9.0 for 32-bit integer
 # add, multiply-add, shift, logic and compare: every instruction of
-# rmat_counter's fmix32 loop (IMAD, SHF, LOP3, ISETP, SEL).  Times the
-# card's SM count and its maximum SM clock (nvidia-smi) this is the
-# integer kernels' peak; phase 2 measures the rate the card reaches on the
-# same instruction mix (csrc/int_rate.cu), and kernel 7's bound uses that
+# rmat_counter's fmix32 loop (IMAD, SHF, LOP3, ISETP).  Times the card's
+# SM count and its maximum SM clock (nvidia-smi) this is the integer
+# kernels' peak; phase 2 measures the rate the card reaches on kernel 7's
+# own level body (csrc/int_rate.cu), and kernel 7's bound uses that or
+# the kernel's own issue rate, whichever is larger (phase 6)
 INSTR_PER_CLOCK_PER_SM = 64
 RMAT_INSTR_PER_EDGE_LEVEL = 9  # the least per edge and level, rmat_counter.cu
 INT_RATE_ITERS = 4096          # loop iterations of one int_rate launch
@@ -196,6 +200,29 @@ def sass(lib: Path) -> str:
         check=True).stdout
 
 
+def sass_function(text: str, name: str) -> str:
+    """The SASS of the one function whose mangled name holds ``name``."""
+    for part in text.split("Function : ")[1:]:
+        if name in part.splitlines()[0]:
+            return part
+    raise ValueError(f"no function {name} in the SASS")
+
+
+def sass_instructions(text: str) -> int:
+    """The instructions in a SASS listing, the NOPs that pad it left
+    out."""
+    n = 0
+    for line in text.splitlines():
+        t = line.strip()
+        if t.startswith("/*") and not t.startswith("/* 0x") and "*/" in t:
+            op = t[t.index("*/") + 2:].split()
+            if op and op[0].startswith("@"):
+                op = op[1:]
+            if op and op[0][:1].isalpha() and not op[0].startswith("NOP"):
+                n += 1
+    return n
+
+
 def sass_addresses(text: str, pattern: str):
     """The addresses of the SASS instructions whose line holds
     ``pattern``."""
@@ -223,7 +250,8 @@ def sass_loop_instructions(text: str) -> int:
 
 def measure_int_rate(lib: Path, n_sm: int) -> dict:
     """The thread instructions per clock per SM that the card reaches on
-    rmat_counter's level body (csrc/int_rate.cu): a full grid of it timed
+    rmat_counter's own level body (csrc/rmat_level.cuh, looped by
+    csrc/int_rate.cu): a full grid of it timed
     with CUDA events, its instructions counted in its SASS, the SM clock
     sampled with nvidia-smi while the launches run."""
     import ctypes
@@ -238,8 +266,7 @@ def measure_int_rate(lib: Path, n_sm: int) -> dict:
     per_iter = sass_loop_instructions(text)
     imad = sass_addresses(text, "0x7feb352d")
     levels = len(imad)
-    salts = (ctypes.c_uint * levels)(
-        *[rmat.level_salt(SEED, lv) for lv in range(levels)])
+    salts = (ctypes.c_uint * levels)(*rmat.kernel_salts(SEED, levels))
     t1, t2, t3 = rmat.rmat_thresholds(0.57, 0.19, 0.19)
     blocks, threads = n_sm * 8, 256
     out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
@@ -429,6 +456,14 @@ BF16_FLOPS_PER_S = 989e12
 # kernel 9 at the mixtral config's window: (BH, Sq, Sk, dh, causal,
 # window, q_offset, dtype)
 WINDOW_CASE = (8, 8192, 8192, 128, True, 4096, 0, torch.bfloat16)
+# kernel 9 at head dims off its widths: 80 zero-padded to 128, and 160,
+# 256, 320 on the wide kernel; on each path's shape (label, (B, Sq, Sk,
+# q_offset, dtype), the path at dh <= 128), 32 heads
+OFF_WIDTH_DIMS = (80, 160, 256, 320)
+K9_DIM_SHAPES = (
+    ("prefill bf16", (4, 512, 512, 0, torch.bfloat16), "wgmma"),
+    ("decode bf16", (4, 1, 1500, 1499, torch.bfloat16), "split"),
+    ("float32", (2, 128, 128, 0, torch.float32), "cuda_cores"))
 # kernel 9 against its plain version: kernels/flash_attention/ref.py's
 # TOL and tolerance(): float32 (rtol, atol) (2e-5, 2e-5), the order of
 # the sums; bfloat16 2**-7 |want| + 2e-5 + 1.25 * 2**-8 A, A the plain
@@ -1070,43 +1105,47 @@ def check_kernel9(lm, dev) -> dict:
         sweep_rec.append({"case": [bh, sq, sk, dh, causal, window, q_off,
                                    str(dt)], "err": e, "ms": k_ms,
                           "library_ms": l_ms, "bound_ms": b_ms})
-    # a head dim the kernel runs zero-padded to 128 (stablelm-3b's 80, 32
-    # heads) beside 64 and 128 at the same shapes, on each path
-    ratio["head dim 80"] = 0.0
+    # head dims beside the kernel's widths, 32 heads, on each path's
+    # shape: 80 (stablelm-3b's) zero-padded to 128, and 160, 256 and 320
+    # on the wide kernel (the head dim a runtime argument), timed beside
+    # 64 and 128
+    for dh in OFF_WIDTH_DIMS:
+        ratio[f"head dim {dh}"] = 0.0
     pad_rec = {}
-    for label, (b, sq, sk, q_off, dt), want_path in (
-            ("prefill bf16", (4, 512, 512, 0, torch.bfloat16), "wgmma"),
-            ("decode bf16", (4, 1, 1500, 1499, torch.bfloat16), "split"),
-            ("float32", (2, 128, 128, 0, torch.float32), "cuda_cores")):
+    for label, (b, sq, sk, q_off, dt), want_path in K9_DIM_SHAPES:
         check(fa_ops.plan(b, 32, 1, sq, sk, dt, True, None, q_off)[0]
               == want_path, f"{label} does not take the {want_path} path")
-        times = {}
-        for dh in (64, 80, 128):
+        times, off = {}, {}
+        for dh in sorted((64, 128) + OFF_WIDTH_DIMS):
+            if dh > 128:
+                check(fa_ops.padded_dim(dh) == dh, f"dh {dh} is not run by "
+                                                   f"the wide kernel")
             q = torch.randn(b, sq, 32, dh, generator=g, device=dev).to(dt)
             k, v = (torch.randn(b, sk, 32, dh, generator=g, device=dev)
                     .to(dt) for _ in range(2))
             e, r = attn_close(fa_ops.launch(q, k, v, True, None, q_off), q,
                               k, v, True, None, q_off)
             worst = max(worst, e)
-            if dh == 80:
-                ratio["head dim 80"] = max(ratio["head dim 80"], r)
-                err80 = (e, r)
+            if dh in OFF_WIDTH_DIMS:
+                ratio[f"head dim {dh}"] = max(ratio[f"head dim {dh}"], r)
+                off[dh] = (e, r)
             times[dh] = device_ms(lambda: fa_ops.launch(q, k, v, True, None,
                                                         q_off))
             del q, k, v
-        print(f"flash_attention {label} ({want_path}) B={b} Sq={sq} Sk={sk} "
-              f"32 heads: dh 80 (padded to 128) max |kernel - plain| "
-              f"{err80[0]:.3e} ({err80[1]:.4f} of the bound); on the card "
-              f"alone dh 64 {times[64]:.5f} ms, dh 80 {times[80]:.5f} ms, "
-              f"dh 128 {times[128]:.5f} ms")
-        pad_rec[label] = {"err": err80[0], "ratio": err80[1],
+        print(f"flash_attention {label} B={b} Sq={sq} Sk={sk} 32 heads, "
+              f"max |kernel - plain| (of the bound): " + ", ".join(
+                  f"dh {d} {x[0]:.3e} ({x[1]:.4f})" for d, x in off.items())
+              + f"; on the card alone ({want_path} to dh 128, then wide): "
+              + ", ".join(f"dh {d} {t:.5f} ms" for d, t in times.items()))
+        pad_rec[label] = {"err": {str(d): x[0] for d, x in off.items()},
+                          "ratio": {str(d): x[1] for d, x in off.items()},
                           "device_ms": {str(d): t for d, t in times.items()}}
-    lm["record"]["k9_head_dim_80"] = pad_rec
+    lm["record"]["k9_head_dims"] = pad_rec
     print(f"kernel 9 agrees with its plain version within "
           f"{fa_ref.TOL[torch.float32]} (float32) and "
           f"{fa_ref.TOL[torch.bfloat16]} (bfloat16) (rtol, atol, vtol) on "
           f"{len(rows)} path calls, {len(cases)} sweep cases and "
-          f"{3 * len(pad_rec)} head-dim cases; max "
+          f"{len(OFF_WIDTH_DIMS) * len(pad_rec)} head-dim cases; max "
           f"|kernel - plain| / bound: " + ", ".join(
               f"{k} {x:.4f}" for k, x in ratio.items()))
     lm["record"]["k9_calls"] = rows
@@ -1543,16 +1582,27 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     per["rmat_counter"]["plain_ms"] = cuda_ms(
         lambda: rmat.rmat_edges_counter_plain(SCALE, EDGE_FACTOR, seed=SEED,
                                               device=dev), reps=1)
+    # the rate of the bound: the larger of phase 2's integer rate on the
+    # level body and the kernel's own issue rate in this run (its SASS
+    # instructions a level over its time), so that the bound is never
+    # slower than what the kernel itself issues
+    own_per_s = (record["int_rate"]["rmat_counter_instr_per_level"] * SCALE
+                 * m_in / (per["rmat_counter"]["ms"] / 1e3))
+    rate = max(instr_per_s, own_per_s)
     rb = 8 * m_in / HBM_BYTES_PER_S * 1e3
-    ro = RMAT_INSTR_PER_EDGE_LEVEL * SCALE * m_in / instr_per_s * 1e3
+    ro = RMAT_INSTR_PER_EDGE_LEVEL * SCALE * m_in / rate * 1e3
     per["rmat_counter"]["bound_ms"] = max(rb, ro)
     per["rmat_counter"]["calls"] = 1
+    record["int_rate"]["rmat_counter_own_per_s"] = own_per_s
+    record["int_rate"]["bound_per_s"] = rate
     print(f"rmat_counter: full stream of {m_in} edges: kernel "
           f"{per['rmat_counter']['ms']:.4f} ms, plain "
-          f"{per['rmat_counter']['plain_ms']:.4f} ms, bound "
+          f"{per['rmat_counter']['plain_ms']:.4f} ms; its own issue rate "
+          f"{own_per_s / 1e12:.3f} T instructions/s against phase 2's "
+          f"{instr_per_s / 1e12:.3f}; bound "
           f"max({rb:.4f} ms bytes, {ro:.4f} ms issuing "
           f"{RMAT_INSTR_PER_EDGE_LEVEL} instructions per edge and level at "
-          f"the measured integer rate): "
+          f"the larger, {rate / 1e12:.3f} T/s): "
           f"{max(rb, ro) / per['rmat_counter']['ms']:.1%} of its bound")
     for k in ("spmsv_csr_min", "bottomup_substep"):
         r = per[k]
@@ -2091,18 +2141,24 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
 
 
 def kernel_times(tree: Path) -> int:
-    """Kernels 2, 3, 4 and 8 of the checkout at ``tree`` on the card alone,
-    at their real calls on the scale-24 paths, from the first root: one
+    """Kernels 2-9 of the checkout at ``tree`` on the card alone (kernel 1
+    is timed by the main run), at their real calls or shapes.  Kernels 2,
+    3, 4, 5 and 6 at the scale-24 paths' calls, from the first root: one
     2D search (grid 1x1), one 1ds search on 16 strips per expand_chunks
     (1 and 4) and one 1ds search top-down only per expand_chunks (the
     paper's 1D baseline, where kernels 3 and 4 take their column walks).
     Each recorded call is launched again through its public wrapper and
-    timed with ``device_ms``; the sums are per search.  Each search is
-    also timed whole on the host clock (median of 5).  Kernel 8 at the
-    AutoInt path's three shapes (bags of one into the registered
-    11,238,400 x 16 float32 table): on the card alone, and host-timed
-    through its public entry beside ``F.embedding`` on the same rows.
-    Prints the card's name and power limit, then one JSON line."""
+    timed with ``device_ms``, and kernels 5 and 6 also host-timed
+    (``cuda_ms``, the public entry's host call included), kernel 6 beside
+    ``fill_`` of its p * cap ids (the floor of writing them alone); the
+    sums are per search.  Each search is also timed whole on the host
+    clock (median of 5).  Kernel 7: the full scale-24 stream, on the card
+    alone and host-timed.  Kernel 8 at the AutoInt path's three shapes
+    (bags of one into the registered 11,238,400 x 16 float32 table): on
+    the card alone, and host-timed through its public entry beside
+    ``F.embedding`` on the same rows.  Kernel 9 on the card alone at dh 64, 80 and 128 on each
+    path's shape of ``K9_DIM_SHAPES``.  Prints the card's name and power
+    limit, then one JSON line."""
     # ahead of this checkout's src, so that ``tree``'s port is imported
     sys.path.insert(0, str(tree.resolve() / "src"))
     from repro_torch.configs.base import BFSConfig
@@ -2110,6 +2166,7 @@ def kernel_times(tree: Path) -> int:
     from repro_torch.graph import rmat
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
     from repro_torch.kernels.bottomup import ops as bu
+    from repro_torch.kernels.frontier_codec import ops as codec
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
     dev = torch.device("cuda")
@@ -2121,22 +2178,34 @@ def kernel_times(tree: Path) -> int:
                                           "bottomup_substep_strips")
                   if hasattr(bu, nm)]
     strip_targets = [(strip, "spmsv_strip_dcsc", "k3"),
-                     (strip, "spmsv_strip_dcsc_chunk", "k4")]
+                     (strip, "spmsv_strip_dcsc_chunk", "k4"),
+                     (codec, "encode_offsets", "k5"),
+                     (codec, "decode_buckets", "k6")]
 
     def timed_search(eng, root):
         with recording(k2_targets + strip_targets) as calls:
             eng.search(root)
         torch.cuda.synchronize()
         fns = {"k3": strip.spmsv_strip_dcsc,
-               "k4": strip.spmsv_strip_dcsc_chunk}
-        t = {"k2": [], "k3": [], "k4": []}
+               "k4": strip.spmsv_strip_dcsc_chunk,
+               "k5": codec.encode_offsets, "k6": codec.decode_buckets}
+        t = {"k2": [], "k3": [], "k4": [], "k5": [], "k6": []}
+        host = {"k5": [], "k6": []}
         ids = {"k3": [], "k4": []}
+        fill = []
         for nm, a, kw in calls:
             fn = fns.get(nm) or getattr(bu, nm)
             t[nm if nm in fns else "k2"].append(
                 device_ms(lambda: fn(*a, **kw)))
+            if nm in host:
+                host[nm].append(cuda_ms(lambda: fn(*a, **kw), reps=100))
             if nm in ids:
                 ids[nm].append(strip.popcount(a[4]))
+            if nm == "k6":
+                # the floor of a decode: its p * cap ids written alone
+                ids_out = torch.empty(a[4] * a[2], dtype=torch.int32,
+                                      device=dev)
+                fill.append(device_ms(lambda: ids_out.fill_(a[3])))
         del calls
         wall = []
         for _ in range(5):
@@ -2148,11 +2217,23 @@ def kernel_times(tree: Path) -> int:
         res = {"search_ms": float(np.median(wall))}
         for k, ts_ in t.items():
             res[k] = {"launches": len(ts_), "ms": sum(ts_)}
-        res["k2"]["per_launch_ms"] = t["k2"]
-        for k in ids:
+        for k in t:
             res[k]["per_launch_ms"] = t[k]
+        for k in ids:
             res[k]["ids"] = ids[k]
+        for k in host:
+            res[k]["host_ms"] = sum(host[k])
+            res[k]["per_launch_host_ms"] = host[k]
+        res["k6"]["per_launch_fill_ms"] = fill
         return res
+
+    def k7():
+        return rmat.rmat_edges_counter(SCALE, EDGE_FACTOR, seed=SEED,
+                                       device=dev)
+    out["k7"] = {"edges": EDGE_FACTOR << SCALE,
+                 "device_ms": device_ms(k7, reps=5),
+                 "host_ms": cuda_ms(k7, reps=5)}
+    torch.cuda.empty_cache()
 
     edges = rmat.rmat_graph(SCALE, EDGE_FACTOR, seed=SEED,
                             generator="counter", device=dev)
@@ -2181,6 +2262,7 @@ def kernel_times(tree: Path) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     out["k8"] = kernel8_times(dev)
+    out["k9"] = kernel9_times(dev)
     print(out["smi"])
     print(json.dumps(out))
     return 0
@@ -2228,10 +2310,28 @@ def kernel8_times(dev) -> dict:
     return res
 
 
+def kernel9_times(dev) -> dict:
+    """Kernel 9 of the imported port on the card alone (``device_ms``) at
+    dh 64, 80 and 128, 32 heads, on each path's shape of
+    ``K9_DIM_SHAPES``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    res = {}
+    for label, (b, sq, sk, q_off, dt), _ in K9_DIM_SHAPES:
+        res[label] = {}
+        for dh in (64, 80, 128):
+            q = torch.randn(b, sq, 32, dh, generator=g, device=dev).to(dt)
+            k, v = (torch.randn(b, sk, 32, dh, generator=g, device=dev)
+                    .to(dt) for _ in range(2))
+            res[label][str(dh)] = device_ms(
+                lambda: fa_ops.launch(q, k, v, True, None, q_off))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time kernels 2, 3, 4 and 8 (see kernel_times)")
+                    help="only time kernels 2-9 (see kernel_times)")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --kernel-times: the checkout to time")
     args = ap.parse_args()
@@ -2320,17 +2420,25 @@ def main() -> int:
     print(f"flash_attention SASS: {record['flash_attention_hgmma']} HGMMA "
           f"instructions")
     check(record["flash_attention_hgmma"] > 0, "no HGMMA in kernel 9")
-    # kernel 7's instructions per level in its SASS (the unrolled levels
-    # sit one multiply by 0x7feb352d apart) and the integer rate the card
-    # reaches on them, which kernel 7's bound uses
-    imad = sass_addresses(sass(libs["rmat_counter"]), "0x7feb352d")
-    rmat_per_level = (imad[-1] - imad[0]) / 16 / (len(imad) - 1)
+    # kernel 7's instructions per level: the SASS of its scale-SCALE
+    # instantiation less that of scale SCALE-8, over 8 (its levels are
+    # unrolled and interleaved, so the marginal count is a level's); and
+    # the integer rate the card reaches on that level body
+    k7_sass = sass(libs["rmat_counter"])
+    k7_n = {sc: sass_instructions(sass_function(
+        k7_sass, f"rmat_counter_kernelILi{sc}E")) for sc in (SCALE - 8, SCALE)}
+    check(len(sass_addresses(sass_function(
+        k7_sass, f"rmat_counter_kernelILi{SCALE}E"), "0x7feb352d")) == SCALE,
+        f"the scale-{SCALE} kernel does not multiply once a level")
+    rmat_per_level = (k7_n[SCALE] - k7_n[SCALE - 8]) / 8
     ir = measure_int_rate(libs["int_rate"], n_sm)
     ir["rmat_counter_instr_per_level"] = rmat_per_level
     record["int_rate"] = ir
     rmat_instr_per_s = ir["per_clock_per_sm"] * n_sm * sm_mhz * 1e6
-    print(f"rmat_counter SASS: {rmat_per_level:.2f} instructions per level "
-          f"(its bound counts the least, {RMAT_INSTR_PER_EDGE_LEVEL})")
+    print(f"rmat_counter SASS: {k7_n[SCALE]} instructions at scale "
+          f"{SCALE}, {k7_n[SCALE - 8]} at scale {SCALE - 8}: "
+          f"{rmat_per_level:.2f} a level (its bound counts the least, "
+          f"{RMAT_INSTR_PER_EDGE_LEVEL})")
     print(f"integer rate on rmat_counter's level body (int_rate.cu, "
           f"{ir['instr_per_iter']} SASS instructions an iteration of "
           f"{ir['levels']} levels, {ir['instr_per_level']:.2f} a level): "
@@ -2338,9 +2446,9 @@ def main() -> int:
           f"(nvidia-smi under load): {ir['per_clock_per_sm']:.2f} thread "
           f"instructions per clock per SM ("
           f"{ir['per_clock_per_sm_at_max_clock']:.2f} at the {sm_mhz} MHz "
-          f"maximum; the table's peak {INSTR_PER_CLOCK_PER_SM}); kernel 7's "
-          f"bound uses {ir['per_clock_per_sm']:.2f} x {n_sm} SMs x "
-          f"{sm_mhz} MHz = {rmat_instr_per_s / 1e12:.3f} T instructions/s")
+          f"maximum; the table's peak {INSTR_PER_CLOCK_PER_SM}): "
+          f"{ir['per_clock_per_sm']:.2f} x {n_sm} SMs x {sm_mhz} MHz = "
+          f"{rmat_instr_per_s / 1e12:.3f} T instructions/s")
     launches, launches_1ds, errs, per, rmat_by_ops = graph_paths(
         dev, kernels, record, rmat_instr_per_s, path_2d, path_1ds)
     gc.collect()

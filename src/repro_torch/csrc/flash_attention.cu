@@ -863,6 +863,181 @@ __global__ void __launch_bounds__(DH) merge_kernel(const SplitArgs a) {
       __float2bfloat16_rn(lsum > 0.0f ? x / lsum : 0.0f);
 }
 
+// ------------------------------------------- any head dim past 128 (wide)
+// One block of kWideThreads a (batch, query head, query tile of bq rows),
+// the head dim a runtime argument.  The q tile (scaled) and the running
+// output accumulator sit in shared memory in float32, rows padded to
+// wide_ld(dh) floats (a multiple of 32 plus 4, so that the 16-byte loads
+// of 8 rows fall in 8 distinct bank groups); K and V stream through
+// shared memory in tiles of bk keys, converted to float32.  Per tile:
+// scores as dot products over dh (ts threads a (row, key) pair, summed
+// by shuffles), the masks, the online softmax (a warp a row), then
+// acc = acc * corr + P V (a thread a row and 4 columns).  q, k, v may be
+// float32 or bf16; every sum is float32.  The wrapper picks bq and bk
+// (ops.py::wide_tiles) so that the layout fits the 227 KB a block may
+// have.
+constexpr int kWideThreads = 256;
+constexpr int kWideSmemMax = 232448;
+
+struct WideArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int64_t st[12];  // strides in elements: (batch, head, seq) of q, k, v, o
+  int hq, rep, sq, sk, dh, q_offset, window, causal, bq, bk;
+  float scale;
+};
+
+__host__ __device__ inline int wide_ld(int dh) { return (dh + 31) / 32 * 32 + 4; }
+
+// bytes: q and acc (bq rows), K and V (bk rows), P (bq x bk), m, l, corr
+__host__ __device__ inline int64_t wide_smem(int dh, int bq, int bk) {
+  return 4ll * ((int64_t)wide_ld(dh) * (2 * bq + 2 * bk) + bq * bk + 3 * bq);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) wide_kernel(const WideArgs a) {
+  extern __shared__ __align__(16) float wsm[];
+  const int ld = wide_ld(a.dh), dv = (a.dh + 3) / 4, dpad = 4 * dv;
+  const int bq = a.bq, bk = a.bk;
+  float* qs = wsm;            // [bq][ld]
+  float* acc = qs + bq * ld;  // [bq][ld]
+  float* ks = acc + bq * ld;  // [bk][ld]
+  float* vs = ks + bk * ld;   // [bk][ld]
+  float* ps = vs + bk * ld;   // [bq][bk]: scores, then P
+  float* ms = ps + bq * bk;   // [bq]
+  float* ls = ms + bq;        // [bq]
+  float* cs = ls + bq;        // [bq]
+  constexpr int kWarps = kWideThreads / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / a.hq, h = bh % a.hq, hk = h / a.rep;
+  const int row0 = blockIdx.y * bq, q0 = a.q_offset + row0;
+  const T* qp = (const T*)a.q + b * a.st[0] + h * a.st[1];
+  const T* kp = (const T*)a.k + b * a.st[3] + hk * a.st[4];
+  const T* vp = (const T*)a.v + b * a.st[6] + hk * a.st[7];
+  T* op = (T*)a.o + b * a.st[9] + h * a.st[10];
+
+  // a warp a row, its lanes along dh; columns dh..dpad-1 are zeros
+  for (int r = warp; r < bq; r += kWarps) {
+    const int row = row0 + r;
+    for (int d = lane; d < dpad; d += 32) {
+      qs[r * ld + d] = row < a.sq && d < a.dh
+                           ? to_f32(qp[row * a.st[2] + d]) * a.scale
+                           : 0.0f;
+      acc[r * ld + d] = 0.0f;
+    }
+  }
+  if (tid < bq) {
+    ms[tid] = -INFINITY;
+    ls[tid] = 0.0f;
+  }
+  // threads a score: bq * bk * ts is a multiple of the block (both tiles
+  // are powers of two, bk >= 8), so every lane of a warp shuffles
+  const int pairs = bq * bk;
+  const int ts = pairs >= kWideThreads ? 1 : min(32, kWideThreads / pairs);
+  const int hi = a.causal ? min(a.sk, q0 + bq) : a.sk;
+  const int lo = a.window > 0 ? max(0, q0 - (a.window - 1)) : 0;
+  for (int k0 = lo / bk * bk; k0 < hi; k0 += bk) {
+    __syncthreads();  // the last tile's P V is done with ks, vs, ps
+    for (int j = warp; j < bk; j += kWarps) {
+      const int kpos = k0 + j;
+      for (int d = lane; d < dpad; d += 32) {
+        const bool in = kpos < a.sk && d < a.dh;
+        ks[j * ld + d] = in ? to_f32(kp[kpos * a.st[5] + d]) : 0.0f;
+        vs[j * ld + d] = in ? to_f32(vp[kpos * a.st[8] + d]) : 0.0f;
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < pairs * ts; e += kWideThreads) {
+      const int pr = e / ts, sub = e % ts, r = pr / bk, j = pr % bk;
+      const float4* q4 = reinterpret_cast<const float4*>(qs + r * ld);
+      const float4* k4 = reinterpret_cast<const float4*>(ks + j * ld);
+      float part = 0.0f;
+      for (int c = sub; c < dv; c += ts) {
+        const float4 x = q4[c], y = k4[c];
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+      for (int off = ts / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (sub == 0) {
+        const int qpos = q0 + r, kpos = k0 + j;
+        bool ok = row0 + r < a.sq && kpos < a.sk;
+        if (a.causal) ok = ok && kpos <= qpos;
+        if (a.window > 0) ok = ok && qpos - kpos < a.window;
+        ps[r * bk + j] = ok ? part : -INFINITY;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < bq; r += kWarps) {
+      float mx = -INFINITY;
+      for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, ps[r * bk + j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = ms[r], m_new = fmaxf(m_old, mx);
+      float sum = 0.0f;
+      for (int j = lane; j < bk; j += 32) {
+        const float sc = ps[r * bk + j];
+        const float pv = sc == -INFINITY ? 0.0f : expf(sc - m_new);
+        ps[r * bk + j] = pv;
+        sum += pv;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        // no key of this row so far: nothing to rescale
+        const float c = m_new == -INFINITY ? 1.0f : expf(m_old - m_new);
+        cs[r] = c;
+        ls[r] = ls[r] * c + sum;
+        ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < bq * dv; e += kWideThreads) {
+      const int r = e / dv, c4 = e % dv;
+      float4* a4 = reinterpret_cast<float4*>(acc + r * ld) + c4;
+      float4 x = *a4;
+      const float c = cs[r];
+      x.x *= c;
+      x.y *= c;
+      x.z *= c;
+      x.w *= c;
+      const float* pr = ps + r * bk;
+      for (int j = 0; j < bk; ++j) {
+        const float pv = pr[j];
+        const float4 y = reinterpret_cast<const float4*>(vs + j * ld)[c4];
+        x.x = fmaf(pv, y.x, x.x);
+        x.y = fmaf(pv, y.y, x.y);
+        x.z = fmaf(pv, y.z, x.z);
+        x.w = fmaf(pv, y.w, x.w);
+      }
+      *a4 = x;
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < bq; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= a.sq) continue;
+    const float l = ls[r];
+    for (int d = lane; d < a.dh; d += 32)
+      store_f32(op + row * a.st[11] + d, l > 0.0f ? acc[r * ld + d] / l : 0.0f);
+  }
+}
+
 // ------------------------------------------------------------- host
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -981,18 +1156,39 @@ void launch_cuda_cores(const Args& a, int n_bh, cudaStream_t stream) {
   float32_kernel<DH><<<grid, kGroups * DH / kDims, 0, stream>>>(a);
 }
 
+template <typename T>
+int launch_wide(const WideArgs& a, int batch, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWideSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int64_t smem = wide_smem(a.dh, a.bq, a.bk);
+  if (smem > kWideSmemMax) return (int)cudaErrorInvalidValue;
+  const dim3 grid(batch * a.hq, (a.sq + a.bq - 1) / a.bq);
+  wide_kernel<T><<<grid, kWideThreads, (size_t)smem, stream>>>(a);
+  return 0;
+}
+
 }  // namespace
 
 // path 0: float32 on the CUDA cores (bq rows a query tile); 1: bf16
 // prefill on the tensor cores; 2: bf16 key splits (n_split blocks a kv
-// head, split s over keys [lo + s span, ..) < hi, partials in `part`).
-// One call launches the path's kernels on `stream`.
+// head, split s over keys [lo + s span, ..) < hi, partials in `part`);
+// 3: any dh (the wide kernel; float32, or bf16 where `bf16`), query
+// tiles of bq rows and key tiles of bk, both powers of two, bk >= 8.
+// Paths 0-2 take dh 16, 32, 64 or 128.  One call launches the path's
+// kernels on `stream`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* part, const long long* strides,
                                int batch, int hq, int rep, int sq, int sk,
                                int dh, int q_offset, int window, int causal,
                                int path, int bq, int n_split, int lo, int hi,
-                               int span, float scale, void* stream) {
+                               int span, int bf16, int bk, float scale,
+                               void* stream) {
   if (batch <= 0 || hq <= 0 || sq <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   int64_t st[12];
@@ -1062,6 +1258,28 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       case 128: err = launch_split<128>(a, batch, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
+  } else if (path == 3) {
+    if (dh < 1 || bq < 1 || bk < 8 || (bq & (bq - 1)) || (bk & (bk - 1)))
+      return (int)cudaErrorInvalidValue;
+    WideArgs a;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.o = o;
+    for (int i = 0; i < 12; ++i) a.st[i] = st[i];
+    a.hq = hq;
+    a.rep = rep;
+    a.sq = sq;
+    a.sk = sk;
+    a.dh = dh;
+    a.q_offset = q_offset;
+    a.window = window;
+    a.causal = causal;
+    a.bq = bq;
+    a.bk = bk;
+    a.scale = scale;
+    err = bf16 ? launch_wide<__nv_bfloat16>(a, batch, s)
+               : launch_wide<float>(a, batch, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -102,6 +102,21 @@ def rmat_edges_counter_plain(scale: int, edge_factor: int = 16,
     return src, dst
 
 
+KERNEL_SCALES = range(1, 31)   # the kernel's instantiations (kMaxScale)
+
+
+def kernel_salts(seed: int, scale: int) -> list:
+    """The kernel's launch salts: ``level_salt`` folded with its first
+    xor-shift, S_l = s ^ (s >> 16), for levels 0..scale-1.  The kernel
+    is built for the scales of ``KERNEL_SCALES`` and no others."""
+    if scale not in KERNEL_SCALES:
+        raise ValueError(f"scale={scale}: the counter kernel is built for "
+                         f"scales {KERNEL_SCALES.start}..."
+                         f"{KERNEL_SCALES.stop - 1}")
+    return [s ^ (s >> 16) for s in (level_salt(seed, lv)
+                                    for lv in range(scale))]
+
+
 def rmat_edges_counter(scale: int, edge_factor: int = 16, a: float = 0.57,
                        b: float = 0.19, c: float = 0.19, seed: int = 1,
                        start: int = 0, count: int | None = None,
@@ -109,22 +124,26 @@ def rmat_edges_counter(scale: int, edge_factor: int = 16, a: float = 0.57,
     """Edges [start, start+count) of the counter R-MAT stream of
     m_input = edge_factor * 2**scale edges, as int32 (src, dst) tensors
     on ``device``.  Bit-identical to the JAX package's numpy
-    ``rmat_edges_counter`` for any slice."""
+    ``rmat_edges_counter`` for any slice.  On a CUDA device the kernel
+    takes scales 1..30 and a, b, c >= 0 (monotone thresholds)."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         return rmat_edges_counter_plain(scale, edge_factor, a, b, c, seed,
                                         start, count, device=dev)
     count = _slice_bounds(scale, edge_factor, start, count)
-    RMAT_COUNTER.load()
     t1, t2, t3 = rmat_thresholds(a, b, c)
-    salts = (ctypes.c_uint * max(scale, 1))(
-        *[level_salt(seed, lv) for lv in range(scale)])
+    if not t1 <= t2 <= t3:
+        raise ValueError(f"a, b, c = {a}, {b}, {c}: the counter kernel "
+                         f"needs a, b, c >= 0")
+    folded = (ctypes.c_uint * len(KERNEL_SCALES))(
+        *kernel_salts(seed, scale))
+    RMAT_COUNTER.load()
     src = torch.empty(count, dtype=torch.int32, device=dev)
     dst = torch.empty(count, dtype=torch.int32, device=dev)
     require_cuda(src, dst)
     if count:
         RMAT_COUNTER.launch(src.data_ptr(), dst.data_ptr(), count,
-                            start & _M32, salts, scale, t1, t2, t3,
+                            start & _M32, folded, scale, t1, t2, t3,
                             stream_handle(dev))
     return src, dst
 

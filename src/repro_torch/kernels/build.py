@@ -4,8 +4,9 @@ Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
 interface (sources may share a ``.cuh`` header there).  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed by
 a hash of the source and the flags, and loaded with ``ctypes``.  Pointers
-and the stream go in as ``c_void_p`` (kernel 8, whose host call is its
-cost at serving sizes, takes its values packed into one int64 block);
+and the stream go in as ``c_void_p`` (kernels 6 and 8, whose host call
+is their cost at the path's sizes, take their values packed into one
+int64 block);
 each C entry returns ``cudaGetLastError()`` and ``CudaKernel.launch``
 raises when it is not 0.
 """

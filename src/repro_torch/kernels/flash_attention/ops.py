@@ -9,16 +9,18 @@ of one head, ``x[:, :, None]``.  The Pallas tiling arguments (``bq``,
 ``bk``, ``interpret``) have no counterpart: ``plan`` picks the path and
 its split from the shapes.
 
-One call launches one of three paths (``plan``): bf16 prefill on the
-tensor cores, bf16 decode with the keys split over blocks and a merge
-(``split_attention_plain`` is its plain twin, for the tests), and
-float32 on the CUDA cores.
+At head dims up to 128 one call launches one of three paths (``plan``):
+bf16 prefill on the tensor cores, bf16 decode with the keys split over
+blocks and a merge (``split_attention_plain`` is its plain twin, for the
+tests), and float32 on the CUDA cores.  These are built for head dims
+16, 32, 64 and 128.  Any other dh up to 128 runs at the next of those
+widths (``padded_dim``): q, k and v are zero-padded in the head dim,
+which adds nothing to Q K^T and gives zero output columns, the softmax
+scale stays dh^-0.5 of the real dh, and the result is sliced back to dh.
 
-The kernels are built for head dims 16, 32, 64 and 128.  Any other dh up
-to 128 runs at the next of those widths (``padded_dim``): q, k and v are
-zero-padded in the head dim, which adds nothing to Q K^T and gives zero
-output columns, the softmax scale stays dh^-0.5 of the real dh, and the
-result is sliced back to dh.  The plain version takes any dh.
+Past 128, up to ``WIDE_MAX_DH``, the head dim is the "wide" kernel's
+runtime argument (float32 or bf16 alike, tiles from ``wide_tiles``); the
+route is chosen by dh alone.  The plain version takes any dh.
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ KERNEL = CudaKernel("flash_attention", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -44,7 +46,42 @@ _GROUPS = 64          # query-row groups of a float32 block (kGroups)
 SPLIT_MAX_ROWS = 16   # rep * Sq of a key-split block (kSplitRows)
 MIN_SPLIT_KEYS = 32   # the fewest keys a split takes
 TARGET_BLOCKS = 264   # two waves of the H100's 132 SMs
-PATHS = {"cuda_cores": 0, "wgmma": 1, "split": 2}
+PATHS = {"cuda_cores": 0, "wgmma": 1, "split": 2, "wide": 3}
+WIDE_THREADS = 256        # threads of a wide block (kWideThreads)
+WIDE_SMEM_MAX = 232448    # shared memory a block may have (kWideSmemMax)
+WIDE_SMEM_TWO = 115712    # the most at which two blocks share an SM
+WIDE_MAX_ROWS = 16        # query rows of a wide block's tile
+WIDE_KEYS = (64, 32, 16, 8)  # the key tiles a wide block may take
+
+
+def wide_smem(dh: int, bq: int, bk: int) -> int:
+    """Shared-memory bytes of a wide block (``wide_smem`` in the source):
+    the scaled q tile and the accumulator (bq rows), the K and V tiles
+    (bk rows), in float32 rows of dh rounded up to 32 plus 4; P; and m,
+    l and the correction of each row."""
+    ld = -(-dh // 32) * 32 + 4
+    return 4 * (ld * (2 * bq + 2 * bk) + bq * bk + 3 * bq)
+
+
+def wide_tiles(dh: int, sq: int) -> Tuple[int, int]:
+    """(bq, bk) of the wide kernel: the power of two at or above Sq, at
+    most WIDE_MAX_ROWS query rows; the widest key tile of WIDE_KEYS at
+    which two blocks share an SM, else the widest that fits a block."""
+    bq = 1
+    while bq < min(sq, WIDE_MAX_ROWS):
+        bq *= 2
+    for limit in (WIDE_SMEM_TWO, WIDE_SMEM_MAX):
+        for bk in WIDE_KEYS:
+            if wide_smem(dh, bq, bk) <= limit:
+                return bq, bk
+    raise ValueError(f"head dim {dh} > {WIDE_MAX_DH}: the CUDA kernel's "
+                     f"tiles do not fit a block's shared memory")
+
+
+# the widest head dim at the widest query tile and the narrowest key tile
+WIDE_MAX_DH = max(dh for dh in range(_HEAD_DIMS[-1], 4096)
+                  if wide_smem(dh, WIDE_MAX_ROWS, WIDE_KEYS[-1])
+                  <= WIDE_SMEM_MAX)
 
 
 def _check(q, k, v, window, q_offset):
@@ -70,12 +107,16 @@ def _check(q, k, v, window, q_offset):
 
 def padded_dim(dh: int) -> int:
     """The head dim the kernel runs a head dim of ``dh`` at: the least of
-    16, 32, 64, 128 at or above it; past 128 the kernel has no width."""
+    16, 32, 64, 128 at or above it; past 128, dh itself (the wide
+    kernel), up to WIDE_MAX_DH."""
     for width in _HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(f"head dim {dh} > {_HEAD_DIMS[-1]}: the CUDA kernel "
-                     f"takes head dims up to {_HEAD_DIMS[-1]}")
+    if dh <= WIDE_MAX_DH:
+        return dh
+    raise ValueError(f"head dim {dh} > {WIDE_MAX_DH}: the CUDA kernel "
+                     f"takes head dims up to {WIDE_MAX_DH}, what a "
+                     f"block's shared memory holds")
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -186,7 +227,8 @@ def launch(q, k, v, causal: bool, window: Optional[int],
            q_offset: int) -> torch.Tensor:
     """The kernel's launch on checked CUDA tensors in the (B, S, H, dh)
     layout: the (B, Sq, Hq, dh) result, contiguous at the kernel's head
-    dims; at another dh, the slice of the result at ``padded_dim(dh)``."""
+    dims and past 128; at another dh, the slice of the result at
+    ``padded_dim(dh)``."""
     return at_kernel_width(_launch, q, k, v, causal, window, q_offset)
 
 
@@ -208,11 +250,16 @@ def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
-    path, n_split = plan(b, hkv, rep, sq, sk, q.dtype, causal, window,
-                         q_offset)
+    bq, bk = query_tile(sq), 0
+    if dh > _HEAD_DIMS[-1]:
+        path, n_split = "wide", 1
+        bq, bk = wide_tiles(dh, sq)
+    else:
+        path, n_split = plan(b, hkv, rep, sq, sk, q.dtype, causal, window,
+                             q_offset)
     lo = hi = span = 0
     part = None
-    if path != "cuda_cores":
+    if path in ("wgmma", "split"):
         _check_aligned(path, q, k, v)
     if path == "split":
         lo, hi, span = split_ranges(sq, sk, causal, window, q_offset,
@@ -225,8 +272,9 @@ def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   None if part is None else part.data_ptr(), strides, b, hq,
                   rep, sq, sk, dh, q_offset, 0 if window is None else window,
-                  int(causal), PATHS[path], query_tile(sq), n_split, lo, hi,
-                  span, scale, stream_handle(q.device))
+                  int(causal), PATHS[path], bq, n_split, lo, hi, span,
+                  int(q.dtype == torch.bfloat16), bk, scale,
+                  stream_handle(q.device))
     return out
 
 
@@ -237,7 +285,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head h reading kv head h // (Hq // Hkv), query row i at absolute
     position ``q_offset + i``; -> (B, Sq, Hq, dh) in q's dtype.  CPU
     tensors take the plain version, at any head dim; CUDA tensors launch
-    the kernel, at head dims up to 128 (``padded_dim``)."""
+    the kernel, at head dims up to WIDE_MAX_DH (``padded_dim``)."""
     _check(q, k, v, window, q_offset)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention_gqa(q, k, v, causal=causal, window=window,

@@ -151,11 +151,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     v = torch.zeros(1, 6, 2, 16)
     kw = {}
     if bad == "dh":
-        # past 128 the kernel has no width: raised for tensors off the
-        # CPU before the library is loaded (meta tensors stand in for
-        # CUDA ones); the CPU's plain version takes it
+        # past WIDE_MAX_DH the wide kernel's tiles do not fit a block:
+        # raised for tensors off the CPU before the library is loaded
+        # (meta tensors stand in for CUDA ones); the CPU's plain version
+        # takes it
         meta = dict(device="meta")
-        q, k, v = (torch.zeros(1, s, h, 160, **meta)
+        dh = fa_ops.WIDE_MAX_DH + 1
+        q, k, v = (torch.zeros(1, s, h, dh, **meta)
                    for s, h in ((4, 4), (6, 2), (6, 2)))
         assert fa_ops.flash_attention_gqa(*(torch.ones(x.shape)
                                             for x in (q, k, v))).shape \
@@ -183,9 +185,9 @@ def test_padded_dim_is_the_next_kernel_width():
     assert [fa_ops.padded_dim(d) for d in (1, 8, 16, 17, 32, 48, 64, 80,
                                            96, 127, 128)] \
         == [16, 16, 16, 32, 32, 64, 64, 128, 128, 128, 128]
+    # past 128 the head dim is the wide kernel's runtime argument
     for dh in (129, 160, 256):
-        with pytest.raises(ValueError, match="head dim"):
-            fa_ops.padded_dim(dh)
+        assert fa_ops.padded_dim(dh) == dh
     with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention_gqa(*(torch.zeros(1, 4, 2, 0)
                                      for _ in range(3)))
@@ -227,3 +229,122 @@ def test_kernel_width_call_pads_scales_by_the_real_dh_and_slices(dh):
         lambda *a: _plain_at_width(*a[:-1], width ** -0.5), q, k, v, *args)
     assert not np.allclose(wrong.numpy(), want.numpy(), rtol=2e-5,
                            atol=2e-5)
+
+
+class _Recorder:
+    """Stands in for the kernel's C entry: records each launch's
+    arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, *args):
+        self.calls.append(args)
+
+
+@pytest.mark.parametrize("dh", [48, 80, 128, 129, 160, 256, 1024])
+@pytest.mark.parametrize("dtype,sq", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 1),
+                                      (torch.float32, 40)])
+def test_launch_routes_by_head_dim(monkeypatch, dh, dtype, sq):
+    """dh <= 128 runs plan's path at the next kernel width (the padded
+    copies); 129 and up run the wide kernel at dh itself, with
+    wide_tiles' tiles and the dtype flag, whatever the dtype and Sq.  Meta
+    tensors stand in for CUDA ones, a recorder for the C entry."""
+    rec = _Recorder()
+    monkeypatch.setattr(fa_ops, "KERNEL", rec)
+    monkeypatch.setattr(fa_ops, "stream_handle", lambda dev: 0)
+    q = torch.zeros(2, sq, 6, dh, dtype=dtype, device="meta")
+    k = v = torch.zeros(2, 70, 2, dh, dtype=dtype, device="meta")
+    out = fa_ops.launch(q, k, v, True, None, 70 - sq)
+    assert out.shape == q.shape
+    (args,) = rec.calls
+    (b, hq, rep, a_sq, sk, a_dh, q_off, window, causal, path, bq, n_split,
+     lo, hi, span, bf16, bk, scale, _) = args[6:]
+    assert (b, hq, rep, a_sq, sk, q_off) == (2, 6, 3, sq, 70, 70 - sq)
+    assert scale == pytest.approx(dh ** -0.5)
+    assert bf16 == int(dtype == torch.bfloat16)
+    if dh <= 128:
+        assert a_dh == fa_ops.padded_dim(dh) >= dh
+        want = fa_ops.plan(2, 2, 3, sq, 70, dtype, True, None, 70 - sq)[0]
+        assert path == fa_ops.PATHS[want] and bk == 0
+    else:
+        assert a_dh == dh and path == fa_ops.PATHS["wide"]
+        assert (bq, bk) == fa_ops.wide_tiles(dh, sq)
+
+
+@pytest.mark.parametrize("dh", [129, 160, 256, 320, 1024, 1184])
+@pytest.mark.parametrize("sq", [1, 3, 512])
+def test_wide_tiles_fit_a_block(dh, sq):
+    """The wide kernel's tiles: bq the power of two at or above Sq (at
+    most 16), bk a power of two of at least 8, the layout within a
+    block's shared memory, and two blocks an SM where any key tile
+    allows it."""
+    bq, bk = fa_ops.wide_tiles(dh, sq)
+    assert bq == min(16, 1 << (sq - 1).bit_length())
+    assert bk in fa_ops.WIDE_KEYS and bk >= 8
+    smem = fa_ops.wide_smem(dh, bq, bk)
+    assert smem <= fa_ops.WIDE_SMEM_MAX
+    two = fa_ops.wide_smem(dh, bq, fa_ops.WIDE_KEYS[-1]) \
+        <= fa_ops.WIDE_SMEM_TWO
+    assert (smem <= fa_ops.WIDE_SMEM_TWO) == two
+    # bq * bk * (threads a score) fills the block: every lane shuffles
+    pairs = bq * bk
+    ts = 1 if pairs >= fa_ops.WIDE_THREADS else min(
+        32, fa_ops.WIDE_THREADS // pairs)
+    assert pairs * ts % fa_ops.WIDE_THREADS == 0
+
+
+def test_wide_limit_is_what_a_block_holds():
+    assert fa_ops.WIDE_MAX_DH >= 1024
+    assert fa_ops.wide_smem(fa_ops.WIDE_MAX_DH, 16, 8) \
+        <= fa_ops.WIDE_SMEM_MAX < fa_ops.wide_smem(fa_ops.WIDE_MAX_DH + 1,
+                                                   16, 8)
+    with pytest.raises(ValueError, match=str(fa_ops.WIDE_MAX_DH)):
+        fa_ops.padded_dim(fa_ops.WIDE_MAX_DH + 1)
+    with pytest.raises(ValueError, match=str(fa_ops.WIDE_MAX_DH)):
+        fa_ops.wide_tiles(fa_ops.WIDE_MAX_DH + 1, 16)
+
+
+@pytest.mark.parametrize("Sq,Sk,dh,causal,window,q_off", [
+    (40, 90, 160, True, 30, 50),     # window, GQA, q tiles of 16
+    (1, 300, 129, True, None, 299),  # decode: one row, key tiles of 64
+    (96, 160, 256, True, None, 64),  # prefill continuation
+    (20, 20, 320, True, 7, 0),       # narrow window
+    (5, 70, 1024, True, None, 65),   # the widest the issue asks for
+    (3, 12, 200, True, 4, 40),       # rows no key reaches: zeros
+    (17, 40, 136, False, 8, 3),      # window without causality
+    (33, 50, 144, False, None, 0),   # every key, several key tiles
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_wide_head_dims_match_jax_ref(Sq, Sk, dh, causal, window, q_off,
+                                      dtype):
+    """Head dims past 128, which the card runs on the wide kernel: the
+    plain version that the card tests hold that kernel to against the
+    JAX package's attention, per head (causal and not, windows, rows no
+    key reaches) and over GQA heads, query head h reading kv head
+    h // 3."""
+    assert fa_ops.padded_dim(dh) == dh
+    rng = np.random.default_rng(Sq + Sk + dh)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(rng, (3, s, dh), dtype)
+                                    for s in (Sq, Sk, Sk))
+    want = jax_fa_ref.attention(qj, kj, vj, causal=causal, window=window,
+                                q_offset=q_off)
+    got = fa_ops.flash_attention_gqa(
+        qt[:, :, None], kt[:, :, None], vt[:, :, None], causal=causal,
+        window=window, q_offset=q_off)[:, :, 0]
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, dtype)
+    qj, qt = _pair(rng, (2, Sq, 6, dh), dtype)
+    kj, kt = _pair(rng, (2, Sk, 2, dh), dtype)
+    vj, vt = _pair(rng, (2, Sk, 2, dh), dtype)
+
+    def heads(x):                  # (B, S, H, dh) -> (B * 6, S, dh)
+        x = jnp.repeat(x, 6 // x.shape[2], axis=2)
+        return jnp.swapaxes(x, 1, 2).reshape(-1, x.shape[1], dh)
+    want = jax_fa_ref.attention(heads(qj), heads(kj), heads(vj),
+                                causal=causal, window=window,
+                                q_offset=q_off)
+    got = fa_ops.flash_attention_gqa(qt, kt, vt, causal=causal,
+                                     window=window, q_offset=q_off)
+    _close(got.transpose(1, 2).reshape(-1, Sq, dh), want, dtype)

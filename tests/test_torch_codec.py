@@ -97,3 +97,105 @@ def test_codec_wrappers_check_their_inputs():
         t_ops.encode_offsets(off, torch.zeros(3, dtype=torch.int32), 64)
     with pytest.raises(ValueError, match="words"):
         t_ops.decode_buckets(torch.zeros(5, dtype=torch.int32), 64, 8, 128, 2)
+
+
+def _decode_by_blocks(recv: torch.Tensor, chunk: int, cap: int, n: int,
+                      p: int) -> torch.Tensor:
+    """The decode kernel's block arithmetic in plain PyTorch: for each
+    (block, bucket) of ``decode_shape``'s grid, the block's slots, its
+    live range below the count, the payload words it stages, and each
+    slot extracted from the staged words alone; a slot written twice or
+    not at all fails."""
+    bits, w, gx = t_ops.decode_shape(p, cap, chunk)
+    words = recv.to(torch.int64) & 0xFFFFFFFF
+    out = torch.full((p * cap,), -1, dtype=torch.int64)
+    writes = torch.zeros(p * cap, dtype=torch.int64)
+    span = t_ops.BLOCK * t_ops.VEC
+    mask = (1 << bits) - 1
+    for k in range(p):
+        buf = words[k * (1 + w):(k + 1) * (1 + w)]
+        count = int(recv[k * (1 + w)])
+        row0 = k * cap
+        for bx in range(gx):
+            f0 = ((row0 >> 2) + bx * t_ops.BLOCK) * t_ops.VEC
+            s_block = f0 - row0
+            a, e = max(s_block, 0), min(s_block + span, count, cap)
+            slots = torch.arange(s_block, s_block + span)
+            val = torch.full((span,), n, dtype=torch.int64)
+            if a < e:
+                w_lo = a * bits >> 5
+                nw = ((e * bits - 1) >> 5) - w_lo + 1
+                assert nw <= span + 1, f"{nw} staged words"  # kStage
+                staged = torch.cat([buf[1 + w_lo:1 + w_lo + nw],
+                                    torch.zeros(1, dtype=torch.int64)])
+                live = (slots >= a) & (slots < e)
+                b = slots[live] * bits
+                wi = (b >> 5) - w_lo
+                pair = staged[wi] | (staged[torch.clamp(wi + 1, max=nw)]
+                                     << 32)
+                off = (pair >> (b & 31)) & mask
+                val[live] = (k * chunk + off) & 0xFFFFFFFF
+            inrow = (slots >= 0) & (slots < cap)
+            out[row0 + slots[inrow]] = val[inrow]
+            writes[row0 + slots[inrow]] += 1
+    assert bool((writes == 1).all()), "a slot written twice or not at all"
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def _edge_buckets(bits, cap, seed):
+    """4 buckets at ``bits`` (chunk the widest such): counts 0, 1, cap
+    and one in the second block of slots where cap allows; the offsets
+    random below chunk."""
+    chunk = (1 << bits) - 3 if bits > 2 else 1 << bits
+    assert codec_bits(chunk) == bits
+    rng = np.random.default_rng(seed)
+    off = rng.integers(0, chunk, (4, cap), dtype=np.int64)
+    off = torch.from_numpy(((off + 2**31) % 2**32 - 2**31).astype(np.int32))
+    count = torch.tensor([0, 1, cap, min(cap, t_ops.BLOCK * t_ops.VEC + 5)],
+                         dtype=torch.int32)
+    return t_ref.encode_offsets(off, count, chunk).reshape(-1), chunk
+
+
+@pytest.mark.parametrize("bits", [1, 20, 32])
+@pytest.mark.parametrize("cap", [2048, 2049, 2050, 2051, 5])
+def test_decode_blocks_match_plain(bits, cap):
+    """The decode kernel's launch shape and block arithmetic
+    (``decode_shape``, ``_decode_by_blocks``): rows that start and end
+    inside a 16-byte vector (cap % 4 of 0 to 3), offsets of 1, 20 (slots
+    that span two words) and 32 bits, counts 0, 1, cap and past a
+    block's 1024 slots; every slot written once, tolerance 0 against the
+    plain decode."""
+    recv, chunk = _edge_buckets(bits, cap, bits * 10 + cap)
+    n = 12345
+    want = t_ref.decode_buckets(recv, chunk, cap, n)
+    got = _decode_by_blocks(recv, chunk, cap, n, 4)
+    assert torch.equal(got, want)
+    assert torch.equal(t_ops.decode_buckets(recv, chunk, cap, n, 4), want)
+    bits_, w, gx = t_ops.decode_shape(4, cap, chunk)
+    assert (bits_, 1 + w) == (bits, codec_bucket_words(cap, bits))
+    if bits == 20:                   # some live slot spans two words
+        assert any((s * bits) % 32 > 32 - bits for s in range(cap))
+
+
+@pytest.mark.parametrize("bits,cap", [(1, 1027), (20, 1030)])
+def test_decode_blocks_match_pallas_interpret(bits, cap):
+    """The same block arithmetic against the Pallas decode kernel run in
+    interpret mode, across a block boundary and with rows off the
+    16-byte vectors."""
+    recv, chunk = _edge_buckets(bits, cap, bits)
+    n = 4 * chunk
+    got = _decode_by_blocks(recv, chunk, cap, n, 4)
+    want = np.asarray(r_ops.decode_buckets(
+        jnp.asarray(_u32(recv)), chunk, cap, n, 4))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_decode_grid_covers_every_row():
+    """gx blocks of BLOCK vectors cover the vectors that touch any
+    bucket's row, whichever 16-byte offset the row starts at."""
+    for cap in range(1, 3000, 7):
+        for p in (1, 3, 16):
+            gx = t_ops.decode_shape(p, cap, 1024)[2]
+            for k in range(min(p, 4)):
+                first, last = k * cap // 4, (k * cap + cap - 1) // 4
+                assert last - first + 1 <= gx * t_ops.BLOCK, (cap, p, k)

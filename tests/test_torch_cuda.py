@@ -89,6 +89,31 @@ def test_rmat_counter_kernel_matches_plain(dev, start, count):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+@pytest.mark.parametrize("scale", range(1, 31))
+def test_rmat_counter_kernel_at_every_scale(dev, scale):
+    """Each scale's instantiation, bit for bit against the plain version,
+    on slices at the start, middle and end of the stream, and across the
+    counter's 2**32 wrap where the stream passes it (scales 29, 30)."""
+    m = 16 << scale
+    n = min(m, 4096)
+    slices = [(0, n), (m // 2 - n // 2, n), (m - n, n)]
+    if m > 1 << 32:
+        slices.append(((1 << 32) - 2000, 4000))
+    for start, count in slices:
+        got = rmat.rmat_edges_counter(scale, 16, seed=scale, start=start,
+                                      count=count, device=dev)
+        want = rmat.rmat_edges_counter_plain(scale, 16, seed=scale,
+                                             start=start, count=count,
+                                             device=dev)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), start
+
+
+@pytest.mark.parametrize("scale", [0, 31])
+def test_rmat_counter_kernel_rejects_scales_it_lacks(dev, scale):
+    with pytest.raises(ValueError):
+        rmat.rmat_edges_counter(scale, 1, count=1, device=dev)
+
+
 def test_launch_counts_grow(graph, dev):
     kernels = (sp_ops.KERNEL, bu_ops.KERNEL, rmat.RMAT_COUNTER)
     before = [k.launches for k in kernels]
@@ -160,6 +185,31 @@ def test_codec_kernels_match_plain(dev, chunk, cap):
     got = codec_ops.decode_buckets(want.reshape(-1), chunk, cap, n, p)
     assert torch.equal(got, codec_ref.decode_buckets(want.reshape(-1), chunk,
                                                      cap, n))
+
+
+@pytest.mark.parametrize("bits", [1, 20, 32])
+@pytest.mark.parametrize("cap", [2048, 2049, 2050, 2051, 5])
+def test_codec_decode_kernel_on_edge_cases(dev, bits, cap):
+    """The decode kernel at tolerance 0 on rows that start and end inside
+    a 16-byte vector (cap % 4 of 0 to 3), offsets of 1, 20 (slots that
+    span two words) and 32 bits, counts 0, 1, cap and past a block's
+    1024 slots, a negative count word, and the sentinel past each
+    count."""
+    chunk = (1 << bits) - 3 if bits > 2 else 1 << bits
+    g = torch.Generator(device=dev).manual_seed(bits * 10 + cap)
+    p = 5
+    off = torch.randint(-2**31, 2**31 - 1, (p, cap), generator=g,
+                        device=dev, dtype=torch.int32)
+    if bits < 32:
+        off = off.remainder(chunk)
+    count = torch.tensor([0, 1, cap, min(cap, 1029), 3], dtype=torch.int32,
+                         device=dev)
+    recv = codec_ref.encode_offsets(off, count, chunk).reshape(-1).clone()
+    recv[4 * (recv.numel() // p)] = -1            # a negative count word
+    for n in (12345, 2**31 - 1):
+        got = codec_ops.decode_buckets(recv, chunk, cap, n, p)
+        assert torch.equal(got, codec_ref.decode_buckets(recv, chunk, cap,
+                                                         n))
 
 
 def test_strip_and_codec_launch_counts_grow(graph_1d, dev):
@@ -458,10 +508,38 @@ def test_flash_attention_kernel_at_head_dims_it_pads(dev, dtype, sq, sk,
     assert_attention_close(got, q, k, v, **kw)
 
 
-def test_flash_attention_kernel_rejects_head_dims_past_128(dev):
-    x = torch.zeros(1, 4, 2, 160, device=dev)
+@pytest.mark.parametrize("dtype,sq,sk,q_off,window,causal", [
+    (torch.bfloat16, 96, 160, 64, None, True),     # prefill
+    (torch.bfloat16, 1, 700, 699, None, True),     # decode
+    (torch.bfloat16, 1, 700, 699, 100, True),
+    (torch.float32, 40, 90, 50, 30, True),         # float32
+    (torch.float32, 1, 300, 299, None, True),
+    (torch.bfloat16, 17, 40, 3, 8, False)])        # no causality
+@pytest.mark.parametrize("dh", [129, 160, 256, 320, 1024])
+def test_flash_attention_kernel_past_128_on_the_wide_kernel(dev, dtype, sq,
+                                                            sk, q_off,
+                                                            window, causal,
+                                                            dh):
+    """Head dims past 128 run the wide kernel (the head dim a runtime
+    argument) on each path's shapes, within ``fa_ref.tolerance``, with
+    the real dh's scale; GQA over strided cache slices.  Past
+    WIDE_MAX_DH the call raises before any launch."""
+    assert fa_ops.padded_dim(dh) == dh
+    g = torch.Generator(device=dev).manual_seed(dh + sq)
+    q = torch.randn(2, sq, 6, dh, generator=g, device=dev).to(dtype)
+    ck, cv = (torch.randn(2, sk + 20, 2, dh, generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    k, v = ck[:, :sk], cv[:, :sk]
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    n = fa_ops.KERNEL.launches
+    got = fa_ops.flash_attention_gqa(q, k, v, **kw)
+    assert fa_ops.KERNEL.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_attention_close(got, q, k, v, **kw)
+    wide = torch.zeros(1, 4, 2, fa_ops.WIDE_MAX_DH + 1, device=dev)
     with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_attention_gqa(x, x, x)
+        fa_ops.flash_attention_gqa(wide, wide, wide)
+    assert fa_ops.KERNEL.launches == n + 1
 
 
 def test_nn_launch_counts_grow(dev):

@@ -42,6 +42,61 @@ def test_counter_stream_slices_match_numpy(start, count):
     assert np.array_equal(s.numpy(), rs) and np.array_equal(d.numpy(), rd)
 
 
+@pytest.mark.parametrize("scale,start,count", [
+    (1, 0, 32),                        # the whole stream of scale 1
+    (10, 0, 16 << 10),
+    (17, (16 << 17) // 2 - 500, 1000),  # the middle of the stream
+    (24, (16 << 24) - 777, 777),        # its end
+    (29, (1 << 32) - 1000, 2500),       # across the counter's 2**32 wrap
+    (30, (16 << 30) - 300, 300),
+])
+def test_kernel_salts_give_the_same_stream(scale, start, count):
+    """The kernel's launch prep, as identities on the plain version's
+    values: for every counter hash h of the slice (mod 2**32, across its
+    wrap) and every level's ``level_salt`` s, the plain level's first
+    xor-shift (h^s) ^ ((h^s) >> 16) is B ^ S_l, with B = h ^ (h >> 16)
+    once an edge and S_l the folded salt of ``kernel_salts``; and with
+    t1 <= t2 <= t3 the dst bit is (x>=t1) ^ (x>=t2) ^ (x>=t3), at and
+    around every threshold.  The plain stream of the slice equals the
+    JAX package's numpy generator's, which the card test holds the
+    kernel to."""
+    idx = (np.arange(count, dtype=np.uint64) + start) % 2**32
+    h = (idx * 0x9E3779B9) % 2**32
+    base = h ^ (h >> 16)
+    salts = trmat.kernel_salts(7, scale)
+    assert len(salts) == scale
+    for lv, folded in enumerate(salts):
+        x = h ^ np.uint64(trmat.level_salt(7, lv))
+        assert np.array_equal(x ^ (x >> 16), base ^ np.uint64(folded))
+    for abc in ((0.57, 0.19, 0.19), (0.6, 0.15, 0.15), (0.25, 0.25, 0.25),
+                (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)):
+        t1, t2, t3 = trmat.rmat_thresholds(*abc)
+        assert t1 <= t2 <= t3
+        x = np.array(sorted({min(max(t + d, 0), 2**32 - 1)
+                             for t in (0, t1, t2, t3, 2**32 - 1)
+                             for d in (-1, 0, 1)}), dtype=np.uint64)
+        assert np.array_equal(((x >= t1) & (x < t2)) | (x >= t3),
+                              (x >= t1) ^ (x >= t2) ^ (x >= t3))
+    got = trmat.rmat_edges_counter_plain(scale, 16, seed=7, start=start,
+                                         count=count)
+    rs, rd = rrmat.rmat_edges_counter(scale, 16, seed=7, start=start,
+                                      count=count)
+    assert np.array_equal(got[0].numpy(), rs)
+    assert np.array_equal(got[1].numpy(), rd)
+
+
+@pytest.mark.parametrize("scale", [0, 31])
+def test_kernel_scale_dispatch_rejects_scales_it_lacks(scale):
+    """The kernel is instantiated for scales 1..30: the launch prep
+    raises for 0 and 31; the CPU's plain version takes scale 0."""
+    with pytest.raises(ValueError, match="scales 1...30"):
+        trmat.kernel_salts(1, scale)
+    assert list(trmat.KERNEL_SCALES) == list(range(1, 31))
+    if scale == 0:
+        s, d = trmat.rmat_edges_counter(0, 16, device="cpu")
+        assert not s.any() and not d.any()
+
+
 def test_counter_stream_rejects_bad_slices():
     with pytest.raises(ValueError, match="outside"):
         trmat.rmat_edges_counter(8, 16, start=4000, count=200, device="cpu")
