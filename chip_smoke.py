@@ -12,13 +12,17 @@ Phases, in the order they run:
                  level in the SASS of its scale-24 build, and the integer
                  instruction rate the card reaches on its level body
                  (csrc/int_rate.cu), which kernel 7's bound uses unless
-                 the kernel itself issues faster (phase 6)
+                 the kernel itself issues faster (phase 6); kernel 5's
+                 SASS instructions per output word, and no division
   3 2D path      one Graph500 session at full width on the 2D grid 1x1:
                  counter R-MAT (kernel) -> preprocess -> build_blocked ->
                  plan_bfs(local_mode="kernel") -> compile -> 16 roots,
                  launch counts read around exactly this; every tree
-                 validated on the card; two roots again through
-                 local_mode="dense", parents bit-identical
+                 validated on the card; the same 16 roots right after
+                 with instrument=False, parents and levels bit-identical,
+                 both TEPS, median search ms and host reads a search; two
+                 roots again through local_mode="dense", parents
+                 bit-identical
   4 kernels      the 2D path's kernels against their plain versions at
                  its shapes, tolerance 0 (the outputs are integers)
   5 meshes       simulated 2x2 and 4x4 grids and a 16-strip 1d/1ds leg
@@ -30,13 +34,16 @@ Phases, in the order they run:
                  the card alone, per launch beside its bound); kernel 2
                  on the synthetic cases of kernels/edge_cases.py at the
                  path's width, tolerance 0
-  7 profile      device busy and idle share of one 2D search
+  7 profile      device busy and idle share of one 2D search,
+                 instrumented and with instrument=False
   8 1ds path     the same Graph500 graph on a 16-strip simulated mesh:
                  counter R-MAT -> build_blocked_1d -> plan_bfs("1ds",
                  "kernel", "dcsc", packed codec) -> compile -> 16 roots,
                  with expand_chunks 1 and then 4, launch counts read
                  around exactly this, one bottom-up launch a bottom-up
-                 level; every tree validated on the card,
+                 level; the same roots with instrument=False at each
+                 expand_chunks, as in phase 3; every tree validated on
+                 the card,
                  the two runs' parents identical, and on 2 roots parents
                  and levels equal to the 2D path's; then 2 roots with
                  buckets of 64 ids, whose wider top-down levels take the
@@ -51,12 +58,14 @@ Phases, in the order they run:
                  level) against its plain version, tolerance 0, kernel 3
                  with each walk forced as well, and its time beside the
                  plain version's, the library yardstick and the bound
-                 (kernels 2-4 on the card alone); the walk each strip
+                 (kernels 2-5 on the card alone, kernel 5 beside the
+                 zero-fill of its words); the walk each strip
                  SpMSV call took, as the kernel reports it, both walks of
                  kernels 3 and 4 required over phases 8-9; then kernels
                  2-4 on the synthetic cases at the path's widths,
                  kernels 3 and 4 with each walk forced
- 10 profile      device busy and idle share of one 1ds search
+ 10 profile      device busy and idle share of one 1ds search per
+                 expand_chunks, instrumented and with instrument=False
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
                  4 serve_bulk batches, 16 retrieval_cand queries against
@@ -95,8 +104,9 @@ result line.
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
 times kernels 2-9 on the card alone: 2-6 at the scale-24 paths' calls
-(5 and 6 host-timed as well), each search whole, kernel 7 on the full
-scale-24 stream (also host-timed), kernel 8 at the AutoInt shapes (on the
+(5 and 6 host-timed as well, and beside the zero-fill of their output;
+kernel 5's SASS per output word), each search whole, kernel 7 on the
+full scale-24 stream (also host-timed), kernel 8 at the AutoInt shapes (on the
 card alone, and its public entry host-timed beside F.embedding) and
 kernel 9 at dh 64, 80 and 128 on its three paths' shapes, for this
 checkout or another one (``DIR``, for example a
@@ -246,6 +256,35 @@ def sass_loop_instructions(text: str) -> int:
             if to < at:
                 return (at - to) // 16 + 1
     raise ValueError("no backward branch in the SASS")
+
+
+def encode_sass(lib: Path, codec) -> dict:
+    """The static SASS of kernel 5's ``codec_encode_kernel`` in ``lib`` at
+    the 1ds path's widths (20 bits at expand_chunks 1, 18 at 4): its
+    instructions, and those over the words one thread writes: one word in
+    a design that gives a thread a word, ``bits`` in one that gives it 32
+    slots (``codec.THREAD_SLOTS``, one instantiation per width); and the
+    library's MUFU.RCP and CALL instructions, which a division by a
+    runtime value compiles to (a reciprocal estimate; a 64-bit one also
+    calls a subroutine)."""
+    text = sass(lib)
+    per_thread = hasattr(codec, "THREAD_SLOTS")
+    n, per_word = {}, {}
+    for b in (20, 18):
+        name = f"codec_encode_kernelILi{b}E" if per_thread \
+            else "codec_encode_kernel"
+        n[b] = sass_instructions(sass_function(text, name))
+        per_word[b] = n[b] / (b if per_thread else 1)
+    return {"instructions": n, "per_word": per_word,
+            "mufu_rcp": text.count("MUFU.RCP"), "calls": text.count("CALL")}
+
+
+def encode_sass_line(rec: dict) -> str:
+    return ("codec_encode_kernel SASS: " + ", ".join(
+        f"{rec['instructions'][b]} instructions at {b} bits, "
+        f"{rec['per_word'][b]:.2f} an output word" for b in rec["per_word"])
+        + f" (static count over the words a thread writes); "
+        f"{rec['mufu_rcp']} MUFU.RCP, {rec['calls']} CALL in the library")
 
 
 def measure_int_rate(lib: Path, n_sm: int) -> dict:
@@ -1283,7 +1322,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     is bound by operations.  Everything it made on the card dies with
     it."""
     from repro_torch.configs.base import BFSConfig
-    from repro_torch.core.comm_model import codec_bits, rmat_strip_skew
+    from repro_torch.core import decomp, steps_1d_sparse
+    from repro_torch.core.comm_model import (codec_bits, codec_packed_words,
+                                             rmat_strip_skew)
     from repro_torch.core.engine import plan_bfs
     from repro_torch.core.frontier import INT_INF, pack_bits
     from repro_torch.core.metrics import harmonic_mean, teps
@@ -1296,6 +1337,54 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.kernels.spmsv import ops as sp_ops
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+
+    def host_reads(eng, roots_) -> float:
+        """Host reads a search from ``roots_``, run again untimed: the
+        level loop's tail reads (``decomp._masses``), the 1ds exchange's
+        own (``_send_counts``) and the 2D kernel's two a block and
+        top-down level (``spmsv/ops.py::prepare``: the frontier's column
+        count and its edge total)."""
+        weight = {"masses": 1, "send_counts": 1, "prepare": 2}
+        with recording([(decomp, "_masses", "masses"),
+                        (steps_1d_sparse, "_send_counts", "send_counts"),
+                        (sp_ops, "prepare", "prepare")]) as calls:
+            for r in roots_:
+                eng.search(r)
+        torch.cuda.synchronize()
+        return sum(weight[c[0]] for c in calls) / len(roots_)
+
+    def fast_searches(eng, parents_, levels_, tag):
+        """The roots again through ``eng``, an ``instrument=False``
+        session: each search host-timed, its parents and levels checked
+        bit-identical to the instrumented run's, no counters, zero
+        stats.  Returns the search ms."""
+        ms_ = []
+        for r, par, lv in zip(roots, parents_, levels_):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = eng.search(r)
+            torch.cuda.synchronize()
+            ms_.append((time.perf_counter() - ts) * 1e3)
+            check(out[1] == lv and torch.equal(
+                out[0].reshape(-1)[: par.numel()], par),
+                f"{tag}: instrument=False parents or levels differ at "
+                f"root {r}")
+            check(out[2] == {} and not out[3].any(),
+                  f"{tag}: instrument=False returned counters or stats")
+        return ms_
+
+    def compare_fast(tag, ms_i, ms_f, reads_i, reads_f) -> dict:
+        hm_i = harmonic_mean([teps(edges.m_input, x / 1e3) for x in ms_i])
+        hm_f = harmonic_mean([teps(edges.m_input, x / 1e3) for x in ms_f])
+        print(f"{tag}: instrument=False, the same {len(ms_f)} roots right "
+              f"after: harmonic-mean TEPS {hm_f:.6e} (instrumented "
+              f"{hm_i:.6e}); search ms median {float(np.median(ms_f)):.3f}"
+              f" (instrumented {float(np.median(ms_i)):.3f}), min "
+              f"{min(ms_f):.3f}, max {max(ms_f):.3f}; host reads a search "
+              f"{reads_f:.2f} (instrumented {reads_i:.2f}); parents and "
+              f"levels bit-identical on every root, no counters")
+        return {"search_ms": ms_f, "teps_hmean": hm_f,
+                "host_reads": reads_f, "host_reads_instrumented": reads_i}
     # ---------------------------------------------------------------- 3
     phase(f"3 2D path: Graph500 session, scale {SCALE}, grid 1x1, "
           f"local_mode='kernel'")
@@ -1349,6 +1438,26 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on the 2D path")
     check(peak_gib < 40.0, f"2D-path peak {peak_gib:.2f} GiB >= 40 GiB")
+    # the same roots uninstrumented, right after; plan_bfs ships the
+    # arrays already on the card as they are, so the graph stays one copy
+    fast = plan_bfs(graph, BFSConfig(instrument=False), mesh,
+                    local_mode="kernel").compile()
+    for k in kernels.values():
+        k.launches = 0
+    fast_ms = fast_searches(fast, parents, levels, "2D")
+    launches_fast = {k: kernels[k].launches for k in path_2d
+                     if k != "rmat_counter"}
+    peak_fast = torch.cuda.max_memory_allocated() / 2**30
+    rec_fast = compare_fast("2D", search_ms, fast_ms,
+                            host_reads(engine, roots),
+                            host_reads(fast, roots))
+    print(f"launches in the uninstrumented 2D searches: {launches_fast}; "
+          f"peak device memory with both sessions {peak_fast:.3f} GiB")
+    for k, n in launches_fast.items():
+        check(n > 0, f"kernel {k} was never launched on the "
+                     f"uninstrumented 2D path")
+    check(peak_fast < 40.0, f"2D-path peak {peak_fast:.2f} GiB >= 40 GiB")
+    rec_fast.update(launches=launches_fast, peak_gib=peak_fast)
     # kept on the host for the 1ds path's check (phase 8)
     parents_2d = [par.cpu() for par in parents[:2]]
     t3 = time.perf_counter()
@@ -1373,7 +1482,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         "gen_s": t1 - t0, "build_s": t2 - t1, "ship_s": engine.ship_s,
         "compile_s": engine.compile_s, "roots": roots, "levels": levels,
         "modes": modes, "search_ms": search_ms, "teps_hmean": hmean,
-        "peak_gib": peak_gib, "validate_s": val_s, "launches": launches}
+        "peak_gib": peak_gib, "validate_s": val_s, "launches": launches,
+        "fast": rec_fast}
 
     # ---------------------------------------------------------------- 4
     phase("4 2D kernels against plain versions at the 2D path's shapes")
@@ -1631,15 +1741,17 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           "its plain version on the 2D-width cases")
 
     # ---------------------------------------------------------------- 7
-    phase("7 profile of one 2D search")
+    phase("7 profile of one 2D search, instrumented and not")
     record["profile"] = profile_call(lambda: engine.search(roots[0]))
+    print("-- instrument=False")
+    record["profile_fast"] = profile_call(lambda: fast.search(roots[0]))
 
     # ---------------------------------------------------------------- 8
     phase(f"8 1ds path: the same Graph500 graph on {STRIPS} simulated "
           f"strips, local_mode='kernel', storage='dcsc', packed codec, "
           f"expand_chunks {' and '.join(map(str, STRIP_CHUNKS))}")
     levels_2d = levels[:2]
-    del engine, graph, edges, parents
+    del engine, fast, graph, edges, parents
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for k in kernels.values():
@@ -1713,6 +1825,31 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         run["bu_levels"] = sum(m.count(1) for m in run["modes"])
         runs[c] = run
     launches_1ds = {k: kernels[k].launches for k in path_1ds}
+    # the same roots uninstrumented at each expand_chunks, right after,
+    # on the same shipped graph; the launches are those of the 16 fast
+    # searches alone, read before the host-read reruns
+    fast_1ds = {k: 0 for k in path_1ds if k != "rmat_counter"}
+    for c in STRIP_CHUNKS:
+        run = runs[c]
+        fast = plan_bfs(graph, BFSConfig(
+            decomposition="1ds", storage="dcsc", frontier_codec="packed",
+            expand_chunks=c, instrument=False), mesh,
+            local_mode="kernel").compile()
+        for k in kernels.values():
+            k.launches = 0
+        ms_f = fast_searches(fast, run["parents"], run["levels"],
+                             f"1ds expand_chunks={c}")
+        for k in fast_1ds:
+            fast_1ds[k] += kernels[k].launches
+        run["fast"] = compare_fast(
+            f"1ds expand_chunks={c}", run["search_ms"], ms_f,
+            host_reads(run["engine"], roots), host_reads(fast, roots))
+        run["fast_engine"] = fast
+    print(f"launches in the uninstrumented 1ds searches: {fast_1ds}")
+    for k, n in fast_1ds.items():
+        check(n > 0, f"kernel {k} was never launched on the uninstrumented "
+                     f"1ds path")
+        launches_fast[k] = launches_fast.get(k, 0) + n
     for c in STRIP_CHUNKS:
         tally_walks(runs[c]["engine"], roots, c, "direction-optimizing")
     peak_1ds = torch.cuda.max_memory_allocated() / 2**30
@@ -1752,7 +1889,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             "search_ms": ms, "teps_hmean": hm, "levels": run["levels"],
             "modes": run["modes"], "overflowed": run["overflowed"],
             "wire_expand": run["wire_expand"],
-            "bu_launches": run["bu_launches"]}
+            "bu_launches": run["bu_launches"], "fast": run["fast"]}
     print(f"peak device memory of the 1ds path (generation, build and "
           f"both sessions): {peak_1ds:.3f} GiB")
     print(f"launches in the 1ds path: {launches_1ds}")
@@ -1872,7 +2009,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                (codec_ops, "decode_buckets", "codec_decode"),
                (bu_ops, "bottomup_substep_strips", "bottomup_substep")]
     per_1ds = {c: {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                       "library_ms": 0.0, "calls": 0}
+                       "library_ms": 0.0, "device_ms": 0.0, "floor_ms": 0.0,
+                       "calls": 0}
                    for _, _, k in targets} for c in STRIP_CHUNKS}
     nr = part.chunk
 
@@ -1969,13 +2107,24 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                 got = codec_ops.launch_encode(off, count, chunk)
                 e = max_err(got, codec_ref.encode_offsets(off, count, chunk))
                 k_ms = cuda_ms(lambda: codec_ops.launch_encode(*a))
+                d_ms = device_ms(lambda: codec_ops.launch_encode(*a))
+                # the floor: a zero-fill of the same (p, 1 + W) words
+                words = torch.empty(off.shape[0] * (1 + codec_packed_words(
+                    off.shape[1], codec_bits(chunk))), dtype=torch.int32,
+                    device=dev)
+                f_ms = device_ms(words.zero_)
                 p_ms = cuda_ms(lambda: codec_ref.encode_offsets(*a), reps=1)
                 nbytes = encode_bytes(count, off.shape[1], got.numel())
+                row["device_ms"] += d_ms
+                row["floor_ms"] += f_ms
                 print(f"  {label}: {off.shape[0]} buckets of {off.shape[1]} "
                       f"slots, {int(count.sum())} ids: max |kernel - plain| "
-                      f"= {e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
-                      f"({nbytes} bytes)")
+                      f"= {e}; kernel {k_ms:.4f} ms ({d_ms:.5f} on the card "
+                      f"alone; the zero-fill of its {words.numel()} words "
+                      f"{f_ms:.5f}), plain {p_ms:.4f} ms, bound "
+                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} "
+                      f"bytes)")
+                del words
             elif kname == "codec_decode":
                 recv, chunk, cap, n, p_ = a
                 got = codec_ops.launch_decode(*a)
@@ -2122,7 +2271,11 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                       f"search: kernel {r['ms']:.4f} ms, plain "
                       f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms"
                       + (f", library {r['library_ms']:.4f} ms"
-                         if k.startswith("spmsv") else ""))
+                         if k.startswith("spmsv") else "")
+                      + (f"; on the card alone {r['device_ms']:.5f} ms, the "
+                         f"zero-fill of its words {r['floor_ms']:.5f} ms"
+                         if k == "codec_encode" else ""))
+    print(encode_sass_line(record["encode_sass"]))
     for k in ("spmsv_strip_min", "codec_encode", "codec_decode"):
         per[k] = per_1ds[STRIP_CHUNKS[0]][k]
     per["spmsv_strip_chunk_min"] = per_1ds[STRIP_CHUNKS[-1]][
@@ -2130,14 +2283,17 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     record["kernel_times_1ds"] = per_1ds
 
     # --------------------------------------------------------------- 10
-    phase("10 profile of one 1ds search per expand_chunks")
+    phase("10 profile of one 1ds search per expand_chunks, instrumented "
+          "and not")
     record["profile_1ds"] = {}
     for c in STRIP_CHUNKS:
-        print(f"-- expand_chunks={c}, root {roots[0]}")
-        eng = runs[c]["engine"]
-        record["profile_1ds"][c] = profile_call(
-            lambda: eng.search(roots[0]))
-    return launches, launches_1ds, errs, per, ro > rb
+        for key, label in (("engine", ""), ("fast_engine", "fast ")):
+            print(f"-- expand_chunks={c}, {label or 'instrumented '}"
+                  f"root {roots[0]}")
+            eng = runs[c][key]
+            record["profile_1ds"][f"{label}{c}"] = profile_call(
+                lambda: eng.search(roots[0]))
+    return launches, launches_1ds, launches_fast, errs, per, ro > rb
 
 
 def kernel_times(tree: Path) -> int:
@@ -2149,9 +2305,11 @@ def kernel_times(tree: Path) -> int:
     paper's 1D baseline, where kernels 3 and 4 take their column walks).
     Each recorded call is launched again through its public wrapper and
     timed with ``device_ms``, and kernels 5 and 6 also host-timed
-    (``cuda_ms``, the public entry's host call included), kernel 6 beside
-    ``fill_`` of its p * cap ids (the floor of writing them alone); the
-    sums are per search.  Each search is also timed whole on the host
+    (``cuda_ms``, the public entry's host call included), kernel 5 beside
+    the zero-fill of its p * (1 + W) words and kernel 6 beside ``fill_``
+    of its p * cap ids (the floor of writing them alone); the sums are
+    per search.  Kernel 5's static SASS over the words a thread writes
+    (``encode_sass``).  Each search is also timed whole on the host
     clock (median of 5).  Kernel 7: the full scale-24 stream, on the card
     alone and host-timed.  Kernel 8 at the AutoInt path's three shapes
     (bags of one into the registered 11,238,400 x 16 float32 table): on
@@ -2162,9 +2320,11 @@ def kernel_times(tree: Path) -> int:
     # ahead of this checkout's src, so that ``tree``'s port is imported
     sys.path.insert(0, str(tree.resolve() / "src"))
     from repro_torch.configs.base import BFSConfig
+    from repro_torch.core.comm_model import codec_bits, codec_packed_words
     from repro_torch.core.engine import plan_bfs
     from repro_torch.graph import rmat
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
+    from repro_torch.kernels import build
     from repro_torch.kernels.bottomup import ops as bu
     from repro_torch.kernels.frontier_codec import ops as codec
     from repro_torch.kernels.spmsv import strip
@@ -2192,7 +2352,7 @@ def kernel_times(tree: Path) -> int:
         t = {"k2": [], "k3": [], "k4": [], "k5": [], "k6": []}
         host = {"k5": [], "k6": []}
         ids = {"k3": [], "k4": []}
-        fill = []
+        fill, fill5 = [], []
         for nm, a, kw in calls:
             fn = fns.get(nm) or getattr(bu, nm)
             t[nm if nm in fns else "k2"].append(
@@ -2206,6 +2366,12 @@ def kernel_times(tree: Path) -> int:
                 ids_out = torch.empty(a[4] * a[2], dtype=torch.int32,
                                       device=dev)
                 fill.append(device_ms(lambda: ids_out.fill_(a[3])))
+            if nm == "k5":
+                # the floor of an encode: its (p, 1 + W) words zeroed
+                words = torch.empty(a[0].shape[0] * (1 + codec_packed_words(
+                    a[0].shape[1], codec_bits(a[2]))), dtype=torch.int32,
+                    device=dev)
+                fill5.append(device_ms(words.zero_))
         del calls
         wall = []
         for _ in range(5):
@@ -2225,7 +2391,12 @@ def kernel_times(tree: Path) -> int:
             res[k]["host_ms"] = sum(host[k])
             res[k]["per_launch_host_ms"] = host[k]
         res["k6"]["per_launch_fill_ms"] = fill
+        res["k5"]["per_launch_fill_ms"] = fill5
         return res
+
+    out["k5_sass"] = encode_sass(
+        build.build_libraries(["codec_encode"])["codec_encode"], codec)
+    print(encode_sass_line(out["k5_sass"]))
 
     def k7():
         return rmat.rmat_edges_counter(SCALE, EDGE_FACTOR, seed=SEED,
@@ -2449,8 +2620,15 @@ def main() -> int:
           f"maximum; the table's peak {INSTR_PER_CLOCK_PER_SM}): "
           f"{ir['per_clock_per_sm']:.2f} x {n_sm} SMs x {sm_mhz} MHz = "
           f"{rmat_instr_per_s / 1e12:.3f} T instructions/s")
-    launches, launches_1ds, errs, per, rmat_by_ops = graph_paths(
-        dev, kernels, record, rmat_instr_per_s, path_2d, path_1ds)
+    # kernel 5 computes its words without a division on the card
+    record["encode_sass"] = encode_sass(libs["codec_encode"], codec_ops)
+    print(encode_sass_line(record["encode_sass"]))
+    check(record["encode_sass"]["mufu_rcp"] == 0
+          and record["encode_sass"]["calls"] == 0,
+          "codec_encode_kernel's SASS holds a division sequence")
+    launches, launches_1ds, launches_fast, errs, per, rmat_by_ops = \
+        graph_paths(dev, kernels, record, rmat_instr_per_s, path_2d,
+                    path_1ds)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"\ndevice memory still allocated after the graph paths: "
@@ -2535,7 +2713,7 @@ def main() -> int:
         "source": str(kernels[k].source.relative_to(ROOT)),
         "replaces": replaces[k],
         "launches": (launches.get(k, 0) + launches_1ds.get(k, 0)
-                     + launches_nn.get(k, 0)),
+                     + launches_fast.get(k, 0) + launches_nn.get(k, 0)),
         "max_abs_err": errs[k], "ms": per[k]["ms"],
         "plain_ms": per[k]["plain_ms"], "bound_ms": per[k]["bound_ms"],
         "bound_by": per[k].get("bound_by", (

@@ -7,8 +7,8 @@ so one config object describes a session in either package.  The
 registry holds the archs the port runs (``autoint`` and
 ``smollm-135m``); ``get_config`` names any other arch as not ported yet.
 
-The port runs ``instrument=True`` with ``compact_updates`` and ``use_edge_dst``
-off, and
+The port runs ``instrument`` True or False with ``compact_updates`` and
+``use_edge_dst`` off, and
 
   * ``decomposition="2d"`` with ``fold_mode`` "reduce" or "alltoall"
     and ``expand_chunks=1``;

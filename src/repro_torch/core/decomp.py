@@ -80,63 +80,109 @@ def get_decomposition(name: str) -> Decomposition:
 # ---------------------------------------------------------------------------
 
 
-def _masses(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor):
+def _masses(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
+            over: torch.Tensor = None):
     """Frontier size, frontier edge mass and unvisited edge mass, summed
-    exactly in int64 and read to the host in one transfer."""
+    exactly in int64 and read to the host in one transfer.  ``over``, a
+    0-d bool tensor (the uninstrumented "1ds" bucket-overflow indicator),
+    rides the same read as a fourth value."""
     zero = torch.zeros((), dtype=deg.dtype, device=deg.device)
-    n_f, m_f, m_u = torch.stack([
-        front.sum(),
-        torch.where(front, deg, zero).sum(),
-        torch.where(pi == -1, deg, zero).sum()]).tolist()
-    return n_f, m_f, m_u
+    vals = [front.sum(), torch.where(front, deg, zero).sum(),
+            torch.where(pi == -1, deg, zero).sum()]
+    if over is not None:
+        vals.append(over.to(torch.int64))
+    return torch.stack(vals).tolist()
+
+
+def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
+                 over_cap: int = 0, expand_chunks: int = 1):
+    """(n_f, m_f, m_u, over) of a post-level state as float32 scalars and
+    a bool, in one host read.  ``over_cap`` > 0 (the uninstrumented "1ds"
+    loop) adds the bucket-overflow indicator to that read; else ``over``
+    is False.
+
+    The indicator is counted over ``front``, not the sieved send set
+    ``front & ~visited``: in the loop the sieve leaves the frontier whole,
+    so the count is the same.  At ``expand_chunks`` C > 1 each owner's
+    chunk is C sub-ranges with buckets of ``over_cap // C`` ids, and any
+    one of them overflowing sends the level to the dense fallback."""
+    over = None
+    if over_cap:
+        counts = front.reshape(front.shape[0], expand_chunks, -1).sum(2)
+        over = counts.max() > over_cap // expand_chunks
+    n_f, m_f, m_u, *ov = _masses(pi, front, deg, over)
+    return _F32(n_f), _F32(m_f), _F32(m_u), bool(ov and ov[0])
+
+
+def decide_and_sync(cfg: BFSConfig, n_total: int, mode: int, n_f, m_f,
+                    m_u) -> int:
+    """Beamer's direction rule in float32: the next level's mode (0
+    top-down, 1 bottom-up).  The JAX package also takes the pod pmax
+    here (the lockstep frontier size and, for "2d"'s sync_modes, a
+    decision shared by every pod); pod batches wait for ``run_batch``
+    (ROADMAP queue 1, item 8), so one search decides alone."""
+    if cfg.direction_optimizing:
+        if mode == 0 and m_f > m_u / _F32(cfg.alpha):
+            return 1
+        if mode == 1 and n_f < _F32(n_total / cfg.beta):
+            return 0
+    return mode
 
 
 def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
-                 bu_level):
-    """Beamer's direction heuristics, per-level stats and counter
-    accumulation over the (pi, front, lv) -> (pi, front, ctr) steps.
-    ``gidx`` holds the global vertex ids in the layout of ``pi`` and
-    ``front``: ``(pr, pc, chunk)`` for 2D, ``(p, chunk)`` for the strips.
+                 bu_level, over_cap: int = 0, expand_chunks: int = 1):
+    """Beamer's direction heuristics, and with ``cfg.instrument`` the
+    per-level stats and counter accumulation, over the (pi, front, lv) ->
+    (pi, front, ctr) steps.  ``gidx`` holds the global vertex ids in the
+    layout of ``pi`` and ``front``: ``(pr, pc, chunk)`` for 2D, ``(p,
+    chunk)`` for the strips.
 
-    The loop is a Python loop.  Each level ends with one host read: the
-    next frontier's size and the frontier and unvisited edge masses,
-    which the next level's direction decision and the loop's exit need
-    (the JAX package keeps them on the device inside a while loop).  A
-    2D top-down level in local_mode="kernel" adds two reads per block,
-    so 2*pr*pc in all: the frontier's column count (``torch.nonzero``)
-    and its edge total, which sizes the kernel's grid
-    (``spmsv/ops.py``).  A "1ds" top-down level adds one: the largest
-    send count (the overflow predicate, which picks the level's branch)
-    with the send total.  The strip kernels' grids are fixed by the
-    graph, so "1d" reads nothing more, and neither do bottom-up levels
-    or dense discovery.
+    The loop is a Python loop.  Each level ends with one host read
+    (``reduce_state``): the next frontier's size and the frontier and
+    unvisited edge masses, which the next level's direction decision and
+    the loop's exit need (the JAX package keeps them on the device inside
+    a while loop).  A 2D top-down level in local_mode="kernel" adds two
+    reads per block, so 2*pr*pc in all: the frontier's column count
+    (``torch.nonzero``) and its edge total, which sizes the kernel's grid
+    (``spmsv/ops.py``).  An instrumented "1ds" top-down level adds one:
+    the largest send count (the overflow predicate, which picks the
+    level's branch) with the send total.  Uninstrumented, the overflow
+    indicator rides the tail read instead (``over_cap``, the "1ds" bucket
+    capacity, 0 for "2d" and "1d", over ``expand_chunks`` sub-ranges) and
+    reaches the step as ``lv["over"]``, so that level reads nothing more.
+    The strip kernels' grids are fixed by the graph, so "1d" reads nothing
+    more, and neither do bottom-up levels or dense discovery.
 
     The masses are summed exactly in int64 and cast to float32.  The JAX
     package sums them in float32, which is exact up to 2**24 and beyond
     that depends on its reduction order, so past 2**24 the two can differ
-    in the last bits of m_f and m_u and, at a threshold, in a decision."""
+    in the last bits of m_f and m_u and, at a threshold, in a decision.
+
+    Uninstrumented (the JAX package's ``_search_loop_fast``), the
+    counters come back ``{}`` (never zeros, which would read as
+    measurements) and the stats all zeros.  The modes, the parents and
+    the overflowed levels are the instrumented run's: the same values
+    meet the same rule."""
+    instrument = cfg.instrument
     pi = torch.where(gidx == root, root, -1).to(torch.int32)
     front = gidx == root
     stats = np.zeros((MAX_LEVELS, 5), np.float32)
-    ctr = zero_counters()
-    mode, level, n_f = 0, 0, _F32(1.0)
-    _, m_f_i, m_u_i = _masses(pi, front, g["deg_A"])
+    ctr = zero_counters() if instrument else {}
+    cap = 0 if instrument else over_cap
+    deg = g["deg_A"]
+    n_f, m_f, m_u, over = reduce_state(pi, front, deg, cap, expand_chunks)
+    mode, level = 0, 0
     while level < MAX_LEVELS and n_f > 0:
-        m_f, m_u = _F32(m_f_i), _F32(m_u_i)
-        new_mode = mode
-        if cfg.direction_optimizing:
-            if mode == 0 and m_f > m_u / _F32(cfg.alpha):
-                new_mode = 1
-            elif mode == 1 and n_f < _F32(n_total / cfg.beta):
-                new_mode = 0
-        step = bu_level if new_mode == 1 else td_level
-        pi, front, c2 = step(pi, front, {"n_f": n_f, "m_f": m_f})
-        ctr = {k: ctr[k] + c2[k] for k in ctr}
-        # stats row: n_f, m_f, mode, used, measured expand words
-        stats[level] = (n_f, m_f, new_mode, 1, c2["wire_expand"])
-        n_f_i, m_f_i, m_u_i = _masses(pi, front, g["deg_A"])
-        n_f = _F32(n_f_i)
-        mode = new_mode
+        mode = decide_and_sync(cfg, n_total, mode, n_f, m_f, m_u)
+        step = bu_level if mode == 1 else td_level
+        pi, front, c2 = step(pi, front, {"n_f": n_f, "m_f": m_f,
+                                         "over": over})
+        if instrument:
+            ctr = {k: ctr[k] + c2[k] for k in ctr}
+            # stats row: n_f, m_f, mode, used, measured expand words
+            stats[level] = (n_f, m_f, mode, 1, c2["wire_expand"])
+        n_f, m_f, m_u, over = reduce_state(pi, front, deg, cap,
+                                           expand_chunks)
         level += 1
     return pi, level, ctr, stats
 
@@ -162,7 +208,8 @@ def _make_args_2d(part, cfg, ops, statics: PlanStatics, graph,
     return LevelArgs(part=part, fold_mode=cfg.fold_mode,
                      perm=collectives.perm_index(part.transpose_perm(), device),
                      seg_ptr=graph.seg_ptr.cpu().numpy().astype(np.int64),
-                     ops=ops, cap_seg=statics.cap_seg, cap_f=statics.cap_f)
+                     ops=ops, cap_seg=statics.cap_seg, cap_f=statics.cap_f,
+                     instrument=cfg.instrument)
 
 
 def _validate_2d(part, statics: PlanStatics) -> None:
@@ -183,9 +230,11 @@ register_decomposition(Decomposition(
 # ---------------------------------------------------------------------------
 
 
-def _make_strip_body(td_step, bu_step):
+def _make_strip_body(td_step, bu_step, sparse: bool):
     """The whole-search body of a strip entry: global ids in the (p,
-    chunk) strip layout, the shared loop over the given level steps."""
+    chunk) strip layout, the shared loop over the given level steps;
+    ``sparse`` for "1ds", whose uninstrumented loop carries the overflow
+    indicator of its buckets."""
 
     def body(g, root, *, part: Partition1D, args: LevelArgs1D,
              cfg: BFSConfig):
@@ -195,7 +244,9 @@ def _make_strip_body(td_step, bu_step):
         return _search_loop(
             g, gidx, root, n_total=part.n, cfg=cfg,
             td_level=lambda pi, f, lv: td_step(g, pi, f, args, lv),
-            bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv))
+            bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv),
+            over_cap=args.cap_x if sparse else 0,
+            expand_chunks=args.expand_chunks)
 
     return body
 
@@ -205,7 +256,8 @@ def _make_args_strip(part, cfg, ops, statics: PlanStatics, graph,
     return LevelArgs1D(part=part, ops=ops,
                        nnz=graph.nnz.cpu().numpy().astype(np.int64),
                        expand_chunks=statics.expand_chunks,
-                       cap_x=statics.cap_x, codec=cfg.frontier_codec)
+                       cap_x=statics.cap_x, codec=cfg.frontier_codec,
+                       instrument=cfg.instrument)
 
 
 def _validate_strip_chunks(part, statics: PlanStatics) -> None:
@@ -247,5 +299,6 @@ for _name, _td, _bu, _validate in (
     register_decomposition(Decomposition(
         name=_name, partition_cls=Partition1D, graph_cls=Blocked1DGraph,
         axis_sizes=lambda part: (part.p, 1),
-        make_level_args=_make_args_strip, body=_make_strip_body(_td, _bu),
+        make_level_args=_make_args_strip,
+        body=_make_strip_body(_td, _bu, sparse=_name == "1ds"),
         validate=_validate))

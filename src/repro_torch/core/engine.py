@@ -39,16 +39,18 @@ from repro_torch.kernels import build
 class BFSResult:
     parents: np.ndarray          # (n_orig,) int64
     n_levels: int
-    counters: Dict[str, float]   # whole-search totals (paper 64-bit words)
+    counters: Dict[str, float]   # whole-search totals (paper 64-bit words);
+    #                              {} with cfg.instrument False
     level_stats: np.ndarray      # (MAX_LEVELS, 5) float32: n_f, m_f, mode,
-    #                              used, measured expand words that level
+    #                              used, measured expand words that level;
+    #                              all zeros with cfg.instrument False
 
 
 # the config values the port runs; the rest wait for later slices
 _PORTED = {"decomposition": ("2d", "1d", "1ds"),
            "fold_mode": ("reduce", "alltoall"),
            "compact_updates": (False,), "use_edge_dst": (False,),
-           "instrument": (True,)}
+           "instrument": (True, False)}
 # the (decomposition, local_mode, storage) entries of the JAX package
 # that wait for a later slice of the port
 _WAITING = {("1d", "kernel", "csr"): "needs the (p, n+1) strip col_ptr",
@@ -233,7 +235,8 @@ class BFSEngine:
         return self._fn(self._check_root(root))
 
     def to_result(self, out) -> BFSResult:
-        """Parents by global vertex id on the host, counters as floats."""
+        """Parents by global vertex id on the host, counters as floats
+        (none from an uninstrumented search)."""
         part = self.plan.part
         pi, level, ctr, stats = out
         pi = pi.reshape(part.n)[: part.n_orig].cpu().numpy()

@@ -20,7 +20,9 @@ a session loads at compile (``kernels``).  Registered here:
 
   topdown(g, f_words, f_mask, nr, col_offset, args)
       -> (cand (nr,) int32 candidate parents,
-          edges examined, a 0-d int64 tensor)
+          edges examined, a 0-d int64 tensor, or None where a plain
+          closure would compute it for the counters alone and
+          ``args.instrument`` is False)
 
 The 1D top-down closures take ALL p strips at once (the stacked ``(p,
 ...)`` arrays; col_offset is 0 since strip ids are global), so a kernel
@@ -115,7 +117,7 @@ def _td_dense(g, f_words, f_mask, nr, col_offset, args):
     O(nnz) whatever the frontier, so it examines every stored edge."""
     cand = spmsv_dense(g["edge_src"], g["row_idx"], g["nnz"], f_mask, nr,
                        col_offset)
-    return cand, g["nnz"].to(torch.int64)
+    return cand, g["nnz"].to(torch.int64) if args.instrument else None
 
 
 def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
@@ -125,9 +127,10 @@ def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
     package's kernel truncated it silently)."""
     cand = spmsv_ops.spmsv_csr_min(f_mask, g["col_ptr"], g["row_idx"], nr,
                                    col_offset, args.cap_f)
+    if not args.instrument:
+        return cand, None
     lens = g["col_ptr"][1:] - g["col_ptr"][:-1]
-    ex = torch.where(f_mask, lens, 0).sum(dtype=torch.int64)
-    return cand, ex
+    return cand, torch.where(f_mask, lens, 0).sum(dtype=torch.int64)
 
 
 def _td_dense_1d(g, f_words, args):
@@ -138,7 +141,8 @@ def _td_dense_1d(g, f_words, args):
     cand = torch.stack([spmsv_dense(g["edge_src"][i], g["row_idx"][i],
                                     g["nnz"][i], f_mask, nr, 0)
                         for i in range(args.part.p)])
-    return cand, g["nnz"].sum(dtype=torch.int64)
+    return cand, g["nnz"].sum(dtype=torch.int64) if args.instrument \
+        else None
 
 
 def _td_strip_dcsc(g, f_words, args):

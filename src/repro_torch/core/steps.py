@@ -13,7 +13,9 @@ Counters (dict of float32 scalars, *global* paper units: 1 id = 1 word,
 A counter is a numpy float32 where the host knows it (shapes) and a 0-d
 float32 tensor where the device computed it, so a level adds no host
 read.  Both add in float32 in the JAX package's order; device sums are
-taken exactly in int64 and then cast to float32.
+taken exactly in int64 and then cast to float32.  With
+``LevelArgs.instrument`` False (``cfg.instrument``) a step computes no
+counter, on the host or the device, and returns ``{}``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ class LevelArgs(NamedTuple):
     ops: "object"             # LocalOps entry
     cap_seg: int = 0          # bottom-up sub-step edge window
     cap_f: int = 0            # kernel mode: frontier bound (0 = nc)
+    instrument: bool = True   # False: no counters (the fast loop)
 
 
 def _blocks(pr: int, pc: int):
@@ -85,18 +88,21 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                   front: torch.Tensor, args: LevelArgs, lv: Dict
                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """One top-down level.  ``lv`` carries the search loop's host values
-    of this level's frontier size ``n_f`` and edge mass ``m_f``."""
+    of this level's frontier size ``n_f`` and edge mass ``m_f`` (the fast
+    loop's ``over``, which 2D does not read, uninstrumented)."""
     part = args.part
     pr, pc, chunk, nc, nr = part.pr, part.pc, part.chunk, part.nc, part.nr
     p = _F32(part.p)
-    ctr = zero_counters()
+    instr = args.instrument
+    ctr = zero_counters() if instr else {}
 
     # --- Expand: transpose + gather along the processor column ----------
     f_words, wire = expand_bitmap(front, args.perm)
     f_cj = unpack_bits(f_words)                      # (pr, pc, nc) bool
-    ctr["wire_transpose"] = _F32(chunk / 64.0) * p
-    ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
-    ctr["use_expand"] = _F32(lv["n_f"]) * _F32(pr - 1)
+    if instr:
+        ctr["wire_transpose"] = _F32(chunk / 64.0) * p
+        ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
+        ctr["use_expand"] = _F32(lv["n_f"]) * _F32(pr - 1)
 
     # --- Local discovery: SpMSV in the (select-source, min) semiring -----
     cand = torch.empty((pr, pc, nr), dtype=torch.int32, device=pi.device)
@@ -106,8 +112,10 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         cand[i, j], ex_ij = args.ops.topdown(gij, f_words[i, j], f_cj[i, j],
                                              nr, j * nc, args)
         ex.append(ex_ij)
-    ctr["edges_examined"] = collectives.psum(torch.stack(ex)).to(torch.float32)
-    ctr["edges_useful"] = _F32(lv["m_f"])
+    if instr:
+        ctr["edges_examined"] = collectives.psum(
+            torch.stack(ex)).to(torch.float32)
+        ctr["edges_useful"] = _F32(lv["m_f"])
 
     # --- Fold: exchange candidates along the processor row ---------------
     if args.fold_mode == "alltoall":
@@ -116,9 +124,10 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         t = _fold_ring_reduce(cand, pc, chunk)
     else:
         raise ValueError(f"fold_mode={args.fold_mode!r} is not ported")
-    ctr["wire_fold"] = _F32((pc - 1) * chunk) * p
-    n_cand = collectives.psum(cand != INT_INF).to(torch.float32)
-    ctr["use_fold"] = 2.0 * n_cand                   # (child, parent) pairs
+    if instr:
+        ctr["wire_fold"] = _F32((pc - 1) * chunk) * p
+        n_cand = collectives.psum(cand != INT_INF).to(torch.float32)
+        ctr["use_fold"] = 2.0 * n_cand               # (child, parent) pairs
 
     # --- Local update -----------------------------------------------------
     newly = (pi == -1) & (t != INT_INF)
@@ -146,14 +155,16 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     part = args.part
     pr, pc, chunk, nc = part.pr, part.pc, part.chunk, part.nc
     p = _F32(part.p)
-    ctr = zero_counters()
+    instr = args.instrument
+    ctr = zero_counters() if instr else {}
     dev = pi.device
 
     # --- Gather the frontier (dense bitmap) -------------------------------
     f_words, wire = expand_bitmap(front, args.perm)
-    ctr["wire_transpose"] = _F32(chunk / 64.0) * p
-    ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
-    ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
+    if instr:
+        ctr["wire_transpose"] = _F32(chunk / 64.0) * p
+        ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
+        ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
 
     cseg = pi != -1                       # completed = has parent (own chunk)
     edges_use = _F32(0)
@@ -165,8 +176,9 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     for s in range(pc):
         if s > 0:
             cseg = unpack_bits(collectives.ppermute_col_ring(carry))
-            ctr["wire_rotate"] += _F32(chunk / 64.0) * p
-            ctr["use_rotate"] += _F32(chunk / 64.0) * p
+            if instr:
+                ctr["wire_rotate"] += _F32(chunk / 64.0) * p
+                ctr["use_rotate"] += _F32(chunk / 64.0) * p
         use_loc, n_upd = [], []
         for i, j in _blocks(pr, pc):
             seg_id = (j - s) % pc
@@ -179,10 +191,11 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
             seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
                                         j * nc, e1 - e0, None)
             found = seg_par != INT_INF
-            row_lens = rp_seg[1:] - rp_seg[:-1]
-            use_loc.append(torch.where(cvec == 0, row_lens, 0)
-                           .sum(dtype=torch.int64))
-            n_upd.append(found.sum())
+            if instr:
+                row_lens = rp_seg[1:] - rp_seg[:-1]
+                use_loc.append(torch.where(cvec == 0, row_lens, 0)
+                               .sum(dtype=torch.int64))
+                n_upd.append(found.sum())
             # the s = 0 self segment pays no wire and lands in the self
             # slot after the exchange
             if s == 0:
@@ -190,12 +203,13 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
             else:
                 send_d[i, j, seg_id] = seg_par
             cseg[i, j] |= found
-        edges_use = edges_use + collectives.psum(
-            torch.stack(use_loc)).to(torch.float32)
-        if s > 0:
-            ctr["wire_updates"] += _F32(chunk) * p
-        ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
-            collectives.psum(torch.stack(n_upd)).to(torch.float32))
+        if instr:
+            edges_use = edges_use + collectives.psum(
+                torch.stack(use_loc)).to(torch.float32)
+            if s > 0:
+                ctr["wire_updates"] += _F32(chunk) * p
+            ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
+                collectives.psum(torch.stack(n_upd)).to(torch.float32))
         if s != pc - 1:
             carry = pack_bits(cseg)
 
@@ -213,6 +227,7 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         new_pi = torch.where(newly, upd, new_pi)
         new_front |= newly
 
-    ctr["edges_useful"] = edges_use
-    ctr["edges_examined"] = edges_use
+    if instr:
+        ctr["edges_useful"] = edges_use
+        ctr["edges_examined"] = edges_use
     return new_pi, new_front, ctr

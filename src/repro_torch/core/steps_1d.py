@@ -17,7 +17,9 @@ chunk/32)`` words to ``(n/32,)``, which every strip receives whole.
 
 Counters share ``steps.COUNTER_KEYS`` with 2D; 1D leaves the transpose,
 fold, rotate and update wires at zero.  ``wire_expand`` per level is the
-closed form ``comm_model.expand_1d_level_words``, in float32.
+closed form ``comm_model.expand_1d_level_words``, in float32.  With
+``LevelArgs1D.instrument`` False a step computes no counter and returns
+``{}``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class LevelArgs1D(NamedTuple):
     expand_chunks: int = 1    # pipelined expand: top-down sub-chunk steps
     cap_x: int = 0            # 1ds: ids per send bucket
     codec: str = "none"       # 1ds: bucket encoding, "none" | "packed"
+    instrument: bool = True   # False: no counters (the fast loop)
 
 
 def expand_frontier_1d(front: torch.Tensor) -> Tuple[torch.Tensor, np.float32]:
@@ -93,12 +96,13 @@ def pipelined_expand_consume(g, sub_gather: Callable, n_chunks: int,
                              args: LevelArgs1D):
     """The C-step expand/discover pipeline: ``sub_gather(k)`` gives the
     owner-major words of sub-chunk k; the candidates min-combine across
-    steps and the edges examined add up."""
+    steps and the edges examined add up (instrumented only)."""
     cand, ex = None, 0
     for k in range(n_chunks):
         c_k, e_k = _consume_subchunk(g, sub_gather(k), k, n_chunks, args)
         cand = c_k if cand is None else torch.minimum(cand, c_k)
-        ex = ex + e_k
+        if args.instrument:
+            ex = ex + e_k
     return cand, ex
 
 
@@ -141,8 +145,10 @@ def topdown_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     else:
         f_words, wire = expand_frontier_1d(front)
         cand, ex = args.ops.topdown(g, f_words, args)
-    ctr = topdown_counters(lv, wire, ex)
-    ctr["use_expand"] = _F32(lv["n_f"]) * _F32(args.part.p - 1)
+    ctr = {}
+    if args.instrument:
+        ctr = topdown_counters(lv, wire, ex)
+        ctr["use_expand"] = _F32(lv["n_f"]) * _F32(args.part.p - 1)
     pi, newly = update(pi, cand)
     return pi, newly, ctr
 
@@ -157,11 +163,7 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     closure scans all p strips in one launch; any other runs its
     ``bottomup`` closure strip by strip."""
     part = args.part
-    ctr = zero_counters()
     f_words, wire = expand_frontier_1d(front)
-    ctr["wire_expand"] = wire
-    ctr["use_expand"] = _F32(comm_model.expand_1d_level_words(part.n, part.p))
-
     cvec = (pi != -1).to(torch.int32)
     if args.ops.bottomup_strips is not None:
         seg_par = args.ops.bottomup_strips(g, f_words, cvec, args)
@@ -171,7 +173,12 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                               cvec[i], 0, int(args.nnz[i]), None)
             for i in range(part.p)])
     pi, newly = update(pi, seg_par)
+    if not args.instrument:
+        return pi, newly, {}
 
+    ctr = zero_counters()
+    ctr["wire_expand"] = wire
+    ctr["use_expand"] = _F32(comm_model.expand_1d_level_words(part.n, part.p))
     row_lens = g["row_ptr"][:, 1:] - g["row_ptr"][:, :-1]
     edges_use = torch.where(cvec == 0, row_lens, 0).sum(
         dtype=torch.int64).to(torch.float32)

@@ -10,7 +10,11 @@ set overflows its bucket, the whole level falls back to the dense
 bitmap, so ids are never truncated.  On the simulated mesh the
 overflow predicate (the max over strips of the send count) is read to
 the host once per top-down level, together with the send total the
-wire counter needs.  Bottom-up levels always take the dense bitmap.
+wire counter needs.  The ``instrument=False`` loop hands the predicate
+in as ``lv["over"]``, read with the previous level's masses
+(``decomp.reduce_state``), so its levels skip that read and
+report no wire (``None``).  Bottom-up levels always take the dense
+bitmap.
 
 Two reductions ride the exchange:
 
@@ -60,20 +64,29 @@ def _send_counts(counts: torch.Tensor) -> Tuple[int, np.float32]:
 
 
 def sparse_exchange_1d(front: torch.Tensor, cap_x: int, part, ops,
-                       visited: torch.Tensor = None, codec: str = "none"):
+                       visited: torch.Tensor = None, codec: str = "none",
+                       over: bool = None):
     """Owner-directed sparse exchange of the ``(p, chunk)`` frontier with
     the dense fallback; the packed codec runs the LocalOps entry ``ops``'s
     ``encode`` and ``decode``.  Returns ``(f_words (n/32,) int32, wire,
     overflowed)``: the bitmap every strip rebuilds, and the float32
-    words shipped (compressed or raw ids, or the bitmap's words)."""
+    words shipped (compressed or raw ids, or the bitmap's words).
+
+    ``over``, the overflow predicate, may come in worked out: the fast
+    loop reads it with the previous level's masses.  Then the exchange
+    makes no host read of its own and ``wire`` is None: an uninstrumented
+    exchange reports no number rather than a 0 that would read as one."""
     if codec not in CODECS:
         raise ValueError(f"unknown frontier codec {codec!r}; "
                          f"expected one of {CODECS}")
     p, chunk, n = part.p, part.chunk, part.n
     send = front if visited is None else front & ~visited
-    n_local = send.sum(dim=1, dtype=torch.int32)
-    n_max, n_f = _send_counts(n_local)
-    over = n_max > cap_x
+    n_local = send.sum(dim=1, dtype=torch.int32) \
+        if over is None or codec == "packed" else None
+    n_f = None
+    if over is None:
+        n_max, n_f = _send_counts(n_local)
+        over = n_max > cap_x
     if over:
         f_words = pack_bits(send).reshape(-1)
     elif codec == "packed":
@@ -84,7 +97,9 @@ def sparse_exchange_1d(front: torch.Tensor, cap_x: int, part, ops,
         base = torch.arange(p, dtype=torch.int32,
                             device=front.device)[:, None] * chunk
         f_words = unpack_ids(pack_ids(send, cap_x, base, n), n)
-    if over:
+    if n_f is None:
+        wire = None
+    elif over:
         wire = _F32(comm_model.expand_1d_level_words(n, p))
     else:
         wire = comm_model.compressed_expand_1d_words(
@@ -93,7 +108,8 @@ def sparse_exchange_1d(front: torch.Tensor, cap_x: int, part, ops,
     return f_words, wire, over
 
 
-def _pipelined_topdown_1ds(g, send: torch.Tensor, args: LevelArgs1D):
+def _pipelined_topdown_1ds(g, send: torch.Tensor, args: LevelArgs1D,
+                           over: bool = None):
     """The pipelined sparse top-down expand (``expand_chunks = C > 1``):
     each owner's chunk splits into C sub-ranges of ``sub = chunk/C``
     vertices, each exchanged as its own bucket of ``cap_x/C`` ids and
@@ -103,18 +119,22 @@ def _pipelined_topdown_1ds(g, send: torch.Tensor, args: LevelArgs1D):
     ``(p * w_sub,)`` sub-chunk words: raw ids rebase to ``owner*sub +
     local``, and the packed codec decodes with ``chunk=sub, n=p*sub`` so
     its bucket-position rebase lands there itself (offsets narrow to
-    ``codec_bits(sub)`` bits, one count word per sub-bucket).
+    ``codec_bits(sub)`` bits, one count word per sub-bucket).  ``over``
+    may come in worked out, as in ``sparse_exchange_1d``.
 
-    Returns (cand, ex, wire)."""
+    Returns (cand, ex, wire); ``wire`` is None when ``over`` came in."""
     part = args.part
     c = args.expand_chunks
     p, chunk, n = part.p, part.chunk, part.n
     sub = chunk // c
     cap_c = args.cap_x // c
     masks = send.reshape(p, c, sub)
-    counts = masks.sum(dim=2, dtype=torch.int32)
-    n_max, n_f = _send_counts(counts)
-    over = n_max > cap_c
+    counts = masks.sum(dim=2, dtype=torch.int32) \
+        if over is None or args.codec == "packed" else None
+    n_f = None
+    if over is None:
+        n_max, n_f = _send_counts(counts)
+        over = n_max > cap_c
 
     if over:
         words = pack_bits(send).reshape(p, c, sub // 32)
@@ -140,7 +160,9 @@ def _pipelined_topdown_1ds(g, send: torch.Tensor, args: LevelArgs1D):
             return unpack_ids(torch.where(ids < n, pos, p * sub), p * sub)
 
     cand, ex = pipelined_expand_consume(g, sub_gather, c, args)
-    if over:
+    if n_f is None:
+        wire = None
+    elif over:
         wire = _F32(comm_model.chunked_expand_1d_level_words(n, p, c))
     else:
         wire = comm_model.compressed_expand_1d_words(
@@ -156,18 +178,24 @@ def topdown_level_1ds(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     """One sparse-exchange top-down level: the "1d" level with the
     expand shipping frontier ids (bitmap on overflow).  The sieve mask
     ``(pi != -1) & ~front`` is everything found on EARLIER levels, so in
-    the loop it leaves ``front`` whole."""
+    the loop it leaves ``front`` whole.  Uninstrumented, ``lv["over"]``
+    is the overflow predicate the loop read with the level's masses."""
+    instr = args.instrument
+    over = None if instr else lv["over"]
     visited = (pi != -1) & ~front
     if args.expand_chunks > 1:
-        cand, ex, wire = _pipelined_topdown_1ds(g, front & ~visited, args)
+        cand, ex, wire = _pipelined_topdown_1ds(g, front & ~visited, args,
+                                                over)
     else:
         f_words, wire, _ = sparse_exchange_1d(
             front, args.cap_x, args.part, args.ops, visited=visited,
-            codec=args.codec)
+            codec=args.codec, over=over)
         cand, ex = args.ops.topdown(g, f_words, args)
-    ctr = topdown_counters(lv, wire, ex)
-    ctr["use_expand"] = comm_model.sparse_expand_1d_words(_F32(lv["n_f"]),
-                                                          args.part.p)
+    ctr = {}
+    if instr:
+        ctr = topdown_counters(lv, wire, ex)
+        ctr["use_expand"] = comm_model.sparse_expand_1d_words(
+            _F32(lv["n_f"]), args.part.p)
     pi, newly = update(pi, cand)
     return pi, newly, ctr
 

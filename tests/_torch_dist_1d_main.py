@@ -1,6 +1,8 @@
 """Subprocess entry: the port's 1d/1ds sessions on a 16-strip simulated
 mesh against the JAX package's ``local_mode="dense"`` 1d/1ds sessions on
-16 forced host devices, at scale 11 (n = 2048, chunk = 128).
+16 forced host devices, at scale 11 (n = 2048, chunk = 128): the
+instrumented ones (``CASES``) in everything they return, the
+``instrument=False`` ones (``FAST_CASES``) in parents and levels.
 
 Run as:  python tests/_torch_dist_1d_main.py
 (sets XLA_FLAGS before importing jax, so pytest's process keeps 1 device).
@@ -35,6 +37,10 @@ CASES = [("1ds", "packed", 1, True, 0), ("1ds", "packed", 2, True, 0),
          ("1ds", "packed", 1, False, 4), ("1ds", "packed", 2, False, 4),
          ("1ds", "none", 1, True, 0), ("1ds", "none", 2, False, 4),
          ("1d", "packed", 1, True, 0), ("1d", "packed", 2, False, 0)]
+# the same fields, run with instrument=False: 1ds packed at 1 and 2
+# expand steps with overflowing buckets, 1ds raw, and 1d
+FAST_CASES = [("1ds", "packed", 1, False, 4), ("1ds", "packed", 2, False, 4),
+              ("1ds", "none", 1, True, 0), ("1d", "packed", 1, True, 0)]
 
 
 def main():
@@ -68,6 +74,25 @@ def main():
                                               & (st[:, 4] == dense)))
         print(dec, codec, chunks, diro, cap_x, "ok", flush=True)
     assert over_levels > 0, "no top-down level overflowed its buckets"
+    for dec, codec, chunks, diro, cap_x in FAST_CASES:
+        kw = dict(decomposition=dec, storage="dcsc", frontier_codec=codec,
+                  expand_chunks=chunks, direction_optimizing=diro)
+        ref = r_plan_bfs(g_r, RConfig(instrument=False, **kw), r_mesh_1d(P),
+                         local_mode="dense", cap_x=cap_x).compile()
+        instr = plan_bfs(g_t, BFSConfig(**kw), mesh, local_mode="kernel",
+                         cap_x=cap_x).compile()
+        for local_mode in ("dense", "kernel"):
+            eng = plan_bfs(g_t, BFSConfig(instrument=False, **kw), mesh,
+                           local_mode=local_mode, cap_x=cap_x).compile()
+            for root in roots:
+                want, got = ref.run(root), eng.run(root)
+                tag = (dec, codec, chunks, diro, cap_x, local_mode, root)
+                assert want.counters == {} and got.counters == {}, tag
+                assert not got.level_stats.any(), tag
+                for other in (want, instr.run(root)):
+                    assert np.array_equal(got.parents, other.parents), tag
+                    assert got.n_levels == other.n_levels, tag
+        print("fast", dec, codec, chunks, diro, cap_x, "ok", flush=True)
     print("OK torch-dist-1d")
 
 

@@ -4,7 +4,9 @@ every width from 1 to 20 bits, and to the Pallas kernels run in
 interpret mode (tolerance 0: integer words).  Covered: payloads whose
 ``cap*bits`` is not a multiple of 32, the count clamp, empty and full
 buckets.  The CUDA kernels are held against these plain versions on a
-card (``test_torch_cuda.py``)."""
+card (``test_torch_cuda.py``); here their launch shapes and packed
+arguments are checked."""
+import ctypes
 import functools
 
 import jax
@@ -199,3 +201,64 @@ def test_decode_grid_covers_every_row():
             for k in range(min(p, 4)):
                 first, last = k * cap // 4, (k * cap + cap - 1) // 4
                 assert last - first + 1 <= gx * t_ops.BLOCK, (cap, p, k)
+
+
+# ---------------------------------------------------------------------------
+# The encode kernel (csrc/codec_encode.cu): launch shape and packed argument
+# ---------------------------------------------------------------------------
+
+_ENC_BITS = [1, 7, 18, 20, 31, 32]
+
+
+def _chunk_of(bits):
+    """The widest chunk whose offsets take ``bits`` bits."""
+    chunk = (1 << bits) - 3 if bits > 2 else 1 << bits
+    assert codec_bits(chunk) == bits
+    return chunk
+
+
+@pytest.mark.parametrize("bits", _ENC_BITS)
+def test_encode_shape_covers_every_word_once(bits):
+    """``encode_shape``: the bits and W of the plain encode, and gx blocks
+    a bucket of ENCODE_BLOCK threads, each thread 32 slots and ``bits``
+    whole words: every payload word below W lies in exactly one thread,
+    every block holds at least one word below W, and an empty row still
+    gets the block that writes its count word.  Caps below 32, not a
+    multiple of 32, one past a block, and the path's two shapes."""
+    assert t_ops.ENCODE_SLOTS == t_ops.ENCODE_BLOCK * t_ops.THREAD_SLOTS
+    chunk = _chunk_of(bits)
+    for cap in (0, 1, 5, 31, 33, 100, 4095, 4096, 4097, 13112, 52448):
+        b, w, gx = t_ops.encode_shape(16, cap, chunk)
+        assert (b, w) == (bits, codec_bucket_words(cap, bits) - 1)
+        assert gx == max(1, -(-cap // t_ops.ENCODE_SLOTS))
+        assert gx * t_ops.ENCODE_SLOTS >= cap
+        assert (gx - 1) * t_ops.ENCODE_SLOTS < max(cap, 1)
+        # thread t of block x owns words [(x*BLOCK + t)*bits, +bits)
+        per_block = t_ops.ENCODE_BLOCK * bits
+        assert gx * per_block >= w
+        assert all(x * per_block < w for x in range(gx)) or cap == 0
+
+
+def test_encode_packed_argument_round_trips():
+    """The C entry's one argument: 9 int64 values in the order the
+    kernel's ``codec_encode(const long long*)`` reads them."""
+    vals = (2**47 + 16, 2**40 + 4, 2**45 + 256, 16, 52448, 20, 32780, 13,
+            2**63 - 1)
+    buf = t_ops._ENCODE_ARGS.pack(*vals)
+    assert len(buf) == 9 * 8
+    assert t_ops._ENCODE_ARGS.unpack(buf) == vals
+    assert np.array_equal(np.frombuffer(buf, np.int64), np.array(vals))
+    assert t_ops.ENCODE.argtypes == [ctypes.c_char_p]
+
+
+def test_encode_rejects_more_buckets_than_the_grid_holds():
+    """p > 65535 raises before anything is built or launched (meta
+    tensors stand in for CUDA ones); at 65535 the call gets as far as
+    the device check."""
+    off = torch.empty((65536, 8), dtype=torch.int32, device="meta")
+    count = torch.empty(65536, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="at most 65535"):
+        t_ops.encode_offsets(off, count, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        t_ops.encode_offsets(off[:65535], count[:65535], 64)
+

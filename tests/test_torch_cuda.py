@@ -187,6 +187,51 @@ def test_codec_kernels_match_plain(dev, chunk, cap):
                                                      cap, n))
 
 
+def _encode_counts(cap):
+    """Counts 0, 1, cap, past cap (clamped), negative (clamped as
+    uint32) and one in a block's last thread."""
+    return [0, 1, cap, cap + 9, -1, max(1, cap - 3)]
+
+
+@pytest.mark.parametrize("bits", [1, 7, 18, 20, 31, 32])
+@pytest.mark.parametrize("cap", [5, 100, 4097])
+@pytest.mark.parametrize("p", [1, 16])
+def test_codec_encode_kernel_on_edge_cases(dev, bits, cap, p):
+    """The encode kernel at tolerance 0 against the plain encode: caps
+    below 32, not a multiple of 32 and one slot past a block; each count
+    of ``_encode_counts`` (one launch each at p = 1, all in one at
+    p = 16); offsets with bits above ``bits`` set (masked)."""
+    chunk = (1 << bits) - 3 if bits > 2 else 1 << bits
+    g = torch.Generator(device=dev).manual_seed(bits * 1000 + cap + p)
+    off = torch.randint(-2**31, 2**31 - 1, (p, cap), generator=g,
+                        device=dev, dtype=torch.int32)
+    counts = _encode_counts(cap)
+    for c in ([[x] for x in counts] if p == 1
+              else [[counts[k % len(counts)] for k in range(p)]]):
+        count = torch.tensor(c, dtype=torch.int32, device=dev)
+        got = codec_ops.encode_offsets(off, count, chunk)
+        assert got.shape == (p, 1 + codec_ops.encode_shape(p, cap, chunk)[1])
+        assert torch.equal(got, codec_ref.encode_offsets(off, count, chunk))
+
+
+@pytest.mark.parametrize("cap,chunk", [(52448, 1 << 20), (13112, 1 << 18)])
+def test_codec_encode_kernel_at_the_path_shapes(dev, cap, chunk):
+    """The scale-24 1ds path's two encode shapes, 16 buckets of 52,448
+    slots at 20 bits (expand_chunks 1) and of 13,112 at 18 (4): counts of
+    a few thousand as on the path, and 0, cap and past cap; offsets below
+    the chunk, then with high bits set."""
+    g = torch.Generator(device=dev).manual_seed(cap)
+    p = 16
+    off = torch.randint(0, chunk, (p, cap), generator=g, device=dev,
+                        dtype=torch.int32)
+    count = torch.randint(0, 5000, (p,), generator=g, device=dev,
+                          dtype=torch.int32)
+    count[:4] = torch.tensor([0, cap, cap + 1, 2**31 - 1])
+    for o in (off, off | (1 << 30)):
+        got = codec_ops.encode_offsets(o, count, chunk)
+        assert torch.equal(got, codec_ref.encode_offsets(o, count, chunk))
+
+
 @pytest.mark.parametrize("bits", [1, 20, 32])
 @pytest.mark.parametrize("cap", [2048, 2049, 2050, 2051, 5])
 def test_codec_decode_kernel_on_edge_cases(dev, bits, cap):

@@ -1,9 +1,10 @@
 """The port's traversal sessions against the JAX package's: parents,
 n_levels, every counter and level_stats, bit for bit (tolerance 0: the
-counters are float32 sums of integers below 2**24).  1x1 runs in this
-process; 2x2 and 4x4 run in one 16-device subprocess.  Also the session
-contract: one graph shipment and one program build per compile, and plan
-errors up front."""
+counters are float32 sums of integers below 2**24); the uninstrumented
+(``instrument=False``) sessions in parents and n_levels, with no
+counters and zero stats.  1x1 runs in this process; 2x2 and 4x4 run in
+one 16-device subprocess.  Also the session contract: one graph shipment
+and one program build per compile, and plan errors up front."""
 import os
 import subprocess
 import sys
@@ -73,6 +74,32 @@ def test_sessions_match_reference_1x1(graphs, fold, diro):
     assert modes == ({0.0, 1.0} if diro else {0.0})
 
 
+@pytest.mark.parametrize("fold", ["reduce", "alltoall"])
+@pytest.mark.parametrize("diro", [True, False])
+def test_fast_sessions_match_reference_1x1(graphs, fold, diro):
+    """``instrument=False``: parents and n_levels equal the reference's
+    fast dense session's and the port's instrumented session's on the
+    same root, in dense and kernel modes; counters ``{}`` and
+    level_stats all zero, as the reference returns them."""
+    r, g_r, t, g_t = graphs
+    kw = dict(fold_mode=fold, direction_optimizing=diro)
+    ref = r_plan_bfs(g_r, RConfig(instrument=False, **kw), r_mesh(1, 1),
+                     local_mode="dense").compile()
+    mesh = make_local_mesh(1, 1, device="cpu")
+    for local_mode in ("dense", "kernel"):
+        instr = plan_bfs(g_t, BFSConfig(**kw), mesh,
+                         local_mode=local_mode).compile()
+        fast = plan_bfs(g_t, BFSConfig(instrument=False, **kw), mesh,
+                        local_mode=local_mode).compile()
+        for root in _roots(r):
+            want, got, full = ref.run(root), fast.run(root), instr.run(root)
+            assert want.counters == {} and got.counters == {}
+            assert not got.level_stats.any()
+            for other in (want, full):
+                assert np.array_equal(got.parents, other.parents), root
+                assert got.n_levels == other.n_levels, root
+
+
 def test_sessions_match_reference_on_2x2_and_4x4_meshes():
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
@@ -126,9 +153,8 @@ def test_plan_errors_up_front(graphs):
         plan_bfs(g_t, BFSConfig(), make_local_mesh(2, 2, device="cpu"))
     with pytest.raises(ValueError, match="no LocalOps"):
         plan_bfs(g_t, BFSConfig(storage="dcsc"), mesh, local_mode="kernel")
-    for bad in (dict(fold_mode="bitmap"), dict(instrument=False),
-                dict(expand_chunks=2), dict(compact_updates=True),
-                dict(use_edge_dst=True)):
+    for bad in (dict(fold_mode="bitmap"), dict(expand_chunks=2),
+                dict(compact_updates=True), dict(use_edge_dst=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             plan_bfs(g_t, BFSConfig(**bad), mesh)
     # "1d" is ported: a 2D graph is the wrong graph type for it

@@ -1,8 +1,10 @@
 """The port's 1D strip sessions ("1d", and "1ds" with both codecs and
 the pipelined expand): against the JAX package's dense sessions on 16
-forced host devices (one subprocess), against the pinned scale-14/p=16
-``wire_expand`` totals of the reference's acceptance run, against the
-port's own 2D sessions (the same parents), and the plan checks."""
+forced host devices (one subprocess, instrumented and
+``instrument=False``), against the pinned scale-14/p=16 ``wire_expand``
+totals of the reference's acceptance run, against the port's own 2D
+sessions (the same parents), the host reads of an uninstrumented "1ds"
+search, and the plan checks."""
 import os
 import subprocess
 import sys
@@ -12,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.configs.base import BFSConfig
+from repro_torch.core import decomp
+from repro_torch.core import steps_1d_sparse as sparse
 from repro_torch.core.engine import plan_bfs
 from repro_torch.core.ref import TreeValidator, validate_parents
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
@@ -93,6 +97,70 @@ def test_strip_parents_equal_2d_parents(small):
                                   want.level_stats[:, :4])
 
 
+@pytest.mark.parametrize("codec,chunks", [("packed", 1), ("packed", 2),
+                                          ("none", 2)])
+def test_fast_1ds_reads_once_a_level(small, monkeypatch, codec, chunks):
+    """An ``instrument=False`` "1ds" search never calls the exchange's
+    ``_send_counts``: its one host read a level is the loop's tail read
+    ``_masses`` (one more before the first level), which carries the
+    overflow predicate.  Buckets of 4 ids, top-down only, so that levels
+    overflow: the fast run's predicates are the instrumented run's,
+    level by level, and so are its parents and n_levels."""
+    e, g, roots = small
+    mesh = make_local_mesh_1d(16, device="cpu")
+    kw = dict(frontier_codec=codec, expand_chunks=chunks,
+              direction_optimizing=False)
+    engines = {instr: plan_bfs(g, _cfg(instrument=instr, **kw), mesh,
+                               local_mode="kernel", cap_x=4).compile()
+               for instr in (True, False)}
+    calls = {"masses": 0, "send_counts": 0}
+    overs = {True: [], False: []}
+    cap = 4 // chunks
+    real = (decomp._masses, sparse._send_counts, sparse.sparse_exchange_1d,
+            sparse._pipelined_topdown_1ds)
+
+    def masses(*a):
+        calls["masses"] += 1
+        return real[0](*a)
+
+    def send_counts(counts):
+        calls["send_counts"] += 1
+        n_max, n_f = real[1](counts)
+        overs[True].append(n_max > cap)
+        return n_max, n_f
+
+    def exchange(*a, over=None, **kw_):
+        if over is not None:
+            overs[False].append(over)
+        return real[2](*a, over=over, **kw_)
+
+    def pipelined(g_, send, args, over=None):
+        if over is not None:
+            overs[False].append(over)
+        return real[3](g_, send, args, over)
+
+    for mod, name, fn in ((decomp, "_masses", masses),
+                          (sparse, "_send_counts", send_counts),
+                          (sparse, "sparse_exchange_1d", exchange),
+                          (sparse, "_pipelined_topdown_1ds", pipelined)):
+        monkeypatch.setattr(mod, name, fn)
+    for root in roots:
+        for v in calls:
+            calls[v] = 0
+        for v in overs.values():
+            v.clear()
+        want = engines[True].run(root)
+        assert calls["send_counts"] == want.n_levels      # top-down only
+        assert calls["masses"] == want.n_levels + 1
+        calls["send_counts"] = calls["masses"] = 0
+        got = engines[False].run(root)
+        assert calls == {"masses": got.n_levels + 1, "send_counts": 0}
+        assert overs[False] == overs[True] and any(overs[True])
+        assert np.array_equal(got.parents, want.parents)
+        assert got.n_levels == want.n_levels
+        assert got.counters == {} and not got.level_stats.any()
+
+
 def test_session_contract_and_trees(small):
     e, g, roots = small
     plan = plan_bfs(g, _cfg(expand_chunks=2), make_local_mesh_1d(
@@ -124,8 +192,7 @@ def test_plan_errors_up_front(small):
             with pytest.raises(NotImplementedError, match="col_ptr"):
                 plan_bfs(g, BFSConfig(decomposition=dec, storage=storage),
                          mesh, local_mode="kernel")
-    for bad in (dict(instrument=False), dict(use_edge_dst=True),
-                dict(compact_updates=True)):
+    for bad in (dict(use_edge_dst=True), dict(compact_updates=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             plan_bfs(g, _cfg(**bad), mesh)
     with pytest.raises(ValueError, match="frontier codec"):
