@@ -7,9 +7,11 @@ every kernel of those paths against its plain PyTorch version.
 
 Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
-  2 build        nvcc of the nine kernels and the integer-rate benchmark
-                 (in parallel), ptxas report; kernel 7's instructions per
-                 level in the SASS of its scale-24 build, and the integer
+  2 build        nvcc of the nine kernel sources (eleven C entries:
+                 kernel 1 has three addressings) and the integer-rate
+                 benchmark (in parallel), ptxas report; kernel 7's
+                 instructions per level in the SASS of its scale-24
+                 build, and the integer
                  instruction rate the card reaches on its level body
                  (csrc/int_rate.cu), which kernel 7's bound uses unless
                  the kernel itself issues faster (phase 6); kernel 5's
@@ -23,12 +25,27 @@ Phases, in the order they run:
                  both TEPS, median search ms and host reads a search; two
                  roots again through local_mode="dense", parents
                  bit-identical
+ 3b 2D archs     the registered bfs-rmat (2d, dcsc, reduce fold) on the
+                 same graph and roots, through kernel 1's DCSC entry;
+                 then bfs-rmat-fast, bfs-rmat-opt-rt (the exact bitmap
+                 fold and compact updates, the dense exchanges on this
+                 mesh) and bfs-rmat-pipe (R/G ring counters): each search
+                 timed, parents
+                 and levels bit-identical to the csr session's (bfs-rmat)
+                 and to bfs-rmat's (the rest), every tree validated, host
+                 reads a search; storage_words of both modes
   4 kernels      the 2D path's kernels against their plain versions at
                  its shapes, tolerance 0 (the outputs are integers)
+ 4b kernel 1     its DCSC entry on the frontiers of one bfs-rmat search
+                 against its plain version and the col_ptr entry on the
+                 same frontiers, tolerance 0, both timed (the launch, and
+                 the wrapper with its prep: the binary search's cost)
   5 meshes       simulated 2x2 and 4x4 grids and a 16-strip 1d/1ds leg
                  (both codecs, 1 and 4 expand steps, an overflowing
-                 bucket capacity) at scale 16: kernel and dense sessions
-                 agree in parents, levels, stats, counters
+                 bucket capacity) at scale 16, and every registered 2D
+                 arch on both grids (the "*_pure" folds unvalidated, as
+                 they drop by design): kernel and dense sessions agree in
+                 parents, levels, stats, counters
   6 kernel times level by level on one 2D search: kernel, plain,
                  library yardstick and bound, each in ms (kernel 2 on
                  the card alone, per launch beside its bound); kernel 2
@@ -52,6 +69,15 @@ Phases, in the order they run:
                  with the same parents; the walk each kernel-3 and
                  kernel-4 call of these searches takes, and the calls
                  near the walk threshold timed with each walk forced
+ 8b csr strips   the same strips, built with the (p, n+1) strip col_ptr,
+                 on the 16 roots: bfs-rmat-1d and bfs-rmat-1ds through
+                 kernel 1's strip entry, each beside its dcsc twin
+                 (bfs-rmat-1d-dcsc, and bfs-rmat-1ds on storage dcsc:
+                 kernel 3), then bfs-rmat-1ds-pipe and bfs-rmat-1d-pipe
+                 (kernel 1 on each sub-chunk's partial bitmap); parents
+                 and levels equal to the dcsc strips', trees validated,
+                 search ms and host reads, the csr - dcsc difference root
+                 by root, storage_words of both modes, peak under 75 GiB
   9 kernels      level by level on one 1ds search per expand_chunks:
                  each kernel call (the frontiers, sub-chunks and buckets
                  of real levels, and the large frontier of a bottom-up
@@ -64,6 +90,9 @@ Phases, in the order they run:
                  kernels 3 and 4 required over phases 8-9; then kernels
                  2-4 on the synthetic cases at the path's widths,
                  kernels 3 and 4 with each walk forced
+ 9b kernel 1     its strip entry on the frontiers of one bfs-rmat-1d
+                 search against its plain version and kernel 3 on the
+                 same frontiers, tolerance 0, both timed on the card alone
  10 profile      device busy and idle share of one 1ds search per
                  expand_chunks, instrumented and with instrument=False
  11 AutoInt      the registered autoint config (11,238,400-row table)
@@ -1321,7 +1350,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     kernel's largest error, the per-kernel times and whether rmat_counter
     is bound by operations.  Everything it made on the card dies with
     it."""
-    from repro_torch.configs.base import BFSConfig
+    from dataclasses import replace
+
+    from repro_torch.configs.base import BFSConfig, get_config, list_archs
     from repro_torch.core import decomp, steps_1d_sparse
     from repro_torch.core.comm_model import (codec_bits, codec_packed_words,
                                              rmat_strip_skew)
@@ -1338,16 +1369,22 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 
+    path_2d_dcsc = ("spmsv_dcsc_min", "bottomup_substep")
+    path_1d_csr = ("spmsv_strips_csr_min", "bottomup_substep")
+    launches_new = {}      # the launches of phases 3b and 8b
+
     def host_reads(eng, roots_) -> float:
         """Host reads a search from ``roots_``, run again untimed: the
         level loop's tail reads (``decomp._masses``), the 1ds exchange's
-        own (``_send_counts``) and the 2D kernel's two a block and
-        top-down level (``spmsv/ops.py::prepare``: the frontier's column
+        own (``_send_counts``), kernel 1's two a call (``spmsv/ops.py::
+        prepare``, ``prepare_dcsc``, ``prepare_strips``: the frontier's id
         count and its edge total)."""
         weight = {"masses": 1, "send_counts": 1, "prepare": 2}
         with recording([(decomp, "_masses", "masses"),
                         (steps_1d_sparse, "_send_counts", "send_counts"),
-                        (sp_ops, "prepare", "prepare")]) as calls:
+                        (sp_ops, "prepare", "prepare"),
+                        (sp_ops, "prepare_dcsc", "prepare"),
+                        (sp_ops, "prepare_strips", "prepare")]) as calls:
             for r in roots_:
                 eng.search(r)
         torch.cuda.synchronize()
@@ -1485,6 +1522,73 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         "peak_gib": peak_gib, "validate_s": val_s, "launches": launches,
         "fast": rec_fast}
 
+    # --------------------------------------------------------------- 3b
+    phase(f"3b the registered bfs-rmat (2d, dcsc, reduce) on the same graph "
+          f"and {N_ROOTS} roots, local_mode='kernel'; then bfs-rmat-fast, "
+          f"bfs-rmat-opt-rt and bfs-rmat-pipe")
+    words_2d = {m: graph.storage_words(m) for m in ("csr", "dcsc")}
+    print(f"storage_words of the 2D graph (int32 words, §5.1): csr "
+          f"{words_2d['csr']}, dcsc {words_2d['dcsc']}; peak device memory "
+          f"of the 2D path {peak_gib:.3f} GiB")
+    validator = TreeValidator(edges.n, edges.src, edges.dst)
+    runs_2d = {}
+    for arch in ("bfs-rmat", "bfs-rmat-fast", "bfs-rmat-opt-rt",
+                 "bfs-rmat-pipe"):
+        eng_a = plan_bfs(graph, get_config(arch), mesh,
+                         local_mode="kernel").compile()
+        for k in kernels.values():
+            k.launches = 0
+        ms_a, par_a, lv_a = [], [], []
+        for r in roots:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = eng_a.search(r)
+            torch.cuda.synchronize()
+            ms_a.append((time.perf_counter() - ts) * 1e3)
+            par_a.append(out[0].reshape(-1)[: graph.part.n_orig])
+            lv_a.append(out[1])
+        la = {k: kernels[k].launches for k in path_2d_dcsc}
+        for k, n in la.items():
+            check(n > 0, f"kernel {k} was never launched by {arch}")
+            launches_new[k] = launches_new.get(k, 0) + n
+        want_p, want_l, what = (parents, levels, "the csr session's") \
+            if arch == "bfs-rmat" else (runs_2d["bfs-rmat"]["parents"],
+                                        runs_2d["bfs-rmat"]["levels"],
+                                        "bfs-rmat's")
+        for r, par, lv, wp, wl in zip(roots, par_a, lv_a, want_p, want_l):
+            check(lv == wl and torch.equal(par, wp),
+                  f"{arch}: parents or levels differ from {what} at root {r}")
+            ok, msg = validator.check(r, par)
+            check(ok, f"{arch} tree of root {r}: {msg}")
+        reads = host_reads(eng_a, roots)
+        hm = harmonic_mean([teps(edges.m_input, x / 1e3) for x in ms_a])
+        print(f"{arch}: harmonic-mean TEPS {hm:.6e}; search ms median "
+              f"{float(np.median(ms_a)):.3f}, min {min(ms_a):.3f}, max "
+              f"{max(ms_a):.3f}; host reads a search {reads:.2f}; "
+              f"launches {la}; parents and levels bit-identical to {what} "
+              f"on all {N_ROOTS} roots, every tree valid")
+        runs_2d[arch] = {"search_ms": ms_a, "teps_hmean": hm,
+                         "host_reads": reads, "launches": la,
+                         "parents": par_a, "levels": lv_a}
+        if arch == "bfs-rmat":
+            eng_dcsc = eng_a
+        del eng_a
+        if arch != "bfs-rmat":
+            del runs_2d[arch]["parents"]
+    print(f"beside the csr session (phase 3, bfs-rmat-csr's storage with "
+          f"the reduce fold): TEPS {hmean:.6e}, search ms median "
+          f"{float(np.median(search_ms)):.3f}, host reads a search "
+          f"{rec_fast['host_reads_instrumented']:.2f}; uninstrumented "
+          f"{rec_fast['teps_hmean']:.6e}, "
+          f"{float(np.median(rec_fast['search_ms'])):.3f} ms, "
+          f"{rec_fast['host_reads']:.2f}")
+    # nothing of these searches may outlive the 2D graph (phase 8's peak)
+    del runs_2d["bfs-rmat"]["parents"], validator, par_a, want_p, out, par
+    del wp
+    torch.cuda.empty_cache()
+    record["session_2d_archs"] = {"storage_words": words_2d,
+                                  "runs": runs_2d}
+
     # ---------------------------------------------------------------- 4
     phase("4 2D kernels against plain versions at the 2D path's shapes")
     part = graph.part
@@ -1552,6 +1656,72 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     print("the 2D path's three kernels equal their plain versions "
           "(tolerance 0)")
 
+    # --------------------------------------------------------------- 4b
+    phase("4b kernel 1 through the DCSC on the frontiers of one bfs-rmat "
+          "search against its plain version and the col_ptr addressing "
+          "(tolerance 0), timed side by side")
+    with recording([(sp_ops, "spmsv_dcsc_min", "spmsv_dcsc_min")]) as calls:
+        eng_dcsc.search(roots[0])
+    torch.cuda.synchronize()
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "calls": 0, "csr_ms": 0.0, "wrapper_ms": 0.0,
+           "csr_wrapper_ms": 0.0}
+    cptr = graph.col_ptr[0, 0]
+    for i, (_, a, _) in enumerate(calls):
+        mask, jc, cp, nzc, ridx, nr, coff, cap_f = a
+        prep = sp_ops.prepare_dcsc(mask, jc, cp, nzc, cap_f)
+        ids, slot, offs, total = prep
+        csr_prep = sp_ops.prepare(mask, cptr)
+        got = sp_ops.launch_dcsc(*prep, cp, ridx, nr, coff)
+        e = max(max_err(got, sp_ops.spmsv_dcsc_min_plain(*prep, cp, ridx, nr,
+                                                         coff)),
+                max_err(got, sp_ops.launch(*csr_prep, cptr, ridx, nr, coff)))
+        errs["spmsv_dcsc_min"] = max(errs["spmsv_dcsc_min"], e)
+        del got
+        k_ms = cuda_ms(lambda: sp_ops.launch_dcsc(*prep, cp, ridx, nr, coff))
+        c_ms = cuda_ms(lambda: sp_ops.launch(*csr_prep, cptr, ridx, nr,
+                                             coff))
+        w_ms = cuda_ms(lambda: sp_ops.spmsv_dcsc_min(*a))
+        cw_ms = cuda_ms(lambda: sp_ops.spmsv_csr_min(mask, cptr, ridx, nr,
+                                                     coff))
+        p_ms = cuda_ms(lambda: sp_ops.spmsv_dcsc_min_plain(
+            *prep, cp, ridx, nr, coff), reps=3)
+        dst, vals = sp_ops.frontier_edges(cp[slot].to(torch.int64), offs,
+                                          total, ridx, ids + coff,
+                                          torch.zeros_like(offs))
+        lib_ms = cuda_ms(lambda: torch.full(
+            (nr,), INT_INF, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, dst, vals, "amin"), reps=5)
+        del dst, vals
+        n = ids.numel()
+        # ids, slots, offsets, the cp word of each id, one row id an
+        # edge, the candidates
+        nbytes = 4 * n + 4 * n + 8 * (n + 1) + 4 * n + 4 * total + 4 * nr
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                       ("library_ms", lib_ms), ("csr_ms", c_ms),
+                       ("wrapper_ms", w_ms), ("csr_wrapper_ms", cw_ms)):
+            row[key] += v
+        row["calls"] += 1
+        print(f"call {i} spmsv_dcsc_min: frontier {n} cols, {total} edges: "
+              f"max |kernel - plain|, |dcsc - csr| = {e}; launch: dcsc "
+              f"{k_ms:.4f} ms, csr {c_ms:.4f} ms; wrapper with its prep: "
+              f"dcsc {w_ms:.4f} ms, csr {cw_ms:.4f} ms; plain {p_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({nbytes} "
+              f"bytes)")
+    check(row["calls"] > 0, "no spmsv_dcsc_min call in the bfs-rmat search")
+    del calls, prep, csr_prep, ids, slot, offs, mask, jc, cp, nzc
+    check(errs["spmsv_dcsc_min"] == 0, "spmsv_dcsc_min disagrees with its "
+          "plain version or with the col_ptr addressing")
+    print(f"spmsv_dcsc_min: {row['calls']} launches in one search: kernel "
+          f"{row['ms']:.4f} ms (the col_ptr addressing on the same frontiers "
+          f"{row['csr_ms']:.4f}), with the prep {row['wrapper_ms']:.4f} "
+          f"(col_ptr {row['csr_wrapper_ms']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms; equal to its plain version and "
+          f"to the col_ptr addressing (tolerance 0)")
+    per_dcsc = row
+
     # ---------------------------------------------------------------- 5
     phase(f"5 simulated meshes at scale {MESH_SCALE}, instrumented: 2x2, "
           f"4x4 and {STRIPS} strips")
@@ -1560,10 +1730,11 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     small_val = TreeValidator(small.n, small.src, small.dst)
     srng = np.random.default_rng(1)
 
-    def same_as_dense(a, b, r, tag):
+    def same_as_dense(a, b, r, tag, validate=True):
         """A kernel session's result equals the dense session's in
         parents, levels, level_stats and counters, and its tree is
-        valid."""
+        valid (unless ``validate`` is False: a "*_pure" fold drops
+        winners by design)."""
         check(np.array_equal(a.parents, b.parents), f"parents {tag}")
         check(a.n_levels == b.n_levels, f"levels {tag}")
         check(np.array_equal(a.level_stats, b.level_stats),
@@ -1572,8 +1743,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             want_v = b.counters["edges_useful"] \
                 if k == "edges_examined" else v
             check(a.counters[k] == want_v, f"counter {k} {tag}")
-        ok, msg = small_val.check(r, torch.from_numpy(a.parents).to(dev))
-        check(ok, f"{tag} tree of root {r}: {msg}")
+        if validate:
+            ok, msg = small_val.check(r, torch.from_numpy(a.parents).to(dev))
+            check(ok, f"{tag} tree of root {r}: {msg}")
     for (pr, pc), fold in (((2, 2), "reduce"), ((2, 2), "alltoall"),
                            ((4, 4), "reduce")):
         sg = build_blocked(small, pr, pc)
@@ -1591,6 +1763,27 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                   f"{a.counters['edges_examined']} (dense "
                   f"{b.counters['edges_examined']}): kernel == dense in "
                   f"parents, levels, level_stats and counters; tree valid")
+    # every registered 2D arch on both grids (the bitmap fold, compact
+    # updates, edge-row reads, the R/G ring); the "*_pure" folds drop
+    # what passes their capacities, so their trees are not validated
+    archs_2d = [a for a in list_archs() if a.startswith("bfs-rmat")
+                and get_config(a).decomposition == "2d"]
+    for pr, pc in ((2, 2), (4, 4)):
+        sg = build_blocked(small, pr, pc)
+        smesh = make_local_mesh(pr, pc, device=dev)
+        for arch in archs_2d:
+            acfg = get_config(arch)
+            ek = plan_bfs(sg, acfg, smesh, local_mode="kernel").compile()
+            ed = plan_bfs(sg, acfg, smesh, local_mode="dense").compile()
+            pure = acfg.fold_mode.endswith("_pure")
+            for _ in range(2):
+                r = rmat.random_source(small, srng)
+                a, b = ek.run(r), ed.run(r)
+                same_as_dense(a, b, r, f"{arch} {pr}x{pc}", validate=not pure)
+                print(f"{pr}x{pc} {arch:>16} root {r:>6}: {a.n_levels} "
+                      f"levels: kernel == dense in parents, levels, "
+                      f"level_stats and counters"
+                      + ("" if pure else "; tree valid"))
     # the 1D leg: 16 strips, both codecs, 1 and 4 expand steps, and a
     # bucket capacity of 32 ids on top-down-only runs, which overflows
     # the wider levels into the dense fallback
@@ -1648,15 +1841,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             ids, offs, total = sp_ops.prepare(mask, cptr, cap_f)
             k_ms = cuda_ms(lambda: sp_ops.launch(ids, offs, total, cptr, ridx,
                                                  nr, coff))
-            lens_f = (offs[1:] - offs[:-1])
-            col = torch.repeat_interleave(ids.to(torch.int64), lens_f)
-            k_i = torch.repeat_interleave(
-                torch.arange(ids.shape[0], device=dev), lens_f)
-            pos = cptr[col].to(torch.int64) + (
-                torch.arange(total, device=dev) - offs[k_i])
-            v = ridx[pos].to(torch.int64)
-            vals = (col + coff).to(torch.int32)
-            del k_i, pos
+            v, vals = sp_ops.frontier_edges(cptr[ids].to(torch.int64), offs,
+                                            total, ridx, ids + coff,
+                                            torch.zeros_like(offs))
 
             def run_lib():
                 torch.full((nr,), INT_INF, dtype=torch.int32,
@@ -1668,7 +1855,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                 + 8 * ids.numel() + 4 * total + 4 * nr
             row["library_ms"] += lib_ms
             desc = f"frontier {ids.numel()} cols, {total} edges"
-            del col, v, vals
+            del v, vals
         else:
             rp, uew, fw, cv, coff, ne = a
             k_ms = device_ms(lambda: bu_ops.launch(rp, uew, fw, cv, coff,
@@ -1721,6 +1908,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
               f"{r['bound_ms']:.5f} ms"
               + (f", library {r['library_ms']:.4f} ms"
                  if k == "spmsv_csr_min" else ""))
+    per["spmsv_dcsc_min"] = per_dcsc
     record["kernel_times"] = per
     # the synthetic cases at the 2D path's width (one segment of 2^24
     # rows): rows of 0-1,100 edges with first hits past edge 32, an edge
@@ -1751,7 +1939,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           f"strips, local_mode='kernel', storage='dcsc', packed codec, "
           f"expand_chunks {' and '.join(map(str, STRIP_CHUNKS))}")
     levels_2d = levels[:2]
-    del engine, fast, graph, edges, parents
+    del engine, fast, eng_dcsc, graph, edges, parents
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for k in kernels.values():
@@ -1762,7 +1950,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                             generator="counter", device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False)
+    # with the (p, n+1) strip col_ptr, which the csr strips read (8b)
+    graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False,
+                             with_col_ptr=True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     build_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1977,6 +2167,86 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         tally_walks(eng, roots[:2], c, "top-down only")
         del eng
     rec_1ds["topdown_only_ms"] = td_rec
+
+    # --------------------------------------------------------------- 8b
+    phase(f"8b the csr strips against the dcsc strips on the same {STRIPS} "
+          f"strips and {N_ROOTS} roots: bfs-rmat-1d against bfs-rmat-1d-dcsc, "
+          f"bfs-rmat-1ds against its dcsc twin, then bfs-rmat-1ds-pipe and "
+          f"bfs-rmat-1d-pipe (kernel 1 on each sub-chunk's partial bitmap)")
+    words_1d = {m: graph.storage_words(m) for m in ("csr", "dcsc")}
+    peak_8 = torch.cuda.max_memory_allocated() / 2**30
+    print(f"storage_words of the strips (int32 words, §5.1): csr "
+          f"{words_1d['csr']}, dcsc {words_1d['dcsc']}; the strip col_ptr "
+          f"{graph.col_ptr.numel() * 4 / 1e9:.3f} GB; peak device memory "
+          f"since phase 8 began {peak_8:.3f} GiB")
+    check(peak_8 < 75.0, f"strip peak {peak_8:.2f} GiB >= 75 GiB")
+    torch.cuda.reset_peak_memory_stats()
+    validator = TreeValidator(edges.n, edges.src, edges.dst)
+    c0 = STRIP_CHUNKS[0]
+    codec = ("codec_encode", "codec_decode")
+    # each arch with the kernels it must launch; the dcsc twin of
+    # bfs-rmat-1ds is phase 8's C=1 session, timed again here
+    strip_archs = [
+        ("bfs-rmat-1d", get_config("bfs-rmat-1d"), path_1d_csr),
+        ("bfs-rmat-1d-dcsc", get_config("bfs-rmat-1d-dcsc"),
+         ("spmsv_strip_min", "bottomup_substep")),
+        ("bfs-rmat-1ds", get_config("bfs-rmat-1ds"), path_1d_csr + codec),
+        ("bfs-rmat-1ds/dcsc", replace(get_config("bfs-rmat-1ds"),
+                                      storage="dcsc"),
+         ("spmsv_strip_min", "bottomup_substep") + codec),
+        ("bfs-rmat-1ds-pipe", get_config("bfs-rmat-1ds-pipe"),
+         path_1d_csr + codec),
+        ("bfs-rmat-1d-pipe", get_config("bfs-rmat-1d-pipe"), path_1d_csr)]
+    csr_1d = {}
+    for arch, acfg, path in strip_archs:
+        eng = plan_bfs(graph, acfg, mesh, local_mode="kernel").compile()
+        for k in kernels.values():
+            k.launches = 0
+        ms_a = []
+        for i, r in enumerate(roots):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = eng.search(r)
+            torch.cuda.synchronize()
+            ms_a.append((time.perf_counter() - ts) * 1e3)
+            par = out[0].reshape(-1)[: part.n_orig]
+            check(torch.equal(par, runs[c0]["parents"][i])
+                  and out[1] == runs[c0]["levels"][i],
+                  f"{arch}: parents or levels differ from the dcsc strips' "
+                  f"at root {r}")
+            ok, msg = validator.check(r, par)
+            check(ok, f"{arch} tree of root {r}: {msg}")
+        la = {k: kernels[k].launches for k in path}
+        for k, n in la.items():
+            check(n > 0, f"kernel {k} was never launched by {arch}")
+            launches_new[k] = launches_new.get(k, 0) + n
+        reads = host_reads(eng, roots[:2])
+        print(f"{arch} (storage {acfg.storage}, expand_chunks "
+              f"{acfg.expand_chunks}, instrument {acfg.instrument}): search "
+              f"ms median {float(np.median(ms_a)):.3f}, min {min(ms_a):.3f}, "
+              f"max {max(ms_a):.3f}; host reads a search {reads:.2f}; "
+              f"launches {la}; parents and levels equal the dcsc strips' "
+              f"(phase 8) on all {N_ROOTS} roots, trees valid")
+        csr_1d[arch] = {"storage": acfg.storage, "search_ms": ms_a,
+                        "host_reads": reads, "launches": la}
+        if arch == "bfs-rmat-1d":
+            eng_1d_csr = eng
+        del eng, out, par
+    del validator
+    for csr, dcsc in (("bfs-rmat-1d", "bfs-rmat-1d-dcsc"),
+                      ("bfs-rmat-1ds", "bfs-rmat-1ds/dcsc")):
+        d = [x - y for x, y in zip(csr_1d[csr]["search_ms"],
+                                   csr_1d[dcsc]["search_ms"])]
+        print(f"Fig. 6, {csr} csr - dcsc on the same roots: median "
+              f"{float(np.median(d)):.3f} ms, min {min(d):.3f}, max "
+              f"{max(d):.3f}; csr faster on {sum(x < 0 for x in d)} of "
+              f"{len(d)} roots")
+    peak_csr = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory of the strips' sessions (8b alone): "
+          f"{peak_csr:.3f} GiB")
+    check(peak_csr < 75.0, f"strip peak {peak_csr:.2f} GiB >= 75 GiB")
+    rec_1ds["csr_strips"] = {"storage_words": words_1d, "runs": csr_1d,
+                             "peak_gib": peak_csr, "peak_phase8_gib": peak_8}
     name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS: "column"}
     for kname, by_kind in walks_8.items():
         for kind, ws in by_kind.items():
@@ -2282,6 +2552,69 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         "spmsv_strip_chunk_min"]
     record["kernel_times_1ds"] = per_1ds
 
+    # --------------------------------------------------------------- 9b
+    phase("9b kernel 1 over the strip col_ptr on the frontiers of one "
+          "bfs-rmat-1d search against its plain version and kernel 3 (the "
+          "strip DCSC) on the same frontiers (tolerance 0), timed side by "
+          "side")
+    with recording([(sp_ops, "spmsv_strips_csr_min",
+                     "spmsv_strips_csr_min")]) as calls:
+        eng_1d_csr.search(roots[0])
+    torch.cuda.synchronize()
+    del eng_1d_csr
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "calls": 0, "dcsc_ms": 0.0}
+    for i, (_, a, _) in enumerate(calls):
+        fw, cptr, ridx, nr = a
+        prep = sp_ops.prepare_strips(fw, cptr)
+        ids, offs, total = prep
+        got = sp_ops.launch_strips(*prep, cptr, ridx, nr)
+        e = max(max_err(got, sp_ops.spmsv_strips_csr_min_plain(
+                    *prep, cptr, ridx, nr)),
+                max_err(got, strip.launch(jc, cp, nzc, ridx, fw, nr)[0]))
+        errs["spmsv_strips_csr_min"] = max(errs["spmsv_strips_csr_min"], e)
+        del got
+        k_ms = device_ms(lambda: sp_ops.launch_strips(*prep, cptr, ridx, nr))
+        d_ms = device_ms(lambda: strip.launch(jc, cp, nzc, ridx, fw, nr))
+        p_ms = cuda_ms(lambda: sp_ops.spmsv_strips_csr_min_plain(
+            *prep, cptr, ridx, nr), reps=1)
+        n, p_ = ids.numel(), cptr.shape[0]
+        s_ = torch.arange(p_ * n, device=dev) // max(n, 1)
+        u = ids.repeat(p_)
+        dst, vals = sp_ops.frontier_edges(
+            cptr[s_, u.to(torch.int64)].to(torch.int64) + s_ * ridx.shape[1],
+            offs, total, ridx.reshape(-1), u, s_ * nr)
+        del s_, u
+        lib_ms = cuda_ms(lambda: torch.full(
+            (p_ * nr,), INT_INF, dtype=torch.int32,
+            device=dev).scatter_reduce_(0, dst, vals, "amin"), reps=5)
+        del dst, vals
+        # the ids, the strip-major offsets, a col_ptr word a (strip, id),
+        # one row id an edge, the (p, nr) candidates
+        nbytes = 4 * n + 8 * (p_ * n + 1) + 4 * p_ * n + 4 * total \
+            + 4 * p_ * nr
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                       ("library_ms", lib_ms), ("dcsc_ms", d_ms)):
+            row[key] += v
+        row["calls"] += 1
+        print(f"call {i} spmsv_strips_csr_min: {n} frontier ids, {total} "
+              f"edges over {p_} strips: max |kernel - plain|, |csr - "
+              f"kernel 3| = {e}; on the card alone: kernel {k_ms:.4f} ms, "
+              f"kernel 3 (strip DCSC) {d_ms:.4f} ms; plain {p_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({nbytes} "
+              f"bytes)")
+    check(row["calls"] > 0, "no spmsv_strips_csr_min call in the bfs-rmat-1d "
+          "search")
+    check(errs["spmsv_strips_csr_min"] == 0, "spmsv_strips_csr_min disagrees "
+          "with its plain version or with kernel 3")
+    print(f"spmsv_strips_csr_min: {row['calls']} launches in one search: "
+          f"kernel {row['ms']:.4f} ms (kernel 3 on the same frontiers "
+          f"{row['dcsc_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms; "
+          f"equal to its plain version and to kernel 3 (tolerance 0)")
+    per["spmsv_strips_csr_min"] = row
+
     # --------------------------------------------------------------- 10
     phase("10 profile of one 1ds search per expand_chunks, instrumented "
           "and not")
@@ -2293,7 +2626,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             eng = runs[c][key]
             record["profile_1ds"][f"{label}{c}"] = profile_call(
                 lambda: eng.search(roots[0]))
-    return launches, launches_1ds, launches_fast, errs, per, ro > rb
+    return (launches, launches_1ds, launches_fast, launches_new, errs, per,
+            ro > rb)
 
 
 def kernel_times(tree: Path) -> int:
@@ -2523,6 +2857,8 @@ def main() -> int:
     from repro_torch.kernels.spmsv import strip
 
     kernels = {"spmsv_csr_min": sp_ops.KERNEL,
+               "spmsv_dcsc_min": sp_ops.KERNEL_DCSC,
+               "spmsv_strips_csr_min": sp_ops.KERNEL_STRIPS,
                "bottomup_substep": bu_ops.KERNEL,
                "rmat_counter": rmat.RMAT_COUNTER,
                "spmsv_strip_min": strip.KERNEL,
@@ -2533,6 +2869,8 @@ def main() -> int:
                "flash_attention": fa_ops.KERNEL}
     replaces = {
         "spmsv_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
+        "spmsv_dcsc_min": "src/repro/kernels/spmsv/spmsv.py:56",
+        "spmsv_strips_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
         "bottomup_substep": "src/repro/kernels/bottomup/bottomup.py:89",
         "rmat_counter": "src/repro/graph/rmat.py:225",
         "spmsv_strip_min": "src/repro/kernels/spmsv/strip.py:66",
@@ -2574,16 +2912,19 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     phase("2 build")
     t0 = time.perf_counter()
-    libs = build.build_libraries([*kernels, "int_rate"])
+    stems = sorted({kn.stem for kn in kernels.values()})
+    libs = build.build_libraries([*stems, "int_rate"])
     record["build_s"] = time.perf_counter() - t0
-    for k in kernels:
-        print(f"{k}: {libs[k].name}")
-        for line in build.build_log(k).splitlines():
+    for stem in stems:
+        print(f"{stem}: {libs[stem].name}")
+        for line in build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-        kernels[k].load()
-    print(f"nvcc for sm_90a, all {len(kernels)} and the integer-rate "
-          f"benchmark in parallel: {record['build_s']:.2f} s")
+    for kn in kernels.values():
+        kn.load()
+    print(f"nvcc for sm_90a, all {len(stems)} sources ({len(kernels)} C "
+          f"entries) and the integer-rate benchmark in parallel: "
+          f"{record['build_s']:.2f} s")
     # kernel 9's bf16 prefill runs on the tensor cores: its SASS holds
     # warpgroup MMAs
     record["flash_attention_hgmma"] = sass(libs["flash_attention"]).count(
@@ -2626,9 +2967,9 @@ def main() -> int:
     check(record["encode_sass"]["mufu_rcp"] == 0
           and record["encode_sass"]["calls"] == 0,
           "codec_encode_kernel's SASS holds a division sequence")
-    launches, launches_1ds, launches_fast, errs, per, rmat_by_ops = \
-        graph_paths(dev, kernels, record, rmat_instr_per_s, path_2d,
-                    path_1ds)
+    launches, launches_1ds, launches_fast, launches_new, errs, per, \
+        rmat_by_ops = graph_paths(dev, kernels, record, rmat_instr_per_s,
+                                  path_2d, path_1ds)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"\ndevice memory still allocated after the graph paths: "
@@ -2713,7 +3054,8 @@ def main() -> int:
         "source": str(kernels[k].source.relative_to(ROOT)),
         "replaces": replaces[k],
         "launches": (launches.get(k, 0) + launches_1ds.get(k, 0)
-                     + launches_fast.get(k, 0) + launches_nn.get(k, 0)),
+                     + launches_fast.get(k, 0) + launches_new.get(k, 0)
+                     + launches_nn.get(k, 0)),
         "max_abs_err": errs[k], "ms": per[k]["ms"],
         "plain_ms": per[k]["plain_ms"], "bound_ms": per[k]["bound_ms"],
         "bound_by": per[k].get("bound_by", (

@@ -4,21 +4,20 @@ registry.
 
 Each config carries the same fields and defaults as the JAX package's,
 so one config object describes a session in either package.  The
-registry holds the archs the port runs (``autoint`` and
-``smollm-135m``); ``get_config`` names any other arch as not ported yet.
+registry holds the archs the port runs: ``autoint``, ``smollm-135m`` and
+every ``bfs-rmat*`` arch but ``bfs-rmat-multiroot`` (``configs/
+bfs_rmat.py``); ``get_config`` names any other arch as not ported yet.
 
-The port runs ``instrument`` True or False with ``compact_updates`` and
-``use_edge_dst`` off, and
-
-  * ``decomposition="2d"`` with ``fold_mode`` "reduce" or "alltoall"
-    and ``expand_chunks=1``;
-  * ``decomposition`` "1d" and "1ds" with either ``frontier_codec``
-    ("none", "packed") and any ``expand_chunks >= 1`` that divides the
-    strip's packed words (and, for "1ds", the bucket capacity).
-
-``core.engine.plan_bfs`` rejects the rest by name until a later slice
-ports it, as it rejects the local format ``("1d"|"1ds", "kernel",
-"csr")``, which needs the ``(p, n+1)`` strip ``col_ptr``.
+The port runs every ``BFSConfig`` value the JAX package does: the three
+decompositions, both storages in either ``local_mode``, every
+``fold_mode`` ("reduce", "alltoall", "bitmap", "bitmap_pure"),
+``compact_updates`` and ``use_edge_dst`` (bottom-up; the 1D strips read
+``edge_dst`` in dense mode and ignore ``compact_updates``, as the JAX
+package does), both frontier codecs, ``instrument`` True or False, and
+any ``expand_chunks >= 1`` that divides the strip's packed words (and,
+for "1ds", the bucket capacity; for "2d" any value > 1 runs the R/G
+ring).  Pod-batched searches (``BFSEngine.run_batch``) wait for a later
+slice.
 """
 from __future__ import annotations
 
@@ -226,4 +225,5 @@ def reduced(cfg: Any, **overrides: Any) -> Any:
 def _ensure_loaded() -> None:
     # Importing the per-arch modules populates the registry (once: a
     # module body runs at its first import only).
-    from repro_torch.configs import autoint, smollm_135m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        autoint, bfs_rmat, smollm_135m)

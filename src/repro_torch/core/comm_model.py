@@ -1,6 +1,7 @@
-"""The paper's §6 communication model, the part the 1D strips read:
-wire words per level of the dense, chunked, sparse and packed frontier
-exchanges, the packed codec's widths, and the 1ds bucket planning.
+"""The paper's §6 communication model, the parts the port reads: wire
+words per level of the 1D dense, chunked, sparse and packed frontier
+exchanges and of the 2D bitmap fold, the packed codec's widths, and the
+1ds bucket planning.
 
 Counts are in the paper's 64-bit words.  These are the closed forms of
 the JAX package's ``core/comm_model.py`` (which imports no JAX but is
@@ -95,6 +96,19 @@ def plan_cap_x(n: int, p: int, m: int, align: int = 32,
               align)
     cap = ((cap + align - 1) // align) * align
     return min(cap, ((chunk + align - 1) // align) * align)
+
+
+def fold_bitmap_level_words(nr: int, pc: int, cap_w: int) -> float:
+    """Per-level, per-processor wire of the 2D bitmap fold
+    (``steps._fold_bitmap``): two bitmap all_to_all rounds (candidate
+    presence out, winner bits back: nr bits = nr/64 words each) and two
+    id all_to_alls (the winners' parent ids and their local offsets,
+    pc*cap_w ids each, 1 id = 1 word):
+
+        2 * nr/64  +  2 * pc * cap_w
+
+    The live ``wire_fold`` counter multiplies it by p."""
+    return 2.0 * nr / 64.0 + 2.0 * pc * cap_w
 
 
 def topdown_1d_words(m: int, p: int) -> float:

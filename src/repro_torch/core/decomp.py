@@ -43,7 +43,8 @@ class PlanStatics:
     cap_seg: int = 0          # 2D bottom-up sub-step edge window
     cap_f: int = 0            # kernel mode: frontier bound (0 = nc)
     cap_x: int = 0            # 1ds sparse exchange: ids per send bucket
-    expand_chunks: int = 1    # 1d/1ds: top-down expand in this many steps
+    expand_chunks: int = 1    # 1d/1ds: top-down expand in this many steps;
+    #                           2d: > 1 counts the R/G split ring
 
 
 @dataclass(frozen=True)
@@ -209,7 +210,10 @@ def _make_args_2d(part, cfg, ops, statics: PlanStatics, graph,
                      perm=collectives.perm_index(part.transpose_perm(), device),
                      seg_ptr=graph.seg_ptr.cpu().numpy().astype(np.int64),
                      ops=ops, cap_seg=statics.cap_seg, cap_f=statics.cap_f,
-                     instrument=cfg.instrument)
+                     instrument=cfg.instrument,
+                     use_edge_dst=cfg.use_edge_dst,
+                     compact_updates=cfg.compact_updates,
+                     expand_chunks=statics.expand_chunks)
 
 
 def _validate_2d(part, statics: PlanStatics) -> None:
@@ -257,7 +261,8 @@ def _make_args_strip(part, cfg, ops, statics: PlanStatics, graph,
                        nnz=graph.nnz.cpu().numpy().astype(np.int64),
                        expand_chunks=statics.expand_chunks,
                        cap_x=statics.cap_x, codec=cfg.frontier_codec,
-                       instrument=cfg.instrument)
+                       instrument=cfg.instrument,
+                       use_edge_dst=cfg.use_edge_dst)
 
 
 def _validate_strip_chunks(part, statics: PlanStatics) -> None:

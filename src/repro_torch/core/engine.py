@@ -46,15 +46,10 @@ class BFSResult:
     #                              all zeros with cfg.instrument False
 
 
-# the config values the port runs; the rest wait for later slices
-_PORTED = {"decomposition": ("2d", "1d", "1ds"),
-           "fold_mode": ("reduce", "alltoall"),
-           "compact_updates": (False,), "use_edge_dst": (False,),
-           "instrument": (True, False)}
-# the (decomposition, local_mode, storage) entries of the JAX package
-# that wait for a later slice of the port
-_WAITING = {("1d", "kernel", "csr"): "needs the (p, n+1) strip col_ptr",
-            ("1ds", "kernel", "csr"): "needs the (p, n+1) strip col_ptr"}
+# the values of the BFSConfig string fields a plan takes
+_VALUES = {"decomposition": ("2d", "1d", "1ds"),
+           "fold_mode": ("reduce", "alltoall", "bitmap", "bitmap_pure"),
+           "storage": ("csr", "dcsc")}
 
 
 @dataclass(frozen=True)
@@ -93,33 +88,24 @@ class BFSPlan:
         return BFSEngine(self)
 
 
-def _check_ported(cfg: BFSConfig, local_mode: str) -> None:
-    for field, ported in _PORTED.items():
-        if getattr(cfg, field) not in ported:
-            raise NotImplementedError(
-                f"cfg.{field}={getattr(cfg, field)!r} is not ported yet; "
-                f"this port runs {field} in {ported}")
+def _check_config(cfg: BFSConfig) -> None:
+    for field, values in _VALUES.items():
+        if getattr(cfg, field) not in values:
+            raise ValueError(f"cfg.{field}={getattr(cfg, field)!r} is not "
+                             f"one of {values}")
     if cfg.frontier_codec not in CODECS:
         raise ValueError(f"cfg.frontier_codec={cfg.frontier_codec!r} is not "
                          f"a frontier codec; have {CODECS}")
     if cfg.expand_chunks < 1:
         raise ValueError(f"cfg.expand_chunks={cfg.expand_chunks} must be "
                          f">= 1 (1 = unpipelined expand)")
-    if cfg.decomposition == "2d" and cfg.expand_chunks != 1:
-        raise NotImplementedError(
-            f"cfg.expand_chunks={cfg.expand_chunks} is not ported yet for "
-            f"decomposition='2d' (the R/G ring); this port runs 1 there")
-    combo = (cfg.decomposition, local_mode, cfg.storage)
-    if combo in _WAITING:
-        raise NotImplementedError(
-            f"LocalOps {combo} is not ported yet: it {_WAITING[combo]}")
 
 
 def plan_for_part(part, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
                   cap_seg: int = 0, cap_f: int = 0, cap_x: int = 0) -> BFSPlan:
     """A graph-less plan from a partition and static capacities; every
     check that needs no arrays."""
-    _check_ported(cfg, local_mode)
+    _check_config(cfg)
     entry = get_decomposition(cfg.decomposition)
     if not isinstance(part, entry.partition_cls):
         raise TypeError(
@@ -144,7 +130,7 @@ def plan_bfs(graph, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
     "1ds" bucket capacity) is planned from the graph when not given:
     ``comm_model.plan_cap_x`` at the packed codec's width
     ``codec_bits(chunk)``, or 64 bits for raw ids."""
-    _check_ported(cfg, local_mode)
+    _check_config(cfg)
     entry = get_decomposition(cfg.decomposition)
     if not isinstance(graph, entry.graph_cls):
         raise TypeError(
@@ -199,7 +185,7 @@ class BFSEngine:
         t1 = time.perf_counter()
         self.ship_s = t1 - t0
         if dev.type == "cuda" and plan.ops.kernels:
-            build.build_libraries(k.name for k in plan.ops.kernels)
+            build.build_libraries({k.stem for k in plan.ops.kernels})
             for k in plan.ops.kernels:
                 k.load()
         self._fn = plan.build_fn(self._gdev)

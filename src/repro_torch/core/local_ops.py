@@ -5,11 +5,21 @@ declares which graph arrays a session ships (``keys``), the top-down
 SpMSV closure, the bottom-up sub-step closure, for the 1D strips the
 per-sub-chunk SpMSV of the pipelined expand (``topdown_chunk``), for
 "1ds" the packed codec's ``encode`` and ``decode``, and the CUDA kernels
-a session loads at compile (``kernels``).  Registered here:
+a session loads at compile (``kernels``), and the §5.1 storage
+accounting of its format (``storage_words(graph) -> words``, the
+graph's ``storage_words(storage)``).  Registered here, the paper's Fig. 6
+grid:
 
   ("2d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
-  ("2d", "kernel", "csr")           the hand-written CUDA kernels
+  ("2d", "kernel", "csr")           kernel 1 through the block col_ptr
+                                    + the bottom-up kernel
+  ("2d", "kernel", "dcsc")          kernel 1 through the block DCSC (a
+                                    binary search a frontier id)
+                                    + the bottom-up kernel
   ("1d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
+  ("1d", "kernel", "csr")           kernel 1 over all strips through the
+                                    (p, n+1) strip col_ptr + the
+                                    bottom-up kernel
   ("1d", "kernel", "dcsc")          the strip SpMSV kernels over the
                                     strip DCSC + the bottom-up kernel
   ("1ds", ...)                      mirrors of the "1d" entries: the
@@ -32,8 +42,9 @@ launch covers the whole simulated mesh:
   topdown_chunk(g, g_sub, k, n_chunks, args) -> (cand (p, chunk), ex)
 
 ``f_words`` is the packed (n/32,) frontier every strip received and
-``g_sub`` the owner-major (p * w_sub,) words of pipelined step k.  The
-bottom-up closure is per block or per strip in both decompositions:
+``g_sub`` the owner-major (p * w_sub,) words of pipelined step k (an
+entry with no ``topdown_chunk`` gets each step scattered into a
+full-size partial bitmap, ``core/steps_1d.py``).  The bottom-up closure is per block or per strip in both decompositions:
 
   bottomup(rp_seg, ue_win, f_words, cvec, col_offset, n_edges, ve_win)
       -> (chunk,) int32 newly discovered parents (INT_INF = none)
@@ -76,6 +87,7 @@ class LocalOps:
     keys: Tuple[str, ...]         # graph arrays a session ships
     topdown: Callable             # SpMSV closure (see module docstring)
     bottomup: Callable            # bottom-up sub-step closure
+    storage_words: Callable       # (graph) -> Dict[str, int], §5.1 words
     topdown_chunk: Callable = None  # 1D: SpMSV of one pipelined sub-chunk
     bottomup_strips: Callable = None  # 1D: the sub-step of all p strips
     encode: Callable = None       # 1ds: packed codec, p buckets at once
@@ -133,6 +145,22 @@ def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
     return cand, torch.where(f_mask, lens, 0).sum(dtype=torch.int64)
 
 
+def _td_kernel_dcsc(g, f_words, f_mask, nr, col_offset, args):
+    """The fused CUDA SpMSV through the block's DCSC: each frontier id is
+    binary-searched in ``jc`` and its segment starts at ``cp[slot]`` (the
+    paper's hypersparse indirection, Fig. 6); ``cap_f`` as for csr.  The
+    edges examined are the found columns' segment lengths, the JAX
+    package's ``_dcsc_edges_examined``."""
+    cand = spmsv_ops.spmsv_dcsc_min(f_mask, g["jc"], g["cp"], g["nzc"],
+                                    g["row_idx"], nr, col_offset, args.cap_f)
+    if not args.instrument:
+        return cand, None
+    jc, cp, nc = g["jc"], g["cp"], f_mask.shape[0]
+    slot = torch.arange(jc.shape[0], device=jc.device)
+    live = (slot < g["nzc"]) & (jc < nc) & f_mask[jc.clamp(max=nc - 1)]
+    return cand, torch.where(live, cp[1:] - cp[:-1], 0).sum(dtype=torch.int64)
+
+
 def _td_dense_1d(g, f_words, args):
     """Edge-parallel scan of every strip (oracle path): work O(nnz)
     whatever the frontier, so it examines every stored edge."""
@@ -143,6 +171,15 @@ def _td_dense_1d(g, f_words, args):
                         for i in range(args.part.p)])
     return cand, g["nnz"].sum(dtype=torch.int64) if args.instrument \
         else None
+
+
+def _td_strips_csr(g, f_words, args):
+    """Kernel 1 over all p strips through the ``(p, n+1)`` strip
+    ``col_ptr``, one launch against the allgathered bitmap; the edges
+    examined are the frontier's segments in every strip (its edge
+    total)."""
+    return spmsv_ops.spmsv_strips_csr_min(f_words, g["col_ptr"],
+                                          g["row_idx"], args.part.chunk)
 
 
 def _td_strip_dcsc(g, f_words, args):
@@ -197,36 +234,60 @@ def _bu_kernel_strips(g, f_words, cvec, args):
                                           f_words, cvec, g["nnz"])
 
 
+def _words(mode):
+    return lambda graph: graph.storage_words(mode)
+
+
 _DENSE_KEYS_2D = ("edge_src", "row_idx", "nnz", "deg_A", "col_idx",
                   "row_ptr", "seg_ptr", "edge_dst")
 _KERNEL_CSR_KEYS_2D = ("col_ptr", "row_idx", "nnz", "deg_A", "col_idx",
                        "row_ptr", "seg_ptr")
+_KERNEL_DCSC_KEYS_2D = ("jc", "cp", "nzc", "row_idx", "nnz", "deg_A",
+                        "col_idx", "row_ptr", "seg_ptr")
 
 for _storage in ("csr", "dcsc"):
-    # dense discovery reads per-edge arrays only, whatever the storage
+    # dense discovery reads per-edge arrays only, whatever the storage;
+    # the accounting still reports the mode a deployment would pay for
     register_local_ops(LocalOps(
         decomposition="2d", local_mode="dense", storage=_storage,
-        keys=_DENSE_KEYS_2D, topdown=_td_dense, bottomup=bu_ref))
+        keys=_DENSE_KEYS_2D, topdown=_td_dense, bottomup=bu_ref,
+        storage_words=_words(_storage)))
 
 register_local_ops(LocalOps(
     decomposition="2d", local_mode="kernel", storage="csr",
     keys=_KERNEL_CSR_KEYS_2D, topdown=_td_kernel_csr, bottomup=_bu_kernel,
-    kernels=(spmsv_ops.KERNEL, bu_ops.KERNEL)))
+    storage_words=_words("csr"), kernels=(spmsv_ops.KERNEL, bu_ops.KERNEL)))
+register_local_ops(LocalOps(
+    decomposition="2d", local_mode="kernel", storage="dcsc",
+    keys=_KERNEL_DCSC_KEYS_2D, topdown=_td_kernel_dcsc, bottomup=_bu_kernel,
+    storage_words=_words("dcsc"),
+    kernels=(spmsv_ops.KERNEL_DCSC, bu_ops.KERNEL)))
 
 _DENSE_KEYS_1D = ("edge_src", "row_idx", "nnz", "deg_A", "col_idx",
                   "row_ptr", "edge_dst")
+_KERNEL_CSR_KEYS_1D = ("col_ptr", "row_idx", "nnz", "deg_A", "col_idx",
+                       "row_ptr")
 _KERNEL_DCSC_KEYS_1D = ("jc", "cp", "nzc", "row_idx", "nnz", "deg_A",
                         "col_idx", "row_ptr")
 
 for _storage in ("csr", "dcsc"):
     register_local_ops(LocalOps(
         decomposition="1d", local_mode="dense", storage=_storage,
-        keys=_DENSE_KEYS_1D, topdown=_td_dense_1d, bottomup=bu_ref))
+        keys=_DENSE_KEYS_1D, topdown=_td_dense_1d, bottomup=bu_ref,
+        storage_words=_words(_storage)))
 
+# no topdown_chunk: the pipelined expand scatters each sub-chunk into a
+# partial bitmap for it, as the JAX package's csr strips do
+register_local_ops(LocalOps(
+    decomposition="1d", local_mode="kernel", storage="csr",
+    keys=_KERNEL_CSR_KEYS_1D, topdown=_td_strips_csr, bottomup=_bu_kernel,
+    bottomup_strips=_bu_kernel_strips, storage_words=_words("csr"),
+    kernels=(spmsv_ops.KERNEL_STRIPS, bu_ops.KERNEL)))
 register_local_ops(LocalOps(
     decomposition="1d", local_mode="kernel", storage="dcsc",
     keys=_KERNEL_DCSC_KEYS_1D, topdown=_td_strip_dcsc, bottomup=_bu_kernel,
     topdown_chunk=_td_strip_dcsc_chunk, bottomup_strips=_bu_kernel_strips,
+    storage_words=_words("dcsc"),
     kernels=(strip.KERNEL, strip.KERNEL_CHUNK, bu_ops.KERNEL)))
 
 # "1ds" traverses the same strips with the same local discovery; only

@@ -24,9 +24,9 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, comm_model
 from repro_torch.core.frontier import (INT_INF, expand_bitmap, pack_bits,
-                                       unpack_bits)
+                                       pack_ids, unpack_bits)
 
 COUNTER_KEYS = ("wire_transpose", "wire_expand", "wire_fold", "wire_rotate",
                 "wire_updates", "use_expand", "use_fold", "use_rotate",
@@ -42,13 +42,16 @@ def zero_counters() -> Dict[str, np.float32]:
 class LevelArgs(NamedTuple):
     """Static per-plan context threaded into the level steps."""
     part: "object"            # Partition2D
-    fold_mode: str            # "alltoall" | "reduce"
+    fold_mode: str            # "alltoall" | "reduce" | "bitmap" | "bitmap_pure"
     perm: Tuple[torch.Tensor, torch.Tensor]  # transpose A->B (src, dst ids)
     seg_ptr: np.ndarray       # (pr, pc, pc+1) host copy of graph.seg_ptr
     ops: "object"             # LocalOps entry
     cap_seg: int = 0          # bottom-up sub-step edge window
     cap_f: int = 0            # kernel mode: frontier bound (0 = nc)
     instrument: bool = True   # False: no counters (the fast loop)
+    use_edge_dst: bool = False  # bottom-up: rows from the edge_dst window
+    compact_updates: bool = False  # bottom-up: compact (child, parent) sends
+    expand_chunks: int = 1    # > 1: wire_rotate counts the R/G split ring
 
 
 def _blocks(pr: int, pc: int):
@@ -82,6 +85,62 @@ def _fold_ring_reduce(cand: torch.Tensor, pc: int, chunk: int) -> torch.Tensor:
         idx_r = (j - t - 2) % pc
         acc[:, j, idx_r] = torch.minimum(acc[:, j, idx_r], recv)
     return acc[:, j, j]
+
+
+def _fold_bitmap(cand: torch.Tensor, pc: int, chunk: int, cap_w: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bitmap fold (beyond the paper): presence bitmaps instead of
+    dense candidate arrays, then only the winners' parent ids.
+
+    Round 1: each destination chunk's owner receives every source's
+             presence bits (an all_to_all of nr/64 words).
+    Round 2: the owner picks the lowest source column with a bit (whose
+             ids are the smallest) and returns per-source winner bits.
+    Round 3: each source compacts the ids it won, ascending, at most
+             ``cap_w`` a destination chunk and ``pc*cap_w`` in all
+             (the JAX package's ``jnp.where(..., size=pc*cap_w)`` then
+             ``rank < cap_w``), and two all_to_alls deliver values and
+             local offsets; the owner min-scatters them.
+
+    The bitmaps on the wire are bool tensors here: packing them would
+    change no bit.  Returns ``(t (pr, pc, chunk), counts (pr, pc, pc))``,
+    the folded candidates and each source's wins a destination chunk;
+    wins past the capacities are dropped.  Only "bitmap_pure" runs it:
+    without a drop the lowest source column's candidate is the row's
+    minimum, so the exact "bitmap" mode (which falls back to the dense
+    fold on a drop) gives ``_fold_alltoall``'s result on every level."""
+    pr = cand.shape[0]
+    nr = pc * chunk
+    dev = cand.device
+    present = (cand != INT_INF).reshape(pr, pc, pc, chunk)
+    bits = collectives.all_to_all_cols(present)      # [i, j, q]: from q
+    j_idx = torch.arange(pc, device=dev).reshape(1, 1, pc, 1)
+    winner = torch.where(bits, j_idx, pc).amin(dim=2)          # (pr, pc, chunk)
+    my_wins = collectives.all_to_all_cols(winner.unsqueeze(2) == j_idx)
+    wins = my_wins.reshape(pr, pc, nr)               # [i, j]: won in chunk q
+    order = torch.cumsum(wins, dim=2) - 1            # rank among all wins
+    counts = my_wins.sum(dim=3)                      # (pr, pc, pc)
+    starts = torch.cumsum(counts, dim=2) - counts
+    pos = torch.arange(nr, device=dev)
+    q = torch.div(pos, chunk, rounding_mode="floor")
+    rank = order - starts[:, :, q]
+    ok = wins & (order < pc * cap_w) & (rank < cap_w)
+    # a dropped or absent entry lands in its chunk's spare slot cap_w
+    slot = q * (cap_w + 1) + torch.where(ok, rank, cap_w)
+    send_v = torch.full((pr, pc, pc * (cap_w + 1)), INT_INF,
+                        dtype=torch.int32, device=dev).scatter_(2, slot, cand)
+    send_o = torch.full((pr, pc, pc * (cap_w + 1)), chunk, dtype=torch.int32,
+                        device=dev).scatter_(
+        2, slot, (pos - q * chunk).to(torch.int32).expand(pr, pc, nr))
+    rv = collectives.all_to_all_cols(
+        send_v.reshape(pr, pc, pc, cap_w + 1)[..., :cap_w])
+    ro = collectives.all_to_all_cols(
+        send_o.reshape(pr, pc, pc, cap_w + 1)[..., :cap_w])
+    t = torch.full((pr, pc, chunk + 1), INT_INF, dtype=torch.int32,
+                   device=dev).scatter_reduce_(
+        2, ro.reshape(pr, pc, -1).to(torch.int64), rv.reshape(pr, pc, -1),
+        reduce="amin")
+    return t[..., :chunk], counts
 
 
 def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
@@ -118,14 +177,23 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         ctr["edges_useful"] = _F32(lv["m_f"])
 
     # --- Fold: exchange candidates along the processor row ---------------
-    if args.fold_mode == "alltoall":
+    # on the simulated mesh the exact bitmap fold moves the same result
+    # as the dense one; its closed-form wire_fold is what differs
+    wire_fold = _F32((pc - 1) * chunk) * p
+    if args.fold_mode in ("alltoall", "bitmap"):
         t = _fold_alltoall(cand, pc, chunk)
     elif args.fold_mode == "reduce":
         t = _fold_ring_reduce(cand, pc, chunk)
+    elif args.fold_mode == "bitmap_pure":
+        # drops the wins past cap_w by design
+        t, _ = _fold_bitmap(cand, pc, chunk, max(chunk // 16, 32))
     else:
-        raise ValueError(f"fold_mode={args.fold_mode!r} is not ported")
+        raise ValueError(f"fold_mode={args.fold_mode!r} is not a fold")
+    if args.fold_mode.startswith("bitmap"):
+        wire_fold = _F32(comm_model.fold_bitmap_level_words(
+            pc * chunk, pc, max(chunk // 16, 32))) * p
     if instr:
-        ctr["wire_fold"] = _F32((pc - 1) * chunk) * p
+        ctr["wire_fold"] = wire_fold
         n_cand = collectives.psum(cand != INT_INF).to(torch.float32)
         ctr["use_fold"] = 2.0 * n_cand               # (child, parent) pairs
 
@@ -151,7 +219,18 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     per-destination buffer and one all_to_all delivers them at level end.
     Updates are applied in sub-step order, and the rotating bitmap marks
     each vertex at its first discovery, so parents are those of a
-    per-sub-step exchange."""
+    per-sub-step exchange.
+
+    ``compact_updates`` with a "*_pure" fold mode ships, for each sub-step
+    s > 0, the first ``cap_u`` finds (ascending) as (child, parent) pairs
+    and drops the rest by design.  The exact variants move the same
+    updates as this schedule on the simulated mesh, so they run it and
+    differ only in their wire counters: compact runtime updates (which
+    fall back to the dense segments on a drop) count ``2 * cap_u`` words
+    a sub-step, and ``expand_chunks > 1`` (the R/G split ring, whose
+    parents and edge counter equal the one ring's) counts ``wire_rotate``
+    twice.  ``use_edge_dst`` hands the scan the ``edge_dst`` window (a
+    kernel entry ships none and ignores it)."""
     part = args.part
     pr, pc, chunk, nc = part.pr, part.pc, part.chunk, part.nc
     p = _F32(part.p)
@@ -166,10 +245,20 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
         ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
 
+    cap_u = max(chunk // 8, 32)           # finds a compact sub-step
+    dropping = args.compact_updates and args.fold_mode.endswith("_pure")
+    rings = 2 if args.expand_chunks > 1 else 1
+    use_ve = args.use_edge_dst and "edge_dst" in g
     cseg = pi != -1                       # completed = has parent (own chunk)
     edges_use = _F32(0)
-    send_d = torch.full((pr, pc, pc, chunk), INT_INF, dtype=torch.int32,
-                        device=dev)
+    if dropping:
+        send_i = torch.full((pr, pc, pc, cap_u), chunk, dtype=torch.int32,
+                            device=dev)
+        send_v = torch.full((pr, pc, pc, cap_u), INT_INF, dtype=torch.int32,
+                            device=dev)
+    else:
+        send_d = torch.full((pr, pc, pc, chunk), INT_INF, dtype=torch.int32,
+                            device=dev)
     self_par = torch.empty((pr, pc, chunk), dtype=torch.int32, device=dev)
     carry = None
 
@@ -177,7 +266,7 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         if s > 0:
             cseg = unpack_bits(collectives.ppermute_col_ring(carry))
             if instr:
-                ctr["wire_rotate"] += _F32(chunk / 64.0) * p
+                ctr["wire_rotate"] += _F32(rings * chunk / 64.0) * p
                 ctr["use_rotate"] += _F32(chunk / 64.0) * p
         use_loc, n_upd = [], []
         for i, j in _blocks(pr, pc):
@@ -187,19 +276,27 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
             rp_seg = g["row_ptr"][i, j, seg_id * chunk:
                                   (seg_id + 1) * chunk + 1] - e0
             ue = g["col_idx"][i, j, e0:e0 + args.cap_seg]
+            ve = g["edge_dst"][i, j, e0:e0 + args.cap_seg] - seg_id * chunk \
+                if use_ve else None
             cvec = cseg[i, j].to(torch.int32)
             seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
-                                        j * nc, e1 - e0, None)
+                                        j * nc, e1 - e0, ve)
             found = seg_par != INT_INF
             if instr:
                 row_lens = rp_seg[1:] - rp_seg[:-1]
                 use_loc.append(torch.where(cvec == 0, row_lens, 0)
                                .sum(dtype=torch.int64))
                 n_upd.append(found.sum())
-            # the s = 0 self segment pays no wire and lands in the self
-            # slot after the exchange
+            # the s = 0 self segment pays no wire, is never capacity-
+            # truncated and lands in the self slot after the exchange
             if s == 0:
                 self_par[i, j] = seg_par
+            elif dropping:
+                # the first cap_u finds as (child, parent) pairs
+                cidx = pack_ids(found, cap_u, 0, chunk)
+                send_i[i, j, seg_id] = cidx
+                send_v[i, j, seg_id] = seg_par[
+                    cidx.clamp(max=chunk - 1).to(torch.int64)]
             else:
                 send_d[i, j, seg_id] = seg_par
             cseg[i, j] |= found
@@ -207,15 +304,25 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
             edges_use = edges_use + collectives.psum(
                 torch.stack(use_loc)).to(torch.float32)
             if s > 0:
-                ctr["wire_updates"] += _F32(chunk) * p
+                ctr["wire_updates"] += _F32(
+                    2 * cap_u if args.compact_updates else chunk) * p
             ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
                 collectives.psum(torch.stack(n_upd)).to(torch.float32))
         if s != pc - 1:
             carry = pack_bits(cseg)
 
     # --- Batched update exchange (one all_to_all) -------------------------
-    recv = collectives.all_to_all_cols(send_d)
     jj = torch.arange(pc, device=dev)
+    if dropping:
+        # (child, parent) pairs; the sentinel child ``chunk`` drops
+        ri = collectives.all_to_all_cols(send_i).to(torch.int64)
+        rv = collectives.all_to_all_cols(send_v)
+        recv = torch.full((pr, pc, pc, chunk + 1), INT_INF, dtype=torch.int32,
+                          device=dev).scatter_reduce_(3, ri, rv,
+                                                      reduce="amin")
+        recv = recv[..., :chunk].contiguous()
+    else:
+        recv = collectives.all_to_all_cols(send_d)
     recv[:, jj, jj] = self_par            # the self slot: sub-step 0
 
     # --- Apply updates in sub-step order ---------------------------------

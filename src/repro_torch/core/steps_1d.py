@@ -44,6 +44,7 @@ class LevelArgs1D(NamedTuple):
     cap_x: int = 0            # 1ds: ids per send bucket
     codec: str = "none"       # 1ds: bucket encoding, "none" | "packed"
     instrument: bool = True   # False: no counters (the fast loop)
+    use_edge_dst: bool = False  # bottom-up: rows from edge_dst (dense entries)
 
 
 def expand_frontier_1d(front: torch.Tensor) -> Tuple[torch.Tensor, np.float32]:
@@ -161,16 +162,20 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     -- one sub-step over the whole strip, no rotation (the strip holds
     every potential parent edge).  An entry with a ``bottomup_strips``
     closure scans all p strips in one launch; any other runs its
-    ``bottomup`` closure strip by strip."""
+    ``bottomup`` closure strip by strip, handing it the strip's
+    ``edge_dst`` rows with ``use_edge_dst`` where the entry ships them
+    (as the JAX package does; the kernel entries ship none)."""
     part = args.part
     f_words, wire = expand_frontier_1d(front)
     cvec = (pi != -1).to(torch.int32)
+    use_ve = args.use_edge_dst and "edge_dst" in g
     if args.ops.bottomup_strips is not None:
         seg_par = args.ops.bottomup_strips(g, f_words, cvec, args)
     else:
         seg_par = torch.stack([
             args.ops.bottomup(g["row_ptr"][i], g["col_idx"][i], f_words,
-                              cvec[i], 0, int(args.nnz[i]), None)
+                              cvec[i], 0, int(args.nnz[i]),
+                              g["edge_dst"][i] if use_ve else None)
             for i in range(part.p)])
     pi, newly = update(pi, seg_par)
     if not args.instrument:

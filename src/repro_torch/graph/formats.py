@@ -65,6 +65,21 @@ class BlockedGraph:
         return {f.name: getattr(self, f.name) for f in fields(self)
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
+    def storage_words(self, mode: str) -> Dict[str, int]:
+        """The §5.1 storage accounting in int32 words, the JAX package's:
+        the index arrays (``row_idx`` and ``col_idx``, ``cap`` a block)
+        whatever the mode, and the pointers: ``nc+1`` and ``nr+1`` a
+        block for "csr", ``2 (nzc + nzr) + 2`` for "dcsc"."""
+        p = self.part.p
+        idx = 2 * self.cap * p
+        if mode == "csr":
+            ptr = (self.part.nc + 1 + self.part.nr + 1) * p
+        elif mode == "dcsc":
+            ptr = 2 * (int(self.nzc.sum()) + int(self.nzr.sum())) + 2 * p
+        else:
+            raise ValueError(mode)
+        return {"index_i32": idx, "pointer_i32": ptr, "total_i32": idx + ptr}
+
 
 def _sort_key(src, dst, pc: int, nr: int, nc: int, by_row: bool):
     """The int64 key ordering edges by (block, primary, secondary): CSC
@@ -191,11 +206,12 @@ class Blocked1DGraph:
     Source ids are GLOBAL (a strip spans every column), so top-down and
     bottom-up run with ``col_offset = 0`` against the whole allgathered
     frontier.  The top-down pointers are the strip DCSC ``(jc, cp)``
-    over the strip's non-empty global source columns; ``edge_src`` and
-    ``edge_dst`` (what the dense oracle path reads) are built only on
-    request.  The arrays are those of the JAX package's
-    ``build_blocked_1d`` element for element (its optional ``(p, n+1)``
-    ``col_ptr`` is not ported yet)."""
+    over the strip's non-empty global source columns and, on request,
+    the uncompressed ``(p, n+1)`` strip ``col_ptr`` (the §5.1 blow-up
+    the paper charges against 1D, which the ("1d", "kernel", "csr")
+    entry reads); ``edge_src`` and ``edge_dst`` (what the dense oracle
+    path reads) are built only on request.  The arrays are those of the
+    JAX package's ``build_blocked_1d`` element for element."""
     part: Partition1D
     m_input: int
     m: int
@@ -216,11 +232,30 @@ class Blocked1DGraph:
     maxdeg_col: int         # max column-segment length over all strips
     edge_src: "torch.Tensor | None" = None  # (p, cap) i32 GLOBAL source u
     edge_dst: "torch.Tensor | None" = None  # (p, cap) i32 local dest v, CSR
+    col_ptr: "torch.Tensor | None" = None   # (p, n+1) i32 strip CSC ptr
 
     def device_arrays(self) -> Dict[str, torch.Tensor]:
-        """Every tensor field by name (the edge lists only when built)."""
+        """Every tensor field by name (the optional ones only when
+        built)."""
         return {f.name: getattr(self, f.name) for f in fields(self)
                 if isinstance(getattr(self, f.name), torch.Tensor)}
+
+    def storage_words(self, mode: str) -> Dict[str, int]:
+        """The JAX package's int32 accounting for the strips: the index
+        arrays whatever the mode; "csr" charges the ``n+1`` strip
+        ``col_ptr`` a strip, "dcsc" ``2 nzc + 2``; both the ``chunk+1``
+        bottom-up ``row_ptr`` a strip.  Counted from the shapes, so
+        whether ``col_ptr`` was built does not change it."""
+        p = self.part.p
+        idx = 2 * self.cap * p
+        bu_ptr = (self.part.chunk + 1) * p
+        if mode == "csr":
+            ptr = (self.part.n + 1) * p + bu_ptr
+        elif mode == "dcsc":
+            ptr = 2 * int(self.nzc.sum()) + 2 * p + bu_ptr
+        else:
+            raise ValueError(mode)
+        return {"index_i32": idx, "pointer_i32": ptr, "total_i32": idx + ptr}
 
 
 def _strips(flat: torch.Tensor, nnz, cap: int) -> torch.Tensor:
@@ -234,13 +269,16 @@ def _strips(flat: torch.Tensor, nnz, cap: int) -> torch.Tensor:
 
 
 def build_blocked_1d(edges: EdgeList, p: int, align: int = 128,
-                     cap_pad: int = 128,
-                     with_edge_lists: bool = True) -> Blocked1DGraph:
+                     cap_pad: int = 128, with_edge_lists: bool = True,
+                     with_col_ptr: bool = False) -> Blocked1DGraph:
     """Partition the edges u->v by the owner of the destination v into p
     row strips, on the edges' device.  ``with_edge_lists=False`` skips
     ``edge_src``/``edge_dst`` (two more capacity-wide arrays that only
     the dense oracle path reads), which a kernel session at scale 24
-    leaves out to fit the card."""
+    leaves out to fit the card.  ``with_col_ptr=True`` adds the ``(p,
+    n+1)`` int32 strip CSC pointer (``col_ptr[i, u]`` = strip i's edges
+    with a source below u), which only the ("1d"|"1ds", "kernel", "csr")
+    entry reads: 1.07 GB at scale 24 on 16 strips."""
     part = make_partition_1d(edges.n, p, align)
     n, chunk = part.n, part.chunk
     dev = edges.src.device
@@ -283,6 +321,14 @@ def build_blocked_1d(edges: EdgeList, p: int, align: int = 128,
         cp[b, :k] = starts[start:start + k]
         cp[b, k:] = nnz[b]
         start += k
+    col_ptr = None
+    if with_col_ptr:
+        # the run lengths land at (strip, u + 1); a running sum a strip
+        # (in int32: a strip holds under 2^31 edges) gives the pointer
+        col_ptr = torch.zeros((p, n + 1), dtype=torch.int32, device=dev)
+        col_ptr.view(-1)[cols + col_strip + 1] = counts.to(torch.int32)
+        for b in range(p):
+            col_ptr[b] = torch.cumsum(col_ptr[b], 0, dtype=torch.int32)
     del cols, counts, col_strip, starts
 
     # bottom-up orientation: CSR by (strip, v_loc, u), i.e. sorted by
@@ -307,4 +353,4 @@ def build_blocked_1d(edges: EdgeList, p: int, align: int = 128,
         deg_A=deg.reshape(p, chunk).to(torch.int32).contiguous(),
         cap=cap, cap_nzc=cap_nzc, maxdeg_col=maxdeg_col,
         edge_src=edge_src if with_edge_lists else None,
-        edge_dst=edge_dst if with_edge_lists else None)
+        edge_dst=edge_dst if with_edge_lists else None, col_ptr=col_ptr)

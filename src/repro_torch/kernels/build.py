@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-interface (sources may share a ``.cuh`` header there).  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
+interface (sources may share a ``.cuh`` header there, and one source may
+hold several C entries: kernel 1's three addressings).  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/`` at the root of the checkout, under a name keyed by
 a hash of the source and the flags, and loaded with ``ctypes``.  Pointers
 and the stream go in as ``c_void_p`` (kernels 6 and 8, whose host call
@@ -96,21 +97,24 @@ def build_log(name: str) -> str:
 
 class CudaKernel:
     """One kernel's C entry point, loaded at first launch, with a count of
-    its launches (a plain integer the wrapper bumps after each launch)."""
+    its launches (a plain integer the wrapper bumps after each launch).
+    ``stem`` names the source, ``csrc/<stem>.cu``; it defaults to the
+    entry's name."""
 
-    def __init__(self, name: str, argtypes: Sequence):
-        self.name = name            # the source stem and the C entry point
+    def __init__(self, name: str, argtypes: Sequence, stem: str = ""):
+        self.name = name            # the C entry point
+        self.stem = stem or name    # the source stem
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.stem}.cu"
 
     def load(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build_libraries([self.name])[self.name]))
+            lib = ctypes.CDLL(str(build_libraries([self.stem])[self.stem]))
             fn = getattr(lib, self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

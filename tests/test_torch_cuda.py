@@ -604,3 +604,71 @@ def test_nn_launch_counts_grow(dev):
         fa_ops.flash_attention_gqa(q.expand(2, sq, 9, 64).contiguous(), kv,
                                    kv, q_offset=600 - sq)
         assert fa_ops.KERNEL.launches == n + 1
+
+
+def test_spmsv_dcsc_kernel_matches_plain_and_csr(graph, dev):
+    """Kernel 1 through the block DCSC against its plain version and
+    against the col_ptr addressing on the same frontiers."""
+    part = graph.part
+    for i, j in ((0, 0), (1, 0), (1, 1)):
+        jc, cp, nzc = graph.jc[i, j], graph.cp[i, j], graph.nzc[i, j]
+        ri = graph.row_idx[i, j]
+        for mask in _strip_fronts(part.nc, dev):
+            n = sp_ops.KERNEL_DCSC.launches
+            got = sp_ops.spmsv_dcsc_min(mask, jc, cp, nzc, ri, part.nr,
+                                        j * part.nc)
+            prep = sp_ops.prepare_dcsc(mask, jc, cp, nzc)
+            assert sp_ops.KERNEL_DCSC.launches == n + (prep[3] > 0)
+            want = sp_ops.spmsv_dcsc_min_plain(*prep, cp, ri, part.nr,
+                                               j * part.nc)
+            assert torch.equal(got, want)
+            assert torch.equal(got, sp_ops.spmsv_csr_min(
+                mask, graph.col_ptr[i, j], ri, part.nr, j * part.nc))
+
+
+def test_spmsv_strips_csr_kernel_matches_plain_and_dcsc(dev):
+    """Kernel 1 over the (p, n+1) strip col_ptr against its plain
+    version and against kernel 3 (the strip DCSC) on the same frontiers,
+    with the edges examined."""
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    g = build_blocked_1d(e, 16, align=32, cap_pad=32, with_col_ptr=True)
+    part = g.part
+    for mask in _strip_fronts(part.n, dev):
+        fw = pack_bits(mask)
+        n = sp_ops.KERNEL_STRIPS.launches
+        got, ex = sp_ops.spmsv_strips_csr_min(fw, g.col_ptr, g.row_idx,
+                                              part.chunk)
+        prep = sp_ops.prepare_strips(fw, g.col_ptr)
+        assert sp_ops.KERNEL_STRIPS.launches == n + (prep[2] > 0)
+        want = sp_ops.spmsv_strips_csr_min_plain(*prep, g.col_ptr, g.row_idx,
+                                                 part.chunk)
+        assert torch.equal(got, want)
+        cand, ex_dcsc = strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx,
+                                               fw, part.chunk)
+        assert torch.equal(got, cand) and int(ex) == int(ex_dcsc)
+
+
+@pytest.mark.parametrize("instrument", [True, False])
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("dec", ["1d", "1ds"])
+def test_strip_csr_sessions_match_dcsc(dev, dec, chunks, instrument):
+    """The ("1d"|"1ds", "kernel", "csr") sessions give the strip DCSC
+    sessions' parents and levels, each kernel launched: at
+    expand_chunks 4 the csr entry runs kernel 1 on each sub-chunk's
+    partial bitmap, the dcsc one kernel 4."""
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    g = build_blocked_1d(e, 16, align=32, cap_pad=32, with_col_ptr=True)
+    mesh = make_local_mesh_1d(16, device=dev)
+    out = {}
+    for storage in ("csr", "dcsc"):
+        eng = plan_bfs(g, BFSConfig(decomposition=dec, storage=storage,
+                                    direction_optimizing=False,
+                                    expand_chunks=chunks,
+                                    instrument=instrument), mesh,
+                       local_mode="kernel").compile()
+        n = sp_ops.KERNEL_STRIPS.launches
+        out[storage] = eng.run(int(torch.argmax(g.deg_A.reshape(-1))))
+        if storage == "csr":
+            assert sp_ops.KERNEL_STRIPS.launches > n
+    assert (out["csr"].parents == out["dcsc"].parents).all()
+    assert out["csr"].n_levels == out["dcsc"].n_levels

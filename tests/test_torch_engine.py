@@ -18,7 +18,7 @@ from repro.core.engine import plan_bfs as r_plan_bfs
 from repro.graph.formats import build_blocked as r_build_blocked
 from repro.graph.rmat import rmat_graph as r_rmat_graph
 from repro.launch.mesh import make_local_mesh as r_mesh
-from repro_torch.configs.base import BFSConfig
+from repro_torch.configs.base import BFSConfig, get_config
 from repro_torch.core import local_ops
 from repro_torch.core.engine import plan_bfs
 from repro_torch.core.metrics import harmonic_mean, teps
@@ -152,11 +152,16 @@ def test_plan_errors_up_front(graphs):
     with pytest.raises(ValueError, match="mesh grid"):
         plan_bfs(g_t, BFSConfig(), make_local_mesh(2, 2, device="cpu"))
     with pytest.raises(ValueError, match="no LocalOps"):
-        plan_bfs(g_t, BFSConfig(storage="dcsc"), mesh, local_mode="kernel")
-    for bad in (dict(fold_mode="bitmap"), dict(expand_chunks=2),
-                dict(compact_updates=True), dict(use_edge_dst=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        plan_bfs(g_t, BFSConfig(), mesh, local_mode="pallas")
+    for bad in (dict(fold_mode="psum"), dict(storage="coo"),
+                dict(decomposition="3d")):
+        with pytest.raises(ValueError, match="is not one of"):
             plan_bfs(g_t, BFSConfig(**bad), mesh)
+    # what the port still lacks: pod-batched roots and their arch
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("bfs-rmat-multiroot")
+    with pytest.raises(NotImplementedError, match="run_batch"):
+        plan_bfs(g_t, BFSConfig(), mesh).compile().run_batch([0, 1])
     # "1d" is ported: a 2D graph is the wrong graph type for it
     with pytest.raises(TypeError, match="graph type"):
         plan_bfs(g_t, BFSConfig(decomposition="1d"), mesh)
@@ -174,12 +179,9 @@ def test_cap_f_smaller_than_frontier_raises(graphs):
 
 
 def test_registry_lists_the_ported_combos():
-    assert local_ops.registered_combos() == (
-        ("1d", "dense", "csr"), ("1d", "dense", "dcsc"),
-        ("1d", "kernel", "dcsc"), ("1ds", "dense", "csr"),
-        ("1ds", "dense", "dcsc"), ("1ds", "kernel", "dcsc"),
-        ("2d", "dense", "csr"), ("2d", "dense", "dcsc"),
-        ("2d", "kernel", "csr"))
+    assert local_ops.registered_combos() == tuple(
+        (d, m, s) for d in ("1d", "1ds", "2d") for m in ("dense", "kernel")
+        for s in ("csr", "dcsc"))
 
 
 def test_cuda_device_without_a_card_raises():

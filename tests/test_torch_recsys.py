@@ -36,7 +36,9 @@ SMALL = dict(n_sparse=8, embed_dim=8, n_attn_layers=2, n_heads=2, d_attn=8,
 def test_configs_equal_the_jax_ones(arch):
     assert dataclasses.asdict(base.get_config(arch)) \
         == dataclasses.asdict(jax_base.get_config(arch))
-    assert base.list_archs() == ["autoint", "smollm-135m"]
+    # the serving archs the port runs; the bfs-rmat archs sit beside them
+    assert [a for a in base.list_archs() if not a.startswith("bfs-rmat")] \
+        == ["autoint", "smollm-135m"]
 
 
 def test_unported_arch_is_named():
