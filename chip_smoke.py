@@ -34,6 +34,14 @@ Phases, in the order they run:
                  and levels bit-identical to the csr session's (bfs-rmat)
                  and to bfs-rmat's (the rest), every tree validated, host
                  reads a search; storage_words of both modes
+ 3c multiroot    bfs-rmat-multiroot: the 16 roots over 2 pods of the 1x1
+                 grid (run_batch, the kernels as the single-root session
+                 runs them), instrumented and with instrument=False:
+                 parents equal bfs-rmat's, trees valid, n_levels the
+                 max of each scan position, stats columns 0-1 equal on a
+                 root's own levels (the modes that differ counted: 2d
+                 shares the decision); the batch beside run_many, host
+                 reads a search, peak memory
   4 kernels      the 2D path's kernels against their plain versions at
                  its shapes, tolerance 0 (the outputs are integers)
  4b kernel 1     its DCSC entry on the frontiers of one bfs-rmat search
@@ -78,6 +86,12 @@ Phases, in the order they run:
                  and levels equal to the dcsc strips', trees validated,
                  search ms and host reads, the csr - dcsc difference root
                  by root, storage_words of both modes, peak under 75 GiB
+ 8c 1ds batch    phase 8's 1ds dcsc session at expand_chunks 1 over 2
+                 pods of the 16 strips, the same roots: parents, n_levels
+                 as in 3c, stats columns 0-2 equal each root's single run
+                 (each pod switches on its own frontier), beside run_many
+ 8d cap_f        bfs-rmat-1d with cap_f below a top-down frontier raises;
+                 with cap_f at the widest, 8b's parents
   9 kernels      level by level on one 1ds search per expand_chunks:
                  each kernel call (the frontiers, sub-chunks and buckets
                  of real levels, and the large frontier of a bottom-up
@@ -95,6 +109,11 @@ Phases, in the order they run:
                  same frontiers, tolerance 0, both timed on the card alone
  10 profile      device busy and idle share of one 1ds search per
                  expand_chunks, instrumented and with instrument=False
+ 10b drivers     python -m repro_torch.examples.graph500_bfs at scale 20
+                 (2d, 2d --fast, 1ds on 16 strips with dcsc), quickstart
+                 and serve_lm, each a process of its own on the card:
+                 exit 0 and their TEPS or served line; --born and --store
+                 refused by name (on the CPU)
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
                  4 serve_bulk batches, 16 retrieval_cand queries against
@@ -166,6 +185,7 @@ SCALE = 24
 EDGE_FACTOR = 16
 SEED = 1
 N_ROOTS = 16
+PODS = 2                      # run_batch's pod axis (phases 3c, 8c)
 MESH_SCALE = 16
 STRIPS = 16                   # the 1ds path's simulated mesh
 STRIP_CHUNKS = (1, 4)         # its expand_chunks runs
@@ -1379,16 +1399,91 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         own (``_send_counts``), kernel 1's two a call (``spmsv/ops.py::
         prepare``, ``prepare_dcsc``, ``prepare_strips``: the frontier's id
         count and its edge total)."""
+        return reads_of(lambda: [eng.search(r) for r in roots_],
+                        len(roots_))
+
+    def reads_of(run, n_searches: int) -> float:
+        """Host reads a search of ``run()``, which runs ``n_searches``
+        searches (the reads ``host_reads`` counts)."""
         weight = {"masses": 1, "send_counts": 1, "prepare": 2}
         with recording([(decomp, "_masses", "masses"),
                         (steps_1d_sparse, "_send_counts", "send_counts"),
                         (sp_ops, "prepare", "prepare"),
                         (sp_ops, "prepare_dcsc", "prepare"),
                         (sp_ops, "prepare_strips", "prepare")]) as calls:
-            for r in roots_:
-                eng.search(r)
+            run()
         torch.cuda.synchronize()
-        return sum(weight[c[0]] for c in calls) / len(roots_)
+        return sum(weight[c[0]] for c in calls) / n_searches
+
+    def batch_beside_many(eng_b, tag) -> dict:
+        """The roots batched and one by one, host-timed in turns (one by
+        one, batched, batched, one by one): ``run_batch`` against
+        ``run_many`` (each with the parents' host copy), then
+        ``search_batch`` against ``search`` a root (the searches alone,
+        parents left on the card); host reads a search of each."""
+        wall = {"many": [], "batch": [], "search": [], "search_batch": []}
+        runs_ = {"many": lambda: eng_b.run_many(roots),
+                 "batch": lambda: eng_b.run_batch(roots),
+                 "search": lambda: [eng_b.search(r) for r in roots],
+                 "search_batch": lambda: eng_b.search_batch(roots)}
+        for one, both in (("many", "batch"), ("search", "search_batch")):
+            for kind in (one, both, both, one):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                out_ = runs_[kind]()
+                torch.cuda.synchronize()
+                wall[kind].append(time.perf_counter() - ts)
+                del out_
+        reads_b = reads_of(lambda: eng_b.search_batch(roots), len(roots))
+        reads_m = host_reads(eng_b, roots)
+        print(f"{tag}: {len(roots)} roots in {PODS} pods, in turns (one by "
+              f"one, batched, batched, one by one): run_batch "
+              f"{wall['batch'][0]:.4f} / {wall['batch'][1]:.4f} s, run_many "
+              f"{wall['many'][0]:.4f} / {wall['many'][1]:.4f} s (each with "
+              f"the parents' host copy); search_batch "
+              f"{wall['search_batch'][0]:.4f} / "
+              f"{wall['search_batch'][1]:.4f} s, {len(roots)} searches "
+              f"{wall['search'][0]:.4f} / {wall['search'][1]:.4f} s (the "
+              f"searches alone); host reads a search {reads_b:.2f} "
+              f"batched, {reads_m:.2f} one by one")
+        return {**{f"{k}_s": v for k, v in wall.items()},
+                "host_reads_batch": reads_b, "host_reads_many": reads_m}
+
+    def check_batch(b, want_par, want_lv, want_st, tag, lv_stats: bool,
+                    validator) -> int:
+        """A batch over ``roots`` against the single-root runs: parents
+        (on every root, and each tree valid), the lockstep trip count of
+        each scan position, and with ``lv_stats`` the stats rows: columns
+        0-1 (``lv_stats == 2``) or 0-2 (3) on a root's own levels, column
+        0 zero beyond them; else (uninstrumented) all zeros.  Returns
+        the number of levels whose mode column differs from the single
+        run's."""
+        rpp = len(roots) // PODS
+        own = np.asarray(want_lv)
+        check(np.array_equal(b.n_levels, np.tile(
+            np.maximum.reduce(own.reshape(PODS, rpp)), PODS)),
+            f"{tag}: n_levels {b.n_levels.tolist()} is not the max of each "
+            f"scan position's {own.tolist()}")
+        n_diff = 0
+        for i, r in enumerate(roots):
+            par = torch.from_numpy(b.parents[i]).to(dev, torch.int32)
+            check(torch.equal(par, want_par[i]),
+                  f"{tag}: parents differ from the single-root run at "
+                  f"root {r}")
+            ok, msg = validator.check(r, par)
+            check(ok, f"{tag} tree of root {r}: {msg}")
+            st = b.level_stats[i]
+            if lv_stats:
+                lv = own[i]
+                check(np.array_equal(st[:lv, :lv_stats],
+                                     want_st[i][:lv, :lv_stats])
+                      and not st[lv:, 0].any(),
+                      f"{tag}: stats rows differ from the single-root "
+                      f"run's at root {r}")
+                n_diff += int((st[:lv, 2] != want_st[i][:lv, 2]).sum())
+            else:
+                check(not st.any(), f"{tag}: uninstrumented stats")
+        return n_diff
 
     def fast_searches(eng, parents_, levels_, tag):
         """The roots again through ``eng``, an ``instrument=False``
@@ -1538,7 +1633,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                          local_mode="kernel").compile()
         for k in kernels.values():
             k.launches = 0
-        ms_a, par_a, lv_a = [], [], []
+        ms_a, par_a, lv_a, st_a = [], [], [], []
         for r in roots:
             torch.cuda.synchronize()
             ts = time.perf_counter()
@@ -1547,6 +1642,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             ms_a.append((time.perf_counter() - ts) * 1e3)
             par_a.append(out[0].reshape(-1)[: graph.part.n_orig])
             lv_a.append(out[1])
+            st_a.append(out[3].copy())
         la = {k: kernels[k].launches for k in path_2d_dcsc}
         for k, n in la.items():
             check(n > 0, f"kernel {k} was never launched by {arch}")
@@ -1571,6 +1667,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                          "host_reads": reads, "launches": la,
                          "parents": par_a, "levels": lv_a}
         if arch == "bfs-rmat":
+            stats_2d = st_a
+        if arch == "bfs-rmat":
             eng_dcsc = eng_a
         del eng_a
         if arch != "bfs-rmat":
@@ -1582,12 +1680,55 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           f"{rec_fast['teps_hmean']:.6e}, "
           f"{float(np.median(rec_fast['search_ms'])):.3f} ms, "
           f"{rec_fast['host_reads']:.2f}")
+
+    # --------------------------------------------------------------- 3c
+    phase(f"3c bfs-rmat-multiroot: the same {N_ROOTS} roots batched over "
+          f"{PODS} pods of the 1x1 grid (run_batch), instrumented and not, "
+          f"against bfs-rmat's single-root runs and beside run_many")
+    single = runs_2d["bfs-rmat"]
+    pod_mesh = make_local_mesh(1, 1, device=dev, pods=PODS)
+    rec_3c = {}
+    for instrument in (True, False):
+        tag = f"bfs-rmat-multiroot, instrument={instrument}"
+        eng_b = plan_bfs(graph, replace(get_config("bfs-rmat-multiroot"),
+                                        instrument=instrument), pod_mesh,
+                         local_mode="kernel").compile()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        ts = time.perf_counter()
+        b = eng_b.run_batch(roots)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - ts
+        lb = {k: kernels[k].launches for k in path_2d_dcsc}
+        peak_b = torch.cuda.max_memory_allocated() / 2**30
+        for k, n in lb.items():
+            check(n > 0, f"kernel {k} was never launched by {tag}")
+            launches_new[k] = launches_new.get(k, 0) + n
+        n_diff = check_batch(b, single["parents"], single["levels"],
+                             stats_2d, tag, 2 if instrument else 0,
+                             validator)
+        print(f"{tag}: n_levels {b.n_levels.tolist()} (bfs-rmat's own "
+              f"{single['levels']}); parents equal bfs-rmat's on all "
+              f"{N_ROOTS} roots, every tree valid; launches {lb}; first "
+              f"batch {first_s:.4f} s (program built in "
+              f"{eng_b.batch_compile_s:.4f} s); peak device memory "
+              f"{peak_b:.3f} GiB"
+              + (f"; stats columns 0-1 equal on each root's own levels, "
+                 f"{n_diff} levels' modes differ (the shared decision)"
+                 if instrument else "; stats all zero"))
+        rec_3c[str(instrument)] = {
+            "n_levels": b.n_levels.tolist(), "launches": lb,
+            "peak_gib": peak_b, "first_batch_s": first_s,
+            "modes_differ": n_diff, **batch_beside_many(eng_b, tag)}
+        del eng_b, b
     # nothing of these searches may outlive the 2D graph (phase 8's peak)
     del runs_2d["bfs-rmat"]["parents"], validator, par_a, want_p, out, par
-    del wp
+    del wp, single, stats_2d
     torch.cuda.empty_cache()
     record["session_2d_archs"] = {"storage_words": words_2d,
-                                  "runs": runs_2d}
+                                  "runs": runs_2d, "multiroot": rec_3c}
 
     # ---------------------------------------------------------------- 4
     phase("4 2D kernels against plain versions at the 2D path's shapes")
@@ -1767,7 +1908,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     # updates, edge-row reads, the R/G ring); the "*_pure" folds drop
     # what passes their capacities, so their trees are not validated
     archs_2d = [a for a in list_archs() if a.startswith("bfs-rmat")
-                and get_config(a).decomposition == "2d"]
+                and get_config(a).decomposition == "2d"
+                and a != "bfs-rmat-multiroot"]    # bfs-rmat batched: 3c
     for pr, pc in ((2, 2), (4, 4)):
         sg = build_blocked(small, pr, pc)
         smesh = make_local_mesh(pr, pc, device=dev)
@@ -1995,7 +2137,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                         frontier_codec="packed", expand_chunks=c)
         eng = plan_bfs(graph, cfg, mesh, local_mode="kernel").compile()
         run = {"engine": eng, "search_ms": [], "levels": [], "modes": [],
-               "overflowed": [], "wire_expand": [], "parents": []}
+               "overflowed": [], "wire_expand": [], "parents": [],
+               "stats": []}
         bu_before = kernels["bottomup_substep"].launches
         for r in roots:
             torch.cuda.synchronize()
@@ -2011,6 +2154,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                                       and st[i, 4] == dense_words])
             run["wire_expand"].append(float(out[2]["wire_expand"]))
             run["parents"].append(out[0].reshape(-1)[: part.n_orig])
+            run["stats"].append(out[3].copy())
         run["bu_launches"] = kernels["bottomup_substep"].launches - bu_before
         run["bu_levels"] = sum(m.count(1) for m in run["modes"])
         runs[c] = run
@@ -2198,6 +2342,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
          path_1d_csr + codec),
         ("bfs-rmat-1d-pipe", get_config("bfs-rmat-1d-pipe"), path_1d_csr)]
     csr_1d = {}
+    stats_1d = []          # bfs-rmat-1d's level stats a root (phase 8d)
     for arch, acfg, path in strip_archs:
         eng = plan_bfs(graph, acfg, mesh, local_mode="kernel").compile()
         for k in kernels.values():
@@ -2216,6 +2361,8 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                   f"at root {r}")
             ok, msg = validator.check(r, par)
             check(ok, f"{arch} tree of root {r}: {msg}")
+            if arch == "bfs-rmat-1d":
+                stats_1d.append(out[3].copy())
         la = {k: kernels[k].launches for k in path}
         for k, n in la.items():
             check(n > 0, f"kernel {k} was never launched by {arch}")
@@ -2232,7 +2379,6 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         if arch == "bfs-rmat-1d":
             eng_1d_csr = eng
         del eng, out, par
-    del validator
     for csr, dcsc in (("bfs-rmat-1d", "bfs-rmat-1d-dcsc"),
                       ("bfs-rmat-1ds", "bfs-rmat-1ds/dcsc")):
         d = [x - y for x, y in zip(csr_1d[csr]["search_ms"],
@@ -2247,6 +2393,87 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     check(peak_csr < 75.0, f"strip peak {peak_csr:.2f} GiB >= 75 GiB")
     rec_1ds["csr_strips"] = {"storage_words": words_1d, "runs": csr_1d,
                              "peak_gib": peak_csr, "peak_phase8_gib": peak_8}
+
+    # --------------------------------------------------------------- 8c
+    phase(f"8c phase 8's 1ds dcsc session (expand_chunks {c0}) batched over "
+          f"{PODS} pods of the {STRIPS} strips: run_batch on the same "
+          f"{N_ROOTS} roots, each pod switching on its own frontier")
+    torch.cuda.reset_peak_memory_stats()
+    tag = "1ds dcsc batch"
+    eng_b = plan_bfs(graph, BFSConfig(
+        decomposition="1ds", storage="dcsc", frontier_codec="packed",
+        expand_chunks=c0), make_local_mesh_1d(STRIPS, device=dev, pods=PODS),
+        local_mode="kernel").compile()
+    path_8c = ("spmsv_strip_min", "bottomup_substep") + codec
+    for k in kernels.values():
+        k.launches = 0
+    ts = time.perf_counter()
+    b = eng_b.run_batch(roots)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - ts
+    lb = {k: kernels[k].launches for k in path_8c}
+    for k, n in lb.items():
+        check(n > 0, f"kernel {k} was never launched by the {tag}")
+        launches_new[k] = launches_new.get(k, 0) + n
+    run = runs[c0]
+    n_diff = check_batch(b, run["parents"], run["levels"], run["stats"], tag,
+                         3, validator)
+    check(n_diff == 0, f"{tag}: a pod's modes differ from its single run")
+    peak_8c = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag}: n_levels {b.n_levels.tolist()} (the single runs' "
+          f"{run['levels']}); parents equal phase 8's on all {N_ROOTS} "
+          f"roots, every tree valid, stats columns 0-2 equal on each root's "
+          f"own levels; launches {lb}; first batch {first_s:.4f} s; peak "
+          f"device memory {peak_8c:.3f} GiB")
+    check(peak_8c < 75.0, f"8c peak {peak_8c:.2f} GiB >= 75 GiB")
+    rec_1ds["batch"] = {"n_levels": b.n_levels.tolist(), "launches": lb,
+                        "peak_gib": peak_8c, "first_batch_s": first_s,
+                        **batch_beside_many(eng_b, tag)}
+    del eng_b, b
+
+    # --------------------------------------------------------------- 8d
+    phase("8d the cap_f bound of kernel 1's strip entry: bfs-rmat-1d with "
+          "cap_f below a top-down frontier raises; at the widest frontier "
+          "of these searches, 8b's parents")
+
+    def td_sizes(st):
+        return [int(x) for x in st[(st[:, 2] == 0) & (st[:, 0] > 0), 0]]
+
+    cfg_1d = get_config("bfs-rmat-1d")
+    hub = int(torch.argmax(graph.deg_A.reshape(-1)))
+    below = max(max(td_sizes(st), default=0) for st in stats_1d) - 1
+    check(below >= 1, "no top-down frontier of two ids or more")
+    raised = None
+    try:
+        eng = plan_bfs(graph, cfg_1d, mesh, local_mode="kernel",
+                       cap_f=below).compile()
+        for r in roots:
+            eng.search(r)
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised is not None and f"exceeds cap_f={below}" in raised,
+          f"bfs-rmat-1d with cap_f={below} did not raise: {raised}")
+    widest = max([below + 1, *td_sizes(eng_1d_csr.search(hub)[3])])
+    eng = plan_bfs(graph, cfg_1d, mesh, local_mode="kernel",
+                   cap_f=widest).compile()
+    for k in kernels.values():
+        k.launches = 0
+    for i, r in enumerate(roots):
+        out = eng.search(r)
+        check(torch.equal(out[0].reshape(-1)[: part.n_orig],
+                          run["parents"][i]),
+              f"bfs-rmat-1d with cap_f={widest}: parents differ at root {r}")
+    n = kernels["spmsv_strips_csr_min"].launches
+    check(n > 0, "no spmsv_strips_csr_min launch under cap_f")
+    launches_new["spmsv_strips_csr_min"] += n
+    print(f"bfs-rmat-1d, cap_f={below} (the roots' widest top-down "
+          f"frontier less one): raised \"{raised}\"; cap_f="
+          f"{widest} (the widest top-down frontier of the {N_ROOTS} roots "
+          f"and the warm-up hub): parents equal 8b's on all {N_ROOTS} "
+          f"roots, {n} strip-kernel launches")
+    rec_1ds["cap_f"] = {"below": below, "raised": raised,
+                        "widest": widest, "launches": n}
+    del eng, out, validator, stats_1d
     name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS: "column"}
     for kname, by_kind in walks_8.items():
         for kind, ws in by_kind.items():
@@ -2630,6 +2857,68 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             ro > rb)
 
 
+# the drivers as users start them: (label, module, arguments, the line
+# that must come out); the --born/--store refusals on the CPU
+DRIVERS = [
+    ("graph500_bfs 2d", "graph500_bfs",
+     ["--scale", "20", "--roots", "16", "--local-mode", "kernel"],
+     "harmonic-mean TEPS over 16 roots"),
+    ("graph500_bfs 2d --fast", "graph500_bfs",
+     ["--scale", "20", "--roots", "16", "--local-mode", "kernel", "--fast"],
+     "harmonic-mean TEPS over 16 roots"),
+    ("graph500_bfs 1ds 16x1 dcsc", "graph500_bfs",
+     ["--scale", "20", "--roots", "16", "--local-mode", "kernel",
+      "--decomposition", "1ds", "--grid", "16x1", "--storage", "dcsc"],
+     "harmonic-mean TEPS over 16 roots"),
+    ("quickstart", "quickstart", [], "valid tree: True"),
+    ("serve_lm", "serve_lm", [], "served 6 requests")]
+REFUSED = [("--born", ["--born"]), ("--store", ["--store", "gstore"])]
+
+
+def run_drivers() -> dict:
+    """Phase 10b: each driver of ``repro_torch.examples`` in a process of
+    its own, as ``python -m repro_torch.examples.<name>`` (on the card by
+    default); each must exit 0 and print its TEPS or served line.  The
+    kernels it needs are already built (``build/``).  Then ``--born`` and
+    ``--store`` must be refused by name, on the CPU."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(module, args):
+        ts = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{module}", *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        return r, time.perf_counter() - ts
+
+    rec = {}
+    for label, module, args, want in DRIVERS:
+        r, wall = start(module, args)
+        check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        lines = r.stdout.splitlines()
+        hit = [x for x in lines if want in x]
+        check(bool(hit), f"{label} printed no '{want}' line")
+        print(f"-- {label} (python -m repro_torch.examples.{module} "
+              f"{' '.join(args)}): exit 0 in {wall:.1f} s")
+        for x in lines:
+            if x.startswith(("compile", "root ", "useful", "BFS from",
+                             "R-MAT")) or want in x:
+                print(f"   {x}")
+        rec[label] = {"wall_s": wall, "line": hit[0],
+                      "stdout": r.stdout[-20000:]}
+    for flag, args in REFUSED:
+        r, _ = start("graph500_bfs", ["--device", "cpu", *args])
+        check(r.returncode != 0 and f"{flag} is not ported yet" in r.stderr
+              and "Born-sharded build and store" in r.stderr,
+              f"graph500_bfs {flag} was not refused by name: "
+              f"{r.returncode} {r.stderr[-1000:]}")
+        print(f"-- graph500_bfs {flag} --device cpu: exit {r.returncode}, "
+              f"{r.stderr.strip().splitlines()[-1]}")
+        rec[f"refused {flag}"] = r.returncode
+    return rec
+
+
 def kernel_times(tree: Path) -> int:
     """Kernels 2-9 of the checkout at ``tree`` on the card alone (kernel 1
     is timed by the main run), at their real calls or shapes.  Kernels 2,
@@ -2974,6 +3263,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"\ndevice memory still allocated after the graph paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    # -------------------------------------------------------------- 10b
+    phase("10b the drivers as users run them: graph500_bfs at scale 20 "
+          "(2d, 2d --fast, 1ds on 16 strips), quickstart and serve_lm on "
+          "the card; --born and --store refused")
+    record["drivers"] = run_drivers()
 
     # --------------------------------------------------------------- 11
     phase("11 AutoInt serving at the registered width: serve_p99, "

@@ -5,8 +5,8 @@ registry.
 Each config carries the same fields and defaults as the JAX package's,
 so one config object describes a session in either package.  The
 registry holds the archs the port runs: ``autoint``, ``smollm-135m`` and
-every ``bfs-rmat*`` arch but ``bfs-rmat-multiroot`` (``configs/
-bfs_rmat.py``); ``get_config`` names any other arch as not ported yet.
+every ``bfs-rmat*`` arch (``configs/bfs_rmat.py``); ``get_config`` names
+any other arch as not ported yet.
 
 The port runs every ``BFSConfig`` value the JAX package does: the three
 decompositions, both storages in either ``local_mode``, every
@@ -16,8 +16,7 @@ decompositions, both storages in either ``local_mode``, every
 package does), both frontier codecs, ``instrument`` True or False, and
 any ``expand_chunks >= 1`` that divides the strip's packed words (and,
 for "1ds", the bucket capacity; for "2d" any value > 1 runs the R/G
-ring).  Pod-batched searches (``BFSEngine.run_batch``) wait for a later
-slice.
+ring), and pod-batched searches (``BFSEngine.run_batch``).
 """
 from __future__ import annotations
 

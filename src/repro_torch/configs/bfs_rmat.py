@@ -1,12 +1,12 @@
 """The paper's own workload: direction-optimizing BFS on Graph500 R-MAT,
-every arch of the JAX package's ``configs/bfs_rmat.py`` field for field,
-but ``bfs-rmat-multiroot`` (pod-batched roots, which waits for
-``BFSEngine.run_batch``).
+every arch of the JAX package's ``configs/bfs_rmat.py`` field for field.
 
 Run an arch with ``plan_bfs(graph, get_config(arch), mesh,
 local_mode="kernel")`` on a ``build_blocked`` graph ("2d") or a
 ``build_blocked_1d`` one ("1d", "1ds"; ``with_col_ptr=True`` for a
-"csr" arch in kernel mode)."""
+"csr" arch in kernel mode); ``bfs-rmat-multiroot`` with
+``BFSEngine.run_batch`` on a mesh with pods (``make_local_mesh(...,
+pods=k)``)."""
 import dataclasses
 
 from repro_torch.configs.base import BFSConfig, register
@@ -31,6 +31,9 @@ CONFIG_OPT = register(dataclasses.replace(
 CONFIG_OPT_RT = register(dataclasses.replace(
     CONFIG, arch="bfs-rmat-opt-rt", fold_mode="bitmap", use_edge_dst=True,
     compact_updates=True))
+# batched roots spread over the pod axis (the multi-pod Graph500 pattern)
+CONFIG_MULTIROOT = register(dataclasses.replace(
+    CONFIG, arch="bfs-rmat-multiroot"))
 
 # the 1D row strips, the paper's comparison axis: dense bitmap expand
 # ("1d"), strip DCSC, and the sparse owner-directed exchange ("1ds")

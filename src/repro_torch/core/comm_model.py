@@ -1,7 +1,7 @@
-"""The paper's §6 communication model, the parts the port reads: wire
-words per level of the 1D dense, chunked, sparse and packed frontier
-exchanges and of the 2D bitmap fold, the packed codec's widths, and the
-1ds bucket planning.
+"""The paper's §6 communication model, the parts the port reads: the
+whole-search 2D forms of Table 1 and Eq. 2, wire words per level of the
+1D dense, chunked, sparse and packed frontier exchanges and of the 2D
+bitmap fold, the packed codec's widths, and the 1ds bucket planning.
 
 Counts are in the paper's 64-bit words.  These are the closed forms of
 the JAX package's ``core/comm_model.py`` (which imports no JAX but is
@@ -13,6 +13,22 @@ operation order, as its in-program counters do.
 from __future__ import annotations
 
 import math
+
+
+def topdown_words(n: int, m: int, pr: int, pc: int) -> float:
+    """w_t ~= 4m + n*pr  (undirected: each edge examined from both sides,
+    2 words per edge endpoint pair; expand replicates n along columns)."""
+    return 4.0 * m + float(n) * pr
+
+
+def bottomup_words(n: int, pr: int, pc: int, s_b: float = 4.0) -> float:
+    """w_b ~= n * (s_b*(pr+pc+1)/64 + 2)   (Table 1 total)."""
+    return n * (s_b * (pr + pc + 1) / 64.0 + 2.0)
+
+
+def ratio_eq2(k: float, pc: int, s_b: float = 4.0) -> float:
+    """Eq. (2), square grid pr=pc: (pc + 4k) / (s_b(2pc+1)/64 + 2)."""
+    return (pc + 4.0 * k) / (s_b * (2.0 * pc + 1.0) / 64.0 + 2.0)
 
 
 def _float(x):

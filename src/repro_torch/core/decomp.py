@@ -16,7 +16,7 @@ Registered:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +54,10 @@ class Decomposition:
     graph_cls: type
     axis_sizes: Callable      # (part) -> (pr, pc) the grid must have
     #                           ((p, 1) for the strips)
-    make_level_args: Callable  # (part, cfg, ops, statics, graph, device)
-    body: Callable            # (g, root, *, part, args, cfg) -> search output
+    make_level_args: Callable  # (part, cfg, ops, statics, graph arrays,
+    #                            device)
+    body: Callable            # (g, roots, *, part, args, cfg) -> the
+    #                           lockstep searches, one root a pod
     validate: Callable        # (part, statics) -> None (raises on bad plan)
 
 
@@ -115,30 +117,48 @@ def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
     return _F32(n_f), _F32(m_f), _F32(m_u), bool(ov and ov[0])
 
 
-def decide_and_sync(cfg: BFSConfig, n_total: int, mode: int, n_f, m_f,
-                    m_u) -> int:
-    """Beamer's direction rule in float32: the next level's mode (0
-    top-down, 1 bottom-up).  The JAX package also takes the pod pmax
-    here (the lockstep frontier size and, for "2d"'s sync_modes, a
-    decision shared by every pod); pod batches wait for ``run_batch``
-    (ROADMAP queue 1, item 8), so one search decides alone."""
-    if cfg.direction_optimizing:
-        if mode == 0 and m_f > m_u / _F32(cfg.alpha):
-            return 1
-        if mode == 1 and n_f < _F32(n_total / cfg.beta):
-            return 0
-    return mode
+def decide_and_sync(cfg: BFSConfig, n_total: int, modes: Sequence[int],
+                    states: Sequence[Tuple], sync_modes: bool = False
+                    ) -> List[int]:
+    """Beamer's direction rule in float32: each pod's next mode (0
+    top-down, 1 bottom-up) from its own ``(n_f, m_f, m_u, ...)``.  With
+    ``sync_modes`` ("2d", whose collectives span the whole mesh in the
+    JAX package) the decision is the pods' shared one: bottom-up when any
+    pod wants it (the reference's pmax), top-down again only when every
+    pod wants it (its pmin).  The lockstep frontier size, the pmax of
+    the pods' ``n_f``, is the loop's own predicate (``_search_loop``)."""
+    if not cfg.direction_optimizing:
+        return list(modes)
+    go_bu = [mode == 0 and m_f > m_u / _F32(cfg.alpha)
+             for mode, (n_f, m_f, m_u, *_) in zip(modes, states)]
+    go_td = [mode == 1 and n_f < _F32(n_total / cfg.beta)
+             for mode, (n_f, m_f, m_u, *_) in zip(modes, states)]
+    if sync_modes:
+        go_bu = [any(go_bu)] * len(modes)
+        go_td = [all(go_td)] * len(modes)
+    return [1 if bu else 0 if td else mode
+            for mode, bu, td in zip(modes, go_bu, go_td)]
 
 
-def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
-                 bu_level, over_cap: int = 0, expand_chunks: int = 1):
+def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
+                 cfg: BFSConfig, td_level, bu_level, sync_modes: bool = False,
+                 over_cap: int = 0, expand_chunks: int = 1):
     """Beamer's direction heuristics, and with ``cfg.instrument`` the
     per-level stats and counter accumulation, over the (pi, front, lv) ->
     (pi, front, ctr) steps.  ``gidx`` holds the global vertex ids in the
     layout of ``pi`` and ``front``: ``(pr, pc, chunk)`` for 2D, ``(p,
     chunk)`` for the strips.
 
-    The loop is a Python loop.  Each level ends with one host read
+    ``roots`` holds one root per pod: the searches run in lockstep, as
+    the JAX package's pod-batched program runs them.  Each pod keeps its
+    own frontier size, which its direction rule reads
+    (``decide_and_sync``); the loop runs while any pod's frontier is
+    live, so a pod whose search has ended runs the real steps on an empty
+    frontier, each writing its stats row ``(0, 0, mode, 1,
+    wire_expand)``.  On one card the pods run one after the other inside
+    each level.  A single search is the case of one pod.
+
+    The loop is a Python loop.  Each level ends with one host read a pod
     (``reduce_state``): the next frontier's size and the frontier and
     unvisited edge masses, which the next level's direction decision and
     the loop's exit need (the JAX package keeps them on the device inside
@@ -163,29 +183,36 @@ def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
     counters come back ``{}`` (never zeros, which would read as
     measurements) and the stats all zeros.  The modes, the parents and
     the overflowed levels are the instrumented run's: the same values
-    meet the same rule."""
+    meet the same rule.
+
+    Returns (pis, n_levels, ctrs, stats): a list of pi and of counters, a
+    pod each, the lockstep trip count, and (pods, MAX_LEVELS, 5) stats."""
     instrument = cfg.instrument
-    pi = torch.where(gidx == root, root, -1).to(torch.int32)
-    front = gidx == root
-    stats = np.zeros((MAX_LEVELS, 5), np.float32)
-    ctr = zero_counters() if instrument else {}
+    pis = [torch.where(gidx == r, r, -1).to(torch.int32) for r in roots]
+    fronts = [gidx == r for r in roots]
+    stats = np.zeros((len(roots), MAX_LEVELS, 5), np.float32)
+    ctrs = [zero_counters() if instrument else {} for _ in roots]
     cap = 0 if instrument else over_cap
     deg = g["deg_A"]
-    n_f, m_f, m_u, over = reduce_state(pi, front, deg, cap, expand_chunks)
-    mode, level = 0, 0
-    while level < MAX_LEVELS and n_f > 0:
-        mode = decide_and_sync(cfg, n_total, mode, n_f, m_f, m_u)
-        step = bu_level if mode == 1 else td_level
-        pi, front, c2 = step(pi, front, {"n_f": n_f, "m_f": m_f,
-                                         "over": over})
-        if instrument:
-            ctr = {k: ctr[k] + c2[k] for k in ctr}
-            # stats row: n_f, m_f, mode, used, measured expand words
-            stats[level] = (n_f, m_f, mode, 1, c2["wire_expand"])
-        n_f, m_f, m_u, over = reduce_state(pi, front, deg, cap,
-                                           expand_chunks)
+    states = [reduce_state(pi, f, deg, cap, expand_chunks)
+              for pi, f in zip(pis, fronts)]
+    modes, level = [0] * len(roots), 0
+    while level < MAX_LEVELS and max(st[0] for st in states) > 0:
+        modes = decide_and_sync(cfg, n_total, modes, states, sync_modes)
+        for k, (mode, (n_f, m_f, m_u, over)) in enumerate(zip(modes,
+                                                              states)):
+            step = bu_level if mode == 1 else td_level
+            pis[k], fronts[k], c2 = step(pis[k], fronts[k],
+                                         {"n_f": n_f, "m_f": m_f,
+                                          "over": over})
+            if instrument:
+                ctrs[k] = {key: ctrs[k][key] + c2[key] for key in ctrs[k]}
+                # stats row: n_f, m_f, mode, used, measured expand words
+                stats[k, level] = (n_f, m_f, mode, 1, c2["wire_expand"])
+            states[k] = reduce_state(pis[k], fronts[k], deg, cap,
+                                     expand_chunks)
         level += 1
-    return pi, level, ctr, stats
+    return pis, level, ctrs, stats
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +220,26 @@ def _search_loop(g, gidx, root, *, n_total: int, cfg: BFSConfig, td_level,
 # ---------------------------------------------------------------------------
 
 
-def _bfs_body_2d(g, root, *, part: Partition2D, args: LevelArgs,
+def _bfs_body_2d(g, roots, *, part: Partition2D, args: LevelArgs,
                  cfg: BFSConfig):
+    """The 2D search over one root a pod; the JAX package's 2D steps
+    rendezvous with the whole mesh, so the pods share each direction
+    decision (``sync_modes``)."""
     dev = g["deg_A"].device
     gidx = torch.arange(part.n, dtype=torch.int32, device=dev).reshape(
         part.pr, part.pc, part.chunk)
     return _search_loop(
-        g, gidx, root, n_total=part.n, cfg=cfg,
+        g, gidx, roots, n_total=part.n, cfg=cfg,
         td_level=lambda pi, f, lv: topdown_level(g, pi, f, args, lv),
-        bu_level=lambda pi, f, lv: bottomup_level(g, pi, f, args, lv))
+        bu_level=lambda pi, f, lv: bottomup_level(g, pi, f, args, lv),
+        sync_modes=True)
 
 
-def _make_args_2d(part, cfg, ops, statics: PlanStatics, graph,
+def _make_args_2d(part, cfg, ops, statics: PlanStatics, arrays,
                   device) -> LevelArgs:
     return LevelArgs(part=part, fold_mode=cfg.fold_mode,
                      perm=collectives.perm_index(part.transpose_perm(), device),
-                     seg_ptr=graph.seg_ptr.cpu().numpy().astype(np.int64),
+                     seg_ptr=arrays["seg_ptr"].cpu().numpy().astype(np.int64),
                      ops=ops, cap_seg=statics.cap_seg, cap_f=statics.cap_f,
                      instrument=cfg.instrument,
                      use_edge_dst=cfg.use_edge_dst,
@@ -236,17 +267,19 @@ register_decomposition(Decomposition(
 
 def _make_strip_body(td_step, bu_step, sparse: bool):
     """The whole-search body of a strip entry: global ids in the (p,
-    chunk) strip layout, the shared loop over the given level steps;
-    ``sparse`` for "1ds", whose uninstrumented loop carries the overflow
-    indicator of its buckets."""
+    chunk) strip layout, the shared loop over the given level steps, one
+    root a pod; ``sparse`` for "1ds", whose uninstrumented loop carries
+    the overflow indicator of its buckets.  The strips' collectives stay
+    inside a pod in the JAX package, so each pod switches direction on
+    its own (no ``sync_modes``)."""
 
-    def body(g, root, *, part: Partition1D, args: LevelArgs1D,
+    def body(g, roots, *, part: Partition1D, args: LevelArgs1D,
              cfg: BFSConfig):
         gidx = torch.arange(part.n, dtype=torch.int32,
                             device=g["deg_A"].device).reshape(part.p,
                                                               part.chunk)
         return _search_loop(
-            g, gidx, root, n_total=part.n, cfg=cfg,
+            g, gidx, roots, n_total=part.n, cfg=cfg,
             td_level=lambda pi, f, lv: td_step(g, pi, f, args, lv),
             bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv),
             over_cap=args.cap_x if sparse else 0,
@@ -255,12 +288,13 @@ def _make_strip_body(td_step, bu_step, sparse: bool):
     return body
 
 
-def _make_args_strip(part, cfg, ops, statics: PlanStatics, graph,
+def _make_args_strip(part, cfg, ops, statics: PlanStatics, arrays,
                      device) -> LevelArgs1D:
     return LevelArgs1D(part=part, ops=ops,
-                       nnz=graph.nnz.cpu().numpy().astype(np.int64),
+                       nnz=arrays["nnz"].cpu().numpy().astype(np.int64),
                        expand_chunks=statics.expand_chunks,
-                       cap_x=statics.cap_x, codec=cfg.frontier_codec,
+                       cap_x=statics.cap_x, cap_f=statics.cap_f,
+                       codec=cfg.frontier_codec,
                        instrument=cfg.instrument,
                        use_edge_dst=cfg.use_edge_dst)
 

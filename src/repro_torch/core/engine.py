@@ -17,6 +17,9 @@ then run BFS from 16-64 roots", so a session has three stages:
           apart.
 
   run     ``BFSEngine.run(root)`` / ``run_many(roots)`` reuse both.
+          ``run_batch(roots, pod_axis="pod")`` runs the roots spread
+          over the mesh's pod axis, the searches of each scan position
+          in lockstep (the JAX package's pod-batched program).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch
 
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core import comm_model
-from repro_torch.core.decomp import Decomposition, PlanStatics, get_decomposition
+from repro_torch.core.decomp import (MAX_LEVELS, Decomposition, PlanStatics,
+                                     get_decomposition)
 from repro_torch.core.local_ops import LocalOps, get_local_ops
 from repro_torch.core.steps_1d_sparse import CODECS
 from repro_torch.kernels import build
@@ -44,6 +48,20 @@ class BFSResult:
     level_stats: np.ndarray      # (MAX_LEVELS, 5) float32: n_f, m_f, mode,
     #                              used, measured expand words that level;
     #                              all zeros with cfg.instrument False
+
+
+@dataclass
+class BFSBatchResult:
+    """Pod-batched searches, in the caller's root order.  No counters (the
+    batch does not accumulate them per root; use ``run``/``run_many``).
+    ``level_stats`` holds each root's own frontier sizes and modes; the
+    searches at one scan position share the lockstep trip count
+    ``n_levels``, so a root's rows past its own search read (0, 0,
+    mode, 1, wire_expand).  All zeros with cfg.instrument False."""
+    roots: np.ndarray            # (n_roots,) int64
+    parents: np.ndarray          # (n_roots, n_orig) int64
+    n_levels: np.ndarray         # (n_roots,) int64
+    level_stats: np.ndarray      # (n_roots, MAX_LEVELS, 5) float32
 
 
 # the values of the BFSConfig string fields a plan takes
@@ -71,17 +89,52 @@ class BFSPlan:
         """Graph arrays this plan ships (from the LocalOps entry)."""
         return self.ops.keys
 
+    def _level_args(self, graph_arrays: Dict[str, torch.Tensor]):
+        return self.entry.make_level_args(self.part, self.cfg, self.ops,
+                                          self.statics, graph_arrays,
+                                          self.mesh.device)
+
     def build_fn(self, graph_arrays: Dict[str, torch.Tensor]):
         """The single-root search program over shipped arrays:
         fn(root) -> (pi in the grid layout, (pr, pc, chunk) or (p, chunk),
         n_levels, counters, level_stats)."""
-        args = self.entry.make_level_args(self.part, self.cfg, self.ops,
-                                          self.statics, self.graph,
-                                          self.mesh.device)
+        args = self._level_args(graph_arrays)
 
         def fn(root: int):
-            return self.entry.body(graph_arrays, root, part=self.part,
-                                   args=args, cfg=self.cfg)
+            pis, level, ctrs, stats = self.entry.body(
+                graph_arrays, [root], part=self.part, args=args,
+                cfg=self.cfg)
+            return pis[0], level, ctrs[0], stats[0]
+        return fn
+
+    def build_batch_fn(self, graph_arrays: Dict[str, torch.Tensor],
+                       pod_axis: str = "pod"):
+        """The pod-batched program: fn(roots) -> (pis, n_levels,
+        level_stats), pis ``(*grid, n_roots, chunk)`` with the grid
+        ``(pr, pc)`` or ``(p,)``, n_levels (n_roots,) int32 and the stats
+        (n_roots, MAX_LEVELS, 5).  Pod k takes roots[k*rpp:(k+1)*rpp] and
+        scans them in order; the pods' searches at one scan position run
+        in lockstep, as ``shard_map`` over the pod axis runs them in the
+        JAX package."""
+        pods = _pod_count(self.mesh, pod_axis)
+        args = self._level_args(graph_arrays)
+
+        def fn(roots):
+            roots = [int(r) for r in np.asarray(roots).reshape(-1)]
+            _check_split(len(roots), pods)
+            rpp = len(roots) // pods
+            pis = [None] * len(roots)
+            levels = np.zeros(len(roots), np.int32)
+            stats = np.zeros((len(roots), MAX_LEVELS, 5), np.float32)
+            for j in range(rpp):
+                at = [k * rpp + j for k in range(pods)]
+                pi_j, level, _, st = self.entry.body(
+                    graph_arrays, [roots[i] for i in at], part=self.part,
+                    args=args, cfg=self.cfg)
+                for k, i in enumerate(at):
+                    pis[i], levels[i], stats[i] = pi_j[k], level, st[k]
+            pis = torch.stack(pis, dim=-2)
+            return pis, levels, stats
         return fn
 
     def compile(self) -> "BFSEngine":
@@ -153,7 +206,22 @@ def plan_bfs(graph, cfg: BFSConfig, mesh, *, local_mode: str = "dense",
     return replace(plan, graph=graph)
 
 
-def _sync(device: torch.device) -> None:
+def _pod_count(mesh, pod_axis: str) -> int:
+    if pod_axis not in mesh.shape:
+        raise ValueError(f"mesh has no {pod_axis!r} axis for batched "
+                         f"roots; axes are {tuple(mesh.shape)}")
+    return mesh.shape[pod_axis]
+
+
+def _check_split(n_roots: int, pods: int) -> None:
+    if n_roots == 0 or n_roots % pods:
+        raise ValueError(f"{n_roots} roots do not split evenly over "
+                         f"{pods} pods")
+
+
+def sync_device(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU):
+    what a host-clock search time needs after ``search``."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -168,7 +236,10 @@ class BFSEngine:
                    and run one warm-up search
       ship_count   graph shipments so far (1 after compile; run/run_many
                    never add one)
-      trace_count  search programs built so far (1 after compile)
+      trace_count  search programs built so far (1 after compile; one
+                   more for each new (pod_axis, roots-per-pod) batch)
+      batch_compile_s  cumulative seconds building pod-batched programs
+                   (0.0 until the first run_batch)
     """
 
     def __init__(self, plan: BFSPlan):
@@ -178,10 +249,12 @@ class BFSEngine:
         self.plan = plan
         self.ship_count = 0
         self.trace_count = 0
+        self.batch_compile_s = 0.0
+        self._batch_cache: Dict[Tuple[str, int], Any] = {}
         dev = plan.mesh.device
         t0 = time.perf_counter()
         self._gdev = self._ship(plan.graph.device_arrays(), dev)
-        _sync(dev)
+        sync_device(dev)
         t1 = time.perf_counter()
         self.ship_s = t1 - t0
         if dev.type == "cuda" and plan.ops.kernels:
@@ -197,7 +270,7 @@ class BFSEngine:
         # timed root; the kernels are built and loaded above whichever
         # levels it reaches
         self._fn(int(torch.argmax(self._gdev["deg_A"].reshape(-1))))
-        _sync(dev)
+        sync_device(dev)
         self.compile_s = time.perf_counter() - t1
 
     def _ship(self, arrays: Dict[str, torch.Tensor], dev: torch.device):
@@ -233,10 +306,41 @@ class BFSEngine:
     def run(self, root: int) -> BFSResult:
         return self.to_result(self.search(root))
 
-    def run_batch(self, roots: Sequence[int]):
-        """The JAX package's pod-batched search waits for a later slice."""
-        raise NotImplementedError("run_batch is not ported yet; use "
-                                  "run_many for sequential roots")
+    def search_batch(self, roots: Sequence[int], pod_axis: str = "pod"):
+        """The device side of ``run_batch``: (pis ``(*grid, n_roots,
+        chunk)`` on the device, n_levels, level_stats).  Time this plus a
+        synchronize for the batch's traversal time.  The batched program
+        is built once per (pod_axis, roots-per-pod) and kept."""
+        pods = _pod_count(self.plan.mesh, pod_axis)
+        roots = np.asarray(roots, dtype=np.int32).reshape(-1)
+        _check_split(roots.size, pods)
+        for r in roots:
+            self._check_root(r)
+        key = (pod_axis, roots.size // pods)
+        if key not in self._batch_cache:
+            t0 = time.perf_counter()
+            self._batch_cache[key] = self.plan.build_batch_fn(self._gdev,
+                                                              pod_axis)
+            self.trace_count += 1
+            self.batch_compile_s += time.perf_counter() - t0
+        return self._batch_cache[key](roots)
+
+    def run_batch(self, roots: Sequence[int],
+                  pod_axis: str = "pod") -> BFSBatchResult:
+        """Multi-source BFS with the roots spread over ``pod_axis``: each
+        pod scans its len(roots)/pods roots while the pods' level loops
+        stay in lockstep, against the one shipped graph; parents by
+        global vertex id on the host, in the caller's root order."""
+        roots = np.asarray(roots, dtype=np.int32).reshape(-1)
+        pis, levels, stats = self.search_batch(roots, pod_axis)
+        part = self.plan.part
+        # (*grid, n_roots, chunk) -> (n_roots, n) in layout A
+        pis = torch.movedim(pis, -2, 0).reshape(roots.size, part.n)
+        pis = pis[:, : part.n_orig].cpu().numpy()
+        return BFSBatchResult(roots=roots.astype(np.int64),
+                              parents=pis.astype(np.int64),
+                              n_levels=levels.astype(np.int64),
+                              level_stats=stats)
 
     def run_many(self, roots: Sequence[int]) -> List[BFSResult]:
         """The Graph500 loop: sequential searches from many roots against

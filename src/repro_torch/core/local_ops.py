@@ -177,9 +177,12 @@ def _td_strips_csr(g, f_words, args):
     """Kernel 1 over all p strips through the ``(p, n+1)`` strip
     ``col_ptr``, one launch against the allgathered bitmap; the edges
     examined are the frontier's segments in every strip (its edge
-    total)."""
+    total).  ``args.cap_f`` bounds the frontier as on the 2D entries: a
+    larger one raises (the JAX package's kernel truncated it
+    silently)."""
     return spmsv_ops.spmsv_strips_csr_min(f_words, g["col_ptr"],
-                                          g["row_idx"], args.part.chunk)
+                                          g["row_idx"], args.part.chunk,
+                                          cap_f=args.cap_f)
 
 
 def _td_strip_dcsc(g, f_words, args):

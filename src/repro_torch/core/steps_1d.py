@@ -42,6 +42,7 @@ class LevelArgs1D(NamedTuple):
     nnz: np.ndarray           # (p,) host copy of graph.nnz (dense entries)
     expand_chunks: int = 1    # pipelined expand: top-down sub-chunk steps
     cap_x: int = 0            # 1ds: ids per send bucket
+    cap_f: int = 0            # kernel csr: frontier bound (0 = none)
     codec: str = "none"       # 1ds: bucket encoding, "none" | "packed"
     instrument: bool = True   # False: no counters (the fast loop)
     use_edge_dst: bool = False  # bottom-up: rows from edge_dst (dense entries)

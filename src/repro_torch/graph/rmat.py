@@ -238,6 +238,17 @@ def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 1,
     return preprocess(src, dst, 1 << scale)
 
 
+def scale_free_standin(n: int, m_target: int, seed: int = 7,
+                       device="cuda") -> EdgeList:
+    """The JAX package's stand-in for the Twitter graph (Fig. 9, which
+    needs a download): R-MAT with a heavier hub parameter, from the host
+    stream ``rmat_edges``, preprocessed on ``device``."""
+    scale = int(np.ceil(np.log2(max(n, 2))))
+    ef = max(1, m_target // (1 << scale))
+    return rmat_graph(scale, ef, seed=seed, a=0.65, b=0.15, c=0.15,
+                      device=device)
+
+
 def random_source(edges: EdgeList, rng: np.random.Generator) -> int:
     """A random root with at least one edge (Graph500 requirement)."""
     deg = edges.out_degrees().cpu().numpy()

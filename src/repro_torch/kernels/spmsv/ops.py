@@ -245,14 +245,15 @@ def spmsv_dcsc_min(f_mask: torch.Tensor, jc: torch.Tensor, cp: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def prepare_strips(f_words: torch.Tensor, col_ptr: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def prepare_strips(f_words: torch.Tensor, col_ptr: torch.Tensor,
+                   cap_f: int = 0) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The strip launch prep: the frontier's global ids (int32,
-    ascending) from the allgathered bitmap, taken once for all strips;
-    the int64 exclusive offsets of the (strip, id) segment lengths,
-    strip-major (p * n_ids + 1 of them; their total can pass 2^31 at
-    scale 24); and that total."""
-    ids = torch.nonzero(unpack_bits(f_words)).reshape(-1).to(torch.int32)
+    ascending) from the allgathered bitmap, taken once for all strips
+    and bounded by ``cap_f`` as in ``prepare``; the int64 exclusive
+    offsets of the (strip, id) segment lengths, strip-major (p * n_ids
+    + 1 of them; their total can pass 2^31 at scale 24); and that
+    total."""
+    ids = _frontier_ids(unpack_bits(f_words), cap_f)
     idx = ids.to(torch.int64)
     offs, total = _offsets((col_ptr[:, idx + 1] - col_ptr[:, idx]).reshape(-1))
     return ids, offs, total
@@ -305,14 +306,15 @@ def launch_strips(ids, offs, total, col_ptr, row_idx, nr: int
 
 
 def spmsv_strips_csr_min(f_words: torch.Tensor, col_ptr: torch.Tensor,
-                         row_idx: torch.Tensor, nr: int
+                         row_idx: torch.Tensor, nr: int, cap_f: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 1D strips' top-down SpMSV through the strip ``col_ptr``, all p
     strips at once against the allgathered ``(n/32,)`` frontier words:
     the (p, nr) int32 candidates (for each local row the smallest global
     frontier id with an edge into it, else INT_INF) and the edges
     examined, a 0-d int64 tensor (the frontier's segments in every
-    strip).  CPU tensors take the plain version; CUDA tensors launch the
+    strip).  ``cap_f > 0`` bounds the frontier's ids: a larger frontier
+    raises.  CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
     _check_strips(f_words, col_ptr, row_idx, nr)
     tensors = (f_words, col_ptr, row_idx)
@@ -320,6 +322,6 @@ def spmsv_strips_csr_min(f_words: torch.Tensor, col_ptr: torch.Tensor,
     if not on_cpu:
         KERNEL_STRIPS.load()
         require_cuda(*tensors)
-    prep = prepare_strips(f_words, col_ptr)
+    prep = prepare_strips(f_words, col_ptr, cap_f)
     run = spmsv_strips_csr_min_plain if on_cpu else launch_strips
     return run(*prep, col_ptr, row_idx, nr), prep[1][-1]

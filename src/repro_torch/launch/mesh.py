@@ -32,15 +32,37 @@ class SimMesh:
     pr: int              # processor rows (the expand/gather axis)
     pc: int              # processor cols (the fold and rotation axis)
     device: torch.device
+    pods: Optional[int] = None   # the "pod" axis of batched roots, if any
+    names: Tuple[str, ...] = ("data", "model")   # the grid's axis names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as the JAX package's ``Mesh.shape``: "pod"
+        (only with ``pods``), then "data" and, on a 2D grid, "model"."""
+        pod = {} if self.pods is None else {"pod": self.pods}
+        return {**pod, **dict(zip(self.names, (self.pr, self.pc)))}
 
 
-def make_local_mesh(pr: int = 1, pc: int = 1, device="cuda") -> SimMesh:
+def _check_pods(pods: Optional[int]) -> None:
+    if pods is not None and pods < 1:
+        raise ValueError(f"pods={pods} must be >= 1 (or None for no pod "
+                         f"axis)")
+
+
+def make_local_mesh(pr: int = 1, pc: int = 1, device="cuda",
+                    pods: Optional[int] = None) -> SimMesh:
     if pr < 1 or pc < 1:
         raise ValueError(f"grid {pr}x{pc} must have positive sides")
-    return SimMesh(pr=pr, pc=pc, device=resolve_device(device))
+    _check_pods(pods)
+    return SimMesh(pr=pr, pc=pc, device=resolve_device(device), pods=pods)
 
 
-def make_local_mesh_1d(p: int, device="cuda") -> SimMesh:
+def make_local_mesh_1d(p: int, device="cuda",
+                       pods: Optional[int] = None) -> SimMesh:
     """The p-strip mesh of the 1D decompositions: grid (p, 1), the
     counterpart of the JAX package's single "data" axis of size p."""
-    return make_local_mesh(p, 1, device=device)
+    if p < 1:
+        raise ValueError(f"{p} strips must be positive")
+    _check_pods(pods)
+    return SimMesh(pr=p, pc=1, device=resolve_device(device), pods=pods,
+                   names=("data",))

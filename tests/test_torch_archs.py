@@ -34,6 +34,8 @@ from repro_torch.kernels.spmsv import strip
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 
 _HERE = os.path.dirname(__file__)
+# bfs-rmat-multiroot is bfs-rmat run through run_batch
+# (tests/test_torch_batch.py)
 _ARCHS_2D = [a for a in r_list_archs() if a.startswith("bfs-rmat")
              and r_get_config(a).decomposition == "2d"
              and a != "bfs-rmat-multiroot"]
@@ -73,8 +75,7 @@ def _same(want, got, local_mode):
 
 
 def test_registry_holds_every_reference_bfs_arch():
-    want = sorted(a for a in r_list_archs() if a.startswith("bfs-rmat")
-                  and a != "bfs-rmat-multiroot")
+    want = sorted(a for a in r_list_archs() if a.startswith("bfs-rmat"))
     assert sorted(a for a in list_archs() if a.startswith("bfs")) == want
     for a in want:
         assert dataclasses.asdict(get_config(a)) == \

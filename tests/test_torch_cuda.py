@@ -7,6 +7,7 @@ it runs where the port runs:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Without a card every test skips (the kernels have no CPU mode)."""
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +26,7 @@ from repro_torch.kernels.frontier_codec import ops as codec_ops
 from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as sp_ops
 from repro_torch.kernels.spmsv import strip
-from repro_torch.launch.mesh import make_local_mesh_1d
+from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 
 pytestmark = pytest.mark.cuda
 
@@ -672,3 +673,36 @@ def test_strip_csr_sessions_match_dcsc(dev, dec, chunks, instrument):
             assert sp_ops.KERNEL_STRIPS.launches > n
     assert (out["csr"].parents == out["dcsc"].parents).all()
     assert out["csr"].n_levels == out["dcsc"].n_levels
+
+
+@pytest.mark.parametrize("dec,storage", [("2d", "dcsc"), ("1d", "csr"),
+                                         ("1ds", "dcsc")])
+def test_run_batch_matches_run_many_with_kernels(dev, dec, storage):
+    """``run_batch`` over 2 pods on the card, kernels launched, gives
+    ``run_many``'s parents on every root, the lockstep trip count of each
+    scan position, and (1d/1ds, which switch per pod) each root's own
+    stats rows."""
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    if dec == "2d":
+        g = build_blocked(e, 1, 1, align=32, cap_pad=32)
+        mesh = make_local_mesh(1, 1, device=dev, pods=2)
+    else:
+        g = build_blocked_1d(e, 16, align=32, cap_pad=32,
+                             with_col_ptr=True)
+        mesh = make_local_mesh_1d(16, device=dev, pods=2)
+    deg = e.out_degrees().cpu().numpy()
+    roots = [int(r) for r in np.flatnonzero(deg > 0)[[0, 9, 40, 200]]]
+    eng = plan_bfs(g, BFSConfig(decomposition=dec, storage=storage), mesh,
+                   local_mode="kernel").compile()
+    singles = eng.run_many(roots)
+    n = bu_ops.KERNEL.launches
+    batch = eng.run_batch(roots)
+    assert bu_ops.KERNEL.launches > n
+    own = np.array([s.n_levels for s in singles])
+    assert np.array_equal(batch.n_levels, np.tile(np.maximum(own[:2],
+                                                             own[2:]), 2))
+    for i, s in enumerate(singles):
+        assert np.array_equal(batch.parents[i], s.parents), i
+        if dec != "2d":
+            assert np.array_equal(batch.level_stats[i, :s.n_levels, :3],
+                                  s.level_stats[:s.n_levels, :3])

@@ -157,10 +157,10 @@ def test_plan_errors_up_front(graphs):
                 dict(decomposition="3d")):
         with pytest.raises(ValueError, match="is not one of"):
             plan_bfs(g_t, BFSConfig(**bad), mesh)
-    # what the port still lacks: pod-batched roots and their arch
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("bfs-rmat-multiroot")
-    with pytest.raises(NotImplementedError, match="run_batch"):
+    # pod-batched roots need a mesh with a pod axis; their arch is
+    # registered
+    assert get_config("bfs-rmat-multiroot").storage == "dcsc"
+    with pytest.raises(ValueError, match="no 'pod' axis"):
         plan_bfs(g_t, BFSConfig(), mesh).compile().run_batch([0, 1])
     # "1d" is ported: a 2D graph is the wrong graph type for it
     with pytest.raises(TypeError, match="graph type"):

@@ -178,7 +178,7 @@ def test_session_contract_and_trees(small):
         assert tv.check(root, torch.from_numpy(r.parents)) == (True, "ok")
         assert r.parents.shape == (e.n,)
     assert np.array_equal(res[0].parents, res[len(roots)].parents)
-    with pytest.raises(NotImplementedError, match="run_batch"):
+    with pytest.raises(ValueError, match="no 'pod' axis"):
         eng.run_batch(roots)
     with pytest.raises(ValueError, match="out of range"):
         eng.run(e.n)
@@ -193,8 +193,8 @@ def test_plan_errors_up_front(small):
         with pytest.raises(ValueError, match="lacks arrays"):
             plan_bfs(g, BFSConfig(decomposition=dec, storage="csr"),
                      mesh, local_mode="kernel")
-    # what the port still lacks on the strips: pod-batched roots
-    with pytest.raises(NotImplementedError, match="run_batch"):
+    # pod-batched roots need a mesh with a pod axis
+    with pytest.raises(ValueError, match="no 'pod' axis"):
         plan_bfs(g, _cfg(use_edge_dst=True, compact_updates=True),
                  mesh).compile().run_batch(roots)
     with pytest.raises(ValueError, match="frontier codec"):
@@ -223,3 +223,36 @@ def test_mesh_1d_on_cuda_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         make_local_mesh_1d(16)
+
+
+@pytest.mark.parametrize("dec", ["1d", "1ds"])
+def test_cap_f_smaller_than_frontier_raises_on_strips(dec):
+    """The strip csr kernel entry bounds the frontier by ``cap_f`` as the
+    2D entries do: a frontier of more ids raises (the JAX package's
+    kernel truncated it silently), one of exactly ``cap_f`` ids runs, and
+    a ``cap_f`` at the largest frontier gives the parents of
+    ``cap_f=0``.  Top-down only, on 4 strips at scale 10."""
+    e = rmat_graph(10, 8, seed=4, device="cpu")
+    g = build_blocked_1d(e, 4, align=32, cap_pad=32, with_col_ptr=True)
+    mesh = make_local_mesh_1d(4, device="cpu")
+    cfg = BFSConfig(decomposition=dec, direction_optimizing=False)
+    deg = e.out_degrees().numpy()
+    roots = [int(r) for r in np.flatnonzero(deg > 0)[[0, 40, 200]]]
+    # compile() warms up from the hub, so its search counts too
+    searches = [int(np.argmax(deg))] + roots
+    free = plan_bfs(g, cfg, mesh, local_mode="kernel").compile()
+    want = free.run_many(searches)
+    widest = int(max(r.level_stats[:, 0].max() for r in want))
+    assert widest > 1
+    with pytest.raises(ValueError, match=f"exceeds cap_f={widest - 1}"):
+        plan_bfs(g, cfg, mesh, local_mode="kernel",
+                 cap_f=widest - 1).compile().run_many(roots)
+    with pytest.raises(ValueError, match="frontier of .* exceeds cap_f=1"):
+        plan_bfs(g, cfg, mesh, local_mode="kernel", cap_f=1).compile()
+    capped = plan_bfs(g, cfg, mesh, local_mode="kernel",
+                      cap_f=widest).compile()
+    for root, w in zip(searches, want):
+        got = capped.run(root)
+        assert np.array_equal(got.parents, w.parents), root
+        assert got.n_levels == w.n_levels
+        assert np.array_equal(got.level_stats, w.level_stats)
