@@ -190,6 +190,8 @@ MESH_SCALE = 16
 STRIPS = 16                   # the 1ds path's simulated mesh
 STRIP_CHUNKS = (1, 4)         # its expand_chunks runs
 OVER_CAP = 64                 # a bucket capacity that makes levels overflow
+HEAL_ATTEMPTS = 12            # phase 8e: undersize_cap(52448) = 3264 doubles
+#                               to the 2**20-vertex chunk in 9 steps
 # H100 SXM published memory rate (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer instructions: a GH100 SM has 64 INT32 lanes (against 128
@@ -1376,7 +1378,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.core import decomp, steps_1d_sparse
     from repro_torch.core.comm_model import (codec_bits, codec_packed_words,
                                              rmat_strip_skew)
-    from repro_torch.core.engine import plan_bfs
+    from repro_torch.core.engine import plan_bfs, run_bfs_healed
     from repro_torch.core.frontier import INT_INF, pack_bits
     from repro_torch.core.metrics import harmonic_mean, teps
     from repro_torch.core.ref import TreeValidator
@@ -1388,7 +1390,13 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.kernels.spmsv import ops as sp_ops
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+    from repro_torch.core.validate import validate_device, validate_parents
+    from repro_torch.runtime.faultinject import (PARENT_FAULTS,
+                                                 inject_parents,
+                                                 undersize_cap)
+    from repro_torch.runtime.retry import CapacityOverflow
 
+    path_2d_csr = ("spmsv_csr_min", "bottomup_substep")
     path_2d_dcsc = ("spmsv_dcsc_min", "bottomup_substep")
     path_1d_csr = ("spmsv_strips_csr_min", "bottomup_substep")
     launches_new = {}      # the launches of phases 3b and 8b
@@ -1517,6 +1525,107 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
               f"levels bit-identical on every root, no counters")
         return {"search_ms": ms_f, "teps_hmean": hm_f,
                 "host_reads": reads_f, "host_reads_instrumented": reads_i}
+
+    def validate_session(eng, tag, tv, path, limit) -> dict:
+        """The Graph500 loop with validation on ``eng``: ``run_many(roots,
+        validate=True)``, each report ok, its n_tree the host tree's size,
+        and ``tv`` (the separate edge-list TreeValidator) agreeing.  Then
+        each root's search again, and on its device parents the engine's
+        validator alone (``validate_device``), host-timed beside
+        ``tv.check`` on the same tree: validation stays outside every
+        timed search.  The validated searches' launches of ``path`` join
+        ``launches_new``.  The peak is reset here: the validation's own
+        (the graph and sessions resident, the validator's pieces and
+        ``tv``'s checks on top) and the phase's until here (``tv``'s keys
+        included) must each stay under ``limit`` GiB."""
+        before = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        res = eng.run_many(roots, validate=True)
+        lv = {k: kernels[k].launches for k in path}
+        for k, n in lv.items():
+            check(n > 0, f"kernel {k} was never launched by the validated "
+                         f"{tag} searches")
+            launches_new[k] = launches_new.get(k, 0) + n
+        n_orig = eng.plan.part.n_orig
+        v_ms, t_ms, n_tree = [], [], []
+        for r, x in zip(roots, res):
+            rep = x.validation
+            check(rep is not None and rep.ok, f"{tag} root {r}: "
+                  f"{rep and rep.summary()}")
+            check(rep.n_tree == int((x.parents >= 0).sum()),
+                  f"{tag} root {r}: n_tree {rep.n_tree} is not the host "
+                  f"tree's size")
+            out = eng.search(r)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            again = validate_device(eng, r, out[0])
+            t1 = time.perf_counter()
+            ok, msg = tv.check(r, out[0].reshape(-1)[:n_orig])
+            t2 = time.perf_counter()
+            check(again == rep and ok == rep.ok,
+                  f"{tag} root {r}: the validator's verdict {again.summary()}"
+                  f" and TreeValidator's ({msg}) disagree")
+            v_ms.append((t1 - ts) * 1e3)
+            t_ms.append((t2 - t1) * 1e3)
+            n_tree.append(rep.n_tree)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{tag}: run_many(validate=True) on {len(roots)} roots, every "
+              f"report ok, n_tree the host tree's size, TreeValidator "
+              f"agreeing; the engine's validator a tree (validate_device, "
+              f"host-timed, one host read): median "
+              f"{float(np.median(v_ms)):.3f} ms, min {min(v_ms):.3f}, max "
+              f"{max(v_ms):.3f}; TreeValidator.check a tree median "
+              f"{float(np.median(t_ms)):.3f} ms, min {min(t_ms):.3f}, max "
+              f"{max(t_ms):.3f}; launches {lv}; peak device memory of the "
+              f"validated searches and checks {peak:.3f} GiB (limit "
+              f"{limit:.0f}; the phase's until then {before:.3f}); "
+              f"{smi_line()}")
+        check(max(peak, before) < limit, f"{tag}: peak {peak:.2f} GiB, the "
+              f"phase's before it {before:.2f}, limit {limit} GiB")
+        return {"validate_ms": v_ms, "tree_validator_ms": t_ms,
+                "n_tree": n_tree, "launches": lv, "peak_gib": peak,
+                "peak_before_gib": before}
+
+    def kill_cases(eng, tag, tv, root, par_dev) -> list:
+        """The five PARENT_FAULTS (seed 0) on one root's tree: injected on
+        the host (the edge keys of ``tv`` and one BFS's true depths, both
+        on the card, made once for the five), each validated on the card
+        with ``validate_parents``, which must flag it, as ``tv`` must."""
+        ts = time.perf_counter()
+        depth = tv.depths(root)
+        par = par_dev.cpu().numpy().astype(np.int64)
+        setup_s = time.perf_counter() - ts
+        cases = []
+        for kind in PARENT_FAULTS:
+            ts = time.perf_counter()
+            bad, info = inject_parents(kind, par, root, 0, n=edges.n,
+                                       src=edges.src, dst=edges.dst,
+                                       chunk=eng.plan.part.chunk,
+                                       keys=tv.keys, depth=depth)
+            inject_s = time.perf_counter() - ts
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            rep = validate_parents(eng, root, bad)
+            val_ms = (time.perf_counter() - ts) * 1e3
+            ok, msg = tv.check(root, torch.from_numpy(bad).to(dev))
+            check(not rep.ok, f"8f {tag} {kind}: the validator missed "
+                              f"{info}")
+            check(not ok, f"8f {tag} {kind}: TreeValidator passed {info}")
+            print(f"8f kill {tag} {kind}: {info}; violations "
+                  f"{rep.violations} (TreeValidator: {msg}); injection "
+                  f"{inject_s:.3f} s on the host, validate_parents "
+                  f"{val_ms:.3f} ms (the host array shipped and checked on "
+                  f"the card)")
+            cases.append({"session": tag, "kind": kind, "info": info,
+                          "violations": rep.violations, "inject_s": inject_s,
+                          "validate_ms": val_ms})
+        print(f"8f kill {tag}: the oracle's true depths (one BFS on the card)"
+              f" and the host copy of the tree {setup_s:.3f} s, once for the "
+              f"five")
+        cases[0]["setup_s"] = setup_s
+        return cases
     # ---------------------------------------------------------------- 3
     phase(f"3 2D path: Graph500 session, scale {SCALE}, grid 1x1, "
           f"local_mode='kernel'")
@@ -1600,6 +1709,10 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     torch.cuda.synchronize()
     val_s = time.perf_counter() - t3
     print(f"validated {N_ROOTS} trees on the card in {val_s:.3f} s")
+    rec_val_3 = {"csr": validate_session(engine, "2D csr session", validator,
+                                         path_2d_csr, 40.0)}
+    # phase 8f's 2d 1x1 cases: the 2D graph does not outlive phase 3
+    kills = kill_cases(engine, "2d 1x1", validator, roots[0], parents[0])
     del validator
     torch.cuda.empty_cache()
     dense = plan_bfs(graph, cfg, mesh, local_mode="dense").compile()
@@ -1615,7 +1728,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         "compile_s": engine.compile_s, "roots": roots, "levels": levels,
         "modes": modes, "search_ms": search_ms, "teps_hmean": hmean,
         "peak_gib": peak_gib, "validate_s": val_s, "launches": launches,
-        "fast": rec_fast}
+        "fast": rec_fast, "validation": rec_val_3}
 
     # --------------------------------------------------------------- 3b
     phase(f"3b the registered bfs-rmat (2d, dcsc, reduce) on the same graph "
@@ -1668,8 +1781,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                          "parents": par_a, "levels": lv_a}
         if arch == "bfs-rmat":
             stats_2d = st_a
-        if arch == "bfs-rmat":
             eng_dcsc = eng_a
+            rec_val_3["bfs-rmat"] = validate_session(
+                eng_a, "bfs-rmat (2d, dcsc)", validator, path_2d_dcsc, 40.0)
         del eng_a
         if arch != "bfs-rmat":
             del runs_2d[arch]["parents"]
@@ -1910,6 +2024,10 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     archs_2d = [a for a in list_archs() if a.startswith("bfs-rmat")
                 and get_config(a).decomposition == "2d"
                 and a != "bfs-rmat-multiroot"]    # bfs-rmat batched: 3c
+    # and every tree through the engine's own validator (validate_parents
+    # on the kernel session's shards), whose verdict must be
+    # TreeValidator's, the "*_pure" folds' overflowed trees included
+    flagged = []
     for pr, pc in ((2, 2), (4, 4)):
         sg = build_blocked(small, pr, pc)
         smesh = make_local_mesh(pr, pc, device=dev)
@@ -1922,10 +2040,21 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                 r = rmat.random_source(small, srng)
                 a, b = ek.run(r), ed.run(r)
                 same_as_dense(a, b, r, f"{arch} {pr}x{pc}", validate=not pure)
+                rep = validate_parents(ek, r, a.parents)
+                ok, msg = small_val.check(r, torch.from_numpy(a.parents).to(
+                    dev))
+                check(rep.ok == ok, f"{arch} {pr}x{pc} root {r}: validator "
+                      f"{rep.summary()} against TreeValidator {msg}")
+                if not rep.ok:
+                    flagged.append((arch, f"{pr}x{pc}", r, rep.violations))
                 print(f"{pr}x{pc} {arch:>16} root {r:>6}: {a.n_levels} "
                       f"levels: kernel == dense in parents, levels, "
-                      f"level_stats and counters"
-                      + ("" if pure else "; tree valid"))
+                      f"level_stats and counters; validator "
+                      f"{'ok' if rep.ok else 'FLAGGED'} as TreeValidator ("
+                      f"{msg})")
+    print(f"phase 5: the validator flagged {len(flagged)} trees, each one "
+          f"TreeValidator rejects: {flagged}")
+    record["mesh_validation_flagged"] = flagged
     # the 1D leg: 16 strips, both codecs, 1 and 4 expand steps, and a
     # bucket capacity of 32 ids on top-down-only runs, which overflows
     # the wider levels into the dense fallback
@@ -2393,6 +2522,15 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     check(peak_csr < 75.0, f"strip peak {peak_csr:.2f} GiB >= 75 GiB")
     rec_1ds["csr_strips"] = {"storage_words": words_1d, "runs": csr_1d,
                              "peak_gib": peak_csr, "peak_phase8_gib": peak_8}
+    # phase 8's validation: the C=1 dcsc session and bfs-rmat-1d (kernel
+    # 1's strip entry), the peak since 8b's reset
+    rec_1ds["validation"] = {
+        "1ds": validate_session(runs[c0]["engine"], "1ds C=1 (dcsc, packed)",
+                                validator, ("spmsv_strip_min",
+                                            "bottomup_substep") + codec,
+                                75.0),
+        "bfs-rmat-1d": validate_session(eng_1d_csr, "bfs-rmat-1d (csr strips)",
+                                        validator, path_1d_csr, 75.0)}
 
     # --------------------------------------------------------------- 8c
     phase(f"8c phase 8's 1ds dcsc session (expand_chunks {c0}) batched over "
@@ -2474,6 +2612,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     rec_1ds["cap_f"] = {"below": below, "raised": raised,
                         "widest": widest, "launches": n}
     del eng, out, validator, stats_1d
+
     name = {strip.WALK_FRONTIER: "frontier", strip.WALK_COLUMNS: "column"}
     for kname, by_kind in walks_8.items():
         for kind, ws in by_kind.items():
@@ -2489,6 +2628,95 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                   f"walk {f_ms:.4f} ms, column walk {c_ms:.4f} ms")
     rec_1ds["walks"] = walks_8
     rec_1ds["near_threshold"] = near_8
+
+    # --------------------------------------------------------------- 8e
+    phase(f"8e heal: run_bfs_healed on the {STRIPS} strips (1ds, dcsc, "
+          f"packed, instrumented, top-down only as the JAX package's fault "
+          f"matrix heals it) from cap_x = undersize_cap(planned cap_x, "
+          f"seed=0)")
+    cfg_h = BFSConfig(decomposition="1ds", storage="dcsc",
+                      frontier_codec="packed", direction_optimizing=False)
+    squeezed = undersize_cap(cap_x, 0)
+    path_8e = ("spmsv_strip_min",) + codec
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ts = time.perf_counter()
+    healed = run_bfs_healed(graph, cfg_h, mesh, roots[0], cap_x=squeezed,
+                            max_attempts=HEAL_ATTEMPTS, validate=True,
+                            local_mode="kernel")
+    torch.cuda.synchronize()
+    heal_s = time.perf_counter() - ts
+    log = healed.retry_log
+    check(len(log) > 1 and log[-1]["outcome"] == "ok"
+          and all(a["outcome"] == "overflow" for a in log[:-1]),
+          f"8e: cap_x={squeezed} did not overflow and heal: {log}")
+    for a in log:
+        print(f"attempt {a['attempt']}: cap_x={a['cap_value']} -> "
+              f"{a['outcome']}, overflowed levels "
+              f"{a['detail'].get('levels', [])}")
+    lh = {k: kernels[k].launches for k in path_8e}
+    for k, n in lh.items():
+        check(n > 0, f"kernel {k} was never launched by the healed run")
+        launches_new[k] = launches_new.get(k, 0) + n
+    heal_ms = []
+    for i, r in enumerate(roots):
+        ts = time.perf_counter()
+        res = healed.engine.run(r, validate=True)
+        heal_ms.append((time.perf_counter() - ts) * 1e3)
+        check(torch.equal(torch.from_numpy(res.parents).to(dev),
+                          runs[c0]["parents"][i].to(torch.int64)),
+              f"8e: the healed session's parents differ from phase 8's at "
+              f"root {r}")
+    exhausted = None
+    try:
+        run_bfs_healed(graph, cfg_h, mesh, roots[0], cap_x=squeezed,
+                       max_attempts=1, local_mode="kernel")
+    except CapacityOverflow as exc:
+        exhausted = exc
+    check(exhausted is not None and len(exhausted.history) == 1,
+          "8e: max_attempts=1 did not raise CapacityOverflow")
+    peak_8e = torch.cuda.max_memory_allocated() / 2**30
+    print(f"healed from cap_x={squeezed} (planned {cap_x}) to "
+          f"{healed.plan.statics.cap_x} in {len(log)} attempts, "
+          f"{heal_s:.3f} s (each attempt a session built and one validated "
+          f"search from root {roots[0]}); the healed session on all "
+          f"{N_ROOTS} roots, validate=True: parents equal phase 8's, "
+          f"run ms a root median {float(np.median(heal_ms)):.3f} (search, "
+          f"validation and host copy); launches {lh}; peak device memory "
+          f"{peak_8e:.3f} GiB; {smi_line()}")
+    print(f"max_attempts=1: CapacityOverflow: {exhausted}; history "
+          f"{exhausted.history_json()}")
+    check(peak_8e < 75.0, f"8e peak {peak_8e:.2f} GiB >= 75 GiB")
+    rec_1ds["heal"] = {"cap_x0": squeezed, "cap_x_planned": cap_x,
+                       "retry_log": log, "heal_s": heal_s,
+                       "run_ms": heal_ms, "launches": lh,
+                       "peak_gib": peak_8e,
+                       "exhausted": str(exhausted),
+                       "exhausted_history": exhausted.history_json()}
+    del healed, res
+
+    # --------------------------------------------------------------- 8f
+    phase("8f kill: the five PARENT_FAULTS on one root of each scale-"
+          f"{SCALE} session (2d 1x1 in phase 3; 1d and 1ds on {STRIPS} "
+          f"strips): validate_parents flags every one")
+    validator = TreeValidator(edges.n, edges.src, edges.dst)
+    kills += kill_cases(eng_1d_csr, "1d (bfs-rmat-1d)", validator,
+                        roots[0], runs[c0]["parents"][0])
+    kills += kill_cases(runs[c0]["engine"], "1ds C=1", validator, roots[0],
+                        runs[c0]["parents"][0])
+    del validator
+    torch.cuda.empty_cache()
+    check(len(kills) == 3 * len(PARENT_FAULTS),
+          f"8f: {len(kills)} kill cases")
+    inject_s = sum(c["inject_s"] + c.get("setup_s", 0.0) for c in kills)
+    val_ms = [c["validate_ms"] for c in kills]
+    print(f"8f: all {len(kills)} kill cases flagged by the validator and by "
+          f"TreeValidator; host cost of the injections {inject_s:.3f} s in "
+          f"all; validate_parents on the card median "
+          f"{float(np.median(val_ms)):.3f} ms, min {min(val_ms):.3f}, max "
+          f"{max(val_ms):.3f}; {smi_line()}")
+    rec_1ds["kill"] = kills
     for run in runs.values():
         del run["parents"]
     torch.cuda.empty_cache()

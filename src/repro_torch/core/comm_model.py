@@ -1,7 +1,8 @@
 """The paper's §6 communication model, the parts the port reads: the
 whole-search 2D forms of Table 1 and Eq. 2, wire words per level of the
 1D dense, chunked, sparse and packed frontier exchanges and of the 2D
-bitmap fold, the packed codec's widths, and the 1ds bucket planning.
+bitmap fold, the packed codec's widths, the 1ds bucket planning and
+the Graph500 validator's collective budget.
 
 Counts are in the paper's 64-bit words.  These are the closed forms of
 the JAX package's ``core/comm_model.py`` (which imports no JAX but is
@@ -13,6 +14,7 @@ operation order, as its in-program counters do.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 
 def topdown_words(n: int, m: int, pr: int, pc: int) -> float:
@@ -140,3 +142,25 @@ def rmat_strip_skew(p: int, a: float = 0.57, b: float = 0.19) -> float:
     if p <= 1:
         return 1.0
     return float((a + b) ** math.log2(p))
+
+
+def validate_collective_budget(decomposition: str) -> Dict[str, int]:
+    """Whole-program collective budget of the sharded parent-tree
+    validator (``core/validate.py``), per decomposition: one tiled
+    all_gather per mesh axis to replicate the candidate parents (1 for
+    the strip entries, 2 for "2d"), one psum to OR the per-shard
+    tree-edge marks and one psum for the (6,) verdict.  Everything else
+    (pointer doubling, the per-slot level and reach checks) is
+    shard-local.  On the simulated mesh each gather is the parents read
+    in global order and each psum a sum over the shard loop."""
+    if decomposition == "2d":
+        gathers = 2
+    elif decomposition in ("1d", "1ds"):
+        gathers = 1
+    else:
+        raise ValueError(
+            f"no validator collective budget for {decomposition!r}; "
+            "extend validate_collective_budget alongside the new "
+            "decomposition's local_edges hook")
+    return {"all-gather": gathers, "all-reduce": 2,
+            "total": gathers + 2}

@@ -12,11 +12,14 @@ Registered:
   "1ds" the same strips with the sparse owner-directed exchange, capped
         buckets (``PlanStatics.cap_x``) with a dense fallback
         (core/steps_1d_sparse.py)
+
+Each entry also carries the Graph500 validator's edge hook
+(``local_edges``, ``edge_keys``; ``core/validate.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +62,15 @@ class Decomposition:
     body: Callable            # (g, roots, *, part, args, cfg) -> the
     #                           lockstep searches, one root a pod
     validate: Callable        # (part, statics) -> None (raises on bad plan)
+    # the Graph500 validator's edge hook: ``local_edges(g, part, shard,
+    # start, stop) -> (u, v, valid)`` enumerates slots [start, stop) of
+    # one shard's edge slots (``shard`` indexes the grid dims of the
+    # arrays: (i, j) or (i,)) as int64 GLOBAL layout-A ids, ``u -> v`` a
+    # stored directed edge iff ``valid``; slots past the shard's edges
+    # still yield in-range ids.  ``edge_keys`` names the graph arrays it
+    # reads.  An entry without a hook cannot be validated.
+    edge_keys: Tuple[str, ...] = ()
+    local_edges: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Decomposition] = {}
@@ -253,11 +265,55 @@ def _validate_2d(part, statics: PlanStatics) -> None:
                          "(pass graph.cap_seg)")
 
 
+# The validator's edge slots are read from the CSR side, ``col_idx`` with
+# the row of each slot recovered from ``row_ptr``, which every LocalOps
+# entry ships.  The JAX package's hooks read the CSC side (``edge_src``/
+# ``row_idx``) for "2d" and ``edge_dst`` for the strips, which the kernel
+# entries do not ship and strips built ``with_edge_lists=False`` do not
+# have.  Both orientations store the same multiset of valid slots, so
+# every count of the validator is the same.
+EDGE_KEYS = ("row_ptr", "col_idx", "nnz")
+
+
+def _csr_slots(g, shard, start: int, stop: int):
+    """(source field, local row, valid) of CSR slots [start, stop) of one
+    shard: the row of a slot is the last row whose ``row_ptr`` entry is at
+    or below it (clamped to the last row past the shard's edges)."""
+    rp = g["row_ptr"][shard]
+    slot = torch.arange(start, stop, dtype=rp.dtype, device=rp.device)
+    row = torch.searchsorted(rp, slot, right=True).sub_(1)
+    row.clamp_(0, rp.numel() - 2)
+    valid = slot < g["nnz"][shard]
+    return g["col_idx"][shard][start:stop].to(torch.int64), row, valid
+
+
+def _local_edges_2d(g, part: Partition2D, shard, start: int, stop: int):
+    """(u, v, valid) for block (i, j): CSR ``col_idx`` is the block-local
+    source (column j owns sources [j*nc, (j+1)*nc)), the row the
+    block-local dest (row i owns dests [i*nr, (i+1)*nr)).  The JAX
+    package reads the CSC side (``edge_src``, ``row_idx``): the same
+    valid slots in another order."""
+    i, j = shard
+    src, row, valid = _csr_slots(g, shard, start, stop)
+    return src.add_(j * part.nc), row.add_(i * part.nr), valid
+
+
+def _local_edges_1d(g, part: Partition1D, shard, start: int, stop: int):
+    """(u, v, valid) for strip i: CSR ``col_idx`` is already the GLOBAL
+    source, the row the strip-local dest (strip i owns [i*chunk,
+    (i+1)*chunk)).  The JAX package reads ``edge_dst`` for the dest: the
+    same valid slots."""
+    (i,) = shard
+    src, row, valid = _csr_slots(g, shard, start, stop)
+    return src, row.add_(i * part.chunk), valid
+
+
 register_decomposition(Decomposition(
     name="2d", partition_cls=Partition2D, graph_cls=BlockedGraph,
     axis_sizes=lambda part: (part.pr, part.pc),
     make_level_args=_make_args_2d, body=_bfs_body_2d,
-    validate=_validate_2d))
+    validate=_validate_2d, edge_keys=EDGE_KEYS,
+    local_edges=_local_edges_2d))
 
 
 # ---------------------------------------------------------------------------
@@ -340,4 +396,5 @@ for _name, _td, _bu, _validate in (
         axis_sizes=lambda part: (part.p, 1),
         make_level_args=_make_args_strip,
         body=_make_strip_body(_td, _bu, sparse=_name == "1ds"),
-        validate=_validate))
+        validate=_validate, edge_keys=EDGE_KEYS,
+        local_edges=_local_edges_1d))

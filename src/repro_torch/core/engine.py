@@ -16,16 +16,22 @@ then run BFS from 16-64 roots", so a session has three stages:
           one search; ``ship_s`` and ``compile_s`` report the two costs
           apart.
 
-  run     ``BFSEngine.run(root)`` / ``run_many(roots)`` reuse both.
+  run     ``BFSEngine.run(root)`` / ``run_many(roots)`` reuse both;
+          ``validate=True`` checks each tree on the device with the
+          Graph500 validator (``core/validate.py``).
           ``run_batch(roots, pod_axis="pod")`` runs the roots spread
           over the mesh's pod axis, the searches of each scan position
           in lockstep (the JAX package's pod-batched program).
+
+``run_bfs_healed`` plans, compiles and runs a "1ds" session with a
+bounded ``cap_x`` escalation when its buckets overflow (the JAX
+package's self-healing session).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +54,8 @@ class BFSResult:
     level_stats: np.ndarray      # (MAX_LEVELS, 5) float32: n_f, m_f, mode,
     #                              used, measured expand words that level;
     #                              all zeros with cfg.instrument False
+    validation: Optional[Any] = None  # ValidationReport when run(...,
+    #                              validate=True); None otherwise
 
 
 @dataclass
@@ -303,8 +311,26 @@ class BFSEngine:
                          counters={k: float(v) for k, v in ctr.items()},
                          level_stats=np.asarray(stats))
 
-    def run(self, root: int) -> BFSResult:
-        return self.to_result(self.search(root))
+    def run(self, root: int, validate: bool = False) -> BFSResult:
+        """One whole search against the shipped graph, results on host.
+
+        ``validate=True`` runs the Graph500 parent-tree validator
+        (``core/validate.py``) on the DEVICE parent array, before its host
+        copy, where the graph's shards live: the report is attached as
+        ``result.validation`` and a failing tree raises ``ValidationError``
+        carrying it.  The validator is built on the first validated run
+        and kept."""
+        out = self.search(root)
+        rep = None
+        if validate:
+            from repro_torch.core import validate as _validate
+            rep = _validate.validate_device(self, self._check_root(root),
+                                            out[0])
+        res = self.to_result(out)
+        res.validation = rep
+        if rep is not None and not rep.ok:
+            raise _validate.ValidationError(rep)
+        return res
 
     def search_batch(self, roots: Sequence[int], pod_axis: str = "pod"):
         """The device side of ``run_batch``: (pis ``(*grid, n_roots,
@@ -342,7 +368,150 @@ class BFSEngine:
                               n_levels=levels.astype(np.int64),
                               level_stats=stats)
 
-    def run_many(self, roots: Sequence[int]) -> List[BFSResult]:
+    def run_many(self, roots: Sequence[int], validate: bool = False,
+                 monitor=None) -> List[BFSResult]:
         """The Graph500 loop: sequential searches from many roots against
-        the one shipped graph and program."""
-        return [self.run(int(r)) for r in roots]
+        the one shipped graph and program.
+
+        ``monitor`` takes a ``runtime.straggler.StragglerMonitor``: each
+        root's wall time (search, host copy and, with ``validate``, the
+        validation) is fed through ``monitor.observe(step, dt)``, so
+        anomalously slow roots are recorded as its events, never raised
+        here."""
+        results = []
+        for step, r in enumerate(roots):
+            t0 = time.perf_counter()
+            results.append(self.run(int(r), validate=validate))
+            if monitor is not None:
+                monitor.observe(step, time.perf_counter() - t0)
+        return results
+
+
+# ---------------------------------------------------------------------------
+# Self-healing session: bounded cap_x replan-retry
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class HealedRun:
+    """Result of ``run_bfs_healed``: the final (healthy) session plus the
+    structured escalation log, one entry per plan attempt, empty when the
+    first plan was already overflow-free."""
+    result: BFSResult
+    engine: BFSEngine
+    plan: BFSPlan
+    retry_log: List[Dict[str, Any]]
+
+
+def _overflow_levels_1ds(plan: BFSPlan, stats) -> List[int]:
+    """Levels whose sparse exchange fell back to the dense bitmap.
+
+    The "1ds" exchange never raises on bucket overflow: it reverts the
+    level to the dense bitmap (parents stay exact, the wire jumps to the
+    (p-1)*n/64 dense words).  An instrumented run records the measured
+    wire per level (stats column 4), so a fallback shows on the host: a
+    used top-down level whose wire matches the dense formula instead of
+    the sparse or packed words its frontier size (column 0) predicts, in
+    the JAX package's float32 closed forms.  The double check (== dense
+    AND != sparse) keeps frontier sizes sitting exactly at the crossover,
+    where both formulas agree and there is nothing to heal, out of the
+    list."""
+    part, cfg = plan.part, plan.cfg
+    C = plan.statics.expand_chunks
+    p = part.p
+    stats = np.asarray(stats, dtype=np.float64)
+    n_f = stats[:, 0]
+    if cfg.frontier_codec == "packed":
+        bits = comm_model.codec_bits(part.chunk // C)
+        exp = np.array([comm_model.compressed_expand_1d_words(
+            f, p, bits, C) for f in n_f])
+    else:
+        exp = np.array([comm_model.sparse_expand_1d_words(f, p)
+                        for f in n_f])
+    dense = comm_model.chunked_expand_1d_level_words(part.n, p, C) \
+        if C > 1 else comm_model.expand_1d_level_words(part.n, p)
+    exp32 = np.float32(exp).astype(np.float64)
+    dense32 = float(np.float32(dense))
+    wire = stats[:, 4]
+    over = ((stats[:, 3] > 0) & (stats[:, 2] == 0)
+            & np.isclose(wire, dense32, rtol=1e-4)
+            & ~np.isclose(wire, exp32, rtol=1e-4))
+    return [int(i) for i in np.nonzero(over)[0]]
+
+
+def run_bfs_healed(graph, cfg: BFSConfig, mesh, root: int, *,
+                   max_attempts: int = 3, store=None,
+                   exec_key: str = "healed", validate: bool = False,
+                   **plan_kw) -> HealedRun:
+    """Plan, compile and run with a bounded ``cap_x`` replan-retry.
+
+    For "1ds" an undersized bucket capacity corrupts nothing (overflowing
+    levels revert to the dense bitmap) but forfeits the wire savings the
+    sparse exchange exists for.  This function detects the fallback from an
+    instrumented probe run, escalates ``cap_x`` geometrically (x2 per
+    attempt, clamped to the chunk, where overflow is impossible),
+    replans and retries, at most ``max_attempts`` plan attempts.  Parents
+    are bit-identical across the attempts (fallback levels are exact);
+    the history lands in ``HealedRun.retry_log``, and running out of
+    attempts raises ``CapacityOverflow`` carrying all of it.  When the
+    caller asked for the uninstrumented program, it is rebuilt at the
+    healthy cap.  Other decompositions have no cap_x: one attempt, an
+    empty log.
+
+    ``plan_kw`` goes to ``plan_bfs`` (``local_mode``, ``cap_f``,
+    ``cap_x``: the first attempt's cap, planned from the graph when 0).
+    The port keeps no compiled programs on disk: ``store`` must be None
+    (a store raises ``NotImplementedError``; the graph and program store
+    is not ported yet), and ``exec_key``, the JAX package's key for a
+    stored program, is accepted and unused.
+    """
+    from repro_torch.runtime.retry import CapacityOverflow, RetryAttempt
+
+    if store is not None:
+        raise NotImplementedError(
+            "run_bfs_healed(store=...): the port has no graph and program "
+            "store yet (ROADMAP queue 1, the born-sharded build and the "
+            "store); pass store=None")
+    if cfg.decomposition != "1ds":
+        plan = plan_bfs(graph, cfg, mesh, **plan_kw)
+        engine = plan.compile()
+        return HealedRun(result=engine.run(root, validate=validate),
+                         engine=engine, plan=plan, retry_log=[])
+
+    probe_cfg = cfg if cfg.instrument else replace(cfg, instrument=True)
+    history = []
+    cap_x = int(plan_kw.pop("cap_x", 0))
+    part = graph.part
+    for attempt in range(1, max_attempts + 1):
+        plan = plan_bfs(graph, probe_cfg, mesh, cap_x=cap_x, **plan_kw)
+        cap_now = plan.statics.cap_x
+        engine = plan.compile()
+        res = engine.run(root, validate=validate)
+        levels = _overflow_levels_1ds(plan, res.level_stats)
+        if not levels:
+            history.append(RetryAttempt(
+                attempt=attempt, cap_name="cap_x", cap_value=cap_now,
+                outcome="ok", detail={}))
+            if probe_cfg is not cfg:
+                # the caller wanted the fast program: rebuild it at the
+                # healthy cap (parents bit-identical by construction)
+                plan = plan_bfs(graph, cfg, mesh, cap_x=cap_now, **plan_kw)
+                engine = plan.compile()
+                res = engine.run(root, validate=validate)
+            log = [a.to_json() for a in history]
+            # drop the no-op log when the FIRST plan was already clean
+            if len(log) == 1 and log[0]["outcome"] == "ok":
+                log = []
+            return HealedRun(result=res, engine=engine, plan=plan,
+                             retry_log=log)
+        history.append(RetryAttempt(
+            attempt=attempt, cap_name="cap_x", cap_value=cap_now,
+            outcome="overflow", detail={"levels": levels}))
+        nxt = min(cap_now * 2, part.chunk)
+        if nxt <= cap_now:
+            break
+        cap_x = nxt
+    raise CapacityOverflow(
+        f"cap_x escalation exhausted after {len(history)} attempts "
+        f"(levels still falling back to the dense bitmap)",
+        cap_name="cap_x", cap_value=cap_now, history=history)

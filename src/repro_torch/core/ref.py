@@ -83,14 +83,20 @@ class TreeValidator:
     The oracle depths come from an edge-parallel level-synchronous BFS
     over the edge list, and tree-edge existence from a binary search in
     the sorted 64-bit edge keys, which are built once per graph so that
-    many trees validate against one sort."""
+    many trees validate against one sort (none for an already sorted
+    list)."""
 
     def __init__(self, n: int, src: torch.Tensor, dst: torch.Tensor):
         self.n = n
         self.src = src
         self.dst = dst
-        key = src.to(torch.int64).mul_(n).add_(dst)
-        self.keys = torch.sort(key).values
+        # a copy even of int64 ids: the caller's edge list stays as it is
+        key = src.to(torch.int64, copy=True).mul_(n).add_(dst)
+        # an EdgeList comes sorted by (src, dst): its keys need no sort,
+        # whose value, index and scratch copies would triple their memory
+        if not bool((key[1:] >= key[:-1]).all()):
+            key = torch.sort(key).values
+        self.keys = key
 
     def depths(self, root: int) -> torch.Tensor:
         """(n,) int32 oracle depths, -1 unreachable."""

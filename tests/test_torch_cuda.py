@@ -706,3 +706,60 @@ def test_run_batch_matches_run_many_with_kernels(dev, dec, storage):
         if dec != "2d":
             assert np.array_equal(batch.level_stats[i, :s.n_levels, :3],
                                   s.level_stats[:s.n_levels, :3])
+
+
+@pytest.mark.parametrize("dec", ["2d", "1d", "1ds"])
+def test_validator_on_card_gives_the_cpu_counts(dev, dec):
+    """The Graph500 validator on the card (the engine's own shards) gives
+    the CPU run's (6,) counts on a clean tree and on each seeded parent
+    fault, whose injection reads the edge list on the card."""
+    from repro_torch.core import validate as V
+    from repro_torch.runtime.faultinject import PARENT_FAULTS, inject_parents
+
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    e_cpu = rmat.rmat_graph(12, 16, seed=1, generator="counter",
+                            device="cpu")
+    engines = []
+    for edges, where in ((e, dev), (e_cpu, "cpu")):
+        if dec == "2d":
+            g = build_blocked(edges, 2, 2, align=32, cap_pad=32)
+            mesh = make_local_mesh(2, 2, device=where)
+        else:
+            g = build_blocked_1d(edges, 16, align=32, cap_pad=32,
+                                 with_col_ptr=True)
+            mesh = make_local_mesh_1d(16, device=where)
+        engines.append(plan_bfs(g, BFSConfig(decomposition=dec), mesh,
+                                local_mode="kernel").compile())
+    card, host = engines
+    root = int(torch.argmax(e.out_degrees()))
+    res = card.run(root, validate=True)
+    assert res.validation.ok
+    assert res.validation == V.validate_parents(host, root, res.parents)
+    for kind in PARENT_FAULTS:
+        bad, _ = inject_parents(kind, res.parents, root, 0, n=e.n,
+                                src=e.src, dst=e.dst,
+                                chunk=card.plan.part.chunk)
+        got = V.validate_parents(card, root, bad)
+        assert not got.ok and got == V.validate_parents(host, root, bad)
+
+
+def test_healed_run_on_card_gives_the_cpu_log(dev):
+    """``run_bfs_healed`` on 16 strips from a squeezed ``cap_x``: the same
+    retry log and parents on the card as on the CPU."""
+    from repro_torch.core.engine import run_bfs_healed
+    from repro_torch.runtime.faultinject import undersize_cap
+
+    out = []
+    for where in (dev, "cpu"):
+        e = rmat.rmat_graph(12, 16, seed=1, generator="counter",
+                            device=where)
+        g = build_blocked_1d(e, 16, align=32, cap_pad=32)
+        cfg = BFSConfig(decomposition="1ds", storage="dcsc",
+                        direction_optimizing=False)
+        cap = undersize_cap(g.part.chunk, 0)
+        out.append(run_bfs_healed(g, cfg, make_local_mesh_1d(16, device=where),
+                                  int(torch.argmax(e.out_degrees())),
+                                  cap_x=cap, max_attempts=8, validate=True,
+                                  local_mode="kernel"))
+    assert out[0].retry_log == out[1].retry_log and out[0].retry_log
+    assert np.array_equal(out[0].result.parents, out[1].result.parents)
