@@ -42,6 +42,13 @@ Phases, in the order they run:
                  root's own levels (the modes that differ counted: 2d
                  shares the decision); the batch beside run_many, host
                  reads a search, peak memory
+ 3d born 2D     dist_build(BuildSpec(24, 16, 1), "2d") on the 1x1 grid:
+                 every field torch.equal to phase 3's build_blocked graph,
+                 m and the capacities equal; its build seconds beside phase
+                 3's, the route words, peak memory with phase 3 resident;
+                 then BFSConfig()'s kernel session over it on the 16 roots,
+                 run_many(validate=True): parents and levels equal phase
+                 3's, every verdict clean
   4 kernels      the 2D path's kernels against their plain versions at
                  its shapes, tolerance 0 (the outputs are integers)
  4b kernel 1     its DCSC entry on the frontiers of one bfs-rmat search
@@ -109,11 +116,29 @@ Phases, in the order they run:
                  same frontiers, tolerance 0, both timed on the card alone
  10 profile      device busy and idle share of one 1ds search per
                  expand_chunks, instrumented and with instrument=False
+ 8g born strips  (after phase 10, once phase 8's graph is digested and
+                 released) dist_build(BuildSpec(24, 16, 1), "1ds") on 16
+                 strips: m, cap, cap_nzc, maxdeg_col and the digests of the
+                 fields both graphs carry equal phase 8's; the route words
+                 beside build_route_1d_words and the padded exchange's;
+                 peak memory; the 1ds dcsc C=1 session on phase 8's roots,
+                 parents and levels equal; then route_slack =
+                 undersize_route_slack(0), healed within 3 attempts to the
+                 same digests
+ 10c store       a born scale-22 graph on a 2x2 grid saved to a GraphStore
+                 under build/ (bytes, save s), loaded into a kernel session
+                 (load s) whose parents equal the born graph's on 16 roots;
+                 a flipped and a truncated shard quarantined and
+                 regenerated on the card to the stored CRC (load and
+                 regeneration s); then run_fault_matrix on the card on 1
+                 and 4 simulated devices, 22 of 22 cases ok
  10b drivers     python -m repro_torch.examples.graph500_bfs at scale 20
                  (2d, 2d --fast, 1ds on 16 strips with dcsc), quickstart
                  and serve_lm, each a process of its own on the card:
-                 exit 0 and their TEPS or served line; --born and --store
-                 refused by name (on the CPU)
+                 exit 0 and their TEPS or served line; then graph500_bfs
+                 --scale 20 --born --store DIR twice in 2d 1x1 and in 1ds
+                 16x1 dcsc: build and save, then load, the same roots and
+                 level counts in all four runs
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
                  4 serve_bulk batches, 16 retrieval_cand queries against
@@ -190,6 +215,7 @@ MESH_SCALE = 16
 STRIPS = 16                   # the 1ds path's simulated mesh
 STRIP_CHUNKS = (1, 4)         # its expand_chunks runs
 OVER_CAP = 64                 # a bucket capacity that makes levels overflow
+STORE_SCALE = 22              # phase 10c: 4 shards of a 2x2 grid on disk
 HEAL_ATTEMPTS = 12            # phase 8e: undersize_cap(52448) = 3264 doubles
 #                               to the 2**20-vertex chunk in 9 steps
 # H100 SXM published memory rate (NVIDIA data sheet, at the 700 W limit)
@@ -1366,6 +1392,38 @@ def prefill_32k(dev, kernels, params) -> dict:
             "library_ms": l_ms * n, "flops": flops * n, "bytes": nbytes * n}
 
 
+def same_graph(got, want, tag: str) -> None:
+    """Two graphs equal: the same fields, each ``torch.equal``, and the
+    same m, m_input and capacities."""
+    for c in ("m", "m_input", "cap", "cap_seg", "cap_nzc", "maxdeg_col"):
+        check(getattr(got, c, None) == getattr(want, c, None),
+              f"{tag}: {c} {getattr(got, c, None)} against "
+              f"{getattr(want, c, None)}")
+    ga, wa = got.device_arrays(), want.device_arrays()
+    check(set(ga) == set(wa), f"{tag}: fields {sorted(ga)} against "
+                              f"{sorted(wa)}")
+    for k in ga:
+        check(torch.equal(ga[k], wa[k]), f"{tag}: field {k} differs")
+
+
+def digest(t: torch.Tensor) -> tuple:
+    """A tensor's shape, dtype and two position-weighted int64 sums,
+    taken on its device in pieces of 2^26 elements (the sums wrap
+    modulo 2^64 in any order, so equal tensors give equal digests; an odd
+    weight is invertible modulo 2^64, so one changed element changes
+    both sums)."""
+    flat = t.reshape(-1)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, flat.numel(), 1 << 26):
+        x = flat[lo: lo + (1 << 26)].to(torch.int64)
+        i = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                         device=t.device)
+        s1 += (x * (2 * i + 1)).sum()
+        s2 += ((x + 0x9E3779B9) * (i * 0x5851F42D | 1)).sum()
+    return (tuple(t.shape), str(t.dtype), int(s1), int(s2))
+
+
 def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     """Phases 3-10: the Graph500 paths (2D, then 1ds on 16 strips), their
     kernels and profiles.  Returns the launches on each path, each
@@ -1383,6 +1441,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.core.metrics import harmonic_mean, teps
     from repro_torch.core.ref import TreeValidator
     from repro_torch.graph import rmat
+    from repro_torch.graph.dist_build import BuildSpec, dist_build
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
     from repro_torch.kernels import edge_cases
     from repro_torch.kernels.bottomup import ops as bu_ops
@@ -1843,6 +1902,65 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     torch.cuda.empty_cache()
     record["session_2d_archs"] = {"storage_words": words_2d,
                                   "runs": runs_2d, "multiroot": rec_3c}
+
+    # --------------------------------------------------------------- 3d
+    phase(f"3d the born-sharded build: dist_build(BuildSpec({SCALE}, "
+          f"{EDGE_FACTOR}, {SEED}), '2d') on the 1x1 grid against phase 3's "
+          f"build_blocked graph, then BFSConfig()'s kernel session over it "
+          f"on the {N_ROOTS} roots, validated")
+    resident = torch.cuda.memory_allocated() / 2**30
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    born, info = dist_build(BuildSpec(SCALE, EDGE_FACTOR, SEED), "2d", mesh,
+                            (1, 1))
+    torch.cuda.synchronize()
+    peak_3d = torch.cuda.max_memory_allocated() / 2**30
+    gen_3d = kernels["rmat_counter"].launches
+    check(gen_3d == 1, f"3d: {gen_3d} counter launches for one slice")
+    launches_new["rmat_counter"] = launches_new.get("rmat_counter", 0) + gen_3d
+    same_graph(born, graph, "3d")
+    gen_s, build_s = record["session"]["gen_s"], record["session"]["build_s"]
+    print(f"the born graph equals phase 3's field for field "
+          f"({len(born.device_arrays())} fields, torch.equal) with m={born.m}"
+          f", cap={born.cap}, cap_seg={born.cap_seg}, maxdeg_col="
+          f"{born.maxdeg_col}; dist_build {info['build_s']:.3f} s "
+          f"(generate and route {info['gen_route_s']:.3f} s, dedup and "
+          f"formats {info['format_s']:.3f} s; {info['build_teps']:.4e} "
+          f"input edges/s) against phase 3's generate + preprocess "
+          f"{gen_s:.3f} s and build_blocked {build_s:.3f} s; route words "
+          f"measured {info['route_words_measured']} (expected "
+          f"{info['route_words_expected']}, the padded exchange's "
+          f"{info['route_words_padded']}); peak device memory "
+          f"{peak_3d:.3f} GiB with phase 3's graph and sessions resident "
+          f"({resident:.3f} GiB before the build; limit 75); {smi_line()}")
+    check(peak_3d < 75.0, f"3d peak {peak_3d:.2f} GiB >= 75 GiB")
+    eng = plan_bfs(born, cfg, mesh, local_mode="kernel").compile()
+    for k in kernels.values():
+        k.launches = 0
+    res = eng.run_many(roots, validate=True)
+    lb = {k: kernels[k].launches for k in path_2d_csr}
+    for k, n in lb.items():
+        check(n > 0, f"kernel {k} was never launched by the born session")
+        launches_new[k] = launches_new.get(k, 0) + n
+    for r, x, par, lv in zip(roots, res, parents, levels):
+        check(x.validation.ok and x.n_levels == lv and torch.equal(
+            torch.from_numpy(x.parents).to(dev, torch.int32), par),
+            f"3d root {r}: the born session's tree differs from phase 3's "
+            f"or fails validation: {x.validation.summary()}")
+    print(f"BFSConfig() kernel session over the born graph, run_many(roots, "
+          f"validate=True): parents and n_levels equal phase 3's csr session"
+          f" on all {N_ROOTS} roots, every verdict clean; launches {lb}")
+    record["born_2d"] = {
+        "build_s": info["build_s"], "gen_route_s": info["gen_route_s"],
+        "format_s": info["format_s"], "host_gen_s": gen_s,
+        "host_build_s": build_s, "peak_gib": peak_3d,
+        "resident_gib": resident, "launches": {"rmat_counter": gen_3d, **lb},
+        **{k: info[k] for k in ("cap_route", "route_words_measured",
+                                "route_words_expected",
+                                "route_words_padded")}}
+    del eng, res, born, x
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4
     phase("4 2D kernels against plain versions at the 2D path's shapes")
@@ -2717,6 +2835,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           f"{float(np.median(val_ms)):.3f} ms, min {min(val_ms):.3f}, max "
           f"{max(val_ms):.3f}; {smi_line()}")
     rec_1ds["kill"] = kills
+    # phase 8g's reference: the C=1 session's trees, on the host
+    born_ref = {"roots": roots, "levels": runs[c0]["levels"],
+                "parents": torch.stack(runs[c0]["parents"]).cpu()}
     for run in runs.values():
         del run["parents"]
     torch.cuda.empty_cache()
@@ -3081,12 +3202,241 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             eng = runs[c][key]
             record["profile_1ds"][f"{label}{c}"] = profile_call(
                 lambda: eng.search(roots[0]))
+    # phase 8g builds the strips again from the stream; the two graphs do
+    # not fit together, so phase 8's is kept as digests of the fields both
+    # carry (phase 8's has no edge lists, the born one no col_ptr)
+    born_ref.update(
+        digests={k: digest(v) for k, v in graph.device_arrays().items()
+                 if k != "col_ptr"},
+        **{c: getattr(graph, c) for c in ("m", "m_input", "cap", "cap_nzc",
+                                          "maxdeg_col")})
     return (launches, launches_1ds, launches_fast, launches_new, errs, per,
-            ro > rb)
+            ro > rb, born_ref)
+
+
+def born_strips(dev, kernels, ref, launches_new) -> dict:
+    """Phase 8g: the born 16-strip build at scale 24 against phase 8's
+    host-built strips (their digests and scalars in ``ref``), its 1ds
+    dcsc C=1 session on phase 8's roots, and a squeezed ``route_slack``
+    that must heal.  Its launches join ``launches_new``."""
+    from repro_torch.configs.base import BFSConfig
+    from repro_torch.core.engine import plan_bfs
+    from repro_torch.graph.dist_build import BuildSpec, dist_build
+    from repro_torch.launch.mesh import make_local_mesh_1d
+    from repro_torch.runtime.faultinject import undersize_route_slack
+
+    spec = BuildSpec(SCALE, EDGE_FACTOR, SEED)
+    mesh = make_local_mesh_1d(STRIPS, device=dev)
+
+    def build(tag, **kw):
+        """The born strips, each kernel-7 launch a slice, checked against
+        phase 8's scalars and digests; (graph, info, launches, peak)."""
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g, info = dist_build(spec, "1ds", mesh, STRIPS, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = kernels["rmat_counter"].launches
+        check(n >= STRIPS, f"8g {tag}: {n} counter launches")
+        launches_new["rmat_counter"] = launches_new.get("rmat_counter",
+                                                        0) + n
+        for c in ("m", "m_input", "cap", "cap_nzc", "maxdeg_col"):
+            check(getattr(g, c) == ref[c], f"8g {tag}: {c} {getattr(g, c)} "
+                                           f"against phase 8's {ref[c]}")
+        arrays = g.device_arrays()
+        for k, d in ref["digests"].items():
+            check(digest(arrays[k]) == d, f"8g {tag}: field {k} differs "
+                                          f"from phase 8's")
+        return g, info, n, peak
+
+    g, info, n_gen, peak = build("route_slack 1.5")
+    print(f"born strips: m={g.m} cap={g.cap} cap_nzc={g.cap_nzc} maxdeg_col="
+          f"{g.maxdeg_col} and the {len(ref['digests'])} fields both graphs "
+          f"carry ({', '.join(ref['digests'])}) equal phase 8's digests; "
+          f"dist_build {info['build_s']:.3f} s (generate and route "
+          f"{info['gen_route_s']:.3f} s, {n_gen} counter launches; dedup and "
+          f"formats {info['format_s']:.3f} s); cap_route {info['cap_route']};"
+          f" route words measured {info['route_words_measured']} against "
+          f"build_route_1d_words {info['route_words_expected']} and the "
+          f"padded exchange's route_words_padded "
+          f"{info['route_words_padded']}; peak device memory {peak:.3f} GiB "
+          f"(limit 75); {smi_line()}")
+    check(peak < 75.0, f"8g peak {peak:.2f} GiB >= 75 GiB")
+    eng = plan_bfs(g, BFSConfig(decomposition="1ds", storage="dcsc",
+                                frontier_codec="packed"), mesh,
+                   local_mode="kernel").compile()
+    path = ("spmsv_strip_min", "bottomup_substep", "codec_encode",
+            "codec_decode")
+    for k in kernels.values():
+        k.launches = 0
+    for r, lv, par in zip(ref["roots"], ref["levels"], ref["parents"]):
+        out = eng.search(r)
+        check(out[1] == lv and torch.equal(
+            out[0].reshape(-1)[: par.numel()].cpu(), par),
+            f"8g root {r}: the born strips' parents or levels differ from "
+            f"phase 8's")
+    lb = {k: kernels[k].launches for k in path}
+    for k, nl in lb.items():
+        check(nl > 0, f"kernel {k} was never launched on the born strips")
+        launches_new[k] = launches_new.get(k, 0) + nl
+    print(f"1ds dcsc C=1 kernel session over the born strips: parents and "
+          f"levels equal phase 8's on all {len(ref['roots'])} roots; "
+          f"launches {lb}")
+    rec = {"build_s": info["build_s"], "gen_route_s": info["gen_route_s"],
+           "format_s": info["format_s"], "peak_gib": peak,
+           "launches": {"rmat_counter": n_gen, **lb},
+           **{k: info[k] for k in ("cap_route", "route_words_measured",
+                                   "route_words_expected",
+                                   "route_words_padded")}}
+    del eng, g, out
+    torch.cuda.empty_cache()
+    slack = undersize_route_slack(0)
+    g, info, n_gen, peak = build(f"route_slack {slack}", route_slack=slack)
+    log = info["retry_log"]
+    check(len(log) > 1 and log[-1]["outcome"] == "ok",
+          f"8g: route_slack {slack} did not overflow and heal: {log}")
+    for a in log:
+        print(f"attempt {a['attempt']}: route_slack={a['cap_value']} -> "
+              f"{a['outcome']} {a['detail'].get('error', '')}")
+    print(f"route_slack {slack} (undersize_route_slack(0)) healed in "
+          f"{len(log)} attempts of at most 3, {info['build_s']:.3f} s for the "
+          f"last; the same digests; {n_gen} counter launches; peak "
+          f"{peak:.3f} GiB")
+    rec["heal"] = {"route_slack0": slack, "retry_log": log,
+                   "launches": n_gen, "peak_gib": peak}
+    del g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def store_phase(dev, kernels, launches_new) -> dict:
+    """Phase 10c: a born scale-STORE_SCALE graph on a simulated 2x2 grid
+    through the store on the card: saved, loaded into a kernel session
+    (``plan_bfs_from_store(...).compile(store=)``) whose parents equal
+    the born graph's on 16 roots, then a flipped and a truncated shard,
+    each quarantined and regenerated on the card to the stored CRC; the
+    bytes on disk and the save, load and regeneration seconds.  The
+    store lives under ``build/`` and is removed at the end.  Then
+    ``run_fault_matrix`` on the card at its defaults on 1 and 4
+    simulated devices, all 22 cases ok.  The counter launches join
+    ``launches_new``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.graph_store import (GraphStore, plan_bfs_from_store,
+                                              shard_crc32)
+    from repro_torch.configs.base import BFSConfig
+    from repro_torch.core.engine import plan_bfs
+    from repro_torch.graph.dist_build import BuildSpec, dist_build, regen_shard
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.faultinject import corrupt_shard, run_fault_matrix
+
+    gen = kernels["rmat_counter"]
+    gen.launches = 0
+    spec = BuildSpec(STORE_SCALE, EDGE_FACTOR, SEED)
+    mesh = make_local_mesh(2, 2, device=dev)
+    g, info = dist_build(spec, "2d", mesh, (2, 2))
+    rng = np.random.default_rng(0)
+    deg = np.flatnonzero(g.deg_A.reshape(-1).cpu().numpy() > 0)
+    roots = [int(rng.choice(deg)) for _ in range(N_ROOTS)]
+    eng = plan_bfs(g, BFSConfig(), mesh, local_mode="kernel").compile()
+    want = [eng.search(r)[0].cpu() for r in roots]
+    del eng
+    rec = {"build_s": info["build_s"], "cap": g.cap, "cap_seg": g.cap_seg}
+    name = f"g500-s{STORE_SCALE}-2d"
+    (ROOT / "build").mkdir(exist_ok=True)
+    root_dir = tempfile.mkdtemp(prefix="graph_store_", dir=ROOT / "build")
+    try:
+        store = GraphStore(root_dir, device=dev)
+        ts = time.perf_counter()
+        sdir = Path(store.save_graph(name, g, spec=spec))
+        rec["save_s"] = time.perf_counter() - ts
+        rec["bytes"] = sum(f.stat().st_size for f in sdir.glob("*.npz"))
+        meta = json.loads((sdir / "meta.json").read_text())
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        plan = plan_bfs_from_store(store, name, BFSConfig(), mesh,
+                                   expect_spec=spec, local_mode="kernel")
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - ts
+        eng = plan.compile(store=store)
+        check(not eng.exec_from_store and eng.exec_load_s == 0.0,
+              "10c: a session came from the store")
+        for r, par in zip(roots, want):
+            check(torch.equal(eng.search(r)[0].cpu(), par),
+                  f"10c root {r}: the stored graph's parents differ from "
+                  f"the born graph's")
+        del eng, plan
+        print(f"born scale-{STORE_SCALE} 2x2 graph (m={g.m}, cap={g.cap}, "
+              f"cap_seg={g.cap_seg}) in {info['build_s']:.3f} s; saved as "
+              f"{meta['shards']} shards, {rec['bytes']} bytes of npz, in "
+              f"{rec['save_s']:.3f} s; loaded onto the mesh in "
+              f"{rec['load_s']:.3f} s (every shard's CRC checked); its "
+              f"kernel session's parents equal the born graph's on "
+              f"{N_ROOTS} roots; exec_from_store False")
+        rec["repairs"] = []
+        for mode in ("flip", "truncate"):
+            path = corrupt_shard(store, name, 0, mode=mode)
+            k = int(Path(path).name[6:11])
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            loaded = store.load_graph(name, mesh=mesh, expect_spec=spec)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - ts
+            report = store.last_load_report
+            check([x["shard"] for x in report["repaired"]] == [k]
+                  and Path(path + ".quarantined").exists(),
+                  f"10c {mode}: {report}")
+            same_graph(loaded, g, f"10c {mode}")
+            del loaded
+            with np.load(path) as z:
+                crc = shard_crc32(dict(z))
+            check(crc == meta["shard_crc32"][k],
+                  f"10c {mode}: the repaired shard's CRC {crc:#010x}")
+            ts = time.perf_counter()
+            again = regen_shard(spec, meta["graph_kind"], g.part, k,
+                                json.loads(meta["scalars"]),
+                                json.loads(meta["fields"]), device=dev)
+            regen_s = time.perf_counter() - ts
+            check(shard_crc32(again) == crc, f"10c {mode}: regeneration")
+            print(f"{mode}: shard {k} quarantined and regenerated on the "
+                  f"card to the stored CRC {crc:#010x}; last_load_report "
+                  f"{report}; the repairing load {load_s:.3f} s, the "
+                  f"regeneration alone {regen_s:.3f} s")
+            rec["repairs"].append({"mode": mode, "shard": k,
+                                   "load_s": load_s, "regen_s": regen_s,
+                                   "report": report})
+    finally:
+        shutil.rmtree(root_dir, ignore_errors=True)
+    del g
+    torch.cuda.empty_cache()
+    rec["launches"] = gen.launches
+    launches_new["rmat_counter"] = launches_new.get("rmat_counter",
+                                                    0) + gen.launches
+    rec["fault_matrix"] = {}
+    for devices in (1, 4):
+        gen.launches = 0
+        ts = time.perf_counter()
+        rep = run_fault_matrix(devices=devices, device=dev)
+        wall = time.perf_counter() - ts
+        bad = [c for c in rep["cases"] if not c["ok"]]
+        check(rep["ok"] and len(rep["cases"]) == 22 and not bad,
+              f"10c fault matrix on {devices} devices: {bad}")
+        launches_new["rmat_counter"] += gen.launches
+        print(f"run_fault_matrix(devices={devices}) on the card: "
+              f"{len(rep['cases'])}/22 cases ok in {wall:.3f} s "
+              f"({gen.launches} counter launches)")
+        rec["fault_matrix"][devices] = {"wall_s": wall, "cases": [
+            (c["name"], c["ok"]) for c in rep["cases"]]}
+    print(f"device memory {torch.cuda.memory_allocated() / 2**30:.3f} GiB; "
+          f"{smi_line()}")
+    return rec
 
 
 # the drivers as users start them: (label, module, arguments, the line
-# that must come out); the --born/--store refusals on the CPU
+# that must come out); then graph500_bfs --born --store, twice each
 DRIVERS = [
     ("graph500_bfs 2d", "graph500_bfs",
      ["--scale", "20", "--roots", "16", "--local-mode", "kernel"],
@@ -3100,16 +3450,25 @@ DRIVERS = [
      "harmonic-mean TEPS over 16 roots"),
     ("quickstart", "quickstart", [], "valid tree: True"),
     ("serve_lm", "serve_lm", [], "served 6 requests")]
-REFUSED = [("--born", ["--born"]), ("--store", ["--store", "gstore"])]
+BORN = [("2d 1x1", []),
+        ("1ds 16x1 dcsc", ["--decomposition", "1ds", "--grid", "16x1",
+                           "--storage", "dcsc"])]
 
 
 def run_drivers() -> dict:
     """Phase 10b: each driver of ``repro_torch.examples`` in a process of
     its own, as ``python -m repro_torch.examples.<name>`` (on the card by
     default); each must exit 0 and print its TEPS or served line.  The
-    kernels it needs are already built (``build/``).  Then ``--born`` and
-    ``--store`` must be refused by name, on the CPU."""
+    kernels it needs are already built (``build/``).  Then
+    ``graph500_bfs --scale 20 --born --store DIR --local-mode kernel``
+    twice in each layout of ``BORN``: the first run prints its born build
+    and its store save, the second its store load; every run's roots and
+    level counts are the same.  The store lives under ``build/`` and is
+    removed at the end."""
     import os
+    import re
+    import shutil
+    import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
     def start(module, args):
@@ -3135,15 +3494,42 @@ def run_drivers() -> dict:
                 print(f"   {x}")
         rec[label] = {"wall_s": wall, "line": hit[0],
                       "stdout": r.stdout[-20000:]}
-    for flag, args in REFUSED:
-        r, _ = start("graph500_bfs", ["--device", "cpu", *args])
-        check(r.returncode != 0 and f"{flag} is not ported yet" in r.stderr
-              and "Born-sharded build and store" in r.stderr,
-              f"graph500_bfs {flag} was not refused by name: "
-              f"{r.returncode} {r.stderr[-1000:]}")
-        print(f"-- graph500_bfs {flag} --device cpu: exit {r.returncode}, "
-              f"{r.stderr.strip().splitlines()[-1]}")
-        rec[f"refused {flag}"] = r.returncode
+    levels = re.compile(r"^root\s+(\d+): (\d+) levels")
+    trees = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = tempfile.mkdtemp(prefix="driver_store_", dir=ROOT / "build")
+    try:
+        for layout, extra in BORN:
+            for first in (True, False):
+                label = (f"graph500_bfs {layout} --born --store "
+                         f"({'build and save' if first else 'load'})")
+                args = ["--scale", "20", "--roots", "16", "--local-mode",
+                        "kernel", "--born", "--store", store, *extra]
+                r, wall = start("graph500_bfs", args)
+                check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
+                      f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+                out = r.stdout
+                for line, want in (("born-sharded build", first),
+                                   ("store save", first),
+                                   ("store load", not first)):
+                    check((line in out) == want,
+                          f"{label}: '{line}' printed {line in out}")
+                roots = [m.groups() for m in map(levels.match,
+                                                 out.splitlines()) if m]
+                check(len(roots) == 16, f"{label}: {len(roots)} root lines")
+                trees.append(roots)
+                print(f"-- {label}: exit 0 in {wall:.1f} s")
+                for x in out.splitlines():
+                    if x.startswith(("born-sharded", "store ", "compile",
+                                     "harmonic")):
+                        print(f"   {x}")
+                rec[label] = {"wall_s": wall, "stdout": out[-20000:]}
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    check(all(t == trees[0] for t in trees),
+          "the born drivers' roots or level counts differ between runs")
+    print(f"the {len(trees)} born runs drew the same 16 roots with the same "
+          f"level counts: {[int(lv) for _, lv in trees[0]]}")
     return rec
 
 
@@ -3485,17 +3871,34 @@ def main() -> int:
           and record["encode_sass"]["calls"] == 0,
           "codec_encode_kernel's SASS holds a division sequence")
     launches, launches_1ds, launches_fast, launches_new, errs, per, \
-        rmat_by_ops = graph_paths(dev, kernels, record, rmat_instr_per_s,
-                                  path_2d, path_1ds)
+        rmat_by_ops, born_ref = graph_paths(dev, kernels, record,
+                                            rmat_instr_per_s, path_2d,
+                                            path_1ds)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"\ndevice memory still allocated after the graph paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
+    # --------------------------------------------------------------- 8g
+    phase(f"8g the born strips: dist_build(BuildSpec({SCALE}, {EDGE_FACTOR}, "
+          f"{SEED}), '1ds') on {STRIPS} strips against phase 8's strips "
+          f"(digests), its 1ds dcsc session on phase 8's roots, and a "
+          f"squeezed route_slack that heals")
+    record["born_strips"] = born_strips(dev, kernels, born_ref, launches_new)
+    del born_ref
+
+    # --------------------------------------------------------------- 10c
+    phase(f"10c the graph store on the card: a born scale-{STORE_SCALE} 2x2 "
+          f"graph saved, loaded into a session, a flipped and a truncated "
+          f"shard regenerated; then run_fault_matrix on 1 and 4 simulated "
+          f"devices")
+    record["store"] = store_phase(dev, kernels, launches_new)
+
     # -------------------------------------------------------------- 10b
     phase("10b the drivers as users run them: graph500_bfs at scale 20 "
           "(2d, 2d --fast, 1ds on 16 strips), quickstart and serve_lm on "
-          "the card; --born and --store refused")
+          "the card; then graph500_bfs --born --store twice in 2d and in "
+          "1ds on 16 strips")
     record["drivers"] = run_drivers()
 
     # --------------------------------------------------------------- 11

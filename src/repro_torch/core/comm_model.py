@@ -1,8 +1,9 @@
 """The paper's §6 communication model, the parts the port reads: the
 whole-search 2D forms of Table 1 and Eq. 2, wire words per level of the
 1D dense, chunked, sparse and packed frontier exchanges and of the 2D
-bitmap fold, the packed codec's widths, the 1ds bucket planning and
-the Graph500 validator's collective budget.
+bitmap fold, the packed codec's widths, the 1ds bucket planning, the
+born-sharded build's routing volumes and bucket capacities, and the
+Graph500 validator's collective budget.
 
 Counts are in the paper's 64-bit words.  These are the closed forms of
 the JAX package's ``core/comm_model.py`` (which imports no JAX but is
@@ -142,6 +143,43 @@ def rmat_strip_skew(p: int, a: float = 0.57, b: float = 0.19) -> float:
     if p <= 1:
         return 1.0
     return float((a + b) ** math.log2(p))
+
+
+def build_route_1d_words(m_input: int, p: int) -> float:
+    """Expected owner-routing volume of the 1D distributed build: every
+    generated edge is emitted in both directions (2*m_input records, one
+    64-bit word each) and a uniformly partitioned destination leaves a
+    (p-1)/p share remote.  One all_to_all round."""
+    return 2.0 * m_input * (p - 1) / p
+
+
+def build_route_2d_words(m_input: int, pr: int, pc: int) -> float:
+    """Expected two-hop routing volume of the 2D build: hop 1 to the
+    block column owner along the pc-sized axis, hop 2 to the block row
+    owner along the pr-sized axis; the 1D record count, charged a hop."""
+    return 2.0 * m_input * ((pc - 1) / pc + (pr - 1) / pr)
+
+
+def build_route_padded_words(p: int, cap_route: int) -> float:
+    """The volume one capped all_to_all round of the JAX package ships:
+    every device its full (p, cap_route) buckets minus the diagonal,
+    whatever their fill (the static-shape tax; the port routes the
+    records unpadded and reports this figure beside its own count)."""
+    return float(p) * (p - 1) * cap_route
+
+
+def plan_cap_route(records: int, p: int, a: float = 0.57, b: float = 0.19,
+                   slack: float = 1.5, pad: int = 32) -> int:
+    """Per-destination bucket capacity of one routing round: ``records``
+    generated records over p buckets whose heaviest takes
+    ~rmat_strip_skew(p), inflated by ``slack``, rounded up to ``pad``.
+    A bucket past it raises (``graph/dist_build.py``); the build never
+    drops an edge quietly.  The float arithmetic is the JAX package's,
+    step for step, because the capacity decides whether a build
+    overflows."""
+    frac = max(rmat_strip_skew(p, a, b), 1.0 / max(p, 1))
+    cap = int(slack * frac * records) + pad
+    return ((cap + pad - 1) // pad) * pad
 
 
 def validate_collective_budget(decomposition: str) -> Dict[str, int]:

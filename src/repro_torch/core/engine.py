@@ -145,8 +145,14 @@ class BFSPlan:
             return pis, levels, stats
         return fn
 
-    def compile(self) -> "BFSEngine":
-        return BFSEngine(self)
+    def compile(self, store=None, exec_key: str = "default") -> "BFSEngine":
+        """Ship the graph and build the search program (both once); the
+        engine runs any number of roots against them.  ``store`` (a
+        ``ckpt/graph_store.py::GraphStore``) is asked for a program saved
+        under ``exec_key`` and given the fresh one, as in the JAX package;
+        the port's store keeps none, so the session is always built here
+        (``engine.exec_from_store`` False, ``exec_load_s`` 0)."""
+        return BFSEngine(self, store=store, exec_key=exec_key)
 
 
 def _check_config(cfg: BFSConfig) -> None:
@@ -248,9 +254,17 @@ class BFSEngine:
                    more for each new (pod_axis, roots-per-pod) batch)
       batch_compile_s  cumulative seconds building pod-batched programs
                    (0.0 until the first run_batch)
+      exec_from_store  whether the program came from a store (never in
+                   the port: its store keeps no programs)
+      exec_load_s  seconds loading a stored program (0.0)
+
+    Graph tensors already on the mesh's device (born-sharded builds,
+    store loads onto a mesh) are used as they are: shipping them copies
+    nothing.
     """
 
-    def __init__(self, plan: BFSPlan):
+    def __init__(self, plan: BFSPlan, store=None,
+                 exec_key: str = "default"):
         if plan.graph is None:
             raise ValueError("plan has no graph attached; build it with "
                              "plan_bfs(graph, cfg, mesh)")
@@ -265,6 +279,10 @@ class BFSEngine:
         sync_device(dev)
         t1 = time.perf_counter()
         self.ship_s = t1 - t0
+        self.exec_from_store = False
+        self.exec_load_s = 0.0
+        if store is not None:
+            store.load_executable(plan, exec_key)   # always a miss
         if dev.type == "cuda" and plan.ops.kernels:
             build.build_libraries({k.stem for k in plan.ops.kernels})
             for k in plan.ops.kernels:
@@ -280,6 +298,8 @@ class BFSEngine:
         self._fn(int(torch.argmax(self._gdev["deg_A"].reshape(-1))))
         sync_device(dev)
         self.compile_s = time.perf_counter() - t1
+        if store is not None:
+            store.save_executable(self, exec_key)
 
     def _ship(self, arrays: Dict[str, torch.Tensor], dev: torch.device):
         self.ship_count += 1
@@ -460,21 +480,15 @@ def run_bfs_healed(graph, cfg: BFSConfig, mesh, root: int, *,
 
     ``plan_kw`` goes to ``plan_bfs`` (``local_mode``, ``cap_f``,
     ``cap_x``: the first attempt's cap, planned from the graph when 0).
-    The port keeps no compiled programs on disk: ``store`` must be None
-    (a store raises ``NotImplementedError``; the graph and program store
-    is not ported yet), and ``exec_key``, the JAX package's key for a
-    stored program, is accepted and unused.
+    ``store`` and ``exec_key`` go to ``BFSPlan.compile``, each attempt's
+    key tagged with its cap (``"<exec_key>-x<cap_x>"``) as in the JAX
+    package.
     """
     from repro_torch.runtime.retry import CapacityOverflow, RetryAttempt
 
-    if store is not None:
-        raise NotImplementedError(
-            "run_bfs_healed(store=...): the port has no graph and program "
-            "store yet (ROADMAP queue 1, the born-sharded build and the "
-            "store); pass store=None")
     if cfg.decomposition != "1ds":
         plan = plan_bfs(graph, cfg, mesh, **plan_kw)
-        engine = plan.compile()
+        engine = plan.compile(store=store, exec_key=exec_key)
         return HealedRun(result=engine.run(root, validate=validate),
                          engine=engine, plan=plan, retry_log=[])
 
@@ -485,7 +499,8 @@ def run_bfs_healed(graph, cfg: BFSConfig, mesh, root: int, *,
     for attempt in range(1, max_attempts + 1):
         plan = plan_bfs(graph, probe_cfg, mesh, cap_x=cap_x, **plan_kw)
         cap_now = plan.statics.cap_x
-        engine = plan.compile()
+        engine = plan.compile(store=store,
+                              exec_key=f"{exec_key}-x{cap_now}")
         res = engine.run(root, validate=validate)
         levels = _overflow_levels_1ds(plan, res.level_stats)
         if not levels:
@@ -496,7 +511,8 @@ def run_bfs_healed(graph, cfg: BFSConfig, mesh, root: int, *,
                 # the caller wanted the fast program: rebuild it at the
                 # healthy cap (parents bit-identical by construction)
                 plan = plan_bfs(graph, cfg, mesh, cap_x=cap_now, **plan_kw)
-                engine = plan.compile()
+                engine = plan.compile(store=store,
+                                      exec_key=f"{exec_key}-x{cap_now}")
                 res = engine.run(root, validate=validate)
             log = [a.to_json() for a in history]
             # drop the no-op log when the FIRST plan was already clean

@@ -57,14 +57,38 @@ def test_graph500_driver_lines_equal_reference(capsys):
     assert len(_lines(out, "root ")) == 4
 
 
-@pytest.mark.parametrize("flag", [["--born"], ["--store", "gstore"]])
-def test_graph500_driver_refuses_what_is_not_ported(capsys, flag):
-    with pytest.raises(SystemExit) as exc:
-        graph500_bfs.main(_BASE + flag)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert f"{flag[0]} is not ported yet" in err
-    assert "Born-sharded build and store" in err
+@pytest.mark.parametrize("extra,devices", [
+    ([], 1),
+    (["--decomposition", "1ds", "--grid", "4x1", "--storage", "dcsc"], 4)],
+    ids=["2d", "1ds-4x1-dcsc"])
+def test_graph500_driver_born_store_equals_reference(capsys, tmp_path, extra,
+                                                     devices):
+    """``--born --store DIR`` at scale 10, run twice: the first run builds
+    on the device and saves, the second loads; both print the reference
+    driver's ``--born`` root lines (roots from the degree vector, levels,
+    validation skipped).  The port runs the kernel entry, the reference
+    the dense one: the same trees."""
+    born = ["--scale", "10", "--roots", "4", "--born"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
+    r = subprocess.run([sys.executable,
+                        os.path.join(_ROOT, "examples", "graph500_bfs.py"),
+                        *born, *extra],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr
+    want = _lines(r.stdout, "root ")
+    assert len(want) == 4 and all(x.endswith(
+        "validation skipped (born-sharded: no host edges)") for x in want)
+    store = ["--store", str(tmp_path / "gstore"), "--device", "cpu",
+             "--local-mode", "kernel"]
+    for first in (True, False):
+        graph500_bfs.main(born + extra + store)
+        out = capsys.readouterr().out
+        assert ("born-sharded build" in out) == first
+        assert ("store save" in out) == first
+        assert ("store load" in out) == (not first)
+        assert _lines(out, "root ") == want
 
 
 def test_quickstart_and_serve_lm_run_on_the_cpu(capsys):

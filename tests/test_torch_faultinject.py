@@ -1,10 +1,17 @@
-"""The port's parent-fault injectors, capacity squeeze, retry types,
-straggler monitor and self-healing session
-(``repro_torch.runtime.faultinject``/``retry``/``straggler``,
-``core/engine.py::run_bfs_healed``) against the JAX package's, tolerance
-0.  The healed run on 4 strips is held against the reference's
+"""The port's parent-fault injectors, store corruption, capacity
+squeezes, seeded fault matrix and its CLI, retry types, straggler monitor
+and self-healing session (``repro_torch.runtime.faultinject``/``retry``/
+``straggler``, ``core/engine.py::run_bfs_healed``) against the JAX
+package's, tolerance 0.  The healed run on 4 strips is held against the reference's
 ``retry_log`` in ``_torch_dist_validate_main.py`` (``test_torch_validate.
 py``); here the port's own on 4 strips against its unsqueezed run."""
+import json
+import os
+import shutil
+import subprocess
+import sys
+import types
+
 import numpy as np
 import pytest
 
@@ -25,8 +32,12 @@ from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 from repro_torch.runtime import retry
+from repro_torch.ckpt.graph_store import GraphStore
+from repro_torch.runtime import faultinject
 from repro_torch.runtime.faultinject import (PARENT_FAULTS, InjectionError,
-                                             inject_parents, undersize_cap)
+                                             corrupt_shard, inject_parents,
+                                             run_fault_matrix, undersize_cap,
+                                             undersize_route_slack)
 from repro_torch.runtime.straggler import StragglerMonitor
 
 ROOT = 5
@@ -257,11 +268,21 @@ def test_run_bfs_healed_exhaustion_raises_with_history(strips):
     assert "escalation history: attempt 1: cap_x=" in str(ei.value)
 
 
-def test_run_bfs_healed_refuses_a_store(strips):
+def test_run_bfs_healed_accepts_a_store(strips, tmp_path):
+    """A store goes through to every attempt's compile: the same log and
+    parents as without one, each engine built fresh (the port's store
+    keeps no programs) and nothing written into the store."""
     g, mesh, _ = strips
-    with pytest.raises(NotImplementedError, match="store"):
-        run_bfs_healed(g, BFSConfig(decomposition="1ds"), mesh, ROOT,
-                       store=object())
+    cfg = BFSConfig(decomposition="1ds", direction_optimizing=False)
+    squeezed = undersize_cap(g.part.chunk, 0)
+    store = GraphStore(str(tmp_path), device="cpu")
+    h = run_bfs_healed(g, cfg, mesh, ROOT, cap_x=squeezed, store=store,
+                       exec_key="k")
+    want = run_bfs_healed(g, cfg, mesh, ROOT, cap_x=squeezed)
+    assert h.retry_log == want.retry_log and len(h.retry_log) > 1
+    assert np.array_equal(h.result.parents, want.result.parents)
+    assert not h.engine.exec_from_store and h.engine.exec_load_s == 0.0
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_overflow_detection_uses_the_reference_closed_forms(strips):
@@ -283,3 +304,91 @@ def test_overflow_detection_uses_the_reference_closed_forms(strips):
             assert np.isclose(wire, np.float32(exp), rtol=1e-4), (codec,
                                                                   n_f)
         assert _overflow_levels_1ds(eng.plan, res.level_stats) == []
+
+
+# ---------------------------------------------------------------------------
+# the store half: shard corruption, the route_slack squeeze, the matrix
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["flip", "truncate"])
+def test_corrupt_shard_writes_the_reference_bytes(tmp_path, mode):
+    """On two identical stores with the same seed, the port's and the
+    reference's corrupt_shard pick the same shard and leave the same
+    bytes."""
+    from repro_torch.graph.dist_build import BuildSpec, dist_build
+    g, _ = dist_build(BuildSpec(8, 8, 3), "1d", make_local_mesh_1d(
+        4, device="cpu"), 4, align=32, cap_pad=32)
+    GraphStore(str(tmp_path / "a"), device="cpu").save_graph("g", g)
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    for seed in (0, 2, 5):
+        got = corrupt_shard(types.SimpleNamespace(root=str(tmp_path / "a")),
+                            "g", seed, mode=mode)
+        want = RF.corrupt_shard(types.SimpleNamespace(
+            root=str(tmp_path / "b")), "g", seed, mode=mode)
+        assert os.path.basename(got) == os.path.basename(want)
+        assert open(got, "rb").read() == open(want, "rb").read()
+    with pytest.raises(ValueError, match="unknown corruption mode"):
+        corrupt_shard(types.SimpleNamespace(root=str(tmp_path / "a")), "g",
+                      0, mode="melt")
+    with pytest.raises(FileNotFoundError, match="no graph steps"):
+        corrupt_shard(types.SimpleNamespace(root=str(tmp_path)), "h", 0)
+
+
+def test_undersize_route_slack_draws_the_reference_values():
+    for seed in range(16):
+        s = undersize_route_slack(seed)
+        assert s == RF.undersize_route_slack(seed) and 0.2 <= s < 0.45
+
+
+def _verdicts(report):
+    """Each case's name, verdict and detail; a store case's detail is its
+    corrupted file, mode and repaired shards (the reasons quote the zip
+    reader, and each package orders its npz members its own way)."""
+    out = []
+    for c in report["cases"]:
+        d = c["detail"]
+        if c["name"].startswith("store/"):
+            d = {**d, "repaired": [r["shard"] for r in d["repaired"]]}
+        out.append((c["name"], c["ok"], json.dumps(d, sort_keys=True)))
+    return out
+
+
+def test_fault_matrix_equals_reference_on_one_device():
+    """The 22 cases' names and verdicts, the kill cases' faults and
+    violations, both heal logs and the repaired shards are the
+    reference's."""
+    got = run_fault_matrix(devices=1, device="cpu")
+    want = RF.run_fault_matrix(devices=1)
+    assert len(got["cases"]) == 22 and got["ok"] and want["ok"]
+    assert _verdicts(got) == _verdicts(want)
+    with pytest.raises(ValueError, match="supports devices in"):
+        run_fault_matrix(devices=3, device="cpu")
+
+
+def test_fault_matrix_cli_equals_reference_on_four_devices(tmp_path,
+                                                           monkeypatch):
+    """The port's CLI on a 4-shard simulated mesh against the reference's
+    CLI on 4 forced host devices: exit 0, the same report; then a matrix
+    whose route_slack heal cannot heal exits 1."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    env.pop("XLA_FLAGS", None)
+    want_json = str(tmp_path / "ref.json")
+    r = subprocess.run([sys.executable, "-m", "repro.runtime.faultinject",
+                        "--devices", "4", "--json", want_json],
+                       capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    got_json = str(tmp_path / "port.json")
+    assert faultinject.main(["--devices", "4", "--device", "cpu", "--json",
+                             got_json]) == 0
+    got, want = json.load(open(got_json)), json.load(open(want_json))
+    assert {k: got[k] for k in ("seed", "scale", "edge_factor", "devices",
+                                "ok")} == \
+        {k: want[k] for k in ("seed", "scale", "edge_factor", "devices",
+                              "ok")}
+    assert _verdicts(got) == _verdicts(want)
+    monkeypatch.setattr(faultinject, "undersize_route_slack",
+                        lambda seed: 1e-6)
+    assert faultinject.main(["--devices", "1", "--device", "cpu"]) == 1
