@@ -61,6 +61,15 @@ Phases, in the order they run:
                  arch on both grids (the "*_pure" folds unvalidated, as
                  they drop by design): kernel and dense sessions agree in
                  parents, levels, stats, counters
+ 5b schedule     the collective-schedule checks on the card:
+                 ``lint_registry()`` (R1-R3 on every LocalOps combo's
+                 pod-batched search at scale 9, the kernel entries among
+                 them, R4 over the 18 budget cases), R1 flagging the
+                 broken 2D fixture in both instrument modes, phase 3's
+                 csr sessions (instrumented and not) held level by level
+                 to their budgets under a recorder (phase 8 does the same
+                 for its strips at expand_chunks 1 and 4), and the 16
+                 roots timed with and without a recorder (the ratio)
   6 kernel times level by level on one 2D search: kernel, plain,
                  library yardstick and bound, each in ms (kernel 2 on
                  the card alone, per launch beside its bound); kernel 2
@@ -1424,6 +1433,67 @@ def digest(t: torch.Tensor) -> tuple:
     return (tuple(t.shape), str(t.dtype), int(s1), int(s2))
 
 
+def hold_budget(eng, roots_, tag: str) -> dict:
+    """A scale-24 session held to its collective budget: each search from
+    ``roots_`` again, untimed, under a ``ScheduleRecorder`` of its own;
+    every level's recorded collectives (an instrumented level's counter
+    psums aside) against ``comm_model.level_collective_budget`` of the
+    session's schedule and grid (rule R4: no finding).  The first root's
+    levels are printed, recorded count against budget."""
+    from repro_torch.analysis.registry import session_budget_findings
+    from repro_torch.core.collectives import ScheduleRecorder
+    rows_all = []
+    for i, r in enumerate(roots_):
+        with ScheduleRecorder() as rec:
+            eng.search(r)
+        findings, rows = session_budget_findings(eng, rec, tag)
+        check(not findings, f"{tag} root {r}: R4 "
+              f"{[f.message for f in findings]}")
+        if i == 0:
+            print(f"{tag}, root {r}, level (mode) recorded/budget: "
+                  + ", ".join(f"{x['level']} ({x['mode']}) "
+                              f"{x['recorded']}/{x['budget']}"
+                              for x in rows))
+        rows_all.append(rows)
+    most = {m: max((x["recorded"], x["budget"]) for rows in rows_all
+                   for x in rows if x["mode"] == m)
+            for m in ("td", "bu")
+            if any(x["mode"] == m for rows in rows_all for x in rows)}
+    print(f"{tag}: {sum(map(len, rows_all))} levels over {len(roots_)} "
+          f"roots within budget (R4: no finding); the most a level "
+          + ", ".join(f"{m} {a}/{b}" for m, (a, b) in most.items()))
+    return {"rows": rows_all, "most": most}
+
+
+def recorder_cost(eng, roots_) -> dict:
+    """The searches from ``roots_`` host-timed in turns without and with
+    a ``ScheduleRecorder`` (off, on, on, off); the ratio on/off of the
+    sums."""
+    from repro_torch.core.collectives import ScheduleRecorder
+    wall = {"off": [], "on": []}
+    n_rec = 0
+    for kind in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        if kind == "on":
+            with ScheduleRecorder() as rec:
+                for r in roots_:
+                    eng.search(r)
+            n_rec = len(rec.records)
+        else:
+            for r in roots_:
+                eng.search(r)
+        torch.cuda.synchronize()
+        wall[kind].append(time.perf_counter() - ts)
+    ratio = sum(wall["on"]) / sum(wall["off"])
+    print(f"recorder cost on {len(roots_)} searches, in turns (off, on, "
+          f"on, off): off {wall['off'][0]:.4f} / {wall['off'][1]:.4f} s, on "
+          f"{wall['on'][0]:.4f} / {wall['on'][1]:.4f} s ({n_rec} records); "
+          f"on/off {ratio:.4f}")
+    return {"off_s": wall["off"], "on_s": wall["on"], "records": n_rec,
+            "ratio": ratio}
+
+
 def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     """Phases 3-10: the Graph500 paths (2D, then 1ds on 16 strips), their
     kernels and profiles.  Returns the launches on each path, each
@@ -2213,6 +2283,45 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           "so it equals the dense session's edges_useful")
     del small, small_val, sg
 
+    # --------------------------------------------------------------- 5b
+    phase("5b the collective-schedule checks on the card: the registry "
+          "lint (R1-R4, every LocalOps combo, the kernel entries among "
+          "them), the broken 2D fixture, phase 3's scale-24 sessions held "
+          "to their budgets, the recorder's cost")
+    from repro_torch.analysis.fixtures import FIXTURE_NAME, lint_fixture
+    from repro_torch.analysis.registry import lint_registry
+    t0 = time.perf_counter()
+    report = lint_registry(device=dev)
+    lint_s = time.perf_counter() - t0
+    check(report["clean"], f"registry lint: {report['findings'][:3]}")
+    kernel_combos = sum("/kernel/" in c["name"] for c in report["combos"])
+    print(f"lint_registry on the card: {len(report['combos'])} combos "
+          f"({kernel_combos} on kernel entries) clean of R1-R3, "
+          f"{len(report['budget_cases'])} budget cases within their "
+          f"budgets (R4), in {lint_s:.3f} s")
+    check(kernel_combos > 0, "the registry lint ran no kernel entry")
+    fixture = {}
+    for instr in (False, True):
+        fs = lint_fixture(instr, device=dev)
+        r1 = [f for f in fs if f.rule == "R1"
+              and f.detail["collective"] == "ppermute"]
+        check(bool(r1) and r1[0].detail["divergent_axes"] == ["pod"],
+              f"R1 did not flag {FIXTURE_NAME} (instrument={instr})")
+        fixture[instr] = [f.rule for f in fs]
+        print(f"{FIXTURE_NAME} instrument={instr}: {len(r1)} R1 findings "
+              f"on its permutes, rules {sorted(set(fixture[instr]))}; "
+              f"e.g. {r1[0].message}")
+    sched = {"lint_s": lint_s, "combos": len(report["combos"]),
+             "kernel_combos": kernel_combos,
+             "budget_cases": len(report["budget_cases"]),
+             "fixture_rules": fixture,
+             "csr": hold_budget(engine, roots, "2D csr session 1x1, "
+                                "instrumented"),
+             "csr_fast": hold_budget(fast, roots, "2D csr session 1x1, "
+                                     "instrument=False"),
+             "recorder": recorder_cost(engine, roots)}
+    record["schedule"] = sched
+
     # ---------------------------------------------------------------- 6
     phase("6 kernel times level by level on one 2D search")
     with recording([(sp_ops, "spmsv_csr_min", "spmsv_csr_min"),
@@ -2433,6 +2542,13 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         launches_fast[k] = launches_fast.get(k, 0) + n
     for c in STRIP_CHUNKS:
         tally_walks(runs[c]["engine"], roots, c, "direction-optimizing")
+    # phase 5b's budget hold on the strips' sessions
+    for c in STRIP_CHUNKS:
+        record["schedule"][f"1ds_c{c}"] = hold_budget(
+            runs[c]["engine"], roots, f"1ds expand_chunks={c}, instrumented")
+        record["schedule"][f"1ds_c{c}_fast"] = hold_budget(
+            runs[c]["fast_engine"], roots,
+            f"1ds expand_chunks={c}, instrument=False")
     peak_1ds = torch.cuda.max_memory_allocated() / 2**30
     nnz = graph.nnz.tolist()
     cap_x = runs[STRIP_CHUNKS[0]]["engine"].plan.statics.cap_x

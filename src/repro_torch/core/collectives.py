@@ -1,16 +1,151 @@
-"""Collectives of the simulated mesh as tensor ops.
+"""Collectives of the simulated mesh as tensor ops, each one recorded.
 
-Every per-processor array has shape ``(pr, pc, ...)``: element ``[i, j]``
-is what processor (i, j) holds.  Flat processor ids are k = i*pc + j, the
-order the JAX package's ``ppermute`` pairs use over the (row, col) axes.
-Each function returns what every processor holds after the collective,
-with the same two leading dims.
+Every per-processor array has shape ``(pr, pc, ...)`` on the 2D grid and
+``(p, ...)`` on the strips: element ``[i, j]`` (or ``[i]``) is what
+processor (i, j) (or strip i) holds.  Flat processor ids are k = i*pc +
+j, the order the JAX package's ``ppermute`` pairs use over the (row,
+col) axes.  Each function returns what every processor holds after the
+collective, with the same leading dims.
+
+Every exchange that the JAX package issues as a collective is one
+function here, named by the HLO kind it lowers to there (``KINDS``) and
+run over named mesh axes: ``ROW`` ("data", the expand axis, and the
+strips' one axis), ``COL`` ("model", the fold and rotation axis) and
+``POD`` (the batched roots).  While a ``ScheduleRecorder`` is active
+each call appends a ``Record``: the kind, the JAX primitive, the axes,
+and the level, mode and pod that the level loop set with ``at``.  A
+collective whose simulated form is a view or a no-op records all the
+same: ``all_gather_rows`` is a broadcast view, and ``noted`` stands for
+a reduction the JAX package issues where the port already holds the
+value (the level loop's host read).  With no recorder active a call
+costs one test of a module global; a recorder reads no tensor and
+allocates nothing on the device.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import sys
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+ROW, COL, POD = "data", "model", "pod"
+GRID_2D = (ROW, COL)
+STRIPS = (ROW,)
+
+# HLO kind of each JAX primitive the port records
+KINDS = {"psum": "all-reduce", "pmax": "all-reduce", "pmin": "all-reduce",
+         "all_gather": "all-gather", "all_to_all": "all-to-all",
+         "ppermute": "collective-permute"}
+REDUCTIONS = ("psum", "pmax", "pmin")
+
+
+@dataclass(frozen=True)
+class Record:
+    """One issued collective and where the level loop stood."""
+    kind: str                 # HLO kind: "all-reduce", "all-gather", ...
+    op: str                   # JAX primitive: "psum", "ppermute", ...
+    axes: Tuple[str, ...]     # the mesh axes it runs over
+    level: int                # the level loop's level (-1: before it)
+    mode: str                 # "td" | "bu" | "loop" | "validate"
+    pod: Optional[int]        # the pod whose search issued it (None: all)
+    tag: str                  # "" | "counter" | "decision" | "lockstep" |
+    #                           a branch: "sparse" | "dense" | "fallback"
+    site: str                 # "file.py:line function" of the caller
+
+
+class ScheduleRecorder:
+    """Records every collective issued inside its ``with`` block.
+
+    ``records`` is the schedule in issue order; ``counts()`` gives its
+    per-kind counts and their ``total``, ``summary()`` the same by level.
+    Recorders nest: the inner one records, and the outer one resumes
+    when it exits."""
+
+    def __init__(self):
+        self.records: List[Record] = []
+        self.level = -1
+        self.mode = "loop"
+        self.pod: Optional[int] = None
+        self._outer = None
+
+    def __enter__(self) -> "ScheduleRecorder":
+        global _ACTIVE
+        self._outer, _ACTIVE = _ACTIVE, self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _ACTIVE
+        _ACTIVE = self._outer
+
+    def counts(self) -> Dict[str, int]:
+        return count_kinds(self.records)
+
+    def summary(self) -> Dict:
+        """The recorded search by level: per-kind counts of the whole
+        search, of the reduction before the first level (``startup``),
+        and for each level its mode, the counts of its body (the td or
+        bu step) and of the loop's records (the tail reduction, the
+        pods' syncs), summed over pods, with the body's branch tags.
+        The validator's records are left out."""
+        search = [r for r in self.records if r.mode in ("td", "bu", "loop")]
+        out: Dict = count_kinds(search)
+        out["startup"] = count_kinds([r for r in search if r.level < 0])
+        levels: Dict[int, Dict] = {}
+        for r in search:
+            if r.level >= 0:
+                ent = levels.setdefault(r.level, {"mode": None, "body": [],
+                                                  "loop": []})
+                if r.mode == "loop":
+                    ent["loop"].append(r)
+                else:
+                    ent["mode"] = r.mode
+                    ent["body"].append(r)
+        out["levels"] = [
+            {"level": lv, "mode": e["mode"], "body": count_kinds(e["body"]),
+             "loop": count_kinds(e["loop"]),
+             "tags": sorted({r.tag for r in e["body"] if r.tag})}
+            for lv, e in sorted(levels.items())]
+        return out
+
+
+def count_kinds(records: Sequence[Record]) -> Dict[str, int]:
+    """Per-HLO-kind counts of ``records`` plus their ``total``, as the
+    JAX package's ``hlo_collective_counts`` reports a program's."""
+    out: Dict[str, int] = {}
+    for r in records:
+        out[r.kind] = out.get(r.kind, 0) + 1
+    out["total"] = len(records)
+    return out
+
+
+_ACTIVE: Optional[ScheduleRecorder] = None
+
+
+def at(level: int, mode: str, pod: Optional[int] = None) -> None:
+    """Set the level, mode and pod that the next records carry (the
+    level loop and the validator call this; a no-op unrecorded)."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.level, rec.mode, rec.pod = level, mode, pod
+
+
+def _record(op: str, axes: Tuple[str, ...], tag: str = "") -> None:
+    rec = _ACTIVE
+    if rec is None:
+        return
+    f = sys._getframe(2)
+    site = (f"{f.f_code.co_filename.rsplit('/', 2)[-1]}:{f.f_lineno} "
+            f"{f.f_code.co_name}")
+    rec.records.append(Record(KINDS[op], op, tuple(axes), rec.level,
+                              rec.mode, rec.pod, tag, site))
+
+
+def noted(op: str, axes: Tuple[str, ...], tag: str = "") -> None:
+    """A reduction the JAX package issues here whose value the port
+    already holds (read with the level's masses): recorded only."""
+    if _ACTIVE is not None:
+        _record(op, axes, tag)
 
 
 def perm_index(perm: Sequence[Tuple[int, int]], device
@@ -24,9 +159,10 @@ def perm_index(perm: Sequence[Tuple[int, int]], device
 
 def ppermute(x: torch.Tensor, perm: Tuple[torch.Tensor, torch.Tensor]
              ) -> torch.Tensor:
-    """Whole-mesh permute: processor ``src[k]`` sends its block to
-    ``dst[k]`` (``perm`` from ``perm_index``); processors that receive
-    nothing hold zeros."""
+    """Whole-mesh permute over (row, col): processor ``src[k]`` sends its
+    block to ``dst[k]`` (``perm`` from ``perm_index``); processors that
+    receive nothing hold zeros."""
+    _record("ppermute", GRID_2D)
     pr, pc = x.shape[:2]
     src, dst = perm
     flat = x.reshape(pr * pc, *x.shape[2:])
@@ -38,6 +174,7 @@ def ppermute(x: torch.Tensor, perm: Tuple[torch.Tensor, torch.Tensor]
 def ppermute_col_ring(x: torch.Tensor) -> torch.Tensor:
     """The ring permute along the processor row, pairs (q, q+1 mod pc):
     processor (i, j) receives from (i, j-1)."""
+    _record("ppermute", (COL,))
     return torch.roll(x, shifts=1, dims=1)
 
 
@@ -45,19 +182,53 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Tiled all_gather along the row axis: processor (i, j) receives the
     concatenation over i' of x[i', j].  The result is the same for every
     i, so it is returned as a broadcast view."""
+    _record("all_gather", (ROW,))
     pr, pc = x.shape[:2]
     g = x.transpose(0, 1).reshape(pc, pr * x.shape[2], *x.shape[3:])
     return g.unsqueeze(0).expand(pr, *g.shape)
 
 
-def all_to_all_cols(x: torch.Tensor) -> torch.Tensor:
+def all_gather_tiled(x: torch.Tensor, axes: Tuple[str, ...],
+                     tag: str = "") -> torch.Tensor:
+    """Tiled all_gather over each of ``axes`` in turn, innermost first:
+    every processor receives the blocks of ``x`` (its leading
+    ``len(axes)`` dims the processors) concatenated in global order.
+    Every processor holds the same buffer, so it is returned once, flat
+    over the processors and contiguous, as a gather writes it: the
+    strips' bitmap and bucket exchanges and the validator's replicated
+    parents."""
+    for ax in reversed(axes):
+        _record("all_gather", (ax,), tag)
+    return x.reshape(-1).contiguous()
+
+
+def all_to_all_cols(x: torch.Tensor, tag: str = "") -> torch.Tensor:
     """all_to_all along the col axis (split and concat axis 2): x is
     ``(pr, pc, pc, ...)`` and processor (i, j) sends x[i, j, q] to (i, q),
     which stores it at position j."""
+    _record("all_to_all", (COL,), tag)
     return x.transpose(1, 2).contiguous()
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the whole mesh of per-processor values stacked on the
-    leading dim(s); every processor holds the same result."""
+def psum(x: torch.Tensor, axes: Tuple[str, ...] = GRID_2D,
+         tag: str = "") -> torch.Tensor:
+    """Sum over ``axes`` of per-processor values stacked on the leading
+    dim(s); every processor holds the same result."""
+    _record("psum", axes, tag)
     return x.sum()
+
+
+def psum_stacked(vals: Sequence[torch.Tensor], axes: Tuple[str, ...]
+                 ) -> torch.Tensor:
+    """One fused psum over ``axes`` of several per-processor sums, each
+    already taken over the processors: the level loop's vector
+    reduction, stacked into one tensor for one host read."""
+    _record("psum", axes)
+    return torch.stack(list(vals))
+
+
+def pmax(x: torch.Tensor, axes: Tuple[str, ...] = GRID_2D) -> torch.Tensor:
+    """Max over ``axes`` of per-processor values; every processor holds
+    the same result."""
+    _record("pmax", axes)
+    return x.amax()

@@ -98,6 +98,36 @@ def compressed_expand_1d_words(n_f, p, bits: int, n_chunks: int = 1):
     return f(p - 1.0) * (n_f * f(bits) + f(32.0 * p * n_chunks)) / f(64.0)
 
 
+def compressed_expand_padded_words(cap_x: int, p: int, bits: int) -> float:
+    """Physical buffer volume of the packed static-shape exchange, in
+    64-bit words: p owners x (p-1) peers x the whole encoded bucket
+    (``codec_bucket_words`` u32 words, half a paper word each), sentinel
+    slots included."""
+    return float(p) * (p - 1.0) * codec_bucket_words(cap_x, bits) / 2.0
+
+
+def hybrid_expand_1d_level_words(n_f_local_max: float, n_f: float, n: int,
+                                 p: int, cap_x: int,
+                                 bits: int = 0) -> float:
+    """One "1ds" level's wire: sparse ids while every processor's bucket
+    fits ``cap_x``, else the dense bitmap for the level.  ``bits > 0``
+    prices the packed codec on the sparse branch; 0 keeps raw ids at one
+    word each."""
+    if n_f_local_max > cap_x:
+        return expand_1d_level_words(n, p)
+    if bits > 0:
+        return compressed_expand_1d_words(n_f, p, bits)
+    return sparse_expand_1d_words(n_f, p)
+
+
+def sparse_expand_padded_words(cap_x: int, p) -> float:
+    """Physical buffer volume of the static-shape sparse exchange: the
+    tiled allgather moves the whole ``cap_x``-slot bucket, sentinels
+    included, from each of the p owners to its p-1 peers, in the id
+    units of ``sparse_expand_1d_words``."""
+    return float(p) * (p - 1.0) * cap_x
+
+
 def plan_cap_x(n: int, p: int, m: int, align: int = 32,
                bits: int = 64) -> int:
     """The "1ds" per-processor bucket capacity: the sparse exchange
@@ -134,6 +164,18 @@ def topdown_1d_words(m: int, p: int) -> float:
     """Classic sparse 1D top-down volume: a (p-1)/p share of the 2m
     directed endpoints is remote and ships once as an id."""
     return 2.0 * m * (p - 1) / p
+
+def strip_csr_pointer_words(n: int, p: int) -> float:
+    """§5.1 storage charge of an uncompressed strip CSC: n+1 column
+    pointers on every processor, O(n*p) words in all."""
+    return float(p) * (n + 1)
+
+
+def strip_dcsc_pointer_words(nzc_total: float, p: int) -> float:
+    """The strip DCSC's pointers: (jc, cp) pairs over the non-empty
+    columns only, 2*nzc + 2 words a strip; ``nzc_total`` is the sum of
+    the strips' non-empty column counts."""
+    return 2.0 * float(nzc_total) + 2.0 * p
 
 
 def rmat_strip_skew(p: int, a: float = 0.57, b: float = 0.19) -> float:
@@ -180,6 +222,74 @@ def plan_cap_route(records: int, p: int, a: float = 0.57, b: float = 0.19,
     frac = max(rmat_strip_skew(p, a, b), 1.0 / max(p, 1))
     cap = int(slack * frac * records) + pad
     return ((cap + pad - 1) // pad) * pad
+
+
+def level_collective_budget(decomposition: str, mode: str, pc: int = 1,
+                            fold_mode: str = "alltoall",
+                            compact_updates: bool = False,
+                            codec: str = "none",
+                            expand_chunks: int = 1) -> int:
+    """Per-level collective budget of the ``instrument=False`` level
+    bodies, counted as the JAX package counts its lowered program: both
+    branches of a ``lax.cond`` count.  The level loop adds one fused
+    reduction a level on top (and, batched over pods, the lockstep
+    pmax).
+
+      2d top-down : transpose permute + allgather + the fold (alltoall:
+                    1; ring reduce: pc-1 permutes; bitmap_pure: 4
+                    all_to_alls, two bitmap rounds and the winners'
+                    values and offsets; "bitmap": those, the overflow
+                    pmax and the dense fallback's all_to_all)
+      2d bottom-up: transpose permute + allgather + the pc-1 rotation
+                    permutes + one update all_to_all; compact updates
+                    add the overflow pmax and the dense fallback's
+                    all_to_all.  ``expand_chunks > 1`` runs the R/G
+                    split ring: 2(pc-1) permutes.
+      1d          : one bitmap allgather a level, C at expand_chunks C.
+      1ds top-down: the sparse/dense allgather pair (2C in the text, C
+                    execute); the packed codec changes bytes, not ops.
+      1d/1ds bu   : the one dense bitmap allgather."""
+    if codec not in ("none", "packed"):
+        raise ValueError(f"no collective budget modeled for "
+                         f"codec={codec!r}")
+    if expand_chunks < 1:
+        raise ValueError(f"no collective budget modeled for "
+                         f"expand_chunks={expand_chunks!r}")
+    if decomposition == "2d":
+        if mode == "td":
+            folds = {"alltoall": 1, "reduce": max(pc - 1, 1),
+                     "bitmap_pure": 4, "bitmap": 6}
+            if fold_mode not in folds:
+                raise ValueError(f"no collective budget modeled for "
+                                 f"fold_mode={fold_mode!r}")
+            return 2 + folds[fold_mode]
+        if mode == "bu":
+            rot = (2 if expand_chunks > 1 else 1) * (pc - 1)
+            return rot + 3 + (2 if compact_updates else 0)
+    if decomposition in ("1d", "1ds") and mode in ("td", "bu"):
+        if decomposition == "1ds" and mode == "td":
+            return 2 * expand_chunks
+        if decomposition == "1d" and mode == "td":
+            return expand_chunks
+        return 1
+    raise ValueError(f"no collective budget modeled for "
+                     f"decomposition={decomposition!r} mode={mode!r}")
+
+
+def level_budgets_for(decomposition: str, *, pc: int, p: int,
+                      fold_mode: str = "alltoall",
+                      compact_updates: bool = False,
+                      frontier_codec: str = "none",
+                      expand_chunks: int = 1) -> Dict[str, int]:
+    """Both level budgets of one schedule case: the keywords are the
+    BFSConfig fields an entry lists in ``schedule_dims``.  The grid the
+    budget scales with is ``pc`` on the 2D checkerboard and the strip
+    count ``p`` on the strips."""
+    grid = pc if decomposition == "2d" else p
+    return {mode: level_collective_budget(
+        decomposition, mode, grid, fold_mode=fold_mode,
+        compact_updates=compact_updates, codec=frontier_codec,
+        expand_chunks=expand_chunks) for mode in ("td", "bu")}
 
 
 def validate_collective_budget(decomposition: str) -> Dict[str, int]:

@@ -14,7 +14,10 @@ Registered:
         (core/steps_1d_sparse.py)
 
 Each entry also carries the Graph500 validator's edge hook
-(``local_edges``, ``edge_keys``; ``core/validate.py``).
+(``local_edges``, ``edge_keys``; ``core/validate.py``) and its
+collective-schedule contract (``rendezvous_axes``, ``schedule_dims``,
+``level_steps``), which ``repro_torch.analysis`` checks against the
+schedule a recorded run issues.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core import collectives
+from repro_torch.core.collectives import GRID_2D, STRIPS
 from repro_torch.core.partition import Partition1D, Partition2D
 from repro_torch.core.steps import (LevelArgs, bottomup_level, topdown_level,
                                     zero_counters)
@@ -59,9 +63,26 @@ class Decomposition:
     #                           ((p, 1) for the strips)
     make_level_args: Callable  # (part, cfg, ops, statics, graph arrays,
     #                            device)
-    body: Callable            # (g, roots, *, part, args, cfg) -> the
-    #                           lockstep searches, one root a pod
+    body: Callable            # (g, roots, *, part, args, cfg, sync_axis)
+    #                           -> the lockstep searches, one root a pod
     validate: Callable        # (part, statics) -> None (raises on bad plan)
+    axes: Tuple[str, ...] = GRID_2D   # the mesh axes the graph spans
+    # the collective-schedule contract, checked by repro_torch.analysis:
+    # ``rendezvous_axes(axes, mesh_axes)`` declares the mesh axes the
+    # level schedule rendezvouses on.  "2d" permutes, which the JAX
+    # package lowers as whole-mesh rendezvous, so it declares the whole
+    # mesh (pod axis included) and syncs its direction decision over the
+    # pods; the strips gather and reduce along their one axis only.
+    # None claims the whole mesh.  The linter recomputes each recorded
+    # collective's rendezvous (R1) and flags an entry whose declaration
+    # under-claims it (R3).
+    rendezvous_axes: Optional[Callable] = None
+    # the BFSConfig fields that change the per-level schedule; the R4
+    # budget sweep takes their cross product (analysis/registry.py)
+    schedule_dims: Tuple[str, ...] = ("expand_chunks",)
+    # (topdown, bottomup) level steps, ``step(g, pi, front, args, lv)``,
+    # the ones ``body`` drives: the budget sweep runs each alone
+    level_steps: Optional[Tuple[Callable, Callable]] = None
     # the Graph500 validator's edge hook: ``local_edges(g, part, shard,
     # start, stop) -> (u, v, valid)`` enumerates slots [start, stop) of
     # one shard's edge slots (``shard`` indexes the grid dims of the
@@ -90,29 +111,44 @@ def get_decomposition(name: str) -> Decomposition:
     return _REGISTRY[name]
 
 
+def registered_decompositions() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def unregister_decomposition(name: str) -> None:
+    """Remove an entry: for scoped registrations only (the linter's
+    fixture registers a broken entry and leaves the registry as it found
+    it)."""
+    if name not in _REGISTRY:
+        raise ValueError(f"no decomposition registered for {name!r}")
+    del _REGISTRY[name]
+
+
 # ---------------------------------------------------------------------------
 # The whole-search level loop
 # ---------------------------------------------------------------------------
 
 
 def _masses(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
-            over: torch.Tensor = None):
+            over: torch.Tensor = None, axes: Tuple[str, ...] = GRID_2D):
     """Frontier size, frontier edge mass and unvisited edge mass, summed
-    exactly in int64 and read to the host in one transfer.  ``over``, a
-    0-d bool tensor (the uninstrumented "1ds" bucket-overflow indicator),
-    rides the same read as a fourth value."""
+    exactly in int64 and read to the host in one transfer: the loop's
+    fused reduction over the graph ``axes``.  ``over``, a 0-d bool tensor
+    (the uninstrumented "1ds" bucket-overflow indicator), rides the same
+    read as a fourth value."""
     zero = torch.zeros((), dtype=deg.dtype, device=deg.device)
     vals = [front.sum(), torch.where(front, deg, zero).sum(),
             torch.where(pi == -1, deg, zero).sum()]
     if over is not None:
         vals.append(over.to(torch.int64))
-    return torch.stack(vals).tolist()
+    return collectives.psum_stacked(vals, axes).tolist()
 
 
 def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
-                 over_cap: int = 0, expand_chunks: int = 1):
+                 over_cap: int = 0, expand_chunks: int = 1,
+                 axes: Tuple[str, ...] = GRID_2D):
     """(n_f, m_f, m_u, over) of a post-level state as float32 scalars and
-    a bool, in one host read.  ``over_cap`` > 0 (the uninstrumented "1ds"
+    a bool, in one host read: one fused reduction over ``axes``.  ``over_cap`` > 0 (the uninstrumented "1ds"
     loop) adds the bucket-overflow indicator to that read; else ``over``
     is False.
 
@@ -125,20 +161,23 @@ def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
     if over_cap:
         counts = front.reshape(front.shape[0], expand_chunks, -1).sum(2)
         over = counts.max() > over_cap // expand_chunks
-    n_f, m_f, m_u, *ov = _masses(pi, front, deg, over)
+    n_f, m_f, m_u, *ov = _masses(pi, front, deg, over, axes)
     return _F32(n_f), _F32(m_f), _F32(m_u), bool(ov and ov[0])
 
 
 def decide_and_sync(cfg: BFSConfig, n_total: int, modes: Sequence[int],
-                    states: Sequence[Tuple], sync_modes: bool = False
-                    ) -> List[int]:
+                    states: Sequence[Tuple], sync_modes: bool = False,
+                    sync_axis: Optional[str] = None) -> List[int]:
     """Beamer's direction rule in float32: each pod's next mode (0
     top-down, 1 bottom-up) from its own ``(n_f, m_f, m_u, ...)``.  With
     ``sync_modes`` ("2d", whose collectives span the whole mesh in the
     JAX package) the decision is the pods' shared one: bottom-up when any
     pod wants it (the reference's pmax), top-down again only when every
-    pod wants it (its pmin).  The lockstep frontier size, the pmax of
-    the pods' ``n_f``, is the loop's own predicate (``_search_loop``)."""
+    pod wants it (its pmin); over a pod axis ``sync_axis`` the two are
+    recorded, and that record is what makes the decision uniform over
+    the pods (``analysis/uniformity.py``).  The lockstep frontier size,
+    the pmax of the pods' ``n_f``, is the loop's own predicate
+    (``_search_loop``)."""
     if not cfg.direction_optimizing:
         return list(modes)
     go_bu = [mode == 0 and m_f > m_u / _F32(cfg.alpha)
@@ -146,6 +185,9 @@ def decide_and_sync(cfg: BFSConfig, n_total: int, modes: Sequence[int],
     go_td = [mode == 1 and n_f < _F32(n_total / cfg.beta)
              for mode, (n_f, m_f, m_u, *_) in zip(modes, states)]
     if sync_modes:
+        if sync_axis is not None:
+            collectives.noted("pmax", (sync_axis,), "decision")
+            collectives.noted("pmin", (sync_axis,), "decision")
         go_bu = [any(go_bu)] * len(modes)
         go_td = [all(go_td)] * len(modes)
     return [1 if bu else 0 if td else mode
@@ -154,7 +196,9 @@ def decide_and_sync(cfg: BFSConfig, n_total: int, modes: Sequence[int],
 
 def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
                  cfg: BFSConfig, td_level, bu_level, sync_modes: bool = False,
-                 over_cap: int = 0, expand_chunks: int = 1):
+                 over_cap: int = 0, expand_chunks: int = 1,
+                 axes: Tuple[str, ...] = GRID_2D,
+                 sync_axis: Optional[str] = None):
     """Beamer's direction heuristics, and with ``cfg.instrument`` the
     per-level stats and counter accumulation, over the (pi, front, lv) ->
     (pi, front, ctr) steps.  ``gidx`` holds the global vertex ids in the
@@ -191,6 +235,13 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     that depends on its reduction order, so past 2**24 the two can differ
     in the last bits of m_f and m_u and, at a threshold, in a decision.
 
+    The loop tells ``core/collectives.py`` where it stands (``at``: the
+    level, the mode and, with a pod axis ``sync_axis``, the pod), so a
+    ``ScheduleRecorder`` files each collective under its level: a step's
+    under "td" or "bu", the tail reduction (over the graph ``axes``), the
+    decision's pod sync and the lockstep pmax over ``sync_axis`` under
+    "loop".  The reduction before the first level is filed at level -1.
+
     Uninstrumented (the JAX package's ``_search_loop_fast``), the
     counters come back ``{}`` (never zeros, which would read as
     measurements) and the stats all zeros.  The modes, the parents and
@@ -206,14 +257,32 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     ctrs = [zero_counters() if instrument else {} for _ in roots]
     cap = 0 if instrument else over_cap
     deg = g["deg_A"]
-    states = [reduce_state(pi, f, deg, cap, expand_chunks)
-              for pi, f in zip(pis, fronts)]
+
+    def pod(k):
+        return None if sync_axis is None else k
+
+    def tail(level):
+        """The post-level reductions: each pod's, then the lockstep
+        pmax of the pods' frontier sizes."""
+        out = []
+        for k, (pi, f) in enumerate(zip(pis, fronts)):
+            collectives.at(level, "loop", pod(k))
+            out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes))
+        if sync_axis is not None:
+            collectives.at(level, "loop")
+            collectives.noted("pmax", (sync_axis,), "lockstep")
+        return out
+
+    states = tail(-1)
     modes, level = [0] * len(roots), 0
     while level < MAX_LEVELS and max(st[0] for st in states) > 0:
-        modes = decide_and_sync(cfg, n_total, modes, states, sync_modes)
+        collectives.at(level, "loop")
+        modes = decide_and_sync(cfg, n_total, modes, states, sync_modes,
+                                sync_axis)
         for k, (mode, (n_f, m_f, m_u, over)) in enumerate(zip(modes,
                                                               states)):
             step = bu_level if mode == 1 else td_level
+            collectives.at(level, "bu" if mode == 1 else "td", pod(k))
             pis[k], fronts[k], c2 = step(pis[k], fronts[k],
                                          {"n_f": n_f, "m_f": m_f,
                                           "over": over})
@@ -221,8 +290,7 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
                 ctrs[k] = {key: ctrs[k][key] + c2[key] for key in ctrs[k]}
                 # stats row: n_f, m_f, mode, used, measured expand words
                 stats[k, level] = (n_f, m_f, mode, 1, c2["wire_expand"])
-            states[k] = reduce_state(pis[k], fronts[k], deg, cap,
-                                     expand_chunks)
+        states = tail(level)
         level += 1
     return pis, level, ctrs, stats
 
@@ -233,10 +301,12 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
 
 
 def _bfs_body_2d(g, roots, *, part: Partition2D, args: LevelArgs,
-                 cfg: BFSConfig):
-    """The 2D search over one root a pod; the JAX package's 2D steps
-    rendezvous with the whole mesh, so the pods share each direction
-    decision (``sync_modes``)."""
+                 cfg: BFSConfig, sync_axis: Optional[str] = None,
+                 sync_modes: bool = True):
+    """The 2D search over one root a pod (``sync_axis`` names the pod
+    axis of a batch); the JAX package's 2D steps rendezvous with the
+    whole mesh, so the pods share each direction decision
+    (``sync_modes``; the linter's fixture turns it off)."""
     dev = g["deg_A"].device
     gidx = torch.arange(part.n, dtype=torch.int32, device=dev).reshape(
         part.pr, part.pc, part.chunk)
@@ -244,7 +314,7 @@ def _bfs_body_2d(g, roots, *, part: Partition2D, args: LevelArgs,
         g, gidx, roots, n_total=part.n, cfg=cfg,
         td_level=lambda pi, f, lv: topdown_level(g, pi, f, args, lv),
         bu_level=lambda pi, f, lv: bottomup_level(g, pi, f, args, lv),
-        sync_modes=True)
+        sync_modes=sync_modes, axes=GRID_2D, sync_axis=sync_axis)
 
 
 def _make_args_2d(part, cfg, ops, statics: PlanStatics, arrays,
@@ -312,8 +382,12 @@ register_decomposition(Decomposition(
     name="2d", partition_cls=Partition2D, graph_cls=BlockedGraph,
     axis_sizes=lambda part: (part.pr, part.pc),
     make_level_args=_make_args_2d, body=_bfs_body_2d,
-    validate=_validate_2d, edge_keys=EDGE_KEYS,
-    local_edges=_local_edges_2d))
+    validate=_validate_2d,
+    # permutes rendezvous with every device: hence sync_modes above
+    rendezvous_axes=lambda axes, mesh_axes: tuple(mesh_axes),
+    schedule_dims=("fold_mode", "compact_updates", "expand_chunks"),
+    level_steps=(topdown_level, bottomup_level),
+    edge_keys=EDGE_KEYS, local_edges=_local_edges_2d))
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +404,7 @@ def _make_strip_body(td_step, bu_step, sparse: bool):
     its own (no ``sync_modes``)."""
 
     def body(g, roots, *, part: Partition1D, args: LevelArgs1D,
-             cfg: BFSConfig):
+             cfg: BFSConfig, sync_axis: Optional[str] = None):
         gidx = torch.arange(part.n, dtype=torch.int32,
                             device=g["deg_A"].device).reshape(part.p,
                                                               part.chunk)
@@ -339,7 +413,8 @@ def _make_strip_body(td_step, bu_step, sparse: bool):
             td_level=lambda pi, f, lv: td_step(g, pi, f, args, lv),
             bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv),
             over_cap=args.cap_x if sparse else 0,
-            expand_chunks=args.expand_chunks)
+            expand_chunks=args.expand_chunks, axes=STRIPS,
+            sync_axis=sync_axis)
 
     return body
 
@@ -388,13 +463,19 @@ def _validate_1ds(part, statics: PlanStatics) -> None:
             f"expand_chunks equal sub-buckets")
 
 
-for _name, _td, _bu, _validate in (
-        ("1d", topdown_level_1d, bottomup_level_1d, _validate_strip_chunks),
-        ("1ds", topdown_level_1ds, bottomup_level_1ds, _validate_1ds)):
+for _name, _td, _bu, _validate, _dims in (
+        ("1d", topdown_level_1d, bottomup_level_1d, _validate_strip_chunks,
+         ("expand_chunks",)),
+        ("1ds", topdown_level_1ds, bottomup_level_1ds, _validate_1ds,
+         ("frontier_codec", "expand_chunks"))):
     register_decomposition(Decomposition(
         name=_name, partition_cls=Partition1D, graph_cls=Blocked1DGraph,
         axis_sizes=lambda part: (part.p, 1),
         make_level_args=_make_args_strip,
         body=_make_strip_body(_td, _bu, sparse=_name == "1ds"),
-        validate=_validate, edge_keys=EDGE_KEYS,
-        local_edges=_local_edges_1d))
+        validate=_validate, axes=STRIPS,
+        # gathers and reductions along the strip axis only: per-pod
+        # direction decisions are safe
+        rendezvous_axes=lambda axes, mesh_axes: tuple(axes),
+        schedule_dims=_dims, level_steps=(_td, _bu),
+        edge_keys=EDGE_KEYS, local_edges=_local_edges_1d))

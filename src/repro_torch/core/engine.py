@@ -39,7 +39,8 @@ import torch
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core import comm_model
 from repro_torch.core.decomp import (MAX_LEVELS, Decomposition, PlanStatics,
-                                     get_decomposition)
+                                     get_decomposition,
+                                     registered_decompositions)
 from repro_torch.core.local_ops import LocalOps, get_local_ops
 from repro_torch.core.steps_1d_sparse import CODECS
 from repro_torch.kernels import build
@@ -72,9 +73,9 @@ class BFSBatchResult:
     level_stats: np.ndarray      # (n_roots, MAX_LEVELS, 5) float32
 
 
-# the values of the BFSConfig string fields a plan takes
-_VALUES = {"decomposition": ("2d", "1d", "1ds"),
-           "fold_mode": ("reduce", "alltoall", "bitmap", "bitmap_pure"),
+# the values of the BFSConfig string fields a plan takes (the
+# decomposition: any registered entry)
+_VALUES = {"fold_mode": ("reduce", "alltoall", "bitmap", "bitmap_pure"),
            "storage": ("csr", "dcsc")}
 
 
@@ -138,12 +139,25 @@ class BFSPlan:
                 at = [k * rpp + j for k in range(pods)]
                 pi_j, level, _, st = self.entry.body(
                     graph_arrays, [roots[i] for i in at], part=self.part,
-                    args=args, cfg=self.cfg)
+                    args=args, cfg=self.cfg, sync_axis=pod_axis)
                 for k, i in enumerate(at):
                     pis[i], levels[i], stats[i] = pi_j[k], level, st[k]
             pis = torch.stack(pis, dim=-2)
             return pis, levels, stats
         return fn
+
+    def lint(self, pod_axis: Optional[str] = None) -> List[Any]:
+        """The collective-schedule linter (``repro_torch.analysis``, rules
+        R1-R3) on one recorded search of this plan; the findings, empty
+        when clean.  On a mesh with a "pod" axis (or a ``pod_axis``) it
+        lints the pod-batched search, where divergence hazards live.
+        The plan is compiled and searched from its highest-degree
+        vertices.  The registry-wide sweeps, R4 included, are ``python
+        -m repro_torch.analysis.lint``."""
+        from repro_torch.analysis.registry import lint_plan
+        if pod_axis is None and "pod" in self.mesh.shape:
+            pod_axis = "pod"
+        return lint_plan(self, pod_axis=pod_axis)
 
     def compile(self, store=None, exec_key: str = "default") -> "BFSEngine":
         """Ship the graph and build the search program (both once); the
@@ -156,7 +170,8 @@ class BFSPlan:
 
 
 def _check_config(cfg: BFSConfig) -> None:
-    for field, values in _VALUES.items():
+    for field, values in dict(
+            _VALUES, decomposition=registered_decompositions()).items():
         if getattr(cfg, field) not in values:
             raise ValueError(f"cfg.{field}={getattr(cfg, field)!r} is not "
                              f"one of {values}")
@@ -304,6 +319,20 @@ class BFSEngine:
     def _ship(self, arrays: Dict[str, torch.Tensor], dev: torch.device):
         self.ship_count += 1
         return {k: arrays[k].to(dev) for k in self.plan.keys}
+
+    def collective_counts(self, root: Optional[int] = None) -> Dict:
+        """The collectives one search issues, recorded
+        (``core/collectives.py``): per-kind counts and their ``total``,
+        the reduction before the first level (``startup``) and, level by
+        level, the mode and the counts of its body and of the loop
+        (``levels``).  ``root`` defaults to the highest-degree vertex.
+        The JAX package counts its compiled program's text instead."""
+        from repro_torch.core.collectives import ScheduleRecorder
+        if root is None:
+            root = int(torch.argmax(self._gdev["deg_A"].reshape(-1)))
+        with ScheduleRecorder() as rec:
+            self.search(root)
+        return rec.summary()
 
     def _check_root(self, root) -> int:
         """A root in the padded ghost range has no edges and would return

@@ -106,6 +106,16 @@ def register_local_ops(ops: LocalOps) -> LocalOps:
     return ops
 
 
+def unregister_local_ops(decomposition: str, local_mode: str,
+                         storage: str) -> None:
+    """Remove an entry: for scoped registrations only (the linter's
+    fixture)."""
+    key = (decomposition, local_mode, storage)
+    if key not in _REGISTRY:
+        raise ValueError(f"no LocalOps registered for {key}")
+    del _REGISTRY[key]
+
+
 def get_local_ops(decomposition: str, local_mode: str,
                   storage: str) -> LocalOps:
     key = (decomposition, local_mode, storage)

@@ -51,7 +51,7 @@ class LevelArgs(NamedTuple):
     instrument: bool = True   # False: no counters (the fast loop)
     use_edge_dst: bool = False  # bottom-up: rows from the edge_dst window
     compact_updates: bool = False  # bottom-up: compact (child, parent) sends
-    expand_chunks: int = 1    # > 1: wire_rotate counts the R/G split ring
+    expand_chunks: int = 1    # > 1: the bottom-up R/G split ring
 
 
 def _blocks(pr: int, pc: int):
@@ -63,10 +63,11 @@ def _blocks(pr: int, pc: int):
 # ---------------------------------------------------------------------------
 
 
-def _fold_alltoall(cand: torch.Tensor, pc: int, chunk: int) -> torch.Tensor:
+def _fold_alltoall(cand: torch.Tensor, pc: int, chunk: int,
+                   tag: str = "") -> torch.Tensor:
     """Paper-faithful fold: all_to_all along the processor row + local min."""
     pr = cand.shape[0]
-    r = collectives.all_to_all_cols(cand.reshape(pr, pc, pc, chunk))
+    r = collectives.all_to_all_cols(cand.reshape(pr, pc, pc, chunk), tag)
     return r.amin(dim=2)
 
 
@@ -105,42 +106,77 @@ def _fold_bitmap(cand: torch.Tensor, pc: int, chunk: int, cap_w: int
     The bitmaps on the wire are bool tensors here: packing them would
     change no bit.  Returns ``(t (pr, pc, chunk), counts (pr, pc, pc))``,
     the folded candidates and each source's wins a destination chunk;
-    wins past the capacities are dropped.  Only "bitmap_pure" runs it:
-    without a drop the lowest source column's candidate is the row's
-    minimum, so the exact "bitmap" mode (which falls back to the dense
-    fold on a drop) gives ``_fold_alltoall``'s result on every level."""
+    wins past the capacities are dropped.  Without a drop the lowest
+    source column's candidate is the row's minimum, so ``t`` is then
+    ``_fold_alltoall``'s result; the exact "bitmap" mode falls back to
+    that fold on a drop (``_fold_bitmap_exact``)."""
     pr = cand.shape[0]
     nr = pc * chunk
     dev = cand.device
+    # positions and ranks in int32 while they fit
+    ix = torch.int32 if pr * pc * (pc * cap_w + nr) < 2**31 else torch.int64
     present = (cand != INT_INF).reshape(pr, pc, pc, chunk)
     bits = collectives.all_to_all_cols(present)      # [i, j, q]: from q
-    j_idx = torch.arange(pc, device=dev).reshape(1, 1, pc, 1)
+    j_idx = torch.arange(pc, dtype=ix, device=dev).reshape(1, 1, pc, 1)
     winner = torch.where(bits, j_idx, pc).amin(dim=2)          # (pr, pc, chunk)
     my_wins = collectives.all_to_all_cols(winner.unsqueeze(2) == j_idx)
-    wins = my_wins.reshape(pr, pc, nr)               # [i, j]: won in chunk q
-    order = torch.cumsum(wins, dim=2) - 1            # rank among all wins
     counts = my_wins.sum(dim=3)                      # (pr, pc, pc)
-    starts = torch.cumsum(counts, dim=2) - counts
-    pos = torch.arange(nr, device=dev)
-    q = torch.div(pos, chunk, rounding_mode="floor")
-    rank = order - starts[:, :, q]
-    ok = wins & (order < pc * cap_w) & (rank < cap_w)
-    # a dropped or absent entry lands in its chunk's spare slot cap_w
-    slot = q * (cap_w + 1) + torch.where(ok, rank, cap_w)
-    send_v = torch.full((pr, pc, pc * (cap_w + 1)), INT_INF,
-                        dtype=torch.int32, device=dev).scatter_(2, slot, cand)
-    send_o = torch.full((pr, pc, pc * (cap_w + 1)), chunk, dtype=torch.int32,
+    # a win's rank in its destination chunk: one device-wide scan over
+    # the flattened rows less each row's count before it (a scan a row
+    # over few long rows leaves the card idle); its rank among all wins
+    # adds the chunks before it
+    m = my_wins.reshape(-1, chunk)
+    cum = torch.cumsum(m.reshape(-1), 0, dtype=ix).reshape(m.shape)
+    rank = (cum - (cum[:, :1] - m[:, :1].to(ix)) - 1).reshape(
+        pr, pc, pc, chunk)
+    order = rank + (torch.cumsum(counts, dim=2) - counts).to(ix).unsqueeze(3)
+    ok = my_wins & (order < pc * cap_w) & (rank < cap_w)
+    # a win that fits lands in its chunk's slot; every other entry gets
+    # a slot of its own past them (stores to one spare slot serialise)
+    pos = torch.arange(nr, dtype=ix, device=dev).reshape(pc, chunk)
+    q = torch.arange(pc, dtype=ix, device=dev).reshape(pc, 1)
+    slot = torch.where(ok, q * cap_w + rank, pc * cap_w + pos).reshape(
+        pr, pc, nr).to(torch.int64)
+    width = pc * cap_w + nr
+    send_v = torch.full((pr, pc, width), INT_INF, dtype=torch.int32,
+                        device=dev).scatter_(2, slot, cand)
+    send_o = torch.full((pr, pc, width), chunk, dtype=torch.int32,
                         device=dev).scatter_(
-        2, slot, (pos - q * chunk).to(torch.int32).expand(pr, pc, nr))
+        2, slot, (pos - q * chunk).to(torch.int32).reshape(nr).expand(
+            pr, pc, nr))
     rv = collectives.all_to_all_cols(
-        send_v.reshape(pr, pc, pc, cap_w + 1)[..., :cap_w])
+        send_v[..., :pc * cap_w].reshape(pr, pc, pc, cap_w))
     ro = collectives.all_to_all_cols(
-        send_o.reshape(pr, pc, pc, cap_w + 1)[..., :cap_w])
-    t = torch.full((pr, pc, chunk + 1), INT_INF, dtype=torch.int32,
-                   device=dev).scatter_reduce_(
-        2, ro.reshape(pr, pc, -1).to(torch.int64), rv.reshape(pr, pc, -1),
-        reduce="amin")
-    return t[..., :chunk], counts
+        send_o[..., :pc * cap_w].reshape(pr, pc, pc, cap_w))
+    t = _min_scatter(ro.reshape(pr, pc, -1), rv.reshape(pr, pc, -1), chunk)
+    return t, counts
+
+
+def _min_scatter(idx: torch.Tensor, val: torch.Tensor, chunk: int
+                 ) -> torch.Tensor:
+    """The receiver's min-scatter of (offset, value) pairs into
+    ``chunk``-long rows over the last dim, INT_INF where nothing lands;
+    the sentinel offset ``chunk`` drops (each to a slot of its own past
+    the row, as one shared spare slot would serialise the updates)."""
+    k = idx.shape[-1]
+    spare = chunk + torch.arange(k, device=idx.device)
+    idx = torch.where(idx < chunk, idx.to(torch.int64), spare)
+    out = torch.full((*idx.shape[:-1], chunk + k), INT_INF,
+                     dtype=torch.int32, device=idx.device)
+    return out.scatter_reduce_(-1, idx, val, reduce="amin")[..., :chunk]
+
+
+def _fold_bitmap_exact(cand: torch.Tensor, pc: int, chunk: int, cap_w: int
+                       ) -> torch.Tensor:
+    """The exact "bitmap" fold with its runtime fallback: the bitmap
+    fold, the overflow pmax (any source chunk past ``cap_w`` wins) and
+    the dense fold, the JAX package's ``lax.cond`` over the two.  Both
+    branches run on the device and ``torch.where`` takes the dense one
+    on an overflow, so the level reads nothing to the host; both are
+    recorded, as the JAX program holds both."""
+    t, counts = _fold_bitmap(cand, pc, chunk, cap_w)
+    over = collectives.pmax(counts) > cap_w
+    return torch.where(over, _fold_alltoall(cand, pc, chunk, "fallback"), t)
 
 
 def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
@@ -159,6 +195,8 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     f_words, wire = expand_bitmap(front, args.perm)
     f_cj = unpack_bits(f_words)                      # (pr, pc, nc) bool
     if instr:
+        # the JAX package's psum of n_f: the loop's read holds it
+        collectives.noted("psum", collectives.GRID_2D, "counter")
         ctr["wire_transpose"] = _F32(chunk / 64.0) * p
         ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
         ctr["use_expand"] = _F32(lv["n_f"]) * _F32(pr - 1)
@@ -173,28 +211,31 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         ex.append(ex_ij)
     if instr:
         ctr["edges_examined"] = collectives.psum(
-            torch.stack(ex)).to(torch.float32)
+            torch.stack(ex), tag="counter").to(torch.float32)
+        collectives.noted("psum", collectives.GRID_2D, "counter")   # m_f
         ctr["edges_useful"] = _F32(lv["m_f"])
 
     # --- Fold: exchange candidates along the processor row ---------------
-    # on the simulated mesh the exact bitmap fold moves the same result
-    # as the dense one; its closed-form wire_fold is what differs
     wire_fold = _F32((pc - 1) * chunk) * p
-    if args.fold_mode in ("alltoall", "bitmap"):
+    cap_w = max(chunk // 16, 32)
+    if args.fold_mode == "alltoall":
         t = _fold_alltoall(cand, pc, chunk)
     elif args.fold_mode == "reduce":
         t = _fold_ring_reduce(cand, pc, chunk)
+    elif args.fold_mode == "bitmap":
+        t = _fold_bitmap_exact(cand, pc, chunk, cap_w)
     elif args.fold_mode == "bitmap_pure":
         # drops the wins past cap_w by design
-        t, _ = _fold_bitmap(cand, pc, chunk, max(chunk // 16, 32))
+        t, _ = _fold_bitmap(cand, pc, chunk, cap_w)
     else:
         raise ValueError(f"fold_mode={args.fold_mode!r} is not a fold")
     if args.fold_mode.startswith("bitmap"):
         wire_fold = _F32(comm_model.fold_bitmap_level_words(
-            pc * chunk, pc, max(chunk // 16, 32))) * p
+            pc * chunk, pc, cap_w)) * p
     if instr:
         ctr["wire_fold"] = wire_fold
-        n_cand = collectives.psum(cand != INT_INF).to(torch.float32)
+        n_cand = collectives.psum(cand != INT_INF,
+                                  tag="counter").to(torch.float32)
         ctr["use_fold"] = 2.0 * n_cand               # (child, parent) pairs
 
     # --- Local update -----------------------------------------------------
@@ -206,6 +247,18 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Bottom-up (Algorithm 4)
 # ---------------------------------------------------------------------------
+
+
+def _scatter_compact(pairs: torch.Tensor, cap_u: int, chunk: int
+                     ) -> torch.Tensor:
+    """The compact update exchange: ``pairs`` ``(pr, pc, pc, 2*cap_u)``
+    holds, for each destination, ``cap_u`` children then their parents,
+    and one all_to_all delivers them; the receiver min-scatters each
+    source's pairs into a dense ``(pr, pc, pc, chunk)`` segment (the
+    sentinel child ``chunk`` drops)."""
+    r = collectives.all_to_all_cols(pairs)
+    return _min_scatter(r[..., :cap_u], r[..., cap_u:].contiguous(),
+                        chunk).contiguous()
 
 
 def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
@@ -221,16 +274,23 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     each vertex at its first discovery, so parents are those of a
     per-sub-step exchange.
 
-    ``compact_updates`` with a "*_pure" fold mode ships, for each sub-step
-    s > 0, the first ``cap_u`` finds (ascending) as (child, parent) pairs
-    and drops the rest by design.  The exact variants move the same
-    updates as this schedule on the simulated mesh, so they run it and
-    differ only in their wire counters: compact runtime updates (which
-    fall back to the dense segments on a drop) count ``2 * cap_u`` words
-    a sub-step, and ``expand_chunks > 1`` (the R/G split ring, whose
-    parents and edge counter equal the one ring's) counts ``wire_rotate``
-    twice.  ``use_edge_dst`` hands the scan the ``edge_dst`` window (a
-    kernel entry ships none and ignores it)."""
+    ``compact_updates`` ships, for each sub-step s > 0, the first
+    ``cap_u`` finds (ascending) as (child, parent) pairs in one
+    all_to_all.  With a "*_pure" fold mode the finds past ``cap_u`` drop
+    by design.  Otherwise the JAX package's runtime fallback applies: the
+    overflow pmax (any sub-step past ``cap_u`` finds) re-ships the level's
+    dense segments.  Both exchanges run on the device and ``torch.where``
+    takes the dense one on an overflow, so the level reads nothing to the
+    host; both are recorded, as the JAX program holds both branches.
+
+    ``expand_chunks > 1`` runs the JAX package's R/G split ring: the R
+    chain rotates the pre-level completed bitmap (its permute waits on no
+    scan), the G chain this level's finds, 2(pc-1) permutes a level.  The
+    scan runs against R alone and its re-finds of rows that G marks are
+    masked out after it; a row's scan reads only its own completed bit,
+    so parents and counters equal the one ring's.  ``use_edge_dst`` hands
+    the scan the ``edge_dst`` window (a kernel entry ships none and
+    ignores it)."""
     part = args.part
     pr, pc, chunk, nc = part.pr, part.pc, part.chunk, part.nc
     p = _F32(part.p)
@@ -246,28 +306,41 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
 
     cap_u = max(chunk // 8, 32)           # finds a compact sub-step
-    dropping = args.compact_updates and args.fold_mode.endswith("_pure")
-    rings = 2 if args.expand_chunks > 1 else 1
+    compact = args.compact_updates
+    pure = args.fold_mode.endswith("_pure")
+    pipelined = args.expand_chunks > 1
+    rings = 2 if pipelined else 1
     use_ve = args.use_edge_dst and "edge_dst" in g
     cseg = pi != -1                       # completed = has parent (own chunk)
     edges_use = _F32(0)
-    if dropping:
-        send_i = torch.full((pr, pc, pc, cap_u), chunk, dtype=torch.int32,
-                            device=dev)
-        send_v = torch.full((pr, pc, pc, cap_u), INT_INF, dtype=torch.int32,
-                            device=dev)
-    else:
+    if compact:
+        send_p = torch.full((pr, pc, pc, 2 * cap_u), INT_INF,
+                            dtype=torch.int32, device=dev)
+        send_p[..., :cap_u] = chunk
+        max_found = torch.zeros((), dtype=torch.int64, device=dev)
+    if not (compact and pure):
         send_d = torch.full((pr, pc, pc, chunk), INT_INF, dtype=torch.int32,
                             device=dev)
     self_par = torch.empty((pr, pc, chunk), dtype=torch.int32, device=dev)
-    carry = None
+    # the R chain rides ``carry`` from the start; the G chain (``g_acc``)
+    # is empty at sub-step 0, so its masks start at sub-step 1
+    carry = pack_bits(cseg) if pipelined and pc > 1 else None
+    g_seen = None
 
     for s in range(pc):
         if s > 0:
-            cseg = unpack_bits(collectives.ppermute_col_ring(carry))
+            carry = collectives.ppermute_col_ring(carry)
+            if pipelined:
+                g_seen = unpack_bits(collectives.ppermute_col_ring(g_acc))
+            cseg = unpack_bits(carry)
             if instr:
                 ctr["wire_rotate"] += _F32(rings * chunk / 64.0) * p
                 ctr["use_rotate"] += _F32(chunk / 64.0) * p
+        # this level's finds so far, for the next sub-step's G
+        g_next = None
+        if pipelined and s < pc - 1:
+            g_next = torch.zeros_like(cseg) if g_seen is None \
+                else g_seen.clone()
         use_loc, n_upd = [], []
         for i, j in _blocks(pr, pc):
             seg_id = (j - s) % pc
@@ -282,45 +355,60 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
             seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
                                         j * nc, e1 - e0, ve)
             found = seg_par != INT_INF
+            if g_seen is not None:
+                # the exactness post-filter: rows G marks were found on an
+                # earlier sub-step of this level
+                found &= ~g_seen[i, j]
+                seg_par = torch.where(found, seg_par, INT_INF)
+            if g_next is not None:
+                g_next[i, j] |= found
             if instr:
                 row_lens = rp_seg[1:] - rp_seg[:-1]
-                use_loc.append(torch.where(cvec == 0, row_lens, 0)
+                unknown = ~(cseg[i, j] | g_seen[i, j]) \
+                    if g_seen is not None else cvec == 0
+                use_loc.append(torch.where(unknown, row_lens, 0)
                                .sum(dtype=torch.int64))
                 n_upd.append(found.sum())
             # the s = 0 self segment pays no wire, is never capacity-
             # truncated and lands in the self slot after the exchange
             if s == 0:
                 self_par[i, j] = seg_par
-            elif dropping:
-                # the first cap_u finds as (child, parent) pairs
-                cidx = pack_ids(found, cap_u, 0, chunk)
-                send_i[i, j, seg_id] = cidx
-                send_v[i, j, seg_id] = seg_par[
-                    cidx.clamp(max=chunk - 1).to(torch.int64)]
             else:
-                send_d[i, j, seg_id] = seg_par
-            cseg[i, j] |= found
+                if compact:
+                    # the first cap_u finds as (child, parent) pairs
+                    cidx = pack_ids(found, cap_u, 0, chunk)
+                    send_p[i, j, seg_id, :cap_u] = cidx
+                    send_p[i, j, seg_id, cap_u:] = seg_par[
+                        cidx.clamp(max=chunk - 1).to(torch.int64)]
+                    if not pure:
+                        max_found = torch.maximum(max_found, found.sum())
+                if not (compact and pure):
+                    send_d[i, j, seg_id] = seg_par
+            if not pipelined:
+                cseg[i, j] |= found
         if instr:
             edges_use = edges_use + collectives.psum(
-                torch.stack(use_loc)).to(torch.float32)
+                torch.stack(use_loc), tag="counter").to(torch.float32)
             if s > 0:
                 ctr["wire_updates"] += _F32(
-                    2 * cap_u if args.compact_updates else chunk) * p
+                    2 * cap_u if compact else chunk) * p
             ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
-                collectives.psum(torch.stack(n_upd)).to(torch.float32))
-        if s != pc - 1:
+                collectives.psum(torch.stack(n_upd),
+                                 tag="counter").to(torch.float32))
+        if g_next is not None:
+            g_acc = pack_bits(g_next)     # R rides ``carry`` unchanged
+        elif not pipelined and s != pc - 1:
             carry = pack_bits(cseg)
 
     # --- Batched update exchange (one all_to_all) -------------------------
     jj = torch.arange(pc, device=dev)
-    if dropping:
-        # (child, parent) pairs; the sentinel child ``chunk`` drops
-        ri = collectives.all_to_all_cols(send_i).to(torch.int64)
-        rv = collectives.all_to_all_cols(send_v)
-        recv = torch.full((pr, pc, pc, chunk + 1), INT_INF, dtype=torch.int32,
-                          device=dev).scatter_reduce_(3, ri, rv,
-                                                      reduce="amin")
-        recv = recv[..., :chunk].contiguous()
+    if compact and pure:
+        recv = _scatter_compact(send_p, cap_u, chunk)
+    elif compact:
+        over = collectives.pmax(max_found) > cap_u
+        dense = collectives.all_to_all_cols(send_d, "fallback")
+        recv = torch.where(over, dense,
+                           _scatter_compact(send_p, cap_u, chunk))
     else:
         recv = collectives.all_to_all_cols(send_d)
     recv[:, jj, jj] = self_par            # the self slot: sub-step 0

@@ -28,7 +28,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import comm_model
+from repro_torch.core import collectives, comm_model
+from repro_torch.core.collectives import STRIPS
 from repro_torch.core.frontier import INT_INF, pack_bits
 from repro_torch.core.steps import zero_counters
 
@@ -54,7 +55,7 @@ def expand_frontier_1d(front: torch.Tensor) -> Tuple[torch.Tensor, np.float32]:
     p = front.shape[0]
     words = pack_bits(front)
     wire = _F32(comm_model.expand_1d_level_words(words.numel() * 32, p))
-    return words.reshape(-1), wire
+    return collectives.all_gather_tiled(words, STRIPS), wire
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +116,8 @@ def _pipelined_topdown_expand_1d(g, front: torch.Tensor, args: LevelArgs1D):
     c = args.expand_chunks
     words = pack_bits(front).reshape(part.p, c, -1)
     cand, ex = pipelined_expand_consume(
-        g, lambda k: words[:, k].reshape(-1), c, args)
+        g, lambda k: collectives.all_gather_tiled(words[:, k], STRIPS), c,
+        args)
     wire = _F32(comm_model.chunked_expand_1d_level_words(part.n, part.p, c))
     return cand, ex, wire
 
@@ -129,7 +131,13 @@ def update(pi, cand):
 
 def topdown_counters(lv, wire, ex) -> Dict:
     """Counters of a top-down level shared by "1d" and "1ds"; ``lv``
-    carries the loop's float32 frontier edge mass."""
+    carries the loop's float32 frontier size and edge mass.  The JAX
+    package takes n_f, the edges examined and m_f with three psums over
+    the strips; the port's values are already global (the loop's read,
+    and the discovery closures' sums over all strips), so they are
+    recorded only."""
+    for _ in range(3):
+        collectives.noted("psum", STRIPS, "counter")
     ctr = zero_counters()
     ctr["wire_expand"] = wire
     ctr["edges_examined"] = torch.as_tensor(ex).to(torch.float32)
@@ -186,11 +194,12 @@ def bottomup_level_1d(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     ctr["wire_expand"] = wire
     ctr["use_expand"] = _F32(comm_model.expand_1d_level_words(part.n, part.p))
     row_lens = g["row_ptr"][:, 1:] - g["row_ptr"][:, :-1]
-    edges_use = torch.where(cvec == 0, row_lens, 0).sum(
-        dtype=torch.int64).to(torch.float32)
+    edges_use = collectives.psum(torch.where(cvec == 0, row_lens, 0),
+                                 STRIPS, "counter").to(torch.float32)
     ctr["edges_examined"] = edges_use
     ctr["edges_useful"] = edges_use
     # updates are local in 1D: use_updates counts discoveries, the
     # update wire stays 0
-    ctr["use_updates"] = 2.0 * newly.sum().to(torch.float32)
+    ctr["use_updates"] = 2.0 * collectives.psum(
+        newly, STRIPS, "counter").to(torch.float32)
     return pi, newly, ctr

@@ -44,7 +44,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import comm_model
+from repro_torch.core import collectives, comm_model
+from repro_torch.core.collectives import STRIPS
 from repro_torch.core.frontier import pack_bits, pack_ids, unpack_ids
 from repro_torch.core.steps_1d import (LevelArgs1D, update,
                                        bottomup_level_1d,
@@ -58,8 +59,11 @@ _F32 = np.float32
 
 def _send_counts(counts: torch.Tensor) -> Tuple[int, np.float32]:
     """The one host read of an exchange: the largest send count (the
-    overflow predicate's pmax) and the float32 send total."""
-    n_max, n_f = torch.stack([counts.max(), counts.sum()]).tolist()
+    overflow predicate's pmax) and the float32 send total (the wire
+    counter's psum)."""
+    n_max, n_f = torch.stack([collectives.pmax(counts, STRIPS),
+                              collectives.psum(counts, STRIPS,
+                                               "counter")]).tolist()
     return n_max, _F32(n_f)
 
 
@@ -88,15 +92,18 @@ def sparse_exchange_1d(front: torch.Tensor, cap_x: int, part, ops,
         n_max, n_f = _send_counts(n_local)
         over = n_max > cap_x
     if over:
-        f_words = pack_bits(send).reshape(-1)
+        f_words = collectives.all_gather_tiled(pack_bits(send), STRIPS,
+                                               "dense")
     elif codec == "packed":
         buf = ops.encode(pack_ids(send, cap_x, 0, chunk), n_local, chunk)
-        f_words = unpack_ids(ops.decode(buf.reshape(-1), chunk, cap_x, n, p),
-                             n)
+        recv = collectives.all_gather_tiled(buf, STRIPS, "sparse")
+        f_words = unpack_ids(ops.decode(recv, chunk, cap_x, n, p), n)
     else:
         base = torch.arange(p, dtype=torch.int32,
                             device=front.device)[:, None] * chunk
-        f_words = unpack_ids(pack_ids(send, cap_x, base, n), n)
+        recv = collectives.all_gather_tiled(pack_ids(send, cap_x, base, n),
+                                            STRIPS, "sparse")
+        f_words = unpack_ids(recv, n)
     if n_f is None:
         wire = None
     elif over:
@@ -140,21 +147,24 @@ def _pipelined_topdown_1ds(g, send: torch.Tensor, args: LevelArgs1D,
         words = pack_bits(send).reshape(p, c, sub // 32)
 
         def sub_gather(k):
-            return words[:, k].reshape(-1)
+            return collectives.all_gather_tiled(words[:, k], STRIPS, "dense")
     elif args.codec == "packed":
         ops = args.ops
 
         def sub_gather(k):
             buf = ops.encode(pack_ids(masks[:, k], cap_c, 0, sub),
                              counts[:, k].contiguous(), sub)
-            return unpack_ids(ops.decode(buf.reshape(-1), sub, cap_c,
-                                         p * sub, p), p * sub)
+            recv = collectives.all_gather_tiled(buf, STRIPS, "sparse")
+            return unpack_ids(ops.decode(recv, sub, cap_c, p * sub, p),
+                              p * sub)
     else:
         base = torch.arange(p, dtype=torch.int32,
                             device=send.device)[:, None] * chunk
 
         def sub_gather(k):
-            ids = pack_ids(masks[:, k], cap_c, base + k * sub, n)
+            ids = collectives.all_gather_tiled(
+                pack_ids(masks[:, k], cap_c, base + k * sub, n), STRIPS,
+                "sparse")
             owner = torch.div(ids, chunk, rounding_mode="floor")
             pos = owner * sub + (ids - owner * chunk - k * sub)
             return unpack_ids(torch.where(ids < n, pos, p * sub), p * sub)

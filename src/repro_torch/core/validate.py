@@ -57,6 +57,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.decomp import MAX_LEVELS
 
 CHECKS = ("root_self_parent", "tree_edge_missing", "parent_chain_broken",
@@ -136,7 +137,11 @@ def build_validate_fn(plan):
 
     def fn(g, pi, root: int):
         dev = pi.device
-        pi_all = pi.reshape(n).to(torch.int32)
+        collectives.at(-1, "validate")
+        # the parents replicated in global order: one tiled gather a
+        # graph axis, innermost first
+        pi_all = collectives.all_gather_tiled(pi, entry.axes).reshape(
+            n).to(torch.int32)
         vid = torch.arange(n, dtype=torch.int32, device=dev)
         in_tree = pi_all >= 0
         ok_ref = in_tree & (pi_all < n)      # parent is a usable index
@@ -168,12 +173,14 @@ def build_validate_fn(plan):
                 v_span = v_span + (valid & tu & tv & far).sum()
                 v_reach = v_reach + (valid & (tu != tv)).sum()
                 del u, v, valid, hit, tu, tv, far
+        # the tree-edge marks OR-ed over the shards (the shard loop above)
+        collectives.noted("psum", entry.axes)
         not_root = in_tree & ~is_root
-        counts = torch.stack([
+        counts = collectives.psum_stacked([
             (is_root & (pi_all != root)).sum(),
             (not_root & ~found[:n]).sum(),
             (not_root & (depth >= CAP)).sum(),
-            v_span, v_reach, in_tree.sum()])
+            v_span, v_reach, in_tree.sum()], entry.axes)
         return counts
 
     return fn

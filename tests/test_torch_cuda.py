@@ -763,3 +763,20 @@ def test_healed_run_on_card_gives_the_cpu_log(dev):
                                   local_mode="kernel"))
     assert out[0].retry_log == out[1].retry_log and out[0].retry_log
     assert np.array_equal(out[0].result.parents, out[1].result.parents)
+
+
+def test_registry_lint_with_kernel_entries_is_clean_and_fixture_flagged(dev):
+    """The schedule linter on the card: the registry sweep over the kernel
+    LocalOps entries (R1-R3 on every combo's pod-batched search, R4 over
+    the 18 budget cases) is clean, and R1 flags the unsynced 2D fixture's
+    permutes in both instrument modes."""
+    from repro_torch.analysis.fixtures import lint_fixture
+    from repro_torch.analysis.registry import lint_registry
+    report = lint_registry(device=dev, local_mode="kernel")
+    assert report["clean"], report["findings"][:3]
+    assert len(report["budget_cases"]) == 18
+    assert any("/kernel/dcsc/" in c["name"] for c in report["combos"])
+    for instrument in (False, True):
+        r1 = [f for f in lint_fixture(instrument, device=dev)
+              if f.rule == "R1" and f.detail["collective"] == "ppermute"]
+        assert r1 and r1[0].detail["divergent_axes"] == ["pod"]
