@@ -2,13 +2,14 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card and hold
 every kernel of those paths against its plain PyTorch version.
 
-    python3 chip_smoke.py    # Graph500 scale 24, then the serving paths
-                             # and smollm-135m prefill_32k
+    python3 chip_smoke.py    # Graph500 scale 24, then the serving paths,
+                             # smollm-135m prefill_32k and training
 
 Phases, in the order they run:
   1 device       name, count, versions, nvidia-smi name and power limit
-  2 build        nvcc of the nine kernel sources (eleven C entries:
-                 kernel 1 has three addressings) and the integer-rate
+  2 build        nvcc of the eleven kernel sources (thirteen C entries:
+                 kernel 1 has three addressings; 8b and 9b are the
+                 gradients of 8 and 9) and the integer-rate
                  benchmark (in parallel), ptxas report; kernel 7's
                  instructions per level in the SASS of its scale-24
                  build, and the integer
@@ -180,6 +181,29 @@ Phases, in the order they run:
                  and last 128 query rows of sequences 0 and 31 against
                  the plain version, and timed beside the plain version
                  (in pieces), SDPA and the bound
+17 kernels 8b/9b the backward kernels against their plain versions:
+                 8b at AutoInt's train_batch lookup (65,536 x 39 bags of
+                 one, float32, the registered table's 11.2M rows) and
+                 multi-hot (bf16, weights, pads, mean), tolerance 0 on CPU
+                 copies; 9b at smollm-135m's training call (B 8, S 1024,
+                 9/3 heads of 64, bf16, causal), float32, a window and a
+                 q_offset, within ``ref.backward_bound``; each timed
+                 beside its plain version, its library call
+                 (embedding_dense_backward, SDPA's backward) and bound
+ 18 training     smollm-135m at the registered width (bf16, remat full,
+                 AdamW float32 state): B 8 x S 1024 for 20 steps through
+                 the Trainer, checkpointing at step 10, then a second run
+                 resumed from step 10: step ms, tokens/s, the loss at
+                 steps 0, 10, 19 (falling), the resumed losses, params
+                 and moments bit for bit, peak < 24 GiB; AutoInt at the
+                 registered width, 65,536 rows for 20 steps (the table
+                 trained densely): step ms, rows/s, losses, peak < 30 GiB;
+                 kernels 9 and 9b, or 8 and 8b, launched on every step and
+                 no plain version called (a tripwire); DevicePrefetcher's
+                 batches on the card; then launch.train (smollm-135m
+                 --full for 4 steps, autoint and bfs-rmat at the
+                 launcher's defaults) and examples.train_lm as processes
+                 of their own
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.
 
@@ -630,26 +654,33 @@ def attn_bound(q, k, causal, window, q_offset) -> tuple:
         nbytes
 
 
-def sdpa(q, k, v, causal, window, q_offset):
-    """The library yardstick: a zero-argument call of
-    F.scaled_dot_product_attention on the same (B, S, H, dh) inputs.  The
-    mask is built here, outside the call that is timed, and only where
-    some (query, key) pair is masked out by an offset causal edge or a
-    window; a decode row over all its keys takes no mask."""
-    import torch.nn.functional as F
-    sq, sk = q.shape[1], k.shape[1]
+def sdpa_mask(sq, sk, causal, window, q_offset, device):
+    """(mask or None, is_causal) for F.scaled_dot_product_attention: the
+    mask only where some (query, key) pair is masked out by an offset
+    causal edge or a window (``sdpa``'s rule)."""
     mask, is_causal = None, causal and q_offset == 0 and sq == sk \
         and window is None
     if not is_causal and (causal or window is not None):
-        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(sk, device=q.device)[None, :]
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+        qpos = q_offset + torch.arange(sq, device=device)[:, None]
+        kpos = torch.arange(sk, device=device)[None, :]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
         if causal:
             mask &= kpos <= qpos
         if window is not None:
             mask &= qpos - kpos < window
         if bool(mask.all()):
             mask = None
+    return mask, is_causal
+
+
+def sdpa(q, k, v, causal, window, q_offset):
+    """The library yardstick: a zero-argument call of
+    F.scaled_dot_product_attention on the same (B, S, H, dh) inputs, the
+    mask (``sdpa_mask``) built here, outside the call that is timed; a
+    decode row over all its keys takes no mask."""
+    import torch.nn.functional as F
+    mask, is_causal = sdpa_mask(q.shape[1], k.shape[1], causal, window,
+                                q_offset, q.device)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
     return lambda: F.scaled_dot_product_attention(
@@ -1399,6 +1430,437 @@ def prefill_32k(dev, kernels, params) -> dict:
             # kernel 9's launches here, as the kernels line sums them
             "ms": k_ms * n, "plain_ms": p_ms * n, "bound_ms": b_ms * n,
             "library_ms": l_ms * n, "flops": flops * n, "bytes": nbytes * n}
+
+
+# ------------------------------------------------------------ training
+# phases 17-18: the two backward kernels and training at full width
+TRAIN_STEPS, TRAIN_RESUME_AT = 20, 10
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_CHUNK = 8, 1024, 512
+LM_TRAIN_PEAK_GIB = 24.0      # PERF.md section 2
+AI_TRAIN_ROWS = 65536         # RECSYS_SHAPES train_batch
+AI_TRAIN_PEAK_GIB = 30.0      # PERF.md section 2
+MH_BWD = (16384, 32)          # kernel 8b's multi-hot bags (B, L), bf16
+# H100 SXM float32 outside the tensor cores (NVIDIA data sheet, 700 W):
+# kernel 9b's bound on float32 inputs; on bf16 inputs it takes the bf16
+# tensor-core peak, the card's rate for that type
+FP32_FLOPS_PER_S = 67e12
+# kernel 9b's checks: (label, (B, Sq, Sk, Hq, Hkv, dh, causal, window,
+# q_offset, dtype)); the first is the training path's call
+K9B_CASES = (
+    ("smollm-135m train", (8, 1024, 1024, 9, 3, 64, True, None, 0,
+                           torch.bfloat16)),
+    ("float32", (2, 512, 512, 9, 3, 64, True, None, 0, torch.float32)),
+    ("window 256", (8, 1024, 1024, 9, 3, 64, True, 256, 0, torch.bfloat16)),
+    ("q_offset 512", (8, 512, 1024, 9, 3, 64, True, None, 512,
+                      torch.bfloat16)))
+TRAIN_DRIVERS = [
+    ("launch.train smollm-135m --full", "repro_torch.launch.train",
+     ["--arch", "smollm-135m", "--full", "--batch", "8", "--seq", "1024",
+      "--steps", "4"], "smollm-135m: 4 steps"),
+    ("launch.train autoint", "repro_torch.launch.train",
+     ["--arch", "autoint", "--steps", "20"], "autoint: 20 steps"),
+    ("launch.train bfs-rmat", "repro_torch.launch.train",
+     ["--arch", "bfs-rmat"], "search 7:"),
+    ("examples.train_lm", "repro_torch.examples.train_lm", [],
+     "trained 30 steps")]
+
+
+@contextlib.contextmanager
+def plain_tripwire():
+    """Count every call of kernels 8, 8b, 9 and 9b's plain versions while
+    the block runs (the kernels line's launches come from runs in which
+    this count must stay 0)."""
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    calls = {}
+    saved = []
+    for mod, name in ((eb_ref, "embedding_bag"),
+                      (eb_ref, "embedding_bag_backward"),
+                      (fa_ref, "attention_gqa"),
+                      (fa_ref, "attention_gqa_backward")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        calls[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_kernel8b(dev) -> dict:
+    """Phase 17a: kernel 8b against its plain version on CPU copies of
+    the inputs, tolerance 0, at AutoInt's train_batch lookup (65,536 rows
+    x 39 fields, bags of one, float32, the registered table's rows) and
+    multi-hot (bf16, weights, pads, mean) on the same table's rows; times
+    at the train_batch shape: the public entry (prep, zero fill, launch),
+    the launch alone on the prep, the plain version on the card, and
+    aten.embedding_dense_backward on the same ids."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+    from repro_torch.models import embedding
+    cfg = get_config("autoint")
+    _, n_rows = embedding.table_meta(cfg)
+    d = cfg.embed_dim
+    idx = torch.from_numpy(recsys_batch(cfg, AI_TRAIN_ROWS, 0)["idx"]).to(dev)
+    ids = embedding.flat_indices(cfg, idx).reshape(-1, 1).to(
+        torch.int32).contiguous()
+    n = ids.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gout = torch.randn(n, d, generator=g, device=dev)
+    b, w = MH_BWD
+    mh_ids = torch.randint(0, n_rows, (b, w), generator=g, device=dev,
+                           dtype=torch.int32)
+    mh_ids[torch.rand(b, w, generator=g, device=dev) < 0.2] = -1
+    mh_w = torch.rand(b, w, generator=g, device=dev) + 0.5
+    mh_gout = torch.randn(b, d, generator=g, device=dev).to(torch.bfloat16)
+    rec = {}
+    for label, args in (
+            ("train_batch bags of one float32", (gout, ids, None, "sum")),
+            (f"multi-hot {b} x {w} bf16 weighted mean",
+             (mh_gout, mh_ids, mh_w, "mean"))):
+        go, bi, bw, mode = args
+        got = eb_ops.embedding_bag_backward(go, bi, n_rows, bw, mode)
+        torch.cuda.synchronize()
+        want = eb_ref.embedding_bag_backward(
+            go.cpu(), bi.cpu(), n_rows, None if bw is None else bw.cpu(),
+            mode)
+        err = float((got.cpu().float() - want.float()).abs().max())
+        check(torch.equal(got.cpu(), want),
+              f"kernel 8b {label}: off its plain version by {err}")
+        live = int((got != 0).any(1).sum())
+        print(f"kernel 8b {label}: equal to the plain version (CPU copies), "
+              f"{live:,} live rows of {n_rows:,}")
+        rec[label] = {"max_abs_err": err, "live_rows": live}
+        del got, want
+    prep = eb_ops.prepare_backward(ids, None, "sum", n_rows)
+    k_ms = cuda_ms(lambda: eb_ops.embedding_bag_backward(gout, ids, n_rows))
+    launch_ms = device_ms(lambda: eb_ops.launch_backward(gout, prep, n_rows))
+    prep_ms = cuda_ms(lambda: eb_ops.prepare_backward(ids, None, "sum",
+                                                      n_rows))
+    p_ms = cuda_ms(lambda: eb_ref.embedding_bag_backward(gout, ids, n_rows),
+                   reps=5)
+    flat = ids.reshape(-1).long()
+    l_ms = cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
+        gout, flat, n_rows, -1, False))
+    # bytes: the ids and dout read once, the dense (V, D) output written
+    nbytes = n * 4 + n * d * 4 + n_rows * d * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel 8b at train_batch ({n:,} ids, {n_rows:,} x {d} float32): "
+          f"{k_ms:.4f} ms the public entry (prep {prep_ms:.4f} ms; the "
+          f"launch with its zero fill {launch_ms:.4f} ms on the card alone),"
+          f" plain {p_ms:.4f} ms, embedding_dense_backward {l_ms:.4f} ms, "
+          f"bound {bound:.4f} ms (bytes: {nbytes / 1e9:.3f} GB)")
+    rec.update(ms=k_ms, launch_ms=launch_ms, prep_ms=prep_ms, plain_ms=p_ms,
+               library_ms=l_ms, bound_ms=bound, bound_by="bytes",
+               max_abs_err=max(r["max_abs_err"] for r in rec.values()))
+    return rec
+
+
+def bwd_bound(q, k, causal, window, q_offset) -> tuple:
+    """(bound ms, by, flops, bytes) of one attention gradient: q, o, dO
+    read and dq written, k, v read and dk, dv written, once each; 10 dh
+    flops per live (query, key) pair (S, dP, dV, dQ, dK) at the card's
+    peak for the inputs' type: the dense bf16 tensor-core rate for bf16,
+    the CUDA cores' rate for float32."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(sk, qpos + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    elt = q.element_size()
+    nbytes = 4 * b * sq * hq * dh * elt + 4 * b * sk * hkv * dh * elt
+    flops = 10 * dh * pairs * b * hq
+    peak = (FP32_FLOPS_PER_S if q.dtype == torch.float32
+            else BF16_FLOPS_PER_S)
+    tb, tf_ = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(tb, tf_), ("bytes" if tb >= tf_ else "operations"), flops, \
+        nbytes
+
+
+def check_kernel9b(dev) -> dict:
+    """Phase 17b: kernel 9b against its plain version on the same inputs
+    (o from kernel 9) within ``ref.backward_bound``, at each K9B_CASES
+    shape, with times: kernel, plain, SDPA's backward through autograd
+    (the mask built outside the timed call), the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    rec = {}
+    for label, (b, sq, sk, hq, hkv, dh, causal, window, off, dt) in \
+            K9B_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        q = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dt)
+        k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dt)
+        v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dt)
+        do = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dt)
+        o = fa_ops.flash_attention_gqa(q, k, v, causal, window, off)
+
+        def kern():
+            return fa_ops.flash_attention_gqa_backward(q, k, v, o, do,
+                                                       causal, window, off)
+
+        def plain():
+            return fa_ref.attention_gqa_backward(
+                q, k, v, o, do, causal=causal, window=window, q_offset=off)
+        got, want = kern(), plain()
+        worst, ratio = 0.0, 0.0
+        for x, y, name in zip(got, want, "qkv"):
+            err = (x.float() - y.float()).abs()
+            r = float((err / fa_ref.backward_bound(y)).max())
+            check(r <= 1.0, f"kernel 9b {label}: d{name} off its plain "
+                            f"version by {float(err.max())} "
+                            f"({fa_ref.TOL_BWD[dt]})")
+            worst, ratio = max(worst, float(err.max())), max(ratio, r)
+        del got, want
+        k_ms = cuda_ms(kern)
+        p_ms = cuda_ms(plain, reps=3)
+        mask, is_causal = sdpa_mask(sq, sk, causal, window, off, dev)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal,
+            enable_gqa=hq != hkv)
+        dot = do.transpose(1, 2)
+        l_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+        bound, by, flops, nbytes = bwd_bound(q, k, causal, window, off)
+        print(f"kernel 9b {label} (B {b}, Sq {sq}, Sk {sk}, {hq}/{hkv} "
+              f"heads of {dh}, {str(dt).replace('torch.', '')}, causal "
+              f"{causal}, window {window}, q_offset {off}): max err "
+              f"{worst:.3e} ({ratio:.3f} of the bound); {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {flops / k_ms / 1e9:.2f} TFLOP/s of "
+              f"the bound's flops)")
+        rec[label] = {"max_abs_err": worst, "ratio": ratio, "ms": k_ms,
+                      "plain_ms": p_ms, "library_ms": l_ms,
+                      "bound_ms": bound, "bound_by": by, "flops": flops,
+                      "bytes": nbytes}
+        del q, k, v, do, o, qt, kt, vt, out, dot
+    first = rec[K9B_CASES[0][0]]
+    rec.update({key: first[key] for key in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")})
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in rec.values()
+                             if isinstance(r, dict))
+    return rec
+
+
+def train_run(label, setup, steps, ckpt_dir, kernels, counted_keys,
+              resume=False):
+    """One Trainer run of ``setup() -> (state, step_fn, make_batch)`` to
+    ``steps``, checkpointing every TRAIN_RESUME_AT steps into ``ckpt_dir``:
+    (final state, losses, step seconds, launches a step of each of
+    ``counted_keys``)."""
+    from repro_torch.runtime.trainer import Trainer
+    state, step_fn, make_batch = setup()
+    times, launches = [], []
+
+    def step(st, batch):
+        before = {k: kernels[k].launches for k in counted_keys}
+        t0 = time.perf_counter()
+        out = step_fn(st, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({k: kernels[k].launches - before[k]
+                         for k in counted_keys})
+        return out
+    tr = Trainer(step, make_batch, str(ckpt_dir), ckpt_every=TRAIN_RESUME_AT,
+                 meta={"arch": label})
+    state, log = tr.run(state, steps, resume=resume)
+    return state, [m["loss"] for m in log], times, launches
+
+
+def check_prefetcher(dev, cfg) -> None:
+    """DevicePrefetcher on the card: step_stream's batches, in order, as
+    CUDA tensors."""
+    from repro_torch.data.pipeline import (DevicePrefetcher, lm_batch,
+                                           step_stream)
+    pf = DevicePrefetcher(step_stream(lambda s: lm_batch(
+        cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, s)), device=dev)
+    for s in range(3):
+        got = next(pf)
+        want = lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, s)
+        check(all(got[k].is_cuda and torch.equal(
+            got[k].cpu(), torch.from_numpy(want[k])) for k in want),
+            f"DevicePrefetcher batch {s} differs from step_stream's")
+    pf.close()
+    print("DevicePrefetcher on the card: 3 batches of step_stream in order, "
+          "pinned and copied on a side stream")
+
+
+def profile_step(setup) -> dict:
+    """``profile_call`` of one training step from ``setup()``'s state on
+    step 0's batch."""
+    state, step_fn, make_batch = setup()
+    batch = make_batch(0)
+    out = profile_call(lambda: step_fn(state, batch), "training step")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev, kernels) -> dict:
+    """Phase 18: smollm-135m and AutoInt trained at the registered widths
+    through the launcher's setups (``launch/train.py``), the Trainer and
+    AdamW, under the plain-version tripwire; then the training drivers as
+    processes of their own."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import lm_setup, recsys_setup
+    from repro_torch.optim.adamw import AdamW
+    rec = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    lm_cfg = get_config("smollm-135m")
+    ai_cfg = get_config("autoint")
+    check_prefetcher(dev, lm_cfg)
+    # the optimizer of examples/train_lm.py
+    opt = AdamW(lr=1e-3, total_steps=100, warmup_steps=5,
+                schedule="constant")
+    lm_keys = ("flash_attention", "flash_attention_bwd")
+    ai_keys = ("embedding_bag", "embedding_bag_bwd")
+    launches = {k: 0 for k in lm_keys + ai_keys}
+    with plain_tripwire() as plain_calls:
+        def lm():
+            return lm_setup(lm_cfg, dev, LM_TRAIN_BATCH, LM_TRAIN_SEQ, opt,
+                            seq_chunk=LM_TRAIN_CHUNK)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full, losses, times, per_step = train_run(
+            "smollm-135m", lm, TRAIN_STEPS, work / "lm_a", kernels, lm_keys)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        shutil.copytree(work / "lm_a" / f"step_{TRAIN_RESUME_AT:010d}",
+                        work / "lm_b" / f"step_{TRAIN_RESUME_AT:010d}")
+        resumed, losses_b, times_b, per_step_b = train_run(
+            "smollm-135m", lm, TRAIN_STEPS, work / "lm_b", kernels, lm_keys,
+            resume=True)
+        same_loss = losses_b == losses[TRAIN_RESUME_AT:]
+        same_params = all(torch.equal(full[0][k], resumed[0][k])
+                          for k in full[0])
+        same_state = all(torch.equal(full[1].mu[k], resumed[1].mu[k])
+                         and torch.equal(full[1].nu[k], resumed[1].nu[k])
+                         for k in full[1].mu)
+        for ps in per_step + per_step_b:
+            for k in lm_keys:
+                launches[k] += ps[k]
+        step_s = float(np.median(times[1:]))
+        tok = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        print(f"smollm-135m ({lm_cfg.n_layers} layers, d {lm_cfg.d_model}, "
+              f"vocab {lm_cfg.vocab}, {lm_cfg.dtype}, remat "
+              f"{lm_cfg.remat_policy}, AdamW float32 state), B "
+              f"{LM_TRAIN_BATCH} x S {LM_TRAIN_SEQ}, seq_chunk "
+              f"{LM_TRAIN_CHUNK}: step {step_s * 1e3:.3f} ms median (first "
+              f"{times[0] * 1e3:.1f} ms), {tok / step_s:,.1f} tokens/s; loss "
+              f"step 0 {losses[0]:.4f}, step {TRAIN_RESUME_AT} "
+              f"{losses[TRAIN_RESUME_AT]:.4f}, step {TRAIN_STEPS - 1} "
+              f"{losses[-1]:.4f}; peak {peak:.3f} GiB")
+        print(f"resumed from step {TRAIN_RESUME_AT}: losses of steps "
+              f"{TRAIN_RESUME_AT}-{TRAIN_STEPS - 1} bit for bit "
+              f"{same_loss}, final params bit for bit {same_params}, AdamW "
+              f"moments bit for bit {same_state} (step "
+              f"{times_b[1] * 1e3:.1f} ms)")
+        check(losses[-1] < losses[TRAIN_RESUME_AT] < losses[0],
+              f"smollm-135m loss does not fall: {losses}")
+        check(same_loss and same_params and same_state,
+              "the resumed smollm-135m run differs from the uninterrupted "
+              "one")
+        check(peak < LM_TRAIN_PEAK_GIB, f"smollm-135m training peak "
+                                        f"{peak:.3f} GiB")
+        check(all(ps["flash_attention_bwd"] == lm_cfg.n_layers
+                  and ps["flash_attention"] >= lm_cfg.n_layers
+                  for ps in per_step + per_step_b),
+              f"a step missed kernel 9 or 9b: {per_step + per_step_b}")
+        rec["smollm-135m"] = {
+            "step_ms": step_s * 1e3, "tokens_per_s": tok / step_s,
+            "first_step_ms": times[0] * 1e3, "losses": losses,
+            "losses_resumed": losses_b, "peak_gib": peak,
+            "resume_bit_for_bit": same_loss and same_params and same_state,
+            "launches_a_step": per_step[1]}
+        del full, resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("-- profile of one smollm-135m training step (fresh state)")
+        rec["smollm-135m"]["profile"] = profile_step(lm)
+
+        def autoint():
+            return recsys_setup(ai_cfg, dev, AI_TRAIN_ROWS, opt)
+        torch.cuda.reset_peak_memory_stats()
+        _, ai_losses, ai_times, ai_steps = train_run(
+            "autoint", autoint, TRAIN_STEPS, work / "ai", kernels, ai_keys)
+        ai_peak = torch.cuda.max_memory_allocated() / 2**30
+        for ps in ai_steps:
+            for k in ai_keys:
+                launches[k] += ps[k]
+        ai_s = float(np.median(ai_times[1:]))
+        print(f"autoint ({ai_cfg.n_sparse} fields, table "
+              f"{ai_cfg.n_embed_rows():,} rows x {ai_cfg.embed_dim} float32, "
+              f"trained densely), {AI_TRAIN_ROWS:,} rows a step: step "
+              f"{ai_s * 1e3:.3f} ms median (first {ai_times[0] * 1e3:.1f} "
+              f"ms), {AI_TRAIN_ROWS / ai_s:,.1f} rows/s; loss step 0 "
+              f"{ai_losses[0]:.4f}, step {TRAIN_RESUME_AT} "
+              f"{ai_losses[TRAIN_RESUME_AT]:.4f}, step {TRAIN_STEPS - 1} "
+              f"{ai_losses[-1]:.4f}; peak {ai_peak:.3f} GiB")
+        check(ai_losses[-1] < ai_losses[0],
+              f"autoint loss does not fall: {ai_losses}")
+        check(ai_peak < AI_TRAIN_PEAK_GIB, f"autoint training peak "
+                                           f"{ai_peak:.3f} GiB")
+        check(all(ps["embedding_bag"] == 1 and ps["embedding_bag_bwd"] == 1
+                  for ps in ai_steps),
+              f"a step missed kernel 8 or 8b: {ai_steps}")
+        print("-- profile of one autoint training step (fresh state)")
+        ai_prof = profile_step(autoint)
+        rec["autoint"] = {"profile": ai_prof, "step_ms": ai_s * 1e3,
+                          "rows_per_s": AI_TRAIN_ROWS / ai_s,
+                          "first_step_ms": ai_times[0] * 1e3,
+                          "losses": ai_losses, "peak_gib": ai_peak,
+                          "launches_a_step": ai_steps[1]}
+    check(not any(plain_calls.values()),
+          f"a plain version ran while training on the card: {plain_calls}")
+    print(f"kernel launches over the training runs: {launches}; plain "
+          f"versions called: {plain_calls}")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["drivers"] = run_train_drivers()
+    rec["launches"] = launches
+    return rec
+
+
+def run_train_drivers() -> dict:
+    """Phase 18's drivers: each of TRAIN_DRIVERS in a process of its own
+    on the card, as users run them, a checkpoint directory of its own
+    under build/; each must exit 0 and print its line."""
+    import os
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec = {}
+    for label, module, args, want in TRAIN_DRIVERS:
+        ck = tempfile.mkdtemp(prefix="train_ck_", dir=ROOT / "build")
+        extra = [] if "bfs" in label else ["--ckpt-dir", ck]
+        ts = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module, *args, *extra],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - ts
+        shutil.rmtree(ck, ignore_errors=True)
+        check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        hit = [x for x in r.stdout.splitlines() if want in x]
+        check(bool(hit), f"{label} printed no '{want}' line")
+        print(f"-- {label} (python -m {module} {' '.join(args)}): exit 0 "
+              f"in {wall:.1f} s: {hit[-1]}")
+        rec[label] = {"wall_s": wall, "line": hit[-1]}
+    return rec
 
 
 def same_graph(got, want, tag: str) -> None:
@@ -3885,7 +4347,9 @@ def main() -> int:
                "codec_encode": codec_ops.ENCODE,
                "codec_decode": codec_ops.DECODE,
                "embedding_bag": eb_ops.KERNEL,
-               "flash_attention": fa_ops.KERNEL}
+               "flash_attention": fa_ops.KERNEL,
+               "embedding_bag_bwd": eb_ops.KERNEL_BWD,
+               "flash_attention_bwd": fa_ops.KERNEL_BWD}
     replaces = {
         "spmsv_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
         "spmsv_dcsc_min": "src/repro/kernels/spmsv/spmsv.py:56",
@@ -3901,6 +4365,12 @@ def main() -> int:
         "embedding_bag":
             "src/repro/kernels/embedding_bag/embedding_bag.py:41",
         "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:79",
+        # the gradients of kernels 8 and 9, which the JAX package takes
+        # with XLA (jax.grad) around those Pallas kernels' functions
+        "embedding_bag_bwd":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:41",
+        "flash_attention_bwd":
             "src/repro/kernels/flash_attention/flash_attention.py:79"}
     path_2d = ("spmsv_csr_min", "bottomup_substep", "rmat_counter")
     path_1ds = ("bottomup_substep", "rmat_counter", "spmsv_strip_min",
@@ -4084,6 +4554,35 @@ def main() -> int:
           f"(LM path and prefill_32k): {fa['ms']:.4f} ms, plain "
           f"{fa['plain_ms']:.4f} ms, library {fa['library_ms']:.4f} ms, "
           f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']})")
+
+    del params, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 17
+    phase("17 kernels 8b and 9b (the backward kernels) against their plain "
+          "versions at the training paths' shapes, and timed")
+    record["kernel8b"] = per["embedding_bag_bwd"] = check_kernel8b(dev)
+    record["kernel9b"] = per["flash_attention_bwd"] = check_kernel9b(dev)
+    errs["embedding_bag_bwd"] = per["embedding_bag_bwd"]["max_abs_err"]
+    errs["flash_attention_bwd"] = per["flash_attention_bwd"]["max_abs_err"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 18
+    phase(f"18 training at the registered widths: smollm-135m B "
+          f"{LM_TRAIN_BATCH} x S {LM_TRAIN_SEQ} for {TRAIN_STEPS} steps, "
+          f"resumed from step {TRAIN_RESUME_AT}; autoint {AI_TRAIN_ROWS:,} "
+          f"rows for {TRAIN_STEPS} steps; the training drivers")
+    record["train"] = tr = train_phase(dev, kernels)
+    for k, n in tr["launches"].items():
+        launches_nn[k] = launches_nn.get(k, 0) + n
+    for k, tag in (("embedding_bag_bwd", "8b"), ("flash_attention_bwd", "9b")):
+        r = per[k]
+        print(f"kernel {tag} ({k}): {launches_nn[k]} launches on the "
+              f"training path; at phase 17's first shape {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     record["total_s"] = time.perf_counter() - t_start
     print(f"total {record['total_s']:.1f} s")

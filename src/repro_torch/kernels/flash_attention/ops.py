@@ -21,10 +21,18 @@ scale stays dh^-0.5 of the real dh, and the result is sliced back to dh.
 Past 128, up to ``WIDE_MAX_DH``, the head dim is the "wide" kernel's
 runtime argument (float32 or bf16 alike, tiles from ``wide_tiles``); the
 route is chosen by dh alone.  The plain version takes any dh.
+
+``flash_attention_gqa_backward`` is the gradient (dq, dk, dv), the
+wrapper of kernel 9b (``csrc/flash_attention_bwd.cu``), whose plain
+version is ``ref.attention_gqa_backward``; it takes head dims up to
+``BWD_MAX_DH``, others than 16/32/64/128 zero-padded as the forward pads
+them.  ``attention`` is kernel 9 with that gradient, the
+``torch.autograd.Function`` the training path calls.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -294,3 +302,89 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL.load()
     require_cuda(q, k, v)
     return launch(q, k, v, causal, window, q_offset)
+
+
+# kernel 9b's entry: 21 values packed as int64 (q, k, v, o, dout, dq, dk,
+# dv, lse, delta, B, Sq, Sk, Hq, Hkv, dh, q_offset, window, causal, bf16,
+# stream) and the softmax scale
+KERNEL_BWD = CudaKernel("flash_attention_bwd", [ctypes.c_char_p,
+                                                ctypes.c_float])
+_BWD_ARGS = struct.Struct("21q")
+BWD_MAX_DH = _HEAD_DIMS[-1]
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with a 16-byte aligned start (a copy if not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def launch_backward(q, k, v, o, do, causal: bool, window: Optional[int],
+                    q_offset: int):
+    """Kernel 9b on checked CUDA tensors: (dq, dk, dv), at a padded head
+    dim sliced back to dh."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    width = padded_dim(dh)
+    xs = [_aligned(x) if width == dh else pad_head_dim(x, width)
+          for x in (q, k, v, o, do)]
+    grads = [torch.empty_like(x) for x in xs[:3]]
+    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    KERNEL_BWD.launch(_BWD_ARGS.pack(
+        *(x.data_ptr() for x in xs), *(g.data_ptr() for g in grads),
+        lse.data_ptr(), delta.data_ptr(), b, sq, sk, hq, hkv, width,
+        q_offset, 0 if window is None else window, int(causal),
+        int(q.dtype == torch.bfloat16), stream_handle(q.device)),
+        dh ** -0.5)
+    return tuple(g if width == dh else g[..., :dh] for g in grads)
+
+
+def flash_attention_gqa_backward(q, k, v, o, do, causal: bool = True,
+                                 window: Optional[int] = None,
+                                 q_offset: int = 0):
+    """The gradient of ``flash_attention_gqa(q, k, v, ...)``, whose output
+    was ``o``, given its gradient ``do``: (dq, dk, dv) in q's dtype.  CPU
+    tensors take the plain version, at any head dim; CUDA tensors launch
+    kernel 9b, at head dims up to BWD_MAX_DH."""
+    _check(q, k, v, window, q_offset)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o and do must have q's shape {tuple(q.shape)} "
+                         f"and dtype {q.dtype}, got {o.dtype} "
+                         f"{tuple(o.shape)} and {do.dtype} "
+                         f"{tuple(do.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v, o, do)):
+        return ref.attention_gqa_backward(q, k, v, o, do, causal=causal,
+                                          window=window, q_offset=q_offset)
+    if q.shape[3] > BWD_MAX_DH:
+        raise ValueError(f"head dim {q.shape[3]} > {BWD_MAX_DH}: kernel 9b "
+                         f"takes head dims up to {BWD_MAX_DH}")
+    KERNEL_BWD.load()
+    require_cuda(q, k, v, o, do)
+    return launch_backward(q, k, v, o, do, causal, window, q_offset)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o = flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.masks = (causal, window, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_gqa_backward(q, k, v, o, do,
+                                                  *ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """``flash_attention_gqa`` (kernel 9) with its gradient by kernel 9b
+    (the plain versions for CPU tensors)."""
+    return _Attention.apply(q, k, v, causal, window, q_offset)

@@ -1,0 +1,139 @@
+"""Training launcher: ``--arch <id>`` picks a registered architecture and
+runs the fault-tolerant ``Trainer`` on one card; the JAX package's
+``launch/train.py`` with its defaults (reduced dims; ``--full`` for the
+registered width) and its printed lines.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch autoint --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --full --batch 8 --seq 1024 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bfs-rmat --scale 12
+    PYTHONPATH=src python -m repro_torch.launch.train --arch autoint --device cpu
+
+The lm and recsys kinds train with AdamW (kernels 9 and 9b, or 8 and 8b,
+on the card); the bfs kind runs up to 8 searches through the kernel
+entries and validates each tree.  The GNN archs are not ported yet.
+``--device cuda`` (the default) raises without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.data.pipeline import lm_batch, recsys_batch
+from repro_torch.launch.mesh import resolve_device
+from repro_torch.launch.serve import LM_SMALL, RECSYS_SMALL
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime.trainer import Trainer, value_and_grad_step
+
+# the JAX package's GNN archs (configs/{gat_cora,gin_tu,mace,meshgraphnet}.py)
+GNN_ARCHS = ("gat-cora", "gin-tu", "mace", "meshgraphnet")
+LM_SEQ_CHUNK = 64        # the JAX launcher's lm_loss(..., seq_chunk=64)
+
+
+def run_bfs_kind(cfg, scale: int, steps: int, device) -> None:
+    """Up to 8 searches from random roots of an R-MAT graph on the 1x1
+    grid, each tree validated on the host."""
+    from repro_torch.core.bfs import run_bfs
+    from repro_torch.core.ref import validate_parents
+    from repro_torch.graph.formats import build_blocked
+    from repro_torch.graph.rmat import random_source, rmat_graph
+    from repro_torch.launch.mesh import make_local_mesh
+    edges = rmat_graph(scale, 16, seed=1, device=device)
+    g = build_blocked(edges, 1, 1, align=32)
+    mesh = make_local_mesh(1, 1, device=device)
+    src, dst = edges.src.cpu().numpy(), edges.dst.cpu().numpy()
+    rng = np.random.default_rng(0)
+    for i in range(min(steps, 8)):
+        root = random_source(edges, rng)
+        res = run_bfs(g, root, cfg, mesh, local_mode="kernel")
+        ok, msg = validate_parents(edges.n, src, dst, root, res.parents)
+        if not ok:
+            raise RuntimeError(f"search {i} from root {root}: {msg}")
+        print(f"search {i}: root={root} levels={res.n_levels} valid")
+
+
+def lm_setup(cfg, device, batch: int, seq: int, opt: AdamW,
+             seq_chunk: int = LM_SEQ_CHUNK):
+    """(state, step_fn, make_batch) of an LM: seeded params, AdamW state,
+    ``lm_loss`` over ``lm_batch(cfg, batch, seq, step)`` on ``device``."""
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, seed=0, device=device)
+    step_fn = value_and_grad_step(
+        lambda p, b: tf.lm_loss(p, b["tokens"], b["labels"], cfg,
+                                seq_chunk=seq_chunk), opt)
+
+    def make_batch(step):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in lm_batch(cfg, batch, seq, step).items()}
+    return (params, opt.init(params)), step_fn, make_batch
+
+
+def recsys_setup(cfg, device, batch: int, opt: AdamW):
+    """(state, step_fn, make_batch) of AutoInt: seeded trainable params,
+    AdamW state, ``bce_loss`` over ``recsys_batch(cfg, batch, step)``."""
+    from repro_torch.models import autoint as ai
+    model = ai.AutoInt(cfg, seed=0, device=device, trainable=True)
+    params = {k: v.detach() for k, v in model.params().items()}
+    step_fn = value_and_grad_step(
+        lambda p, b: ai.bce_loss(p, cfg, b["idx"], b["labels"]), opt)
+
+    def make_batch(step):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in recsys_batch(cfg, batch, step).items()}
+    return (params, opt.init(params)), step_fn, make_batch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--scale", type=int, default=12, help="BFS graph scale")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--full", action="store_true",
+                    help="train the registered width, not the reduced dims")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows a step (default: lm 4, recsys 64)")
+    ap.add_argument("--seq", type=int, default=64, help="lm tokens a row")
+    args = ap.parse_args(argv)
+    if args.arch in GNN_ARCHS:
+        raise NotImplementedError(
+            f"{args.arch}: the GNN archs are not ported yet (ROADMAP queue "
+            f"1, 'GNN and the other arch configs')")
+    cfg = get_config(args.arch)
+    dev = resolve_device(args.device)
+
+    if cfg.kind == "bfs":
+        run_bfs_kind(cfg, args.scale, args.steps, dev)
+        return
+
+    opt = AdamW(lr=1e-3, total_steps=args.steps)
+    if cfg.kind == "lm":
+        if not args.full:
+            cfg = reduced(cfg, **LM_SMALL)
+        state, step_fn, mk = lm_setup(cfg, dev, args.batch or 4, args.seq,
+                                      opt)
+    else:  # recsys
+        if not args.full:
+            cfg = reduced(cfg, **RECSYS_SMALL)
+        state, step_fn, mk = recsys_setup(cfg, dev, args.batch or 64, opt)
+
+    tr = Trainer(step_fn, mk, args.ckpt_dir, ckpt_every=10,
+                 meta={"arch": args.arch})
+    state, log = tr.run(state, args.steps)
+    if not log:
+        print(f"{args.arch}: 0 steps (a checkpoint at step {args.steps} or "
+              f"later is in {args.ckpt_dir})")
+        return
+    print(f"{args.arch}: {len(log)} steps, "
+          f"loss {log[0]['loss']:.4f} -> {log[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

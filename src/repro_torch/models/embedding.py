@@ -5,8 +5,11 @@ All field tables are one (total_rows, dim) matrix with per-field row
 offsets, as in the JAX package's ``models/embedding.py``.  A one-hot
 field lookup is an EmbeddingBag whose bags hold one id with weight 1
 (``0 + row * 1.0`` is the row exactly), the way FBGEMM's table-batched
-kernels serve pooling factor 1.  The row-sharded lookup over a "model"
-axis waits for the torch.distributed backend.
+kernels serve pooling factor 1.  Where the table requires a gradient
+(and grad mode is on), both functions go through
+``eb_ops.embedding_bag_trainable``, whose backward is kernel 8b: the
+dense (total_rows, D) gradient ``jax.grad`` gives the JAX package.  The
+row-sharded lookup over a "model" axis is not ported yet.
 """
 from __future__ import annotations
 
@@ -44,11 +47,18 @@ def flat_indices(cfg: RecsysConfig, idx: torch.Tensor) -> torch.Tensor:
                                  device=idx.device)[None, :]
 
 
+def _bag_fn(table: torch.Tensor):
+    """Kernel 8 with its gradient where the table trains, else alone."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return eb_ops.embedding_bag_trainable
+    return eb_ops.embedding_bag
+
+
 def lookup(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """rows: (...,) int32 flat row ids -> (..., D) rows of the table,
     through kernel 8 as bags of one."""
     flat = rows.reshape(-1, 1).to(torch.int32).contiguous()
-    out = eb_ops.embedding_bag(table, flat)
+    out = _bag_fn(table)(table, flat)
     return out.reshape(*rows.shape, table.shape[1])
 
 
@@ -57,4 +67,4 @@ def embedding_bag(table: torch.Tensor, bag_ids: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """bag_ids: (B, L) multi-hot rows (-1 = pad) -> (B, D) reduced, the
     JAX package's ``embedding_bag(..., use_kernel=True)``."""
-    return eb_ops.embedding_bag(table, bag_ids, bag_weights, mode=mode)
+    return _bag_fn(table)(table, bag_ids, bag_weights, mode)

@@ -1,7 +1,8 @@
 """On a CUDA card: each of the port's CUDA kernels against its plain
 PyTorch version: tolerance 0 for the graph kernels (integer outputs)
-and for the EmbeddingBag (the same float32 operations in the same
-order); the attention kernel within ``fa_ref.tolerance``.  Imports no JAX, so
+and for the EmbeddingBag and its gradient (the same float32 operations
+in the same order); the attention kernel within ``fa_ref.tolerance``
+and its gradient within ``fa_ref.backward_bound``.  Imports no JAX, so
 it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -780,3 +781,131 @@ def test_registry_lint_with_kernel_entries_is_clean_and_fixture_flagged(dev):
         r1 = [f for f in lint_fixture(instrument, device=dev)
               if f.rule == "R1" and f.detail["collective"] == "ppermute"]
         assert r1 and r1[0].detail["divergent_axes"] == ["pod"]
+
+
+def _bags(dev, n_bags, width, n_rows, seed, pads=0.0, past=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, n_rows + past, (n_bags, width), generator=g,
+                        device=dev, dtype=torch.int32)
+    if pads:
+        ids[torch.rand(n_bags, width, generator=g, device=dev) < pads] = -1
+    w = torch.rand(n_bags, width, generator=g, device=dev) + 0.5
+    return ids, w
+
+
+@pytest.mark.parametrize("dtype,n_bags,width,dim,weighted,mode,past", [
+    (torch.float32, 65536, 1, 16, False, "sum", 0),   # AutoInt's lookup
+    (torch.float32, 4096, 8, 16, True, "mean", 3),
+    (torch.bfloat16, 4096, 12, 64, True, "mean", 0),
+    (torch.bfloat16, 2048, 5, 24, False, "sum", 2),   # 8 bf16 don't fit
+    (torch.float32, 1000, 3, 7, True, "sum", 0),      # vec 1
+])
+def test_embedding_bag_backward_kernel_matches_plain(dev, dtype, n_bags,
+                                                     width, dim, weighted,
+                                                     mode, past):
+    """Kernel 8b against its plain version on CPU copies, tolerance 0
+    (the same float32 operations in the same order a row)."""
+    n_rows = 50_000
+    ids, w = _bags(dev, n_bags, width, n_rows, 11, pads=0.2 if width > 1
+                   else 0.0, past=past)
+    wt = w if weighted else None
+    g = torch.Generator(device=dev).manual_seed(12)
+    gout = torch.randn(n_bags, dim, generator=g, device=dev).to(dtype)
+    before = eb_ops.KERNEL_BWD.launches
+    got = eb_ops.embedding_bag_backward(gout, ids, n_rows, wt, mode)
+    torch.cuda.synchronize()
+    assert eb_ops.KERNEL_BWD.launches == before + 1
+    want = eb_ref.embedding_bag_backward(
+        gout.cpu(), ids.cpu(), n_rows, None if wt is None else wt.cpu(), mode)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def test_embedding_bag_autograd_launches_both_kernels(dev):
+    table = torch.randn(1000, 16, device=dev, requires_grad=True)
+    ids = torch.randint(0, 1000, (64, 1), device=dev, dtype=torch.int32)
+    f0, b0 = eb_ops.KERNEL.launches, eb_ops.KERNEL_BWD.launches
+    out = eb_ops.embedding_bag_trainable(table, ids)
+    (gt,) = torch.autograd.grad(out.sum(), table)
+    assert eb_ops.KERNEL.launches == f0 + 1
+    assert eb_ops.KERNEL_BWD.launches == b0 + 1
+    want = eb_ref.embedding_bag_backward(torch.ones(64, 16), ids.cpu(), 1000)
+    assert torch.equal(gt.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,hq,hkv,dh,causal,window,q_off", [
+    (torch.bfloat16, 2, 256, 256, 9, 3, 64, True, None, 0),   # smollm's
+    (torch.float32, 1, 200, 200, 4, 2, 32, True, None, 0),
+    (torch.bfloat16, 2, 192, 192, 6, 2, 64, True, 70, 0),     # window
+    (torch.bfloat16, 1, 64, 192, 4, 1, 128, True, None, 128),  # q_offset
+    (torch.float32, 1, 100, 130, 2, 2, 16, False, None, 0),   # no mask
+    (torch.bfloat16, 1, 96, 96, 4, 2, 80, True, 40, 0),       # dh padded
+    (torch.float32, 1, 40, 90, 3, 3, 64, True, 8, 60),        # dead rows
+])
+def test_flash_attention_backward_kernel_matches_plain(dev, dtype, b, sq,
+                                                       sk, hq, hkv, dh,
+                                                       causal, window,
+                                                       q_off):
+    """Kernel 9b against its plain version on the same inputs (o from
+    kernel 9), within ``fa_ref.backward_bound``."""
+    g = torch.Generator(device=dev).manual_seed(dh + sq)
+    q = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
+    o = fa_ops.flash_attention_gqa(q, k, v, causal=causal, window=window,
+                                   q_offset=q_off)
+    before = fa_ops.KERNEL_BWD.launches
+    got = fa_ops.flash_attention_gqa_backward(q, k, v, o, do, causal,
+                                              window, q_off)
+    torch.cuda.synchronize()
+    assert fa_ops.KERNEL_BWD.launches == before + 1
+    want = fa_ref.attention_gqa_backward(q, k, v, o, do, causal=causal,
+                                         window=window, q_offset=q_off)
+    for x, y, name in zip(got, want, "qkv"):
+        assert x.dtype == dtype and x.shape == y.shape
+        err = (x.float() - y.float()).abs()
+        assert bool((err <= fa_ref.backward_bound(y)).all()), \
+            (name, float(err.max()), float(y.float().abs().max()))
+
+
+def test_flash_attention_backward_refuses_past_128(dev):
+    q = torch.zeros(1, 8, 2, 160, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="128"):
+        fa_ops.flash_attention_gqa_backward(q, q, q, q, q)
+
+
+def test_attention_autograd_launches_both_kernels(dev):
+    q = torch.randn(1, 128, 4, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    f0, b0 = fa_ops.KERNEL.launches, fa_ops.KERNEL_BWD.launches
+    out = fa_ops.attention(q, k, k)
+    torch.autograd.grad(out.float().sum(), (q, k))
+    assert fa_ops.KERNEL.launches == f0 + 1
+    assert fa_ops.KERNEL_BWD.launches == b0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_loss_bf16_logits_on_the_card_match_the_cpu(dev, dtype):
+    """``lm_loss``'s ``loss_bf16`` logits (bf16 operands on the tensor
+    cores with a float32 output) and their gradients against the same
+    function on CPU copies: the same exact products in another summation
+    order: the logits within 1e-5 of their largest element, the
+    gradients within that (float32) or one bf16 step, 2**-7 (bf16)."""
+    from repro_torch.models.transformer import _LogitsF32Out
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(512, 576, generator=g).to(dtype)
+    emb = torch.randn(4096, 576, generator=g).to(dtype)
+    dl = torch.randn(512, 4096, generator=g)
+    outs = []
+    for d in ("cpu", dev):
+        hh, ee = (x.to(d).requires_grad_(True) for x in (h, emb))
+        out = _LogitsF32Out.apply(hh, ee)
+        gh, ge = torch.autograd.grad(out, (hh, ee), dl.to(d))
+        assert out.dtype == torch.float32
+        assert gh.dtype == dtype and ge.dtype == dtype
+        outs.append([x.detach().float().cpu() for x in (out, gh, ge)])
+    for i, (got, want) in enumerate(zip(outs[1], outs[0])):
+        tol = 1e-5 if i == 0 or dtype == torch.float32 else 2 ** -7
+        assert (got - want).abs().max() <= tol * want.abs().max(), i

@@ -13,7 +13,8 @@ import torch
 from repro.core import comm_model as r_comm
 from repro.graph.rmat import scale_free_standin as r_standin
 from repro_torch.core import comm_model
-from repro_torch.examples import graph500_bfs, quickstart, serve_lm
+from repro_torch.examples import graph500_bfs, quickstart, serve_lm, train_lm
+from repro_torch.launch import train
 from repro_torch.graph.rmat import scale_free_standin
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -105,6 +106,32 @@ def test_drivers_default_to_the_card():
     for main in (graph500_bfs.main, quickstart.main, serve_lm.main):
         with pytest.raises(RuntimeError, match="cuda"):
             main([])
+
+
+@pytest.mark.parametrize("driver", ["train_lm", "launch-train-autoint"])
+def test_training_drivers_run_on_the_cpu(capsys, tmp_path, driver):
+    """The JAX package's tests/test_examples.py::test_train_lm_example
+    and ::test_train_launcher_recsys, with their arguments, on the CPU."""
+    if driver == "train_lm":
+        train_lm.main(["--steps", "12", "--batch", "2", "--seq", "64",
+                       "--d-model", "64", "--layers", "2", "--ckpt-dir",
+                       str(tmp_path / "lm_ck"), "--device", "cpu"])
+        assert "trained 12 steps" in capsys.readouterr().out
+    else:
+        train.main(["--arch", "autoint", "--steps", "8", "--ckpt-dir",
+                    str(tmp_path / "ai_ck"), "--device", "cpu"])
+        assert "autoint: 8 steps" in capsys.readouterr().out
+
+
+def test_training_drivers_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_lm.main(["--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "autoint", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="GNN"):
+        train.main(["--arch", "gin-tu", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("pr,pc", [(1, 1), (2, 2), (4, 4), (16, 16),
