@@ -187,9 +187,12 @@ Phases, in the order they run:
                  multi-hot (bf16, weights, pads, mean), tolerance 0 on CPU
                  copies; 9b at smollm-135m's training call (B 8, S 1024,
                  9/3 heads of 64, bf16, causal), float32, a window and a
-                 q_offset, within ``ref.backward_bound``; each timed
-                 beside its plain version, its library call
-                 (embedding_dense_backward, SDPA's backward) and bound
+                 q_offset, with kernel 9's saved log-sum-exp and without
+                 it, within ``ref.backward_tolerance``, two calls bit for
+                 bit; each timed beside its plain version, its library
+                 call (embedding_dense_backward; SDPA's backward, its
+                 backend pinned and named, 9b and SDPA in turns as
+                 single calls: median, min, max) and bound
  18 training     smollm-135m at the registered width (bf16, remat full,
                  AdamW float32 state): B 8 x S 1024 for 20 steps through
                  the Trainer, checkpointing at step 10, then a second run
@@ -205,7 +208,8 @@ Phases, in the order they run:
                  launcher's defaults) and examples.train_lm as processes
                  of their own
 Then the card's name and power limit, the ``kernels`` JSON line and the
-result line.
+result line.  ``python3 chip_smoke.py --backward`` runs phase 17 alone
+(its checks and times, no result line).
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
@@ -1586,12 +1590,72 @@ def bwd_bound(q, k, causal, window, q_offset) -> tuple:
         nbytes
 
 
+# SDPA's backends in the order phase 17b tries them for its yardstick: the
+# first that runs a case (flash takes no mask, nor efficient GQA)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+TIMED_CALLS = 25              # single calls a timing in turns takes
+
+
+def single_calls_ms(fns: dict, calls: int = TIMED_CALLS) -> dict:
+    """Each of ``fns`` (name -> zero-argument call) timed as single calls
+    in turns, ``calls`` rounds, each between its own CUDA event pair
+    queued behind a short spin kernel (``torch.cuda._sleep``), so that
+    the events time the device work and not the host's issue: name ->
+    (median, min, max) ms."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: (float(np.median(t)), float(min(t)), float(max(t)))
+            for name, t in times.items()}
+
+
+def sdpa_backward(q, k, v, do, causal, window, q_offset):
+    """(backend name, call): SDPA's backward through autograd on the same
+    inputs, its forward run once under the first of SDPA_BACKENDS that
+    takes the case (the backward follows the forward's backend), the mask
+    built outside the timed call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    mask, is_causal = sdpa_mask(q.shape[1], k.shape[1], causal, window,
+                                q_offset, q.device)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    for name in SDPA_BACKENDS:
+        try:  # the yardstick's backend; the port's path has no fallback
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=is_causal,
+                    enable_gqa=q.shape[2] != k.shape[2])
+                torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+        except RuntimeError:
+            continue
+        return name, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True)
+    raise RuntimeError("no SDPA backend takes this case")
+
+
 def check_kernel9b(dev) -> dict:
     """Phase 17b: kernel 9b against its plain version on the same inputs
-    (o from kernel 9) within ``ref.backward_bound``, at each K9B_CASES
-    shape, with times: kernel, plain, SDPA's backward through autograd
-    (the mask built outside the timed call), the bound."""
-    import torch.nn.functional as F
+    (o from kernel 9) within ``ref.backward_tolerance``, at each K9B_CASES
+    shape, with the log-sum-exp kernel 9 saved (the bf16 prefill path)
+    and without it (9b's first pass computes it), two calls bit for bit;
+    times: 9b with the saved log-sum-exp, 9b without it and SDPA's
+    backward (backend pinned and named) as single calls in turns, median,
+    min and max; the plain version; the bound."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     rec = {}
@@ -1602,49 +1666,68 @@ def check_kernel9b(dev) -> dict:
         k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dt)
         v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dt)
         do = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dt)
-        o = fa_ops.flash_attention_gqa(q, k, v, causal, window, off)
+        o, lse = fa_ops.attention_with_lse(q, k, v, causal, window, off)
+        check((lse is not None) == (dt == torch.bfloat16),
+              f"kernel 9 {label}: log-sum-exp saved {lse is not None}")
 
-        def kern():
-            return fa_ops.flash_attention_gqa_backward(q, k, v, o, do,
-                                                       causal, window, off)
+        def kern(saved=lse):
+            return fa_ops.flash_attention_gqa_backward(
+                q, k, v, o, do, causal, window, off, lse=saved)
 
         def plain():
             return fa_ref.attention_gqa_backward(
                 q, k, v, o, do, causal=causal, window=window, q_offset=off)
-        got, want = kern(), plain()
-        worst, ratio = 0.0, 0.0
-        for x, y, name in zip(got, want, "qkv"):
-            err = (x.float() - y.float()).abs()
-            r = float((err / fa_ref.backward_bound(y)).max())
-            check(r <= 1.0, f"kernel 9b {label}: d{name} off its plain "
-                            f"version by {float(err.max())} "
-                            f"({fa_ref.TOL_BWD[dt]})")
-            worst, ratio = max(worst, float(err.max())), max(ratio, r)
-        del got, want
-        k_ms = cuda_ms(kern)
+        want = plain()
+        bounds = fa_ref.backward_tolerance(q, k, v, o, do, causal=causal,
+                                           window=window, q_offset=off)
+        worst, ratio = 0.0, {}
+        for saved in ((lse, None) if lse is not None else (None,)):
+            tag = "computed" if saved is None else "saved"
+            got = kern(saved)
+            ratio[tag] = 0.0
+            for x, y, bound, name in zip(got, want, bounds, "qkv"):
+                err = (x.float() - y.float()).abs()
+                r = float((err / bound).max())
+                check(r <= 1.0, f"kernel 9b {label}, log-sum-exp {tag}: "
+                                f"d{name} off its plain version by "
+                                f"{float(err.max())}, {r:.3f} of the bound "
+                                f"({fa_ref.TOL_BWD[dt]})")
+                worst, ratio[tag] = max(worst, float(err.max())), max(
+                    ratio[tag], r)
+            del got
+        first, second = kern(), kern()
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        check(same, f"kernel 9b {label}: two calls differ")
+        del want, bounds, first, second
+        backend, lib = sdpa_backward(q, k, v, do, causal, window, off)
+        fns = {"9b": kern, "SDPA": lib}
+        if lse is not None:
+            fns["9b, log-sum-exp computed"] = lambda: kern(None)
+        t = single_calls_ms(fns)
         p_ms = cuda_ms(plain, reps=3)
-        mask, is_causal = sdpa_mask(sq, sk, causal, window, off, dev)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        out = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=is_causal,
-            enable_gqa=hq != hkv)
-        dot = do.transpose(1, 2)
-        l_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                   retain_graph=True))
         bound, by, flops, nbytes = bwd_bound(q, k, causal, window, off)
+        k_ms, l_ms = t["9b"][0], t["SDPA"][0]
+        spread = "; ".join(f"{n} {m:.4f} ms (min {lo:.4f}, max {hi:.4f})"
+                           for n, (m, lo, hi) in t.items())
+        ratios = ", ".join(f"{r:.3f} with the log-sum-exp {n}"
+                           for n, r in ratio.items())
         print(f"kernel 9b {label} (B {b}, Sq {sq}, Sk {sk}, {hq}/{hkv} "
               f"heads of {dh}, {str(dt).replace('torch.', '')}, causal "
               f"{causal}, window {window}, q_offset {off}): max err "
-              f"{worst:.3e} ({ratio:.3f} of the bound); {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}; {flops / k_ms / 1e9:.2f} TFLOP/s of "
-              f"the bound's flops)")
+              f"{worst:.3e} ({ratios} of the "
+              f"bound), two calls bit for bit; median of {TIMED_CALLS} "
+              f"single calls in turns: {spread} (SDPA backend {backend}); "
+              f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{flops / k_ms / 1e9:.2f} TFLOP/s of the bound's flops)")
         rec[label] = {"max_abs_err": worst, "ratio": ratio, "ms": k_ms,
+                      "ms_min": t["9b"][1], "ms_max": t["9b"][2],
+                      "single_calls_ms": t, "sdpa_backend": backend,
                       "plain_ms": p_ms, "library_ms": l_ms,
                       "bound_ms": bound, "bound_by": by, "flops": flops,
-                      "bytes": nbytes}
-        del q, k, v, do, o, qt, kt, vt, out, dot
+                      "bytes": nbytes, "bit_for_bit": same}
+        del q, k, v, do, o, lse, lib
+        gc.collect()
+        torch.cuda.empty_cache()
     first = rec[K9B_CASES[0][0]]
     rec.update({key: first[key] for key in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")})
@@ -1727,9 +1810,11 @@ def train_phase(dev, kernels) -> dict:
     # the optimizer of examples/train_lm.py
     opt = AdamW(lr=1e-3, total_steps=100, warmup_steps=5,
                 schedule="constant")
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     lm_keys = ("flash_attention", "flash_attention_bwd")
     ai_keys = ("embedding_bag", "embedding_bag_bwd")
     launches = {k: 0 for k in lm_keys + ai_keys}
+    lse_pass = fa_ops.KERNEL_BWD_LSE.launches
     with plain_tripwire() as plain_calls:
         def lm():
             return lm_setup(lm_cfg, dev, LM_TRAIN_BATCH, LM_TRAIN_SEQ, opt,
@@ -1781,6 +1866,11 @@ def train_phase(dev, kernels) -> dict:
                   and ps["flash_attention"] >= lm_cfg.n_layers
                   for ps in per_step + per_step_b),
               f"a step missed kernel 9 or 9b: {per_step + per_step_b}")
+        lse_pass = fa_ops.KERNEL_BWD_LSE.launches - lse_pass
+        print(f"kernel 9b's first pass (the log-sum-exp computed): "
+              f"{lse_pass} launches over both runs; 9b took kernel 9's "
+              f"saved log-sum-exp on every call")
+        check(lse_pass == 0, "9b recomputed the log-sum-exp while training")
         rec["smollm-135m"] = {
             "step_ms": step_s * 1e3, "tokens_per_s": tok / step_s,
             "first_step_ms": times[0] * 1e3, "losses": losses,
@@ -4320,6 +4410,9 @@ def main() -> int:
                     help="only time kernels 2-9 (see kernel_times)")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --kernel-times: the checkout to time")
+    ap.add_argument("--backward", action="store_true",
+                    help="only phase 17: kernels 8b and 9b checked and "
+                         "timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this script runs "
@@ -4327,6 +4420,11 @@ def main() -> int:
         return 2
     if args.kernel_times:
         return kernel_times(args.tree)
+    if args.backward:
+        print(smi_line())
+        check_kernel8b(torch.device("cuda"))
+        check_kernel9b(torch.device("cuda"))
+        return 0
 
     from repro_torch.graph import rmat
     from repro_torch.kernels import build

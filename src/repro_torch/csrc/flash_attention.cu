@@ -30,7 +30,9 @@
 //   operand of O += P V, V the MN-major B operand; O stays in float32
 //   registers and is divided by l at the end.  Tiles wholly inside the
 //   masks take no per-element mask.  Blocks start from the last query
-//   tile, the longest under causality.
+//   tile, the longest under causality.  Where the caller asks (training),
+//   the epilogue also stores each row's base-2 log-sum-exp m + log2(l),
+//   from which kernel 9b forms P.
 // * Decode and short queries, bf16 (rep * Sq <= 16 rows): bound by bytes
 //   (K and V read once).  A 64-row wgmma tile would be mostly empty, and
 //   a block per query head gave 36 blocks for 132 SMs.  Here a block
@@ -49,11 +51,9 @@
 //
 // q_offset and the window are launch arguments, so decode reuses one
 // build at every position.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -216,19 +216,19 @@ constexpr int kStages = 2;    // K/V tiles in flight (3 and 4 measured
 
 struct PrefillArgs {
   __nv_bfloat16* o;
+  float* lse;       // (batch, hq, sq) or null: each row's log-sum-exp
   int64_t o_st[3];  // (batch, head, seq) strides of o in elements
   int hq, rep, sq, sk, q_offset, window, causal;
   float scale_log2;  // dh^-0.5 * log2(e): the scores in base 2
 };
 
-// The shared-memory layout of a dh: rows of min(dh, 64) elements (a
-// "panel", as wide as its swizzle), dh / 64 panels side by side for
-// dh = 128.
+// The shared-memory layout of a dh: Q, K and V tiles in the panels of
+// hopper_mma.cuh.
 template <int DH>
 struct Tiles {
-  static constexpr int kPanelCols = DH < 64 ? DH : 64;
-  static constexpr int kPanelBytes = 2 * kPanelCols;
-  static constexpr int kPanels = DH / kPanelCols;
+  static constexpr int kPanelCols = Panel<DH>::kCols;
+  static constexpr int kPanelBytes = Panel<DH>::kBytes;
+  static constexpr int kPanels = Panel<DH>::kCount;
   static constexpr int kQBytes = kPanels * kRows * kPanelBytes;
   // keys of a K/V tile: 128 where the registers allow (128 keys
   // measured 1-10% faster at dh 64; tools/flash_attention_ab.py)
@@ -237,243 +237,8 @@ struct Tiles {
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
-  // the wgmma descriptor's layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-  static constexpr uint64_t kLayout =
-      kPanelBytes == 128 ? 1 : (kPanelBytes == 64 ? 2 : 3);
+  static constexpr uint64_t kLayout = Panel<DH>::kLayout;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-D tensor map, coordinates innermost first
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor: start, leading and stride byte
-// offsets in 16-byte units, the swizzle
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of accumulator
-// registers across a wgmma fence or wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// 2^x on the special-function unit alone (exp2f adds range handling);
-// -inf gives 0, and a weight below 2^-126 flushes to 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// S (64 x N) = A (64 x 16, K-major, shared) B^T (N x 16, K-major,
-// shared); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
-                                         int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
-  if constexpr (N == 128) wgmma_ss_n128(d, a, b, scale_d);
-}
-
-// O (64 x N) += A (64 x 16, bf16 registers) B (16 x N, MN-major, shared)
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "},"
-      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15"
-      "},"
-      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
-  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, b);
-}
 
 // K and V tile i (keys k0..k0 + 63 of kv head hk) into stage i % kStages
 template <int DH>
@@ -650,6 +415,10 @@ __global__ void __launch_bounds__(128)
     const float inv = sum > 0.0f ? 1.0f / sum : 0.0f;
     const int row = r0 + 8 * r;
     if (row >= rows) continue;
+    // the row's base-2 log-sum-exp of its scaled scores, for kernel 9b
+    if (a.lse != nullptr && (lane & 3) == 0)
+      a.lse[((int64_t)b * a.hq + h) * a.sq + q0 + row] =
+          sum > 0.0f ? m[r] + log2f(sum) : INFINITY;
     __nv_bfloat16* op =
         a.o + b * a.o_st[0] + h * a.o_st[1] + (q0 + row) * a.o_st[2] + c0;
 #pragma unroll
@@ -1039,71 +808,12 @@ __global__ void __launch_bounds__(kWideThreads) wide_kernel(const WideArgs a) {
 }
 
 // ------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded: the
-// library links no libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// The tensor map of a (batch, seq, heads, dh) bf16 view with element
-// strides st = (batch, head, seq): boxes of `rows` rows of one panel of
-// one head.  A dim of size 1 takes a packed stride (it is never stepped).
-template <int DH>
-int encode(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-           const int64_t* st, int rows) {
-  using L = Tiles<DH>;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  int64_t elems[3] = {st[1], st[2], st[0]};
-  cuuint64_t strides[3];
-  int64_t packed = DH;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) elems[i] = (packed + 7) / 8 * 8;
-    strides[i] = (cuuint64_t)(2 * elems[i]);
-    packed = elems[i] * (int64_t)dims[i + 1];
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)L::kPanelCols, 1, (cuuint32_t)rows,
-                             1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      L::kPanelBytes == 128
-          ? CU_TENSOR_MAP_SWIZZLE_128B
-          : (L::kPanelBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                  : CU_TENSOR_MAP_SWIZZLE_32B);
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int DH>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
-                   const int64_t* st, int batch, int hq, int rep, int sq,
-                   int sk, int q_offset, int window, int causal, float scale,
-                   cudaStream_t stream) {
+                   float* lse, const int64_t* st, int batch, int hq, int rep,
+                   int sq, int sk, int q_offset, int window, int causal,
+                   float scale, cudaStream_t stream) {
   using L = Tiles<DH>;
   static bool attr_set = false;
   if (!attr_set) {
@@ -1121,6 +831,7 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
   if (err) return err;
   PrefillArgs a;
   a.o = (__nv_bfloat16*)o;
+  a.lse = lse;
   for (int i = 0; i < 3; ++i) a.o_st[i] = st[9 + i];
   a.hq = hq;
   a.rep = rep;
@@ -1180,10 +891,14 @@ int launch_wide(const WideArgs& a, int batch, cudaStream_t stream) {
 // head, split s over keys [lo + s span, ..) < hi, partials in `part`);
 // 3: any dh (the wide kernel; float32, or bf16 where `bf16`), query
 // tiles of bq rows and key tiles of bk, both powers of two, bk >= 8.
-// Paths 0-2 take dh 16, 32, 64 or 128.  One call launches the path's
+// Paths 0-2 take dh 16, 32, 64 or 128.  `lse`, where not null, takes
+// path 1's (batch, hq, sq) float32 base-2 log-sum-exp of each row's
+// scaled scores (+inf for a row that no key reaches), which kernel 9b
+// reads; the other paths write none.  One call launches the path's
 // kernels on `stream`.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, void* part, const long long* strides,
+                               void* o, void* part, void* lse,
+                               const long long* strides,
                                int batch, int hq, int rep, int sq, int sk,
                                int dh, int q_offset, int window, int causal,
                                int path, int bq, int n_split, int lo, int hi,
@@ -1221,8 +936,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     switch (dh) {
 #define PREFILL(D)                                                      \
   case D:                                                               \
-    err = launch_prefill<D>(q, k, v, o, st, batch, hq, rep, sq, sk,     \
-                            q_offset, window, causal, scale, s);        \
+    err = launch_prefill<D>(q, k, v, o, (float*)lse, st, batch, hq, rep, \
+                            sq, sk, q_offset, window, causal, scale, s); \
     break;
       PREFILL(16)
       PREFILL(32)

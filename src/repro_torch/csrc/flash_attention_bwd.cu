@@ -16,35 +16,62 @@
 // gradient is one too.
 //
 // Bound on the card: operations.  Per live (query, key) pair the gradient
-// needs S, dP, dV, dQ and dK: 10 dh flops; this kernel recomputes S three
-// times and dP twice (below), 16 dh.  Kernel 9's forward returns no
-// log-sum-exp, so it is recomputed here rather than changing the forward.
+// needs S, dP, dV, dQ and dK: 10 dh flops.  Both paths take P from each
+// row's base-2 log-sum-exp (lse): kernel 9's bf16 prefill stores it
+// (flash_attention.cu's `lse` argument); where no caller gives one, the
+// first C entry, flash_attention_bwd_lse, computes it (lse_kernel).
 //
-// Three passes on the stream, each a grid of 256-thread blocks over 64 x 64
-// tiles held in shared memory in float32 (rows padded to dh + 4 floats, so
-// that 16-byte loads of 8 rows hit 8 distinct bank groups), the products
-// on the CUDA cores: a thread owns a 4 x 4 piece of each score tile
-// (rows ty + 16 i, columns tx + 16 j; a row's 16 owners are 16 lanes of one
-// warp, whose max and sum go through four shuffles) and dh / 16 rows of
-// 4 columns of each 64 x dh accumulator.
+// bf16, on the tensor cores (wgmma, operands fed by TMA), three kernels:
+//   1. rows_kernel, per (batch, query head, query tile): delta =
+//      rowsum(dO * O) (bound by bytes: O and dO read once) and the lse,
+//      packed a tile at a time (64 lse, then 64 delta; +inf and 0 past Sq)
+//      so that one 512-byte bulk copy brings a tile's rows.
+//   2. dkdv_wgmma, per (batch, kv head, 64-key tile), one warpgroup: TMA
+//      brings the K and V tiles once; a ring of kRing stages (an mbarrier
+//      each) brings the Q and dO tiles and rows of every live query tile
+//      of the rep query heads, in a fixed order (head, then tile).
+//      S^T = K Q^T and dP^T = V dO^T are wgmma with both operands K-major
+//      in shared memory; P^T = exp2(c2 S^T - lse) and dS^T = P^T (dP^T -
+//      delta) are formed in the accumulator registers and rounded to bf16
+//      as the register A operand of dV += P^T dO and dK += dS^T Q, whose
+//      B operands are the same dO and Q tiles read MN-major (the transpose
+//      bit of the instruction: one tile serves both products).
+//   3. dq_wgmma, per (batch, query head, 64-row query tile): Q, dO and the
+//      rows come once, K and V through the ring over the live key tiles;
+//      S and dP as above, dS in registers the A operand of dQ += dS K,
+//      K read MN-major.
+// That executes 14 dh flops a live pair (S and dP twice), all on the
+// tensor cores.  dK, dV and dQ stay float32 in registers and are scaled
+// and stored once.  A tile wholly inside the masks takes no per-element
+// mask; a row that no key reaches has lse = +inf and so P = 0; ragged
+// Sq and Sk rest on TMA's zero fill and the mask.
+//
+// float32 (no training path runs it): the three CUDA-core passes of
+// 64 x 64 tiles held in shared memory in float32 (rows padded to dh + 4
+// floats, so that 16-byte loads of 8 rows hit 8 distinct bank groups): a
+// thread owns a 4 x 4 piece of each score tile (rows ty + 16 i, columns
+// tx + 16 j; a row's 16 owners are 16 lanes of one warp, whose max and
+// sum go through four shuffles) and dh / 16 rows of 4 columns of each
+// 64 x dh accumulator.
 //   1. lse_kernel, per (batch, query head, query tile): each query row's
-//      base-2 log-sum-exp of its scaled scores (+inf for a row that no key
-//      reaches) and delta = rowsum(dO * O).
+//      lse (+inf for a row that no key reaches) and delta.
 //   2. dkdv_kernel, per (batch, kv head, key tile): the key and value tiles
 //      stay in shared memory while the block walks the live query tiles of
 //      its Hq / Hkv query heads in a fixed order (head, then tile),
 //      recomputes P^T and dS^T and accumulates dK and dV in registers.
 //   3. dq_kernel, per (batch, query head, query tile): walks the live key
 //      tiles, recomputes P and dS, accumulates dQ.
-// No atomics: every output element is summed by one thread in a fixed
-// order, so the result is deterministic.  Tiles are skipped as the forward
-// skips them (ops.live_keys): keys past the causal frontier and before the
-// window's lower edge.  Head dims 16, 32, 64 and 128 are built; the
-// wrapper zero-pads any other dh up to 128 to the next of them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// It executes 16 dh flops a live pair (S three times, dP twice).
+//
+// No atomics on either path: every output element is summed by one thread
+// in a fixed order, so the result is deterministic (a resumed training
+// run equals the uninterrupted one bit for bit).  Tiles are skipped as the
+// forward skips them (ops.live_keys): keys past the causal frontier and
+// before the window's lower edge.  Head dims 16, 32, 64 and 128 are built;
+// the wrapper zero-pads any other dh up to 128 to the next of them.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -63,8 +90,9 @@ struct BwdArgs {
   void* dk;
   void* dv;
   float* lse;     // (B, Hq, Sq) base-2 log-sum-exp of the scaled scores
-  float* delta;   // (B, Hq, Sq) rowsum(dO * O)
-  int B, Sq, Sk, Hq, Hkv, rep, q_offset, window, causal;
+  float* delta;   // (B, Hq, Sq) rowsum(dO * O), from the first pass
+  float* rows;    // (B, Hq, n_qt, 2, 64) lse and delta by tile; bf16 path
+  int B, Sq, Sk, Hq, Hkv, rep, q_offset, window, causal, n_qt;
   float scale, c2;   // dh^-0.5 and dh^-0.5 log2(e)
 };
 
@@ -90,14 +118,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&a),
-                 *reinterpret_cast<const uint32_t*>(&b));
 }
 
 // rows s0 .. s0 + 63 of head h of x (B, S, H, DH) into dst (64 x LD floats),
@@ -410,6 +430,382 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdArgs a) {
   store_acc<T, DH>((T*)a.dq, acc, b, q0, a.Sq, a.Hq, h, a.scale);
 }
 
+// ------------------------------------------- bf16 on the tensor cores
+constexpr int kT = 64;     // rows of every bf16 tile: 64 queries or keys
+constexpr int kRing = 2;   // stages of the ring of streamed tiles
+
+// The shared memory of either wgmma kernel: two resident tiles, the ring's
+// two tiles a stage, the ring's rows of lse and delta, the barriers (one
+// for the resident tiles, one a stage).  Tiles are bf16 panels
+// (hopper_mma.cuh), aligned to the 1024-byte period of TMA's swizzle.
+template <int DH>
+struct Wg {
+  static constexpr int kPB = Panel<DH>::kBytes;
+  static constexpr int kPC = Panel<DH>::kCols;
+  static constexpr int kTile = Panel<DH>::kCount * kT * kPB;
+  static constexpr int kRowBytes = 2 * kT * 4;
+  static constexpr int kSmem =
+      1024 + (2 + 2 * kRing) * kTile + kRing * kRowBytes + 8 * (1 + kRing);
+};
+
+// rows kT * t .. of head `head` of a (B, S, H, DH) tensor map into dst,
+// every panel, completing on bar
+template <int DH>
+__device__ __forceinline__ void load_tile_tma(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int head, int s0,
+                                              int b) {
+#pragma unroll
+  for (int p = 0; p < Panel<DH>::kCount; ++p)
+    tma_load(dst + p * kT * Wg<DH>::kPB, map, bar, p * Wg<DH>::kPC, head, s0,
+             b);
+}
+
+// the packed lse and delta of query tile q0 / kT of (b, h)
+__device__ __forceinline__ const float* tile_rows(const BwdArgs& a, int b,
+                                                  int h, int q0) {
+  return a.rows + (((int64_t)b * a.Hq + h) * a.n_qt + q0 / kT) * 2 * kT;
+}
+
+// acc (64 x N) = A B^T over DH: A and B kT-row tiles, K-major in shared
+// memory (the first product overwrites acc)
+template <int DH>
+__device__ __forceinline__ void product_ss(float* acc, uint32_t a,
+                                           uint32_t b) {
+  constexpr int PB = Wg<DH>::kPB, PC = Wg<DH>::kPC;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    // 16 dims: a 32-byte step inside a panel, or the next panel
+    const uint32_t off = (kk * 16 % PC) * 2 + (kk * 16 / PC) * kT * PB;
+    wgmma_ss<kT>(acc, smem_desc(a + off, 16, 8 * PB, Panel<DH>::kLayout),
+                 smem_desc(b + off, 16, 8 * PB, Panel<DH>::kLayout), kk > 0);
+  }
+}
+
+// acc (64 x DH) += A (64 x kT, bf16 fragments) X (kT x DH, the tile at x
+// read MN-major)
+template <int DH>
+__device__ __forceinline__ void product_rs(float* acc,
+                                           const uint32_t (&frag)[kT / 16][4],
+                                           uint32_t x) {
+  constexpr int PB = Wg<DH>::kPB;
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk)
+    // 16 rows further; the panels kT rows apart
+    wgmma_rs<DH>(acc, frag[kk],
+                 smem_desc(x + kk * 16 * PB, kT * PB, 8 * PB,
+                           Panel<DH>::kLayout));
+}
+
+// accumulator x (64 x kT) as bf16 A fragments: columns 16 kk .. of rows
+// r0 and r0 + 8
+__device__ __forceinline__ void to_frag(const float* x,
+                                        uint32_t (&frag)[kT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      frag[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// rows s0 + r0 and s0 + r0 + 8 of head h of y (B, S, H, DH), the
+// accumulator times mul in bf16
+template <int DH>
+__device__ __forceinline__ void store_wg(__nv_bfloat16* y, const float* acc,
+                                         int b, int s0, int S, int H, int h,
+                                         float mul) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + r0 + 8 * r;
+    if (s >= S) continue;
+    __nv_bfloat16* p = y + (((int64_t)b * S + s) * H + h) * DH + c0;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// delta = rowsum(dO * O) and the lse of query tile blockIdx.x of (b, h),
+// packed; G lanes a row, 16 bytes each
+template <int DH>
+__global__ void __launch_bounds__(128) rows_kernel(const BwdArgs a) {
+  constexpr int G = DH / 8;
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const __nv_bfloat16* o = (const __nv_bfloat16*)a.o;
+  const __nv_bfloat16* dout = (const __nv_bfloat16*)a.dout;
+  float* out = a.rows + (((int64_t)b * a.Hq + h) * a.n_qt + t) * 2 * kT;
+  // kT * G is a multiple of 128: every lane of a warp takes each step
+  for (int c = threadIdx.x; c < kT * G; c += 128) {
+    const int r = c / G, qi = t * kT + r;
+    float part = 0.f;
+    if (qi < a.Sq) {
+      const int64_t at =
+          (((int64_t)b * a.Sq + qi) * a.Hq + h) * DH + (c % G) * 8;
+      const uint4 x = *reinterpret_cast<const uint4*>(o + at);
+      const uint4 y = *reinterpret_cast<const uint4*>(dout + at);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xf = __bfloat1622float2(x2[i]);
+        const float2 yf = __bfloat1622float2(y2[i]);
+        part = fmaf(xf.x, yf.x, part);
+        part = fmaf(xf.y, yf.y, part);
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c % G == 0) {
+      out[r] = qi < a.Sq ? a.lse[((int64_t)b * a.Hq + h) * a.Sq + qi]
+                         : INFINITY;
+      out[kT + r] = part;
+    }
+  }
+}
+
+// whether every (query, key) pair of the tiles at q0 and k0 is live
+__device__ __forceinline__ bool inside(const BwdArgs& a, int q0, int k0) {
+  return q0 + kT <= a.Sq && k0 + kT <= a.Sk &&
+         (!a.causal || k0 + kT - 1 <= q0 + a.q_offset) &&
+         (a.window == 0 || q0 + kT - 1 + a.q_offset - k0 < a.window);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128)
+    dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap omap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const BwdArgs a) {
+  using L = Wg<DH>;
+  constexpr int TB = L::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t ks = (base + 1023u) & ~1023u;
+  const uint32_t vs = ks + TB;
+  const uint32_t ring = vs + TB;                 // stage s: Q, then dO
+  const uint32_t rs = ring + 2 * kRing * TB;     // stage s: lse, delta
+  const uint32_t kvbar = rs + kRing * L::kRowBytes, full = kvbar + 8;
+  const float* srow = reinterpret_cast<const float*>(smem_raw + (rs - base));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * kT;  // most live query tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  // the query rows that reach a key of this tile: [q_lo, q_hi)
+  const int k_last = min(k0 + kT, a.Sk) - 1;
+  int q_lo = a.causal ? max(0, k0 - a.q_offset) : 0;
+  int64_t q_hi = a.Sq;
+  if (a.window) {
+    const int64_t reach = (int64_t)k_last + a.window - a.q_offset;
+    q_hi = reach < q_hi ? reach : q_hi;
+  }
+  q_lo = q_lo / kT * kT;
+  const int nq = q_hi > q_lo ? (int)((q_hi - q_lo + kT - 1) / kT) : 0;
+  const int n_iter = a.rep * nq;
+  // step i: query head hk * rep + i / nq, query tile q_lo + kT (i % nq)
+  auto load_step = [&](int i) {
+    const int s = i % kRing, h = hk * a.rep + i / nq;
+    const int q0 = q_lo + (i % nq) * kT;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect(bar, 2 * TB + L::kRowBytes);
+    load_tile_tma<DH>(ring + 2 * s * TB, &qmap, bar, h, q0, b);
+    load_tile_tma<DH>(ring + (2 * s + 1) * TB, &omap, bar, h, q0, b);
+    bulk_load(rs + s * L::kRowBytes, tile_rows(a, b, h, q0), L::kRowBytes,
+              bar);
+  };
+
+  // this thread's rows (keys) of the tile: r0 and r0 + 8; its columns of
+  // each group of 8: c0 and c0 + 1 (the wgmma accumulator layout)
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n_iter > 0) {
+    if (tid == 0) {
+      mbar_init(kvbar);
+      for (int s = 0; s < kRing; ++s) mbar_init(full + 8 * s);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect(kvbar, 2 * TB);
+      load_tile_tma<DH>(ks, &kmap, kvbar, hk, k0, b);
+      load_tile_tma<DH>(vs, &vmap, kvbar, hk, k0, b);
+      for (int i = 0; i < min(kRing, n_iter); ++i) load_step(i);
+    }
+    mbar_wait(kvbar, 0);
+  }
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % kRing;
+    const int q0 = q_lo + (i % nq) * kT;
+    const uint32_t qs = ring + 2 * s * TB, os = qs + TB;
+    mbar_wait(full + 8 * s, (i / kRing) & 1);
+    // st[4j + 2i + c]: key k0 + r0 + 8i, query q0 + 8j + c0 + c
+    float st[kT / 2], dpt[kT / 2];
+    wgmma_fence();
+    product_ss<DH>(st, ks, qs);    // S^T = K Q^T
+    product_ss<DH>(dpt, vs, os);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<kT / 2>(st);
+    fence_regs<kT / 2>(dpt);
+    if (!inside(a, q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + r0 + 8 * (e >> 1);
+          const int qi = q0 + 8 * j + c0 + (e & 1), qpos = qi + a.q_offset;
+          bool ok = qi < a.Sq && kpos < a.Sk;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window) ok = ok && qpos - kpos < a.window;
+          if (!ok) st[4 * j + e] = -INFINITY;
+        }
+    }
+    const float* lse = srow + s * 2 * kT;
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + c0);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(lse + kT + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            fast_exp2(fmaf(st[4 * j + e], a.c2, -((e & 1) ? l2.y : l2.x)));
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        st[4 * j + e] = p;
+      }
+    }
+    uint32_t pf[kT / 16][4], sf[kT / 16][4];
+    to_frag(st, pf);
+    to_frag(dpt, sf);
+    fence_regs<DH / 2>(dv);
+    fence_regs<DH / 2>(dk);
+    wgmma_fence();
+    product_rs<DH>(dv, pf, os);   // dV += P^T dO
+    product_rs<DH>(dk, sf, qs);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<DH / 2>(dv);
+    fence_regs<DH / 2>(dk);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + kRing < n_iter) load_step(i + kRing);
+  }
+  store_wg<DH>((__nv_bfloat16*)a.dk, dk, b, k0, a.Sk, a.Hkv, hk, a.scale);
+  store_wg<DH>((__nv_bfloat16*)a.dv, dv, b, k0, a.Sk, a.Hkv, hk, 1.f);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128)
+    dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap omap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const BwdArgs a) {
+  using L = Wg<DH>;
+  constexpr int TB = L::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t qs = (base + 1023u) & ~1023u;
+  const uint32_t os = qs + TB;
+  const uint32_t ring = os + TB;                 // stage s: K, then V
+  const uint32_t rs = ring + 2 * kRing * TB;     // lse, delta of the tile
+  const uint32_t qbar = rs + kRing * L::kRowBytes, full = qbar + 8;
+  const float* srow = reinterpret_cast<const float*>(smem_raw + (rs - base));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (a.n_qt - 1 - (int)blockIdx.x) * kT;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.rep;
+  // the key tiles [lo, hi) that query rows q0 .. q0 + kT - 1 may reach
+  const int last = min(q0 + kT, a.Sq) - 1 + a.q_offset;
+  const int hi = a.causal ? min(a.Sk, last + 1) : a.Sk;
+  int lo = a.window ? max(0, q0 + a.q_offset - a.window + 1) : 0;
+  lo = lo / kT * kT;
+  const int n = hi > lo ? (hi - lo + kT - 1) / kT : 0;
+  auto load_step = [&](int i) {
+    const int s = i % kRing, k0 = lo + i * kT;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect(bar, 2 * TB);
+    load_tile_tma<DH>(ring + 2 * s * TB, &kmap, bar, hk, k0, b);
+    load_tile_tma<DH>(ring + (2 * s + 1) * TB, &vmap, bar, hk, k0, b);
+  };
+
+  // this thread's rows (queries): r0 and r0 + 8
+  const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  if (n > 0) {
+    if (tid == 0) {
+      mbar_init(qbar);
+      for (int s = 0; s < kRing; ++s) mbar_init(full + 8 * s);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect(qbar, 2 * TB + L::kRowBytes);
+      load_tile_tma<DH>(qs, &qmap, qbar, h, q0, b);
+      load_tile_tma<DH>(os, &omap, qbar, h, q0, b);
+      bulk_load(rs, tile_rows(a, b, h, q0), L::kRowBytes, qbar);
+      for (int i = 0; i < min(kRing, n); ++i) load_step(i);
+    }
+    mbar_wait(qbar, 0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse[r] = srow[r0 + 8 * r];
+      delta[r] = srow[kT + r0 + 8 * r];
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kRing, k0 = lo + i * kT;
+    const uint32_t kss = ring + 2 * s * TB, vss = kss + TB;
+    mbar_wait(full + 8 * s, (i / kRing) & 1);
+    // sc[4j + 2i + c]: query q0 + r0 + 8i, key k0 + 8j + c0 + c
+    float sc[kT / 2], dp[kT / 2];
+    wgmma_fence();
+    product_ss<DH>(sc, qs, kss);   // S = Q K^T
+    product_ss<DH>(dp, os, vss);   // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<kT / 2>(sc);
+    fence_regs<kT / 2>(dp);
+    if (!inside(a, q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + r0 + 8 * (e >> 1), qpos = qi + a.q_offset;
+          const int kpos = k0 + 8 * j + c0 + (e & 1);
+          bool ok = qi < a.Sq && kpos < a.Sk;
+          if (a.causal) ok = ok && kpos <= qpos;
+          if (a.window) ok = ok && qpos - kpos < a.window;
+          if (!ok) sc[4 * j + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(sc[4 * j + e], a.c2, -lse[e >> 1]));
+        dp[4 * j + e] = p * (dp[4 * j + e] - delta[e >> 1]);
+      }
+    uint32_t sf[kT / 16][4];
+    to_frag(dp, sf);
+    fence_regs<DH / 2>(dq);
+    wgmma_fence();
+    product_rs<DH>(dq, sf, kss);   // dQ += dS K
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs<DH / 2>(dq);
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + kRing < n) load_step(i + kRing);
+  }
+  store_wg<DH>((__nv_bfloat16*)a.dq, dq, b, q0, a.Sq, a.Hq, h, a.scale);
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -417,47 +813,69 @@ int set_smem(K kernel, int bytes) {
 }
 
 template <typename T, int DH>
-int run(const BwdArgs& a, cudaStream_t st) {
-  constexpr int LD = Dims<DH>::LD;
-  const int lse_smem = 2 * kTile * LD * 4;
-  const int dq_smem = (4 * kTile * LD + kTile * kLdP + 2 * kTile) * 4;
-  const int dkdv_smem = (4 * kTile * LD + 2 * kTile * kLdP + 2 * kTile) * 4;
+int run_lse(const BwdArgs& a, cudaStream_t st) {
+  constexpr int lse_smem = 2 * kTile * Dims<DH>::LD * 4;
   int err;
-  if ((err = set_smem(lse_kernel<T, DH>, lse_smem)) ||
-      (err = set_smem(dq_kernel<T, DH>, dq_smem)) ||
-      (err = set_smem(dkdv_kernel<T, DH>, dkdv_smem)))
-    return err;
+  if ((err = set_smem(lse_kernel<T, DH>, lse_smem))) return err;
   const unsigned n_qt = (a.Sq + kTile - 1) / kTile;
-  const unsigned n_kt = (a.Sk + kTile - 1) / kTile;
   lse_kernel<T, DH><<<dim3(n_qt, a.Hq, a.B), kThreads, lse_smem, st>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
-  dkdv_kernel<T, DH><<<dim3(n_kt, a.Hkv, a.B), kThreads, dkdv_smem, st>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
-  dq_kernel<T, DH><<<dim3(n_qt, a.Hq, a.B), kThreads, dq_smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const BwdArgs& a, int dh, cudaStream_t st) {
-  switch (dh) {
-    case 16: return run<T, 16>(a, st);
-    case 32: return run<T, 32>(a, st);
-    case 64: return run<T, 64>(a, st);
-    case 128: return run<T, 128>(a, st);
-  }
-  return (int)cudaErrorInvalidValue;
+template <int DH>
+int run_float32(const BwdArgs& a, cudaStream_t st) {
+  constexpr int LD = Dims<DH>::LD;
+  const int dq_smem = (4 * kTile * LD + kTile * kLdP + 2 * kTile) * 4;
+  const int dkdv_smem = (4 * kTile * LD + 2 * kTile * kLdP + 2 * kTile) * 4;
+  int err;
+  if ((err = set_smem(dq_kernel<float, DH>, dq_smem)) ||
+      (err = set_smem(dkdv_kernel<float, DH>, dkdv_smem)))
+    return err;
+  const unsigned n_qt = (a.Sq + kTile - 1) / kTile;
+  const unsigned n_kt = (a.Sk + kTile - 1) / kTile;
+  dkdv_kernel<float, DH>
+      <<<dim3(n_kt, a.Hkv, a.B), kThreads, dkdv_smem, st>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dq_kernel<float, DH><<<dim3(n_qt, a.Hq, a.B), kThreads, dq_smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <int DH>
+int run_wgmma(const BwdArgs& a, cudaStream_t st) {
+  constexpr int smem = Wg<DH>::kSmem;
+  static bool attr_set = false;
+  int err;
+  if (!attr_set) {
+    if ((err = set_smem(dkdv_wgmma<DH>, smem)) ||
+        (err = set_smem(dq_wgmma<DH>, smem)))
+      return err;
+    attr_set = true;
+  }
+  // contiguous (B, S, H, DH): element strides (batch, head, seq)
+  const int64_t q_st[3] = {(int64_t)a.Sq * a.Hq * DH, DH,
+                           (int64_t)a.Hq * DH};
+  const int64_t k_st[3] = {(int64_t)a.Sk * a.Hkv * DH, DH,
+                           (int64_t)a.Hkv * DH};
+  CUtensorMap qmap, omap, kmap, vmap;
+  if ((err = encode<DH>(&qmap, a.q, a.B, a.Sq, a.Hq, q_st, kT)) ||
+      (err = encode<DH>(&omap, a.dout, a.B, a.Sq, a.Hq, q_st, kT)) ||
+      (err = encode<DH>(&kmap, a.k, a.B, a.Sk, a.Hkv, k_st, kT)) ||
+      (err = encode<DH>(&vmap, a.v, a.B, a.Sk, a.Hkv, k_st, kT)))
+    return err;
+  const unsigned n_kt = (a.Sk + kT - 1) / kT;
+  rows_kernel<DH><<<dim3(a.n_qt, a.Hq, a.B), 128, 0, st>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dkdv_wgmma<DH><<<dim3(n_kt, a.Hkv, a.B), 128, smem, st>>>(qmap, omap, kmap,
+                                                            vmap, a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dq_wgmma<DH><<<dim3(a.n_qt, a.Hq, a.B), 128, smem, st>>>(qmap, omap, kmap,
+                                                           vmap, a);
+  return (int)cudaGetLastError();
+}
 
-// a: 21 values as int64, packed by the wrapper
-// (kernels/flash_attention/ops.py::launch_backward): q, k, v, o, dout, dq,
-// dk, dv, lse, delta (float32 scratch of B * Hq * Sq each), B, Sq, Sk, Hq,
-// Hkv, dh (16, 32, 64 or 128), q_offset, window (0 for none), causal,
-// bf16, stream.  Every tensor is contiguous (B, S, H, dh), 16-byte aligned
-// (float32) or 8-byte aligned (bf16).  scale: dh^-0.5 of the real head dim.
-extern "C" int flash_attention_bwd(const long long* a, float scale) {
-  BwdArgs x;
+// the arguments of either C entry; false where they are out of range
+bool unpack(const long long* a, float scale, BwdArgs& x, int& dh, int& bf16,
+            cudaStream_t& st) {
   x.q = (const void*)a[0];
   x.k = (const void*)a[1];
   x.v = (const void*)a[2];
@@ -468,22 +886,79 @@ extern "C" int flash_attention_bwd(const long long* a, float scale) {
   x.dv = (void*)a[7];
   x.lse = (float*)a[8];
   x.delta = (float*)a[9];
-  x.B = (int)a[10];
-  x.Sq = (int)a[11];
-  x.Sk = (int)a[12];
-  x.Hq = (int)a[13];
-  x.Hkv = (int)a[14];
-  const int dh = (int)a[15];
-  x.q_offset = (int)a[16];
-  x.window = (int)a[17];
-  x.causal = (int)a[18];
-  const int bf16 = (int)a[19];
-  const auto st = (cudaStream_t)a[20];
+  x.rows = (float*)a[10];
+  x.B = (int)a[11];
+  x.Sq = (int)a[12];
+  x.Sk = (int)a[13];
+  x.Hq = (int)a[14];
+  x.Hkv = (int)a[15];
+  dh = (int)a[16];
+  x.q_offset = (int)a[17];
+  x.window = (int)a[18];
+  x.causal = (int)a[19];
+  bf16 = (int)a[20];
+  st = (cudaStream_t)a[21];
   if (x.B < 1 || x.Sq < 1 || x.Sk < 1 || x.Hkv < 1 || x.Hq % x.Hkv ||
-      x.Hq > 65535 || x.B > 65535 || x.q_offset < 0 || x.window < 0)
-    return (int)cudaErrorInvalidValue;
+      x.Hq > 65535 || x.B > 65535 || x.q_offset < 0 || x.window < 0 ||
+      (dh != 16 && dh != 32 && dh != 64 && dh != 128))
+    return false;
   x.rep = x.Hq / x.Hkv;
+  x.n_qt = (x.Sq + kT - 1) / kT;
   x.scale = scale;
   x.c2 = scale * kLog2e;
-  return bf16 ? dispatch<__nv_bfloat16>(x, dh, st) : dispatch<float>(x, dh, st);
+  return true;
+}
+
+}  // namespace
+
+// a (both entries): 22 values as int64, packed by the wrapper
+// (kernels/flash_attention/ops.py::launch_backward): q, k, v, o, dout,
+// dq, dk, dv, lse (float32 B * Hq * Sq), delta (float32 B * Hq * Sq, or
+// null), rows (float32 B * Hq * n_qt * 128, or null), B, Sq, Sk, Hq, Hkv,
+// dh (16, 32, 64 or 128), q_offset, window (0 for none), causal, bf16,
+// stream.  Every tensor is contiguous (B, S, H, dh) and 16-byte aligned.
+// scale: dh^-0.5 of the real head dim.
+
+// The first pass alone: each query row's lse and delta (lse_kernel), where
+// no saved lse is given; the float32 path always runs it.
+extern "C" int flash_attention_bwd_lse(const long long* a, float scale) {
+  BwdArgs x;
+  int dh, bf16;
+  cudaStream_t st;
+  if (!unpack(a, scale, x, dh, bf16, st) || !x.lse || !x.delta)
+    return (int)cudaErrorInvalidValue;
+#define LSE(D)                                                        \
+  case D:                                                             \
+    return bf16 ? run_lse<__nv_bfloat16, D>(x, st) : run_lse<float, D>(x, st);
+  switch (dh) {
+    LSE(16)
+    LSE(32)
+    LSE(64)
+    LSE(128)
+  }
+#undef LSE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient from the lse: float32, dkdv_kernel and dq_kernel (reading
+// lse and delta); bf16, rows_kernel, dkdv_wgmma and dq_wgmma (reading lse,
+// writing and reading rows).
+extern "C" int flash_attention_bwd(const long long* a, float scale) {
+  BwdArgs x;
+  int dh, bf16;
+  cudaStream_t st;
+  if (!unpack(a, scale, x, dh, bf16, st) || !x.lse ||
+      !(bf16 ? x.rows : x.delta))
+    return (int)cudaErrorInvalidValue;
+#define GRAD(D)                                                       \
+  case D:                                                             \
+    return bf16 ? run_wgmma<D>(x, st) : run_float32<D>(x, st);
+  switch (dh) {
+    GRAD(16)
+    GRAD(32)
+    GRAD(64)
+    GRAD(128)
+  }
+#undef GRAD
+  return (int)cudaErrorInvalidValue;
 }

@@ -26,8 +26,11 @@ route is chosen by dh alone.  The plain version takes any dh.
 wrapper of kernel 9b (``csrc/flash_attention_bwd.cu``), whose plain
 version is ``ref.attention_gqa_backward``; it takes head dims up to
 ``BWD_MAX_DH``, others than 16/32/64/128 zero-padded as the forward pads
-them.  ``attention`` is kernel 9 with that gradient, the
-``torch.autograd.Function`` the training path calls.
+them, and each row's log-sum-exp where the forward saved it (else a
+first pass computes it).  ``backward_blocked_plain`` is the plain twin
+of its bf16 schedule, for the tests.  ``attention`` is kernel 9 with
+that gradient, the ``torch.autograd.Function`` the training path calls;
+its forward saves the log-sum-exp (``attention_with_lse``).
 """
 from __future__ import annotations
 
@@ -42,8 +45,9 @@ from repro_torch.kernels.flash_attention import ref
 
 KERNEL = CudaKernel("flash_attention", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_void_p])
@@ -231,13 +235,14 @@ def split_attention_plain(q, k, v, causal: bool = True,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def launch(q, k, v, causal: bool, window: Optional[int],
-           q_offset: int) -> torch.Tensor:
+def launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
+           lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's launch on checked CUDA tensors in the (B, S, H, dh)
     layout: the (B, Sq, Hq, dh) result, contiguous at the kernel's head
     dims and past 128; at another dh, the slice of the result at
-    ``padded_dim(dh)``."""
-    return at_kernel_width(_launch, q, k, v, causal, window, q_offset)
+    ``padded_dim(dh)``.  ``lse``, a float32 (B, Hq, Sq) tensor, takes each
+    row's base-2 log-sum-exp where ``saves_lse`` (else it is refused)."""
+    return at_kernel_width(_launch, q, k, v, causal, window, q_offset, lse)
 
 
 def at_kernel_width(fn, q, k, v, *args) -> torch.Tensor:
@@ -254,7 +259,7 @@ def at_kernel_width(fn, q, k, v, *args) -> torch.Tensor:
 
 
 def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
-            scale: float) -> torch.Tensor:
+            lse: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -267,6 +272,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
                              q_offset)
     lo = hi = span = 0
     part = None
+    if lse is not None and path != "wgmma":
+        raise ValueError(f"the {path} path stores no log-sum-exp")
     if path in ("wgmma", "split"):
         _check_aligned(path, q, k, v)
     if path == "split":
@@ -278,7 +285,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
     strides = (ctypes.c_longlong * 12)(
         *[x.stride(i) for x in (q, k, v, out) for i in (0, 2, 1)])
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  None if part is None else part.data_ptr(), strides, b, hq,
+                  None if part is None else part.data_ptr(),
+                  None if lse is None else lse.data_ptr(), strides, b, hq,
                   rep, sq, sk, dh, q_offset, 0 if window is None else window,
                   int(causal), PATHS[path], bq, n_split, lo, hi, span,
                   int(q.dtype == torch.bfloat16), bk, scale,
@@ -304,13 +312,53 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return launch(q, k, v, causal, window, q_offset)
 
 
-# kernel 9b's entry: 21 values packed as int64 (q, k, v, o, dout, dq, dk,
-# dv, lse, delta, B, Sq, Sk, Hq, Hkv, dh, q_offset, window, causal, bf16,
-# stream) and the softmax scale
+def saves_lse(q, k, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> bool:
+    """Whether kernel 9's launch on these shapes stores each row's
+    log-sum-exp: the bf16 prefill path ("wgmma"), at head dims up to 128."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    return dh <= _HEAD_DIMS[-1] and plan(
+        b, hkv, hq // hkv, sq, k.shape[1], q.dtype, causal, window,
+        q_offset)[0] == "wgmma"
+
+
+def attention_with_lse(q, k, v, causal: bool = True,
+                       window: Optional[int] = None, q_offset: int = 0
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``flash_attention_gqa`` and each row's base-2 log-sum-exp, (B, Hq,
+    Sq) float32 (``ref.attention_lse``): for CPU tensors both plain; on
+    the card the prefill path's stored by the same launch, None on the
+    other paths (kernel 9b then computes it)."""
+    _check(q, k, v, window, q_offset)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return (ref.attention_gqa(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset),
+                ref.attention_lse(q, k, causal=causal, window=window,
+                                  q_offset=q_offset))
+    padded_dim(q.shape[3])
+    KERNEL.load()
+    require_cuda(q, k, v)
+    lse = None
+    if saves_lse(q, k, causal, window, q_offset):
+        b, sq, hq, _ = q.shape
+        lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    return launch(q, k, v, causal, window, q_offset, lse), lse
+
+
+# kernel 9b's two entries, each on 22 values packed as int64 (q, k, v, o,
+# dout, dq, dk, dv, lse, delta, rows, B, Sq, Sk, Hq, Hkv, dh, q_offset,
+# window, causal, bf16, stream) and the softmax scale: the gradient, and
+# the first pass (each row's log-sum-exp and delta) that runs where no
+# saved log-sum-exp is given and on float32
 KERNEL_BWD = CudaKernel("flash_attention_bwd", [ctypes.c_char_p,
                                                 ctypes.c_float])
-_BWD_ARGS = struct.Struct("21q")
+KERNEL_BWD_LSE = CudaKernel("flash_attention_bwd_lse",
+                            [ctypes.c_char_p, ctypes.c_float],
+                            stem="flash_attention_bwd")
+_BWD_ARGS = struct.Struct("22q")
 BWD_MAX_DH = _HEAD_DIMS[-1]
+BWD_TILE = 64     # query rows and keys of a bf16 tile (kT)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -320,33 +368,48 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def launch_backward(q, k, v, o, do, causal: bool, window: Optional[int],
-                    q_offset: int):
+                    q_offset: int, lse: Optional[torch.Tensor] = None):
     """Kernel 9b on checked CUDA tensors: (dq, dk, dv), at a padded head
-    dim sliced back to dh."""
+    dim sliced back to dh.  bf16 takes ``lse`` where given; float32, or
+    bf16 without it, first runs the pass that computes it."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     width = padded_dim(dh)
+    bf16 = q.dtype == torch.bfloat16
     xs = [_aligned(x) if width == dh else pad_head_dim(x, width)
           for x in (q, k, v, o, do)]
     grads = [torch.empty_like(x) for x in xs[:3]]
-    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    KERNEL_BWD.launch(_BWD_ARGS.pack(
-        *(x.data_ptr() for x in xs), *(g.data_ptr() for g in grads),
-        lse.data_ptr(), delta.data_ptr(), b, sq, sk, hq, hkv, width,
-        q_offset, 0 if window is None else window, int(causal),
-        int(q.dtype == torch.bfloat16), stream_handle(q.device)),
-        dh ** -0.5)
+    rows = delta = None
+    if bf16:
+        n_qt = -(-sq // BWD_TILE)
+        rows = torch.empty(b * hq * n_qt * 2 * BWD_TILE, dtype=torch.float32,
+                           device=q.device)
+
+    def pack(lse_ptr):
+        return _BWD_ARGS.pack(
+            *(x.data_ptr() for x in xs), *(g.data_ptr() for g in grads),
+            lse_ptr, 0 if delta is None else delta.data_ptr(),
+            0 if rows is None else rows.data_ptr(), b, sq, sk, hq, hkv,
+            width, q_offset, 0 if window is None else window, int(causal),
+            int(bf16), stream_handle(q.device))
+    if lse is None or not bf16:
+        lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse)
+        KERNEL_BWD_LSE.launch(pack(lse.data_ptr()), dh ** -0.5)
+    KERNEL_BWD.launch(pack(lse.data_ptr()), dh ** -0.5)
     return tuple(g if width == dh else g[..., :dh] for g in grads)
 
 
 def flash_attention_gqa_backward(q, k, v, o, do, causal: bool = True,
                                  window: Optional[int] = None,
-                                 q_offset: int = 0):
+                                 q_offset: int = 0,
+                                 lse: Optional[torch.Tensor] = None):
     """The gradient of ``flash_attention_gqa(q, k, v, ...)``, whose output
-    was ``o``, given its gradient ``do``: (dq, dk, dv) in q's dtype.  CPU
-    tensors take the plain version, at any head dim; CUDA tensors launch
-    kernel 9b, at head dims up to BWD_MAX_DH."""
+    was ``o``, given its gradient ``do``: (dq, dk, dv) in q's dtype.
+    ``lse``: each row's log-sum-exp (B, Hq, Sq) float32, as
+    ``attention_with_lse`` gives it, or None.  CPU tensors take the plain
+    version, at any head dim; CUDA tensors launch kernel 9b, at head dims
+    up to BWD_MAX_DH (float32 computes the log-sum-exp itself)."""
     _check(q, k, v, window, q_offset)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -354,31 +417,145 @@ def flash_attention_gqa_backward(q, k, v, o, do, causal: bool = True,
                          f"and dtype {q.dtype}, got {o.dtype} "
                          f"{tuple(o.shape)} and {do.dtype} "
                          f"{tuple(do.shape)}")
-    if all(t.device.type == "cpu" for t in (q, k, v, o, do)):
+    b, sq, hq, dh = q.shape
+    if lse is not None and (lse.shape != (b, hq, sq)
+                            or lse.dtype != torch.float32
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 "
+                         f"{(b, hq, sq)} tensor, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    ts = (q, k, v, o, do) + (() if lse is None else (lse,))
+    if all(t.device.type == "cpu" for t in ts):
         return ref.attention_gqa_backward(q, k, v, o, do, causal=causal,
-                                          window=window, q_offset=q_offset)
-    if q.shape[3] > BWD_MAX_DH:
-        raise ValueError(f"head dim {q.shape[3]} > {BWD_MAX_DH}: kernel 9b "
+                                          window=window, q_offset=q_offset,
+                                          lse=lse)
+    if dh > BWD_MAX_DH:
+        raise ValueError(f"head dim {dh} > {BWD_MAX_DH}: kernel 9b "
                          f"takes head dims up to {BWD_MAX_DH}")
     KERNEL_BWD.load()
-    require_cuda(q, k, v, o, do)
-    return launch_backward(q, k, v, o, do, causal, window, q_offset)
+    require_cuda(*ts)
+    return launch_backward(q, k, v, o, do, causal, window, q_offset, lse)
+
+
+def _live_queries(k0: int, tile: int, sq: int, sk: int, causal: bool,
+                  window: Optional[int], q_offset: int) -> range:
+    """The query tiles (their first rows) that reach a key of the tile at
+    k0, as ``dkdv_wgmma`` walks them."""
+    lo = max(0, k0 - q_offset) if causal else 0
+    hi = sq
+    if window:
+        hi = min(hi, min(k0 + tile, sk) - 1 + window - q_offset)
+    return range(lo // tile * tile, hi, tile)
+
+
+def _live_key_tiles(q0: int, tile: int, sq: int, sk: int, causal: bool,
+                    window: Optional[int], q_offset: int) -> range:
+    """The key tiles (their first keys) that rows q0 .. q0 + tile - 1
+    reach, as ``dq_wgmma`` walks them."""
+    last = min(q0 + tile, sq) - 1 + q_offset
+    hi = min(sk, last + 1) if causal else sk
+    lo = max(0, q0 + q_offset - window + 1) if window else 0
+    return range(lo // tile * tile, hi, tile)
+
+
+def backward_blocked_plain(q, k, v, o, do, causal: bool = True,
+                           window: Optional[int] = None, q_offset: int = 0,
+                           lse: Optional[torch.Tensor] = None,
+                           tile: int = BWD_TILE,
+                           rounding: Optional[torch.dtype] = torch.bfloat16):
+    """The plain twin of kernel 9b's bf16 path, in float32, with ``tile``
+    rows a tile: delta and the log-sum-exp a row (``rows_kernel``; the
+    lse ``ref.attention_lse``'s where not given); then ``dkdv_wgmma``'s
+    schedule (a key tile at a time, the live query tiles of its rep query
+    heads in order, head then tile) and ``dq_wgmma``'s (a query tile, its
+    live key tiles).  P = exp2(log2(e) scale S - lse), masked element by
+    element only on tiles not wholly inside the masks; dS = P (dP -
+    delta); P and dS rounded to ``rounding`` (the kernel's bf16, or None)
+    before the products, the sums in float32.  Rows and keys past Sq and
+    Sk are zero, lse +inf.  -> (dq, dk, dv) in q's dtype."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = dh ** -0.5
+    c2 = scale * ref.LOG2E
+    nq, nk = -(-sq // tile) * tile, -(-sk // tile) * tile
+    F = torch.nn.functional
+
+    def rows(x, n):     # (B, S, H, dh) zero-padded to n rows
+        return F.pad(x.float(), (0, 0, 0, 0, 0, n - x.shape[1]))
+    qf, dof, of = rows(q, nq), rows(do, nq), rows(o, nq)
+    kf, vf = rows(k, nk), rows(v, nk)
+    if lse is None:
+        lse = ref.attention_lse(q, k, causal=causal, window=window,
+                                q_offset=q_offset)
+    lse = F.pad(lse.float(), (0, nq - sq), value=float("inf"))
+    delta = (dof * of).sum(-1).transpose(1, 2)           # (B, Hq, nq)
+
+    def rnd(x):
+        return x if rounding is None else x.to(rounding).float()
+
+    def p_ds(h, q0, k0):
+        """P and dS (B, tile, tile) of query head h's rows q0.. and keys
+        k0.."""
+        qs, ks = slice(q0, q0 + tile), slice(k0, k0 + tile)
+        s = torch.einsum("bqd,bkd->bqk", qf[:, qs, h], kf[:, ks, h // rep])
+        qi = q0 + torch.arange(tile)[:, None]
+        kj = k0 + torch.arange(tile)[None, :]
+        inside = q0 + tile <= sq and k0 + tile <= sk \
+            and (not causal or k0 + tile - 1 <= q0 + q_offset) \
+            and (not window or q0 + tile - 1 + q_offset - k0 < window)
+        if not inside:
+            live = (qi < sq) & (kj < sk)
+            if causal:
+                live &= kj <= qi + q_offset
+            if window:
+                live &= qi + q_offset - kj < window
+            s = torch.where(live, s, float("-inf"))
+        p = torch.exp2(s * c2 - lse[:, h, qs, None])
+        dp = torch.einsum("bqd,bkd->bqk", dof[:, qs, h], vf[:, ks, h // rep])
+        return p, p * (dp - delta[:, h, qs, None])
+
+    dq = torch.zeros(b, nq, hq, dh)
+    dk = torch.zeros(b, nk, hkv, dh)
+    dv = torch.zeros(b, nk, hkv, dh)
+    for hk in range(hkv):
+        for k0 in range(0, sk, tile):
+            ks = slice(k0, k0 + tile)
+            for h in range(hk * rep, (hk + 1) * rep):
+                for q0 in _live_queries(k0, tile, sq, sk, causal, window,
+                                        q_offset):
+                    qs = slice(q0, q0 + tile)
+                    p, ds = p_ds(h, q0, k0)
+                    dv[:, ks, hk] += torch.einsum("bqk,bqd->bkd", rnd(p),
+                                                  dof[:, qs, h])
+                    dk[:, ks, hk] += torch.einsum("bqk,bqd->bkd", rnd(ds),
+                                                  qf[:, qs, h])
+    for h in range(hq):
+        for q0 in range(0, sq, tile):
+            qs = slice(q0, q0 + tile)
+            for k0 in _live_key_tiles(q0, tile, sq, sk, causal, window,
+                                      q_offset):
+                _, ds = p_ds(h, q0, k0)
+                dq[:, qs, h] += torch.einsum("bqk,bkd->bqd", rnd(ds),
+                                             kf[:, k0:k0 + tile, h // rep])
+    return ((dq[:, :sq] * scale).to(q.dtype), (dk[:, :sk] * scale).to(k.dtype),
+            dv[:, :sk].to(v.dtype))
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        o = flash_attention_gqa(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = attention_with_lse(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.masks = (causal, window, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_gqa_backward(q, k, v, o, do,
-                                                  *ctx.masks)
+                                                  *ctx.masks, lse=lse)
         return dq, dk, dv, None, None, None
 
 
@@ -386,5 +563,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0) -> torch.Tensor:
     """``flash_attention_gqa`` (kernel 9) with its gradient by kernel 9b
-    (the plain versions for CPU tensors)."""
+    (the plain versions for CPU tensors), from the log-sum-exp the
+    forward saved."""
     return _Attention.apply(q, k, v, causal, window, q_offset)

@@ -13,14 +13,19 @@ gives.  ``attention_gqa`` is the same function over the model's layout:
 scores, with P = softmax(S) and the forward's output O,
 dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)), dQ = scale dS K,
 dK = scale dS^T Q, the query heads of a kv head summed.  A row that no
-key reaches has P = 0, so it gets and gives zero gradient.
-``backward_bound`` is how far kernel 9b may sit from it.
+key reaches has P = 0, so it gets and gives zero gradient.  Given each
+row's base-2 log-sum-exp (``attention_lse``, what kernel 9's forward
+saves), P = exp2(log2(e) S - lse) instead of the softmax: the same P.
+``backward_tolerance`` is how far kernel 9b may sit from it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+
+LOG2E = math.log2(math.e)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -107,50 +112,121 @@ def _scores(q, k, causal, window, q_offset):
     return torch.where(mask, s, float("-inf")), qf, kf
 
 
-def attention_gqa_backward(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, o: torch.Tensor,
-                           do: torch.Tensor, *, causal: bool = True,
-                           window: Optional[int] = None, q_offset: int = 0
-                           ) -> Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
-    """q, o, do: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh); o is the
-    forward's output.  -> (dq, dk, dv) in q's dtype, float32 inside."""
-    b, sq, hq, dh = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    rep = hq // hkv
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0
+                  ) -> torch.Tensor:
+    """q: (B, Sq, Hq, dh), k: (B, Sk, Hkv, dh) -> (B, Hq, Sq) float32:
+    each query row's base-2 log-sum-exp of its scaled, masked scores,
+    log2 sum_k 2^(log2(e) S), +inf for a row that no key reaches (so that
+    exp2(log2(e) S - lse) = 0 there): what kernel 9's prefill stores."""
+    s, _, _ = _scores(q, k, causal, window, q_offset)
+    lse = torch.logsumexp(s, dim=-1) * LOG2E
+    return torch.where(torch.isfinite(lse), lse, float("inf"))
+
+
+def _backward_parts(q, k, v, o, do, causal, window, q_offset, lse):
+    """P, dS (B, Hq, Sq, Sk) and the float32 (B, Hq, S, dh) views of q,
+    the repeated k and do."""
     s, qf, kf = _scores(q, k, causal, window, q_offset)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
-    p = e / e.sum(-1, keepdim=True).clamp(min=1e-30)
+    if lse is None:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        p = e / e.sum(-1, keepdim=True).clamp(min=1e-30)
+    else:
+        p = torch.exp2(s * LOG2E - lse.float()[..., None])
+    rep = q.shape[2] // k.shape[2]
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     dof = do.float().transpose(1, 2)
     delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * (dh ** -0.5)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * (dh ** -0.5)
-
-    def kv(x):          # the rep query heads of a kv head summed
-        return x.reshape(b, hkv, rep, sk, dh).sum(2).transpose(1, 2)
-    return (dq.transpose(1, 2).to(q.dtype), kv(dk).to(k.dtype),
-            kv(dv).to(v.dtype))
+    return p, ds, qf, kf, dof
 
 
-# How far kernel 9b may sit from attention_gqa_backward, (rtol, atol):
-# |got - want| <= rtol |want| + atol max|want|, for each of dq, dk, dv.
-# Both compute in float32 from the same inputs (o and do included) and
-# differ in the order of their sums over up to Sk keys or Sq queries and
-# in exp2 of base-2 scores against exp: about 1e-6 of the largest term,
-# and dS = P (dP - delta) cancels, so the bound is taken against each
-# gradient's largest element.  bfloat16 adds one rounding of each side:
-# one bf16 ulp, 2**-7 |want|.  A wrong mask, head or scale moves a
-# gradient by its own size.
-TOL_BWD = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+def _kv_sum(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Hq, Sk, dh) -> (B, Sk, Hkv, dh): the rep query heads of a kv
+    head summed."""
+    b, hq, sk, dh = x.shape
+    return x.reshape(b, hkv, hq // hkv, sk, dh).sum(2).transpose(1, 2)
 
 
-def backward_bound(want: torch.Tensor) -> torch.Tensor:
-    """The float32 bound on |got - want| for one of kernel 9b's outputs,
-    element by element (TOL_BWD of want's dtype)."""
-    rtol, atol = TOL_BWD[want.dtype]
+def attention_gqa_backward(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           do: torch.Tensor, *, causal: bool = True,
+                           window: Optional[int] = None, q_offset: int = 0,
+                           lse: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """q, o, do: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh); o is the
+    forward's output, ``lse`` (B, Hq, Sq) its rows' log-sum-exp where
+    saved.  -> (dq, dk, dv) in q's dtype, float32 inside."""
+    hkv, scale = k.shape[2], q.shape[3] ** -0.5
+    p, ds, qf, kf, dof = _backward_parts(q, k, v, o, do, causal, window,
+                                         q_offset, lse)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return (dq.transpose(1, 2).to(q.dtype), _kv_sum(dk, hkv).to(k.dtype),
+            _kv_sum(dv, hkv).to(v.dtype))
+
+
+# How far kernel 9b may sit from attention_gqa_backward, (rtol, atol,
+# ptol): |got - want| <= rtol |want| + atol max|want| + ptol R, for each
+# of dq, dk, dv.
+# - Both compute in float32 from the same inputs (o and do included) and
+#   differ in the order of their sums over up to Sk keys or Sq queries
+#   and in exp2 of base-2 scores against exp: about 1e-6 of the largest
+#   term, and dS = P (dP - delta) cancels, so atol is taken against each
+#   gradient's largest element.
+# - bfloat16 adds one rounding of each side's output: one bf16 ulp,
+#   2**-7 |want|.
+# - The bf16 path also rounds the register operands of its tensor-core
+#   products to bf16: P before dV += P^T dO, dS before dK += dS^T Q and
+#   dQ += dS K (each within 2**-8 of itself: the unit roundoff of an
+#   8-bit significand), the sums in float32.  The rounding of P moves
+#   dV by at most 2**-8 sum_q P |dO|; that of dS moves dK by at most
+#   2**-8 scale sum_q |dS| |Q| and dQ by 2**-8 scale sum_k |dS| |K|.
+#   R is that sum, computed by this plain version over absolute values
+#   (like ``tolerance``'s vtol term; a kv head's rep query heads summed),
+#   and ptol = 2**-8.  dS itself is formed from the unrounded float32 P,
+#   as here.  The float32 path rounds nothing: ptol 0.
+# A wrong mask, head or scale moves a gradient by its own size.
+TOL_BWD = {torch.float32: (1e-4, 1e-5, 0.0),
+           torch.bfloat16: (2.0 ** -7, 1e-4, 2.0 ** -8)}
+
+
+def backward_bound(want: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The float32 bound rtol |want| + atol max|want| on |got - want| for
+    one of kernel 9b's outputs, element by element (TOL_BWD's row of
+    ``dtype``, want's by default); without the rounding term of
+    ``backward_tolerance``."""
+    rtol, atol, _ = TOL_BWD[dtype or want.dtype]
     w = want.float()
     return rtol * w.abs() + atol * w.abs().max()
+
+
+def backward_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, do: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       q_offset: int = 0, dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 bounds (dq, dk, dv) on |got - attention_gqa_backward(q,
+    k, v, o, do, ...)|, element by element: TOL_BWD's row of ``dtype``
+    (q's by default), the rounding term R included."""
+    dtype = dtype or q.dtype
+    want = attention_gqa_backward(q, k, v, o, do, causal=causal,
+                                  window=window, q_offset=q_offset)
+    bounds = [backward_bound(w, dtype) for w in want]
+    ptol = TOL_BWD[dtype][2]
+    if ptol:
+        hkv, scale = k.shape[2], q.shape[3] ** -0.5
+        p, ds, qf, kf, dof = _backward_parts(q, k, v, o, do, causal, window,
+                                             q_offset, None)
+        ds = ds.abs()
+        rq = torch.einsum("bhqk,bhkd->bhqd", ds, kf.abs()) * scale
+        rk = torch.einsum("bhqk,bhqd->bhkd", ds, qf.abs()) * scale
+        rv = torch.einsum("bhqk,bhqd->bhkd", p, dof.abs())
+        for i, r in enumerate((rq.transpose(1, 2), _kv_sum(rk, hkv),
+                               _kv_sum(rv, hkv))):
+            bounds[i] = bounds[i] + ptol * r
+    return tuple(bounds)

@@ -259,8 +259,9 @@ def test_launch_routes_by_head_dim(monkeypatch, dh, dtype, sq):
     out = fa_ops.launch(q, k, v, True, None, 70 - sq)
     assert out.shape == q.shape
     (args,) = rec.calls
+    assert args[5] is None     # no log-sum-exp asked for
     (b, hq, rep, a_sq, sk, a_dh, q_off, window, causal, path, bq, n_split,
-     lo, hi, span, bf16, bk, scale, _) = args[6:]
+     lo, hi, span, bf16, bk, scale, _) = args[7:]
     assert (b, hq, rep, a_sq, sk, q_off) == (2, 6, 3, sq, 70, 70 - sq)
     assert scale == pytest.approx(dh ** -0.5)
     assert bf16 == int(dtype == torch.bfloat16)

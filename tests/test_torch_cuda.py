@@ -2,7 +2,7 @@
 PyTorch version: tolerance 0 for the graph kernels (integer outputs)
 and for the EmbeddingBag and its gradient (the same float32 operations
 in the same order); the attention kernel within ``fa_ref.tolerance``
-and its gradient within ``fa_ref.backward_bound``.  Imports no JAX, so
+and its gradient within ``fa_ref.backward_tolerance``.  Imports no JAX, so
 it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -832,6 +832,15 @@ def test_embedding_bag_autograd_launches_both_kernels(dev):
     assert torch.equal(gt.cpu(), want)
 
 
+def _bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
 @pytest.mark.parametrize("dtype,b,sq,sk,hq,hkv,dh,causal,window,q_off", [
     (torch.bfloat16, 2, 256, 256, 9, 3, 64, True, None, 0),   # smollm's
     (torch.float32, 1, 200, 200, 4, 2, 32, True, None, 0),
@@ -840,32 +849,80 @@ def test_embedding_bag_autograd_launches_both_kernels(dev):
     (torch.float32, 1, 100, 130, 2, 2, 16, False, None, 0),   # no mask
     (torch.bfloat16, 1, 96, 96, 4, 2, 80, True, 40, 0),       # dh padded
     (torch.float32, 1, 40, 90, 3, 3, 64, True, 8, 60),        # dead rows
+    (torch.bfloat16, 1, 40, 90, 3, 3, 64, True, 8, 60),       # dead rows
+    (torch.bfloat16, 2, 200, 200, 4, 2, 64, True, None, 0),   # ragged Sq
+    (torch.bfloat16, 1, 130, 130, 4, 2, 16, True, None, 0),   # dh 16
+    (torch.bfloat16, 1, 130, 150, 4, 4, 32, False, None, 0),  # dh 32
+    (torch.bfloat16, 2, 160, 160, 4, 2, 128, True, None, 0),  # dh 128
+    (torch.bfloat16, 1, 100, 300, 6, 3, 64, True, 50, 200),   # window, offset
 ])
 def test_flash_attention_backward_kernel_matches_plain(dev, dtype, b, sq,
                                                        sk, hq, hkv, dh,
                                                        causal, window,
                                                        q_off):
     """Kernel 9b against its plain version on the same inputs (o from
-    kernel 9), within ``fa_ref.backward_bound``."""
-    g = torch.Generator(device=dev).manual_seed(dh + sq)
-    q = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
-    k = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
-    v = torch.randn(b, sk, hkv, dh, generator=g, device=dev).to(dtype)
-    do = torch.randn(b, sq, hq, dh, generator=g, device=dev).to(dtype)
-    o = fa_ops.flash_attention_gqa(q, k, v, causal=causal, window=window,
-                                   q_offset=q_off)
-    before = fa_ops.KERNEL_BWD.launches
-    got = fa_ops.flash_attention_gqa_backward(q, k, v, o, do, causal,
-                                              window, q_off)
-    torch.cuda.synchronize()
-    assert fa_ops.KERNEL_BWD.launches == before + 1
+    kernel 9), within ``fa_ref.backward_tolerance``: with the log-sum-exp
+    kernel 9 saved where its path saves one (the first pass not run), and
+    without it (the first pass run)."""
+    q, k, v, do = _bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, dh, dh + sq)
+    o, lse = fa_ops.attention_with_lse(q, k, v, causal=causal,
+                                       window=window, q_offset=q_off)
+    assert (lse is not None) == fa_ops.saves_lse(q, k, causal, window,
+                                                 q_off)
     want = fa_ref.attention_gqa_backward(q, k, v, o, do, causal=causal,
                                          window=window, q_offset=q_off)
-    for x, y, name in zip(got, want, "qkv"):
-        assert x.dtype == dtype and x.shape == y.shape
-        err = (x.float() - y.float()).abs()
-        assert bool((err <= fa_ref.backward_bound(y)).all()), \
-            (name, float(err.max()), float(y.float().abs().max()))
+    bounds = fa_ref.backward_tolerance(q, k, v, o, do, causal=causal,
+                                       window=window, q_offset=q_off)
+    for saved in ((lse, None) if lse is not None else (None,)):
+        before = (fa_ops.KERNEL_BWD.launches, fa_ops.KERNEL_BWD_LSE.launches)
+        got = fa_ops.flash_attention_gqa_backward(q, k, v, o, do, causal,
+                                                  window, q_off, lse=saved)
+        torch.cuda.synchronize()
+        first = int(saved is None or dtype == torch.float32)
+        assert (fa_ops.KERNEL_BWD.launches,
+                fa_ops.KERNEL_BWD_LSE.launches) == (before[0] + 1,
+                                                    before[1] + first)
+        for x, y, bound, name in zip(got, want, bounds, "qkv"):
+            assert x.dtype == dtype and x.shape == y.shape
+            err = (x.float() - y.float()).abs()
+            assert bool((err <= bound).all()), \
+                (name, saved is None, float(err.max()),
+                 float((err / bound).max()))
+
+
+def test_flash_attention_backward_is_deterministic(dev):
+    """Two calls on the same inputs give the same bits (no atomics: each
+    output element has one owner that sums in a fixed order)."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 2, 512, 512, 9, 3, 64, 5)
+    o, lse = fa_ops.attention_with_lse(q, k, v)
+    first = fa_ops.flash_attention_gqa_backward(q, k, v, o, do, lse=lse)
+    second = fa_ops.flash_attention_gqa_backward(q, k, v, o, do, lse=lse)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dh,window,q_off", [(64, None, 64), (128, 48, 32),
+                                             (16, None, 64), (80, None, 0)])
+def test_flash_attention_lse_store(dev, dh, window, q_off):
+    """Kernel 9's prefill path gives the same output bits with and without
+    the log-sum-exp store, and the stored log-sum-exp sits within 2**-12
+    of ``fa_ref.attention_lse``: the scores are float32 sums of exact bf16
+    products (at most dh 2**-24 sum |q k| c2, about 5e-5 here), l is a
+    float32 sum of at most 256 terms (256 2**-24 relative, 2.2e-5 in
+    log2), ex2.approx about 2**-22 relative."""
+    q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, 2, 192, 256, 6, 2, dh, 3)
+    n = fa_ops.KERNEL.launches
+    o, lse = fa_ops.attention_with_lse(q, k, v, window=window,
+                                       q_offset=q_off)
+    plain = fa_ops.flash_attention_gqa(q, k, v, window=window,
+                                       q_offset=q_off)
+    assert fa_ops.KERNEL.launches == n + 2
+    assert torch.equal(o, plain)
+    want = fa_ref.attention_lse(q, k, window=window, q_offset=q_off)
+    assert lse.shape == want.shape == (2, 6, 192)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert float((lse[fin] - want[fin]).abs().max()) <= 2.0 ** -12
 
 
 def test_flash_attention_backward_refuses_past_128(dev):
@@ -875,15 +932,19 @@ def test_flash_attention_backward_refuses_past_128(dev):
 
 
 def test_attention_autograd_launches_both_kernels(dev):
+    """``attention`` runs kernel 9 forward and 9b backward, the latter from
+    the log-sum-exp the forward saved: its first pass never runs."""
     q = torch.randn(1, 128, 4, 64, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
     k = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
     f0, b0 = fa_ops.KERNEL.launches, fa_ops.KERNEL_BWD.launches
+    l0 = fa_ops.KERNEL_BWD_LSE.launches
     out = fa_ops.attention(q, k, k)
     torch.autograd.grad(out.float().sum(), (q, k))
     assert fa_ops.KERNEL.launches == f0 + 1
     assert fa_ops.KERNEL_BWD.launches == b0 + 1
+    assert fa_ops.KERNEL_BWD_LSE.launches == l0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

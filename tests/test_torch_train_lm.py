@@ -178,33 +178,74 @@ def test_moe_configs_still_raise():
         tf.forward({}, torch.zeros(1, 4, dtype=torch.int64), moe)
 
 
-# (B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset)
+# (B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, dtype)
 _ATTN_CASES = [
-    (2, 16, 16, 4, 4, 16, True, None, 0),      # GQA rep 1
-    (2, 16, 16, 6, 2, 32, True, None, 0),      # rep 3
-    (1, 12, 20, 3, 1, 64, True, None, 8),      # Sq != Sk, q_offset
-    (2, 16, 16, 4, 2, 16, True, 5, 0),         # a window
-    (1, 8, 24, 6, 2, 32, True, 6, 16),         # window and q_offset
-    (1, 10, 14, 2, 2, 16, False, None, 0),     # no mask
+    (2, 16, 16, 4, 4, 16, True, None, 0, torch.float32),    # GQA rep 1
+    (2, 16, 16, 6, 2, 32, True, None, 0, torch.float32),    # rep 3
+    (1, 12, 20, 3, 1, 64, True, None, 8, torch.float32),    # q_offset
+    (2, 16, 16, 4, 2, 16, True, 5, 0, torch.float32),       # a window
+    (1, 8, 24, 6, 2, 32, True, 6, 16, torch.float32),       # window, offset
+    (1, 10, 14, 2, 2, 16, False, None, 0, torch.float32),   # no mask
+    (2, 16, 16, 6, 2, 32, True, None, 0, torch.bfloat16),   # rep 3
+    (1, 8, 24, 6, 2, 32, True, 6, 16, torch.bfloat16),      # window, offset
+    (1, 10, 14, 2, 2, 16, False, None, 0, torch.bfloat16),  # no mask
 ]
+
+
+def _bf16_bound(q, k, o, do, want, causal, window, q_offset):
+    """How far the port's bf16 gradient may sit from an exact float32
+    one (JAX's, or autograd's on float32 copies): the bf16 rounding of
+    the output, within 2**-7 |want|, and 1e-4 of the largest element
+    for the float32 sums (``ref.TOL_BWD``); and the forward's output
+    rounded to bf16 (2**-8 of each element) before delta = rowsum(dO O),
+    which moves delta_q by at most e_q = 2**-8 sum_d |O dO|, dS by P e_q,
+    so dQ by scale sum_k P e_q |K| and dK by scale sum_q P e_q |Q|."""
+    b, sq, hq, dh = q.shape
+    hkv, scale = k.shape[2], dh ** -0.5
+    rep = hq // hkv
+    lse = fa_ref.attention_lse(q, k, causal=causal, window=window,
+                               q_offset=q_offset)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(rep, 2)) * scale
+    qpos = q_offset + torch.arange(sq)[:, None]
+    kpos = torch.arange(k.shape[1])[None, :]
+    mask = torch.ones(sq, k.shape[1], dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    p = torch.exp2(torch.where(mask, s, float("-inf")) * fa_ref.LOG2E
+                   - lse[..., None])
+    e = 2.0 ** -8 * (o.float() * do.float()).abs().sum(-1)    # (B, Sq, Hq)
+    pe = p * e.transpose(1, 2)[..., None]
+    dq = torch.einsum("bhqk,bkhd->bqhd", pe,
+                      k.float().abs().repeat_interleave(rep, 2)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", pe, q.float().abs()) * scale
+    dk = dk.reshape(b, -1, hkv, rep, dh).sum(3)
+    extra = (dq, dk, torch.zeros_like(dk))
+    return [fa_ref.backward_bound(w, torch.bfloat16) + x
+            for w, x in zip(want, extra)]
 
 
 @pytest.mark.parametrize("case", _ATTN_CASES,
                          ids=[f"c{i}" for i in range(len(_ATTN_CASES))])
 def test_attention_backward_matches_autograd_and_jax(case):
-    b, sq, sk, hq, hkv, dh, causal, window, off = case
+    b, sq, sk, hq, hkv, dh, causal, window, off, dtype = case
     rng = np.random.default_rng(sum(case[:6]))
-    qn = rng.normal(size=(b, sq, hq, dh)).astype(np.float32)
-    kn = rng.normal(size=(b, sk, hkv, dh)).astype(np.float32)
-    vn = rng.normal(size=(b, sk, hkv, dh)).astype(np.float32)
-    don = rng.normal(size=(b, sq, hq, dh)).astype(np.float32)
+    qn, kn, vn, don = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+        .float().numpy() for s in ((b, sq, hq, dh), (b, sk, hkv, dh),
+                                   (b, sk, hkv, dh), (b, sq, hq, dh)))
     # the port: kernel 9's Function (its plain versions on the CPU)
-    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_(True)
                for x in (qn, kn, vn))
     o = fa_ops.attention(q, k, v, causal=causal, window=window,
                          q_offset=off)
-    got = torch.autograd.grad(o, (q, k, v), torch.from_numpy(don))
-    # autograd of the plain forward
+    do = torch.from_numpy(don).to(dtype)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    # autograd of the plain forward, in float32 (the bf16 cases' values:
+    # autograd in bf16 would round each query head's dK and dV before
+    # summing them)
     q2, k2, v2 = (torch.from_numpy(x).requires_grad_(True)
                   for x in (qn, kn, vn))
     o2 = fa_ref.attention_gqa(q2, k2, v2, causal=causal, window=window,
@@ -214,13 +255,24 @@ def test_attention_backward_matches_autograd_and_jax(case):
     _, vjp = jax.vjp(lambda a, c, d: r_chunked_attention(
         a, c, d, q_offset=off, causal=causal, window=window,
         kv_chunk=1024), jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
-    want = vjp(jnp.asarray(don))
-    for g, a, w, name in zip(got, auto, want, "qkv"):
-        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-4,
-                                   atol=1e-5, err_msg=f"d{name} autograd")
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
-                                   atol=1e-5, err_msg=f"d{name} jax")
-        assert bool((torch.abs(g - a) <= fa_ref.backward_bound(a)).all())
+    want = [torch.from_numpy(np.array(w)) for w in vjp(jnp.asarray(don))]
+    if dtype == torch.float32:
+        for g, a, w, name in zip(got, auto, want, "qkv"):
+            np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=f"d{name} autograd")
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=f"d{name} jax")
+            assert bool((torch.abs(g - a) <= fa_ref.backward_bound(a)).all())
+        return
+    for ref_grads, label in ((auto, "autograd"), (want, "jax")):
+        bounds = _bf16_bound(q.detach(), k.detach(), o.detach(), do,
+                             [x.float() for x in ref_grads], causal, window,
+                             off)
+        for g, a, bound, name in zip(got, ref_grads, bounds, "qkv"):
+            assert g.dtype == torch.bfloat16
+            err = (g.float() - a.float()).abs()
+            assert bool((err <= bound).all()), \
+                (label, name, float((err / bound).max()))
 
 
 def test_attention_backward_dead_rows_get_zero():
