@@ -185,7 +185,12 @@ Phases, in the order they run:
                  8b at AutoInt's train_batch lookup (65,536 x 39 bags of
                  one, float32, the registered table's 11.2M rows) and
                  multi-hot (bf16, weights, pads, mean), tolerance 0 on CPU
-                 copies; 9b at smollm-135m's training call (B 8, S 1024,
+                 copies, each shape's public entry twice under sync debug
+                 mode "error" (no host read), the two bit for bit; its
+                 key kernel, radix sort and tile kernel against their
+                 plain twins; the entry timed on the card alone and
+                 host-timed, each of its four kernels on the card alone;
+                 9b at smollm-135m's training call (B 8, S 1024,
                  9/3 heads of 64, bf16, causal), float32, a window and a
                  q_offset, with kernel 9's saved log-sum-exp and without
                  it, within ``ref.backward_tolerance``, two calls bit for
@@ -1501,10 +1506,16 @@ def check_kernel8b(dev) -> dict:
     """Phase 17a: kernel 8b against its plain version on CPU copies of
     the inputs, tolerance 0, at AutoInt's train_batch lookup (65,536 rows
     x 39 fields, bags of one, float32, the registered table's rows) and
-    multi-hot (bf16, weights, pads, mean) on the same table's rows; times
-    at the train_batch shape: the public entry (prep, zero fill, launch),
-    the launch alone on the prep, the plain version on the card, and
-    aten.embedding_dense_backward on the same ids."""
+    multi-hot (bf16, weights, pads, mean) on the same table's rows: each
+    shape's public entry called twice under sync debug mode "error" (no
+    host read), the two bit for bit; its key kernel and sort against the
+    plain twin on CPU copies.  Times at the train_batch shape: the public
+    entry on the card alone and host-timed; the key kernel, the sort, the
+    two together and the gradient kernel each on the card alone; the
+    plain version and the key kernel's plain twin on the card;
+    aten.embedding_dense_backward on the same ids, on the card alone and
+    host-timed.  Returns kernel 8b's record, the key kernel's under
+    "keys"."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import recsys_batch
     from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -1525,46 +1536,139 @@ def check_kernel8b(dev) -> dict:
     mh_ids[torch.rand(b, w, generator=g, device=dev) < 0.2] = -1
     mh_w = torch.rand(b, w, generator=g, device=dev) + 0.5
     mh_gout = torch.randn(b, d, generator=g, device=dev).to(torch.bfloat16)
-    rec = {}
+    rec, key_errs = {}, []
     for label, args in (
             ("train_batch bags of one float32", (gout, ids, None, "sum")),
             (f"multi-hot {b} x {w} bf16 weighted mean",
              (mh_gout, mh_ids, mh_w, "mean"))):
         go, bi, bw, mode = args
-        got = eb_ops.embedding_bag_backward(go, bi, n_rows, bw, mode)
+        eb_ops.embedding_bag_backward(go, bi, n_rows, bw, mode)  # warm-up
         torch.cuda.synchronize()
-        want = eb_ref.embedding_bag_backward(
-            go.cpu(), bi.cpu(), n_rows, None if bw is None else bw.cpu(),
-            mode)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = eb_ops.embedding_bag_backward(go, bi, n_rows, bw, mode)
+            again = eb_ops.embedding_bag_backward(go, bi, n_rows, bw, mode)
+            prep = eb_ops.prepare_backward(bi, bw, mode, n_rows)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"kernel 8b {label}: two calls differ")
+        cpu_w = None if bw is None else bw.cpu()
+        want = eb_ref.embedding_bag_backward(go.cpu(), bi.cpu(), n_rows,
+                                             cpu_w, mode)
         err = float((got.cpu().float() - want.float()).abs().max())
         check(torch.equal(got.cpu(), want),
               f"kernel 8b {label}: off its plain version by {err}")
+        twin = eb_ops.prepare_backward(bi.cpu(), cpu_w, mode, n_rows)
+        key_err = max(
+            int((prep.keys.cpu().long() - twin.keys.long()).abs().max()),
+            int((prep.pos.cpu() - twin.pos).abs().max()),
+            0 if twin.den is None else
+            float((prep.den.cpu() - twin.den).abs().max()))
+        check(key_err == 0 and (prep.den is None) == (twin.den is None),
+              f"kernel 8b's key kernel and sort {label}: off the plain twin "
+              f"by {key_err}")
+        key_errs.append(key_err)
         live = int((got != 0).any(1).sum())
-        print(f"kernel 8b {label}: equal to the plain version (CPU copies), "
-              f"{live:,} live rows of {n_rows:,}")
-        rec[label] = {"max_abs_err": err, "live_rows": live}
-        del got, want
+        print(f"kernel 8b {label}: no host sync under sync debug mode "
+              f"\"error\", two calls bit for bit, equal to the plain "
+              f"version (CPU copies), keys and sort equal to the plain "
+              f"twin; {live:,} live rows of {n_rows:,}")
+        rec[label] = {"max_abs_err": err, "live_rows": live,
+                      "keys_max_abs_err": key_err}
+        del got, again, want, prep, twin
+    entry = lambda: eb_ops.embedding_bag_backward(gout, ids, n_rows)  # noqa
     prep = eb_ops.prepare_backward(ids, None, "sum", n_rows)
-    k_ms = cuda_ms(lambda: eb_ops.embedding_bag_backward(gout, ids, n_rows))
+    keys, _ = eb_ops.backward_keys(ids, None, "sum", n_rows)
+    items = eb_ops.tile_items(*eb_ops.layout(d, gout.element_size(), True))
+    bounds = eb_ops.tile_bounds(prep.keys, n_rows, items)
+    want_bounds = eb_ops.tile_bounds_plain(prep.keys.cpu(), n_rows, items)
+    tile_err = int((bounds.cpu().long() - want_bounds.long()).abs().max())
+    check(tile_err == 0, f"kernel 8b's tile kernel: off the plain twin by "
+                         f"{tile_err}")
+    print(f"kernel 8b's tile kernel at {items} rows plus terms a tile: "
+          f"equal to the plain twin (CPU copies), {bounds.shape[0] - 1:,} "
+          f"tiles")
+    k_dev = device_ms(entry)
+    k_ms = cuda_ms(entry)
+    keys_ms = device_ms(lambda: eb_ops.backward_keys(ids, None, "sum",
+                                                     n_rows))
+    sort_ms = device_ms(lambda: eb_ops.sort_keys(keys, n_rows))
+    tsort_ms = device_ms(lambda: torch.sort(keys, stable=True))
+    sp_ms = cuda_ms(lambda: eb_ops.sort_keys_plain(keys))
+    prep_ms = device_ms(lambda: eb_ops.prepare_backward(ids, None, "sum",
+                                                        n_rows))
+    tiles_ms = device_ms(lambda: eb_ops.tile_bounds(prep.keys, n_rows,
+                                                    items))
     launch_ms = device_ms(lambda: eb_ops.launch_backward(gout, prep, n_rows))
-    prep_ms = cuda_ms(lambda: eb_ops.prepare_backward(ids, None, "sum",
-                                                      n_rows))
+    tp_ms = cuda_ms(lambda: eb_ops.tile_bounds_plain(prep.keys, n_rows,
+                                                     items))
+    # yardsticks of the gradient kernel's two streams, each alone: the
+    # dense output's write (zero_) and the gather of dout's rows in the
+    # sorted order (index_select, which also writes them out)
+    dense_out = torch.empty(n_rows, d, device=dev)
+    zero_ms = device_ms(lambda: dense_out.zero_())
+    order = prep.pos.long()
+    gather_ms = device_ms(lambda: torch.index_select(gout, 0, order))
+    del dense_out, order
     p_ms = cuda_ms(lambda: eb_ref.embedding_bag_backward(gout, ids, n_rows),
                    reps=5)
+    kp_ms = cuda_ms(lambda: eb_ops.backward_keys_plain(ids, None, "sum",
+                                                       n_rows))
     flat = ids.reshape(-1).long()
-    l_ms = cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
-        gout, flat, n_rows, -1, False))
+
+    def dense():
+        return torch.ops.aten.embedding_dense_backward(gout, flat, n_rows,
+                                                       -1, False)
+    l_dev = device_ms(dense)
+    l_ms = cuda_ms(dense)
     # bytes: the ids and dout read once, the dense (V, D) output written
     nbytes = n * 4 + n * d * 4 + n_rows * d * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # the key kernel: the ids read and the keys written once; the tile
+    # kernel: the sorted keys read and the tile bounds written once
+    key_bytes = n * 4 + n * 4
+    key_bound = key_bytes / HBM_BYTES_PER_S * 1e3
+    tile_bytes = n * 4 + bounds.numel() * 4
+    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
+    # the sort: the keys read, the sorted keys and positions written once
+    sort_bytes = n * 4 + n * 8
+    sort_bound = sort_bytes / HBM_BYTES_PER_S * 1e3
     print(f"kernel 8b at train_batch ({n:,} ids, {n_rows:,} x {d} float32): "
-          f"{k_ms:.4f} ms the public entry (prep {prep_ms:.4f} ms; the "
-          f"launch with its zero fill {launch_ms:.4f} ms on the card alone),"
-          f" plain {p_ms:.4f} ms, embedding_dense_backward {l_ms:.4f} ms, "
-          f"bound {bound:.4f} ms (bytes: {nbytes / 1e9:.3f} GB)")
-    rec.update(ms=k_ms, launch_ms=launch_ms, prep_ms=prep_ms, plain_ms=p_ms,
-               library_ms=l_ms, bound_ms=bound, bound_by="bytes",
+          f"the public entry {k_dev:.4f} ms on the card alone ({k_ms:.4f} "
+          f"ms host-timed, {bound / k_dev:.1%} of its bound); the key "
+          f"kernel {keys_ms:.4f} ms, the sort {sort_ms:.4f} ms, the two "
+          f"{prep_ms:.4f} ms; the tile kernel {tiles_ms:.4f} ms, it and "
+          f"the gradient kernel {launch_ms:.4f} ms (the output's zero_ "
+          f"alone {zero_ms:.4f} ms, dout's rows gathered in the sorted "
+          f"order by index_select {gather_ms:.4f} ms); "
+          f"all on the card alone; plain {p_ms:.4f} ms, "
+          f"embedding_dense_backward {l_dev:.4f} ms on the card alone "
+          f"({l_ms:.4f} ms host-timed), bound {bound:.4f} ms (bytes: "
+          f"{nbytes / 1e9:.3f} GB)")
+    print(f"kernel 8b's key kernel: {keys_ms:.4f} ms on the card alone, "
+          f"plain twin {kp_ms:.4f} ms, bound {key_bound:.4f} ms (bytes: "
+          f"{key_bytes / 1e6:.1f} MB); its tile kernel ({bounds.shape[0]:,} "
+          f"bounds): {tiles_ms:.4f} ms, plain twin {tp_ms:.4f} ms, bound "
+          f"{tile_bound:.4f} ms); its sort: {sort_ms:.4f} ms, plain twin "
+          f"{sp_ms:.4f} ms, torch.sort(stable=True) {tsort_ms:.4f} ms on "
+          f"the card alone, bound {sort_bound:.4f} ms")
+    rec.update(ms=k_dev, host_ms=k_ms, keys_ms=keys_ms, sort_ms=sort_ms,
+               prep_ms=prep_ms, tiles_ms=tiles_ms, launch_ms=launch_ms,
+               zero_ms=zero_ms, gather_ms=gather_ms, plain_ms=p_ms, library_ms=l_dev,
+               library_host_ms=l_ms, bound_ms=bound, bound_by="bytes",
+               items=items,
                max_abs_err=max(r["max_abs_err"] for r in rec.values()))
+    rec["keys"] = {"ms": keys_ms, "plain_ms": kp_ms, "bound_ms": key_bound,
+                   "bound_by": "bytes", "library_ms": None,
+                   "max_abs_err": max(key_errs)}
+    rec["sort"] = {"ms": sort_ms, "plain_ms": sp_ms, "bound_ms": sort_bound,
+                   "bound_by": "bytes", "library_ms": tsort_ms,
+                   "max_abs_err": max(key_errs)}
+    rec["tiles"] = {"ms": tiles_ms, "plain_ms": tp_ms,
+                    "bound_ms": tile_bound, "bound_by": "bytes",
+                    "library_ms": None, "max_abs_err": tile_err}
     return rec
 
 
@@ -1812,7 +1916,9 @@ def train_phase(dev, kernels) -> dict:
                 schedule="constant")
     from repro_torch.kernels.flash_attention import ops as fa_ops
     lm_keys = ("flash_attention", "flash_attention_bwd")
-    ai_keys = ("embedding_bag", "embedding_bag_bwd")
+    ai_keys = ("embedding_bag", "embedding_bag_bwd_keys",
+               "embedding_bag_bwd_sort", "embedding_bag_bwd_tiles",
+               "embedding_bag_bwd")
     launches = {k: 0 for k in lm_keys + ai_keys}
     lse_pass = fa_ops.KERNEL_BWD_LSE.launches
     with plain_tripwire() as plain_calls:
@@ -1905,9 +2011,8 @@ def train_phase(dev, kernels) -> dict:
               f"autoint loss does not fall: {ai_losses}")
         check(ai_peak < AI_TRAIN_PEAK_GIB, f"autoint training peak "
                                            f"{ai_peak:.3f} GiB")
-        check(all(ps["embedding_bag"] == 1 and ps["embedding_bag_bwd"] == 1
-                  for ps in ai_steps),
-              f"a step missed kernel 8 or 8b: {ai_steps}")
+        check(all(ps[k] == 1 for ps in ai_steps for k in ai_keys),
+              f"a step missed kernel 8 or one of 8b's three: {ai_steps}")
         print("-- profile of one autoint training step (fresh state)")
         ai_prof = profile_step(autoint)
         rec["autoint"] = {"profile": ai_prof, "step_ms": ai_s * 1e3,
@@ -4446,6 +4551,9 @@ def main() -> int:
                "codec_decode": codec_ops.DECODE,
                "embedding_bag": eb_ops.KERNEL,
                "flash_attention": fa_ops.KERNEL,
+               "embedding_bag_bwd_keys": eb_ops.KERNEL_BWD_KEYS,
+               "embedding_bag_bwd_sort": eb_ops.KERNEL_BWD_SORT,
+               "embedding_bag_bwd_tiles": eb_ops.KERNEL_BWD_TILES,
                "embedding_bag_bwd": eb_ops.KERNEL_BWD,
                "flash_attention_bwd": fa_ops.KERNEL_BWD}
     replaces = {
@@ -4466,6 +4574,12 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:79",
         # the gradients of kernels 8 and 9, which the JAX package takes
         # with XLA (jax.grad) around those Pallas kernels' functions
+        "embedding_bag_bwd_keys":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:41",
+        "embedding_bag_bwd_sort":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:41",
+        "embedding_bag_bwd_tiles":
+            "src/repro/kernels/embedding_bag/embedding_bag.py:41",
         "embedding_bag_bwd":
             "src/repro/kernels/embedding_bag/embedding_bag.py:41",
         "flash_attention_bwd":
@@ -4661,8 +4775,14 @@ def main() -> int:
     phase("17 kernels 8b and 9b (the backward kernels) against their plain "
           "versions at the training paths' shapes, and timed")
     record["kernel8b"] = per["embedding_bag_bwd"] = check_kernel8b(dev)
+    per["embedding_bag_bwd_keys"] = per["embedding_bag_bwd"]["keys"]
+    per["embedding_bag_bwd_sort"] = per["embedding_bag_bwd"]["sort"]
+    per["embedding_bag_bwd_tiles"] = per["embedding_bag_bwd"]["tiles"]
     record["kernel9b"] = per["flash_attention_bwd"] = check_kernel9b(dev)
     errs["embedding_bag_bwd"] = per["embedding_bag_bwd"]["max_abs_err"]
+    for k in ("embedding_bag_bwd_keys", "embedding_bag_bwd_sort",
+              "embedding_bag_bwd_tiles"):
+        errs[k] = per[k]["max_abs_err"]
     errs["flash_attention_bwd"] = per["flash_attention_bwd"]["max_abs_err"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4675,12 +4795,17 @@ def main() -> int:
     record["train"] = tr = train_phase(dev, kernels)
     for k, n in tr["launches"].items():
         launches_nn[k] = launches_nn.get(k, 0) + n
-    for k, tag in (("embedding_bag_bwd", "8b"), ("flash_attention_bwd", "9b")):
+    for k, tag in (("embedding_bag_bwd_keys", "8b's keys"),
+                   ("embedding_bag_bwd_sort", "8b's sort"),
+                   ("embedding_bag_bwd_tiles", "8b's tiles"),
+                   ("embedding_bag_bwd", "8b"), ("flash_attention_bwd", "9b")):
         r = per[k]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"kernel {tag} ({k}): {launches_nn[k]} launches on the "
               f"training path; at phase 17's first shape {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     record["total_s"] = time.perf_counter() - t_start
     print(f"total {record['total_s']:.1f} s")

@@ -11,10 +11,16 @@ carries ``BAGS_PER_THREAD`` bags.
 
 ``embedding_bag_backward`` is the table gradient, the wrapper of kernel
 8b (``csrc/embedding_bag_bwd.cu``), whose plain version is
-``ref.embedding_bag_backward``; ``prepare_backward`` is its launch prep
-in plain torch (the live terms stable-sorted by row, one segment a
-row).  ``embedding_bag_trainable`` is kernel 8 with that gradient, the
-``torch.autograd.Function`` the training path calls.
+``ref.embedding_bag_backward``.  It runs on the device with no host
+read: ``prepare_backward`` launches the key kernel (``backward_keys``:
+each term's row, the pads' sentinel n_rows, the "mean" divisors) and the
+radix sort (``sort_keys``); ``launch_backward`` launches the tile kernel
+(``tile_bounds``: runs of rows with at most ``tile_items`` rows plus
+terms) and the gradient kernel, whose blocks each write a tile's rows of
+the dense output once.  ``backward_keys_plain``, ``sort_keys_plain`` and
+``tile_bounds_plain`` are the plain twins of that prep, which
+``prepare_backward`` and ``tile_bounds`` take for CPU tensors.  ``embedding_bag_trainable`` is kernel 8 with that
+gradient, the ``torch.autograd.Function`` the training path calls.
 """
 from __future__ import annotations
 
@@ -35,15 +41,33 @@ from repro_torch.kernels.embedding_bag import ref
 # time, and packing them is cheaper.
 KERNEL = CudaKernel("embedding_bag", [ctypes.c_char_p])
 _ARGS = struct.Struct("15q")
-# kernel 8b's entry takes its 15 values the same way (dout, bags,
-# weights or 0, den or 0, seg_rows, seg_off, dtable, n_seg, D, bf16, vec,
-# lanes, gx, gy, stream)
+# kernel 8b's four C entries take their values the same way: the key
+# kernel's 9 (ids, weights or 0, keys, den or 0, n, B, L, n_rows,
+# stream), the sort's 10 (keys, keys_a, keys_b, pos_a, pos_b, hist,
+# totals, n, bits, stream), the tile kernel's 6 (keys, bounds, n, n_rows,
+# items, stream) and the gradient kernel's 16 (dout, keys, pos, bounds,
+# weights or 0, den or 0, dtable, L, n_rows, D, bf16, vec, lanes, gx, gy,
+# stream)
+KERNEL_BWD_KEYS = CudaKernel("embedding_bag_bwd_keys", [ctypes.c_char_p],
+                             stem="embedding_bag_bwd")
+KERNEL_BWD_SORT = CudaKernel("embedding_bag_bwd_sort", [ctypes.c_char_p],
+                             stem="embedding_bag_bwd")
+KERNEL_BWD_TILES = CudaKernel("embedding_bag_bwd_tiles", [ctypes.c_char_p],
+                              stem="embedding_bag_bwd")
 KERNEL_BWD = CudaKernel("embedding_bag_bwd", [ctypes.c_char_p])
+_KEY_ARGS = struct.Struct("9q")
+_SORT_ARGS = struct.Struct("10q")
+_TILE_ARGS = struct.Struct("6q")
+_BWD_ARGS = struct.Struct("16q")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 BLOCK = 256            # threads a block (kBlock)
 BAGS_PER_THREAD = 4    # bags a thread carries, its rows in flight (kBags)
 VECTOR_BYTES = 16      # a lane's load where the row allows it
+SORT_TILE = 4096       # the keys a block of kernel 8b's sort holds
+RADIX_BINS = 256       # its digits, 8 bits a pass
+STAGE_FLOATS = 8192    # the floats of terms a block of kernel 8b stages
+MAX_ITEMS = 1024       # the rows plus terms of its tile at most (kMaxTile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +88,15 @@ def grid(n_bags: int, dim: int, vec: int, lanes: int) -> Tuple[int, int]:
     BAGS_PER_THREAD, and the row's slices of ``lanes`` vectors."""
     per_block = BLOCK // lanes * BAGS_PER_THREAD
     return -(-n_bags // per_block), -(-(dim // vec) // lanes)
+
+
+def tile_items(vec: int, lanes: int) -> int:
+    """C, the rows plus terms of a tile of kernel 8b: 15/16 of the terms
+    a block stages, each ``lanes * vec`` floats of its row slice, at most
+    MAX_ITEMS.  A tile's terms may pass C by its last row's, and the
+    sixteenth left over keeps such a tile staged where its rows are short
+    (AutoInt's 2,000-row fields, about 33 terms a row)."""
+    return max(1, min(MAX_ITEMS, STAGE_FLOATS // (lanes * vec) * 15 // 16))
 
 
 @functools.lru_cache(maxsize=256)
@@ -138,64 +171,182 @@ def embedding_bag(table: torch.Tensor, bag_ids: torch.Tensor,
 
 
 class BackwardPrep(NamedTuple):
-    """Kernel 8b's launch prep: the live (bag, slot) terms sorted by the
-    row they read (stable, so a row's terms keep their flat order), and
-    one segment a live row."""
-    bags: torch.Tensor       # (n_terms,) int32, each term's bag
-    weights: Optional[torch.Tensor]  # (n_terms,) float32, or None (all 1)
+    """Kernel 8b's launch prep: every (bag, slot) term's key, the row it
+    reads or n_rows for a pad, stable-sorted, so a row's terms keep their
+    flat order and the pads come last; the sort's permutation, each sorted
+    term's flat position b * L + j; and what the gradient kernel reads
+    beside them."""
+    keys: torch.Tensor       # (B * L,) int32, sorted
+    pos: torch.Tensor        # (B * L,) int32, each sorted term's b * L + j
+    weights: Optional[torch.Tensor]  # (B, L) float32, or None (all 1)
     den: Optional[torch.Tensor]      # (B,) float32 "mean" divisors, or None
-    seg_rows: torch.Tensor   # (n_seg,) int32, the row of each segment
-    seg_off: torch.Tensor    # (n_seg + 1,) int32, its terms' range
+    width: int               # L
+
+
+def _check_terms(bag_ids: torch.Tensor, n_rows: int) -> None:
+    if bag_ids.numel() >= 2 ** 31 or not 1 <= n_rows < 2 ** 31:
+        raise ValueError(f"{bag_ids.numel()} (bag, slot) terms into "
+                         f"{n_rows} rows: kernel 8b's keys and offsets are "
+                         f"int32 (n_rows >= 1)")
+
+
+def backward_keys_plain(bag_ids: torch.Tensor,
+                        bag_weights: Optional[torch.Tensor], mode: str,
+                        n_rows: int):
+    """The key kernel's plain twin: (keys, den), each term's row in flat
+    order, clamped to n_rows - 1 as the forward reads it, n_rows for a
+    pad, as int32; the "mean" divisors (``ref.bag_denominators``), or
+    None."""
+    flat = bag_ids.reshape(-1)
+    keys = torch.where(flat < 0, n_rows, flat.clamp(max=n_rows - 1))
+    den = (ref.bag_denominators(bag_ids, bag_weights) if mode == "mean"
+           else None)
+    return keys.to(torch.int32), den
+
+
+def sort_keys_plain(keys: torch.Tensor):
+    """The sort's plain twin: (the keys stable-sorted, the permutation as
+    int32), by ``torch.sort``."""
+    keys, pos = torch.sort(keys, stable=True)
+    return keys, pos.to(torch.int32)
+
+
+def n_tiles(n_terms: int, n_rows: int, items: int) -> int:
+    """The tiles of C = ``items`` places that the n_rows + 1 row marks and
+    at most ``n_terms`` terms fill."""
+    return -(-(n_rows + 1 + n_terms) // items)
+
+
+def tile_bounds_plain(keys: torch.Tensor, n_rows: int,
+                      items: int) -> torch.Tensor:
+    """The tile kernel's plain twin: (n_tiles + 1, 2) int32, each tile's
+    first row and first term over the sorted keys.  The row marks (row
+    n_rows the end) and the live terms in one sequence, a row's mark
+    before its terms, mark r at s(r) = r + the terms with a key below r;
+    tile b owns the rows whose marks lie in [b * items, (b + 1) * items)
+    and their terms.  By ``torch.searchsorted``."""
+    rows = torch.arange(n_rows + 1, device=keys.device, dtype=keys.dtype)
+    marks = rows + torch.searchsorted(keys, rows, out_int32=True)
+    cuts = torch.arange(n_tiles(keys.numel(), n_rows, items) + 1,
+                        device=keys.device) * items
+    first = torch.searchsorted(marks, cuts.to(marks.dtype),
+                               out_int32=True).clamp_(max=n_rows)
+    return torch.stack([first, torch.searchsorted(keys, first,
+                                                  out_int32=True)], 1)
+
+
+def tile_bounds(keys: torch.Tensor, n_rows: int,
+                items: int) -> torch.Tensor:
+    """The tile kernel on sorted CUDA keys: ``tile_bounds_plain``'s
+    bounds, by one pass over the keys.  CPU tensors take the plain
+    twin."""
+    if keys.is_cpu:
+        return tile_bounds_plain(keys, n_rows, items)
+    if not 1 <= items <= MAX_ITEMS \
+            or keys.numel() + n_rows + 2 * items >= 2 ** 31:
+        raise ValueError(f"items must be 1..{MAX_ITEMS} and the places "
+                         f"int32, got {items} items, {keys.numel()} terms, "
+                         f"{n_rows} rows")
+    KERNEL_BWD_TILES.load()
+    require_cuda(keys)
+    bounds = torch.empty(n_tiles(keys.numel(), n_rows, items) + 1, 2,
+                         dtype=torch.int32, device=keys.device)
+    KERNEL_BWD_TILES.launch(_TILE_ARGS.pack(
+        keys.data_ptr(), bounds.data_ptr(), keys.numel(), n_rows, items,
+        stream_handle(keys.device)))
+    return bounds
+
+
+def backward_keys(bag_ids: torch.Tensor,
+                  bag_weights: Optional[torch.Tensor], mode: str,
+                  n_rows: int):
+    """The key kernel: (keys, den) as ``backward_keys_plain`` gives them,
+    on the ids' device, its sizes from the shapes.  CPU tensors take the
+    plain twin."""
+    _check_terms(bag_ids, n_rows)
+    if bag_ids.is_cpu and (bag_weights is None or bag_weights.is_cpu):
+        return backward_keys_plain(bag_ids, bag_weights, mode, n_rows)
+    KERNEL_BWD_KEYS.load()
+    if bag_weights is None:
+        require_cuda(bag_ids)
+    else:
+        require_cuda(bag_ids, bag_weights)
+    n_bags, width = bag_ids.shape
+    keys = torch.empty(bag_ids.numel(), dtype=torch.int32,
+                       device=bag_ids.device)
+    den = (torch.empty(n_bags, dtype=torch.float32, device=bag_ids.device)
+           if mode == "mean" else None)
+    KERNEL_BWD_KEYS.launch(_KEY_ARGS.pack(
+        bag_ids.data_ptr(),
+        0 if bag_weights is None else bag_weights.data_ptr(),
+        keys.data_ptr(), 0 if den is None else den.data_ptr(),
+        keys.numel(), n_bags, width, n_rows,
+        stream_handle(bag_ids.device)))
+    return keys, den
+
+
+def sort_keys(keys: torch.Tensor, n_rows: int):
+    """The sort on CUDA keys in [0, n_rows]: ``sort_keys_plain``'s
+    result by a stable LSD radix sort, 8 bits a pass over the bits of
+    n_rows (three passes below 2^24 rows), the permutation built from the
+    identity.  The keys are left as they were.  CPU tensors take the
+    plain twin."""
+    if keys.is_cpu:
+        return sort_keys_plain(keys)
+    KERNEL_BWD_SORT.load()
+    require_cuda(keys)
+    n, bits = keys.numel(), n_rows.bit_length()
+    work = torch.empty(5 * n + RADIX_BINS * (-(-n // SORT_TILE) + 1),
+                       dtype=torch.int32, device=keys.device)
+    keys_a, keys_b, pos_a, pos_b, hist = (work[:n], work[n:2 * n],
+                                          work[2 * n:3 * n],
+                                          work[3 * n:4 * n], work[4 * n:])
+    KERNEL_BWD_SORT.launch(_SORT_ARGS.pack(
+        keys.data_ptr(), keys_a.data_ptr(), keys_b.data_ptr(),
+        pos_a.data_ptr(), pos_b.data_ptr(), hist.data_ptr(),
+        hist[-RADIX_BINS:].data_ptr(), n, bits,
+        stream_handle(keys.device)))
+    return (keys_a, pos_a) if -(-bits // 8) % 2 else (keys_b, pos_b)
 
 
 def prepare_backward(bag_ids: torch.Tensor,
                      bag_weights: Optional[torch.Tensor], mode: str,
                      n_rows: int) -> BackwardPrep:
-    """The live terms (id >= 0) in flat order, their rows clamped to
-    n_rows - 1 as the forward reads them, stable-sorted by row; the
-    segment offsets by ``unique_consecutive``.  Plain torch, on the ids'
-    device (two host reads: the live count and the segment count)."""
-    width = bag_ids.shape[1]
-    flat = bag_ids.reshape(-1)
-    if flat.numel() >= 2 ** 31:
-        raise ValueError(f"{flat.numel()} (bag, slot) terms: the kernel's "
-                         f"offsets are int32")
-    pos = torch.nonzero(flat >= 0).squeeze(1)
-    rows = flat[pos].clamp(max=n_rows - 1)
-    rows, order = torch.sort(rows, stable=True)
-    pos = pos[order]
-    seg_rows, counts = torch.unique_consecutive(rows, return_counts=True)
-    seg_off = torch.zeros(seg_rows.numel() + 1, dtype=torch.int32,
-                          device=flat.device)
-    seg_off[1:] = torch.cumsum(counts, 0)
-    return BackwardPrep(
-        bags=torch.div(pos, width, rounding_mode="floor").to(torch.int32),
-        weights=None if bag_weights is None
-        else bag_weights.reshape(-1)[pos].contiguous(),
-        den=ref.bag_denominators(bag_ids, bag_weights) if mode == "mean"
-        else None,
-        seg_rows=seg_rows.to(torch.int32), seg_off=seg_off)
+    """Kernel 8b's prep on the ids' device: the key kernel, then the
+    keys' stable sort (``sort_keys``; its permutation gives each term's
+    flat position).  Nothing is read back to the host.  CPU tensors take
+    the plain twin."""
+    keys, den = backward_keys(bag_ids, bag_weights, mode, n_rows)
+    keys, pos = sort_keys(keys, n_rows)
+    return BackwardPrep(keys, pos, bag_weights, den, bag_ids.shape[1])
 
 
 def launch_backward(grad_out: torch.Tensor, prep: BackwardPrep,
-                    n_rows: int) -> torch.Tensor:
-    """Kernel 8b on checked CUDA tensors: the (n_rows, D) table gradient,
-    zero where no segment writes."""
+                    n_rows: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tile kernel and the gradient kernel on checked CUDA tensors:
+    the (n_rows, D) table gradient, every row written once (into ``out``
+    where given, else a ``torch.empty``)."""
     dim = grad_out.shape[1]
-    out = torch.zeros(n_rows, dim, dtype=grad_out.dtype,
-                      device=grad_out.device)
-    n_seg = prep.seg_rows.numel()
+    if out is None:
+        out = torch.empty(n_rows, dim, dtype=grad_out.dtype,
+                          device=grad_out.device)
+    elif out.shape != (n_rows, dim) or out.dtype != grad_out.dtype \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous ({n_rows}, {dim}) "
+                         f"{grad_out.dtype} tensor, got {out.dtype} "
+                         f"{tuple(out.shape)}")
     aligned = (grad_out.data_ptr() % VECTOR_BYTES == 0
                and out.data_ptr() % VECTOR_BYTES == 0)
     vec, lanes = layout(dim, grad_out.element_size(), aligned)
-    per_block = BLOCK // lanes
-    gx, gy = -(-n_seg // per_block), -(-(dim // vec) // lanes)
-    KERNEL_BWD.launch(_ARGS.pack(
-        grad_out.data_ptr(), prep.bags.data_ptr(),
+    bounds = tile_bounds(prep.keys, n_rows, tile_items(vec, lanes))
+    KERNEL_BWD.launch(_BWD_ARGS.pack(
+        grad_out.data_ptr(), prep.keys.data_ptr(), prep.pos.data_ptr(),
+        bounds.data_ptr(),
         0 if prep.weights is None else prep.weights.data_ptr(),
-        0 if prep.den is None else prep.den.data_ptr(),
-        prep.seg_rows.data_ptr(), prep.seg_off.data_ptr(), out.data_ptr(),
-        n_seg, dim, grad_out.dtype == torch.bfloat16, vec, lanes, gx, gy,
+        0 if prep.den is None else prep.den.data_ptr(), out.data_ptr(),
+        prep.width, n_rows, dim, grad_out.dtype == torch.bfloat16, vec,
+        lanes, bounds.shape[0] - 1, -(-(dim // vec) // lanes),
         stream_handle(grad_out.device)))
     return out
 
@@ -206,7 +357,8 @@ def embedding_bag_backward(grad_out: torch.Tensor, bag_ids: torch.Tensor,
                            mode: str = "sum") -> torch.Tensor:
     """The dense (n_rows, D) gradient of ``embedding_bag``'s table, in
     grad_out's dtype (the table's), given grad_out (B, D).  CPU tensors
-    take the plain version; CUDA tensors launch kernel 8b."""
+    take the plain version; CUDA tensors launch kernel 8b (its key
+    kernel, the keys' sort and its gradient kernel), with no host read."""
     if grad_out.dim() != 2 or grad_out.dtype not in _DTYPES \
             or grad_out.shape[0] != bag_ids.shape[0] or n_rows < 1:
         raise ValueError(f"grad_out must be a (B, D) float32 or bfloat16 "

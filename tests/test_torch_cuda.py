@@ -793,41 +793,202 @@ def _bags(dev, n_bags, width, n_rows, seed, pads=0.0, past=0):
     return ids, w
 
 
-@pytest.mark.parametrize("dtype,n_bags,width,dim,weighted,mode,past", [
-    (torch.float32, 65536, 1, 16, False, "sum", 0),   # AutoInt's lookup
-    (torch.float32, 4096, 8, 16, True, "mean", 3),
-    (torch.bfloat16, 4096, 12, 64, True, "mean", 0),
-    (torch.bfloat16, 2048, 5, 24, False, "sum", 2),   # 8 bf16 don't fit
-    (torch.float32, 1000, 3, 7, True, "sum", 0),      # vec 1
-])
+@pytest.mark.parametrize(
+    "dtype,n_bags,width,dim,weighted,mode,past,n_rows,pads,hot", [
+        (torch.float32, 65536, 1, 16, False, "sum", 0, 50_000, 0.0, None),
+        (torch.float32, 4096, 8, 16, True, "mean", 3, 50_000, 0.2, None),
+        (torch.bfloat16, 4096, 12, 64, True, "mean", 0, 50_000, 0.2, None),
+        # 8 bf16 don't fit
+        (torch.bfloat16, 2048, 5, 24, False, "sum", 2, 50_000, 0.2, None),
+        (torch.float32, 1000, 3, 7, True, "sum", 0, 50_000, 0.2, None),
+        # all pads: the kernel writes an all-zero output
+        (torch.float32, 512, 6, 16, True, "mean", 0, 3000, 1.0, None),
+        (torch.bfloat16, 512, 6, 16, False, "sum", 0, 3000, 1.0, None),
+        # n_rows not a multiple of the tile (256 rows, 512 in bf16)
+        (torch.float32, 3000, 4, 16, True, "sum", 5, 1001, 0.2, None),
+        (torch.bfloat16, 3000, 4, 16, False, "mean", 0, 777, 0.2, None),
+        # V = 1: every live id, and those past it, land on row 0
+        (torch.float32, 2048, 3, 16, True, "mean", 4, 1, 0.2, None),
+        (torch.bfloat16, 2048, 3, 16, False, "sum", 0, 1, 0.0, None),
+        # one row takes every term
+        (torch.float32, 4096, 8, 16, True, "sum", 0, 3000, 0.0, 1234),
+        (torch.bfloat16, 4096, 8, 64, False, "mean", 0, 3000, 0.1, 2999),
+    ])
 def test_embedding_bag_backward_kernel_matches_plain(dev, dtype, n_bags,
                                                      width, dim, weighted,
-                                                     mode, past):
+                                                     mode, past, n_rows,
+                                                     pads, hot):
     """Kernel 8b against its plain version on CPU copies, tolerance 0
     (the same float32 operations in the same order a row)."""
-    n_rows = 50_000
-    ids, w = _bags(dev, n_bags, width, n_rows, 11, pads=0.2 if width > 1
-                   else 0.0, past=past)
+    ids, w = _bags(dev, n_bags, width, n_rows, 11,
+                   pads=pads if width > 1 else 0.0, past=past)
+    if hot is not None:
+        ids[ids >= 0] = hot
     wt = w if weighted else None
     g = torch.Generator(device=dev).manual_seed(12)
     gout = torch.randn(n_bags, dim, generator=g, device=dev).to(dtype)
-    before = eb_ops.KERNEL_BWD.launches
+    before = eb_ops.KERNEL_BWD.launches, eb_ops.KERNEL_BWD_KEYS.launches
     got = eb_ops.embedding_bag_backward(gout, ids, n_rows, wt, mode)
     torch.cuda.synchronize()
-    assert eb_ops.KERNEL_BWD.launches == before + 1
+    assert (eb_ops.KERNEL_BWD.launches,
+            eb_ops.KERNEL_BWD_KEYS.launches) == (before[0] + 1,
+                                                 before[1] + 1)
     want = eb_ref.embedding_bag_backward(
         gout.cpu(), ids.cpu(), n_rows, None if wt is None else wt.cpu(), mode)
     assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    if pads == 1.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("weighted,mode", [(False, "sum"), (True, "mean")])
+def test_embedding_bag_backward_prep_matches_plain_twin(dev, weighted, mode):
+    """The key kernel and the sort against the plain twin on CPU copies:
+    the sorted keys with the pads' sentinel, the flat positions, the
+    "mean" divisors bit for bit; the tile kernel against the twin's
+    searches at 1, 3, 512 and 1024 places a tile, on all pads, on one row
+    taking every term and on no terms."""
+    n_rows = 5000
+    ids, w = _bags(dev, 3000, 7, n_rows, 13, pads=0.2, past=4)
+    wt = w if weighted else None
+    before = eb_ops.KERNEL_BWD_KEYS.launches
+    prep = eb_ops.prepare_backward(ids, wt, mode, n_rows)
+    torch.cuda.synchronize()
+    assert eb_ops.KERNEL_BWD_KEYS.launches == before + 1
+    twin = eb_ops.prepare_backward(ids.cpu(), None if wt is None
+                                   else wt.cpu(), mode, n_rows)
+    assert torch.equal(prep.keys.cpu(), twin.keys)
+    assert torch.equal(prep.pos.cpu(), twin.pos)
+    assert (prep.den is None) == (twin.den is None)
+    if twin.den is not None:
+        assert torch.equal(prep.den.cpu(), twin.den)
+    for items in (1, 3, 512, 1024):
+        before = eb_ops.KERNEL_BWD_TILES.launches
+        got = eb_ops.tile_bounds(prep.keys, n_rows, items)
+        torch.cuda.synchronize()
+        assert eb_ops.KERNEL_BWD_TILES.launches == before + 1
+        assert torch.equal(got.cpu(),
+                           eb_ops.tile_bounds_plain(twin.keys, n_rows, items))
+    for keys in (torch.full((1000,), n_rows, dtype=torch.int32),  # pads
+                 torch.full((3000,), 17, dtype=torch.int32),      # one row
+                 torch.zeros(0, dtype=torch.int32)):
+        assert torch.equal(eb_ops.tile_bounds(keys.to(dev), n_rows, 7).cpu(),
+                           eb_ops.tile_bounds_plain(keys, n_rows, 7))
+
+
+@pytest.mark.parametrize("n,n_rows,kind", [
+    (2_555_904, 11_238_400, "random"),      # AutoInt's lookup: 3 passes
+    (5000, 1, "random"),                    # 1 bit
+    (4096, 300, "random"),                  # one block's keys exactly
+    (4097, 2 ** 24, "random"),              # 25 bits: 4 passes
+    (10_000, 255, "random"),                # 1 pass
+    (70_000, 50_000, "equal"),              # one key
+    (70_000, 50_000, "sorted"),
+    (0, 100, "random"),
+])
+def test_embedding_bag_backward_sort_matches_plain_twin(dev, n, n_rows,
+                                                        kind):
+    """Kernel 8b's radix sort against ``torch.sort(stable=True)`` on CPU
+    copies: the keys and the permutation equal, the input untouched."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    keys = torch.randint(0, n_rows + 1, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    if kind == "equal":
+        keys.fill_(n_rows // 2)
+    elif kind == "sorted":
+        keys = torch.sort(keys).values
+    copy = keys.clone()
+    before = eb_ops.KERNEL_BWD_SORT.launches
+    got_k, got_p = eb_ops.sort_keys(keys, n_rows)
+    torch.cuda.synchronize()
+    assert eb_ops.KERNEL_BWD_SORT.launches == before + 1
+    want_k, want_p = eb_ops.sort_keys_plain(keys.cpu())
+    assert torch.equal(keys, copy)
+    assert got_p.dtype == torch.int32
+    assert torch.equal(got_k.cpu(), want_k) and torch.equal(got_p.cpu(),
+                                                            want_p)
+
+
+def _autoint_lookup(dev):
+    """AutoInt's training lookup: 65,536 x 39 bags of one into the
+    registered table's rows, float32 D 16."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.models import embedding
+    cfg = get_config("autoint")
+    _, n_rows = embedding.table_meta(cfg)
+    idx = torch.from_numpy(recsys_batch(cfg, 65536, 0)["idx"]).to(dev)
+    ids = embedding.flat_indices(cfg, idx).reshape(-1, 1).to(
+        torch.int32).contiguous()
+    g = torch.Generator(device=dev).manual_seed(14)
+    gout = torch.randn(ids.shape[0], cfg.embed_dim, generator=g, device=dev)
+    return gout, ids, n_rows
+
+
+def _all_kernels():
+    """Every CudaKernel of the port's kernel modules, by C entry."""
+    from repro_torch.kernels.build import CudaKernel
+    mods = (sp_ops, bu_ops, strip, codec_ops, eb_ops, fa_ops, rmat)
+    return {k.name: k for m in mods for k in vars(m).values()
+            if isinstance(k, CudaKernel)}
+
+
+def test_embedding_bag_backward_at_autoint_makes_no_host_sync(dev):
+    """The public entry at AutoInt's shape under sync debug mode "error":
+    no call in it waits for the card (no host read); it launches its key
+    kernel, sort, tile and gradient kernels once each and no other kernel
+    of the port; two calls agree bit for bit."""
+    gout, ids, n_rows = _autoint_lookup(dev)
+    eb_ops.embedding_bag_backward(gout, ids, n_rows)    # builds, warms up
+    torch.cuda.synchronize()
+    kernels = _all_kernels()
+    before = {k: v.launches for k, v in kernels.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eb_ops.embedding_bag_backward(gout, ids, n_rows)
+        again = eb_ops.embedding_bag_backward(gout, ids, n_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    moved = {k: v.launches - before[k] for k, v in kernels.items()
+             if v.launches != before[k]}
+    assert moved == {"embedding_bag_bwd_keys": 2, "embedding_bag_bwd_sort": 2,
+                     "embedding_bag_bwd_tiles": 2, "embedding_bag_bwd": 2}
+    assert torch.equal(got, again)
+    want = eb_ref.embedding_bag_backward(gout.cpu(), ids.cpu(), n_rows)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype,weighted,mode", [
+    (torch.float32, False, "sum"), (torch.bfloat16, True, "mean")])
+def test_embedding_bag_backward_fills_a_poisoned_output(dev, dtype,
+                                                        weighted, mode):
+    """The gradient kernel writes every row of its output: launched into
+    a NaN-filled tensor it leaves no NaN, and equals the plain version."""
+    n_rows = 20_011
+    ids, w = _bags(dev, 2000, 4, n_rows, 15, pads=0.3)
+    wt = w if weighted else None
+    g = torch.Generator(device=dev).manual_seed(16)
+    gout = torch.randn(2000, 16, generator=g, device=dev).to(dtype)
+    out = torch.full((n_rows, 16), float("nan"), dtype=dtype, device=dev)
+    prep = eb_ops.prepare_backward(ids, wt, mode, n_rows)
+    got = eb_ops.launch_backward(gout, prep, n_rows, out=out)
+    torch.cuda.synchronize()
+    assert got is out and not torch.isnan(out).any()
+    want = eb_ref.embedding_bag_backward(
+        gout.cpu(), ids.cpu(), n_rows, None if wt is None else wt.cpu(), mode)
+    assert torch.equal(out.cpu(), want)
 
 
 def test_embedding_bag_autograd_launches_both_kernels(dev):
     table = torch.randn(1000, 16, device=dev, requires_grad=True)
     ids = torch.randint(0, 1000, (64, 1), device=dev, dtype=torch.int32)
     f0, b0 = eb_ops.KERNEL.launches, eb_ops.KERNEL_BWD.launches
+    k0 = eb_ops.KERNEL_BWD_KEYS.launches
     out = eb_ops.embedding_bag_trainable(table, ids)
     (gt,) = torch.autograd.grad(out.sum(), table)
     assert eb_ops.KERNEL.launches == f0 + 1
     assert eb_ops.KERNEL_BWD.launches == b0 + 1
+    assert eb_ops.KERNEL_BWD_KEYS.launches == k0 + 1
     want = eb_ref.embedding_bag_backward(torch.ones(64, 16), ids.cpu(), 1000)
     assert torch.equal(gt.cpu(), want)
 

@@ -3,8 +3,8 @@ every parameter's gradient, the table's included, on the reduced AutoInt
 of the JAX launcher (``launch/train.py``: 8 fields of 100 rows, d 8, 2
 attention layers of 2 heads of 8, MLP 32), batches of 64 from
 ``recsys_batch``; the plain version of kernel 8b against ``jax.grad`` of
-the JAX package's ``embedding_bag`` (sum, mean, weights, pads), and its
-launch prep against a loop.
+the JAX package's ``embedding_bag`` (sum, mean, weights, pads), and the
+plain twin of its launch prep (keys, sort, tile ranges) against a loop.
 
 Tolerances: float32 rtol 1e-4, atol 1e-6 (the same float32 math in
 another order); kernel 8b's plain version against the JAX gradient rtol
@@ -140,26 +140,109 @@ def test_embedding_bag_backward_bf16_and_clamp_against_a_loop():
             assert torch.equal(got, want.to(torch.bfloat16)), (mode, wt)
 
 
-def test_backward_prep_against_a_loop():
-    ids, w, _, _ = _bags(3, n_bags=9, width=4, n_rows=12)
-    ids[2, 1] = 40
-    prep = eb_ops.prepare_backward(torch.from_numpy(ids),
-                                   torch.from_numpy(w), "mean", 12)
+def _terms_by_row(ids, n_rows):
+    """{row: [(b, j), ...]}: each live term under the row it lands on, in
+    flat order."""
     terms = {}
     for b in range(ids.shape[0]):
         for j in range(ids.shape[1]):
             if ids[b, j] >= 0:
-                terms.setdefault(min(int(ids[b, j]), 11), []).append((b, j))
-    rows = sorted(terms)
-    assert prep.seg_rows.tolist() == rows
-    assert prep.seg_rows.dtype == prep.seg_off.dtype == torch.int32
-    counts = [len(terms[r]) for r in rows]
-    assert prep.seg_off.tolist() == list(np.concatenate([[0],
-                                                         np.cumsum(counts)]))
-    flat = [t for r in rows for t in terms[r]]     # flat order in a row
-    assert prep.bags.tolist() == [b for b, _ in flat]
-    assert prep.weights.tolist() == [float(w[b, j]) for b, j in flat]
-    assert torch.equal(prep.den, eb_ref.bag_denominators(
-        torch.from_numpy(ids), torch.from_numpy(w)))
-    plain = eb_ops.prepare_backward(torch.from_numpy(ids), None, "sum", 12)
-    assert plain.weights is None and plain.den is None
+                terms.setdefault(min(int(ids[b, j]), n_rows - 1),
+                                 []).append((b, j))
+    return terms
+
+
+def test_backward_keys_against_a_loop():
+    """The key kernel's plain twin: each term's row clamped to n_rows - 1,
+    the sentinel n_rows for a pad, in flat order; the "mean" divisors bit
+    for bit those of ``ref.bag_denominators``; ``prepare_backward`` on CPU
+    tensors is the plain twins' keys, sorted."""
+    ids, w, _, _ = _bags(3, n_bags=9, width=4, n_rows=12)
+    ids[2, 1] = 40
+    ids[4, 3] = 12                               # one past the table
+    tid, tw = torch.from_numpy(ids), torch.from_numpy(w)
+    keys, den = eb_ops.backward_keys_plain(tid, tw, "mean", 12)
+    want = [12 if i < 0 else min(int(i), 11) for i in ids.reshape(-1)]
+    assert keys.dtype == torch.int32 and keys.tolist() == want
+    assert den.dtype == torch.float32
+    assert torch.equal(den, eb_ref.bag_denominators(tid, tw))
+    assert torch.equal(eb_ops.backward_keys_plain(tid, None, "mean", 12)[1],
+                       eb_ref.bag_denominators(tid, None))
+    assert den[0] == np.float32(1e-9)            # the bag of pads only
+    keys_sum, den_sum = eb_ops.backward_keys_plain(tid, None, "sum", 12)
+    assert torch.equal(keys_sum, keys) and den_sum is None
+    prep = eb_ops.prepare_backward(tid, tw, "mean", 12)
+    sorted_keys, pos = eb_ops.sort_keys_plain(keys)
+    assert torch.equal(prep.keys, sorted_keys)
+    assert torch.equal(prep.pos, pos) and prep.pos.dtype == torch.int32
+    for got, want in zip(eb_ops.sort_keys(keys, 12), (sorted_keys, pos)):
+        assert torch.equal(got, want)
+    assert torch.equal(prep.den, den) and prep.weights is tw
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_backward_sort_keeps_flat_order_within_a_row(weighted):
+    """After the stable sort each row's terms lie together in flat order,
+    the rows ascending and the pads (key n_rows) last; a term's weight is
+    read at its flat position."""
+    ids, w, _, _ = _bags(4, n_bags=11, width=5, n_rows=7)
+    ids[3, 2] = 30
+    wt = torch.from_numpy(w) if weighted else None
+    prep = eb_ops.prepare_backward(torch.from_numpy(ids), wt, "sum", 7)
+    terms = _terms_by_row(ids, 7)
+    flat = [(r, b, j) for r in sorted(terms) for b, j in terms[r]]
+    n_live = len(flat)
+    assert prep.keys.tolist()[:n_live] == [r for r, _, _ in flat]
+    assert prep.keys.tolist()[n_live:] == [7] * (ids.size - n_live)
+    assert prep.pos.tolist()[:n_live] == [b * 5 + j for _, b, j in flat]
+    pads = prep.pos.tolist()[n_live:]
+    assert pads == sorted(pads) and all(ids.reshape(-1)[pads] < 0)
+    assert prep.width == 5 and prep.den is None
+    if weighted:
+        got = prep.weights.reshape(-1)[prep.pos[:n_live]].tolist()
+        assert got == [float(w[b, j]) for _, b, j in flat]
+    else:
+        assert prep.weights is None
+
+
+@pytest.mark.parametrize("items", [1, 3, 50])
+def test_backward_tile_bounds_against_a_loop(items):
+    """The tiles, the gradient kernel's blocks: the row marks (row 12 the
+    end) and the terms in one sequence, a row's mark before its terms;
+    tile b owns the rows whose marks lie in [b * items, (b + 1) * items)
+    and their terms.  At one place a tile, three, and past all of them;
+    a tile has at most ``items`` rows, and at most ``items`` terms but
+    its last row's."""
+    ids, w, _, _ = _bags(5, n_bags=9, width=4, n_rows=12)
+    ids[1, 1] = 50
+    ids[6] = 4                                   # a row of many terms
+    prep = eb_ops.prepare_backward(torch.from_numpy(ids),
+                                         torch.from_numpy(w), "mean", 12)
+    got = eb_ops.tile_bounds_plain(prep.keys, 12, items)
+    assert got.dtype == torch.int32
+    assert torch.equal(eb_ops.tile_bounds(prep.keys, 12, items), got)
+    terms = _terms_by_row(ids, 12)
+    count = [len(terms.get(r, [])) for r in range(13)]
+    marks = [r + sum(count[:r]) for r in range(13)]
+    n_tiles = -(-(13 + ids.size) // items)
+    assert eb_ops.n_tiles(ids.size, 12, items) == n_tiles
+    want = []
+    for b in range(n_tiles + 1):
+        first = next((r for r in range(13) if marks[r] >= b * items), 12)
+        want.append([first, sum(count[:first])])
+    assert got.tolist() == want
+    for (r0, k0), (r1, k1) in zip(want, want[1:]):
+        assert r1 - r0 <= items
+        assert k1 - k0 <= items or k1 - k0 - count[r1 - 1] <= items
+
+
+@pytest.mark.parametrize("dim,elt,want", [
+    (16, 4, 480), (16, 2, 480), (64, 2, 120), (7, 4, 1024), (1, 4, 1024),
+    (1100, 4, 7)])
+def test_backward_tile_items(dim, elt, want):
+    """A tile's rows plus terms: 15/16 of the terms a block stages, each
+    a slice of ``lanes * vec`` floats, at most MAX_ITEMS."""
+    vec, lanes = eb_ops.layout(dim, elt, True)
+    items = eb_ops.tile_items(vec, lanes)
+    assert items == want and items <= eb_ops.MAX_ITEMS
+    assert items * lanes * vec <= eb_ops.STAGE_FLOATS
