@@ -212,9 +212,46 @@ Phases, in the order they run:
                  --full for 4 steps, autoint and bfs-rmat at the
                  launcher's defaults) and examples.train_lm as processes
                  of their own
+ 19 new LMs      (a) qwen3-moe-30b-a3b at the registered width and depth
+                 (48 layers, 128 experts top-8, bf16, seeded layer by
+                 layer; under 2 GiB allocated as it starts) served through
+                 Server: 8 requests, 32 new tokens each; prefill ms,
+                 decode ms a step, tokens/s, peak < 72 GiB; the plain-
+                 attention path's logit gaps printed; each layer, fed the
+                 kernel path's input, held kernel 9 against the plain
+                 attention within MOE_LAYER_TOL on the tokens whose expert
+                 sets agree, the flipped share at most MOE_FLIP_MAX, and
+                 the whole model's flips and logit gap printed; (b)
+                 mixtral-8x22b at the registered width cut to 8 of 56
+                 layers: a 6,144-token prompt (the 4,096 window masks
+                 keys) and 16 decode steps, held the same way; (c)
+                 stablelm-3b and starcoder2-7b at the registered widths
+                 and depths, 4 requests each, held end to end within
+                 LOGIT_TOL_BF16 (layer by layer where a full-depth gap
+                 exceeds it, and so printed); (d) kernel 9 at each
+                 config's first prefill and last decode call against its
+                 plain version, the first and last 128 query rows; (e)
+                 the simulated 2x4 mesh at qwen3's widths:
+                 moe_ep_shardmap over 4,096 tokens against _moe_reference
+                 and the drops at capacity_factor 1.0, moe_decode_psum,
+                 the row-sharded AutoInt lookup at serve_bulk's ids on 4
+                 model shards bit for bit, dp_step's three modes on 4
+                 replicas within the JAX test's convergence bounds; each
+                 exchange counted by a ScheduleRecorder
+ 20 MoE training qwen3-moe-30b-a3b at the registered width cut to 2 of
+                 48 layers (AdamW's moments of the whole model are 242
+                 GB): B 4 x S 1,024 for 20 steps through the Trainer,
+                 checkpointing at step 10, resumed from step 10 bit for
+                 bit; the loss falling, peak < 56 GiB, kernels 9 and 9b
+                 every step and no plain version (the tripwire); the same
+                 run under qwen3-moe-r1 (remat "dots"), its losses beside;
+                 then launch.serve --arch qwen3-moe-30b-a3b and
+                 launch.train --arch mixtral-8x22b at their reduced
+                 defaults as processes of their own
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.  ``python3 chip_smoke.py --backward`` runs phase 17 alone
-(its checks and times, no result line).
+(its checks and times, no result line); ``--moe`` runs phases 19-20
+alone.
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
@@ -2030,18 +2067,20 @@ def train_phase(dev, kernels) -> dict:
     return rec
 
 
-def run_train_drivers() -> dict:
-    """Phase 18's drivers: each of TRAIN_DRIVERS in a process of its own
-    on the card, as users run them, a checkpoint directory of its own
-    under build/; each must exit 0 and print its line."""
+def run_train_drivers(drivers=TRAIN_DRIVERS) -> dict:
+    """Phase 18's (and 20's) drivers: each of ``drivers`` in a process of
+    its own on the card, as users run them, a trainer's checkpoint
+    directory of its own under build/; each must exit 0 and print its
+    line."""
     import os
     import shutil
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     rec = {}
-    for label, module, args, want in TRAIN_DRIVERS:
+    for label, module, args, want in drivers:
         ck = tempfile.mkdtemp(prefix="train_ck_", dir=ROOT / "build")
-        extra = [] if "bfs" in label else ["--ckpt-dir", ck]
+        trains = "train" in module and "bfs" not in label
+        extra = ["--ckpt-dir", ck] if trains else []
         ts = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", module, *args, *extra],
                            cwd=ROOT, env=env, capture_output=True, text=True,
@@ -2056,6 +2095,686 @@ def run_train_drivers() -> dict:
               f"in {wall:.1f} s: {hit[-1]}")
         rec[label] = {"wall_s": wall, "line": hit[-1]}
     return rec
+
+
+# ------------------------------------------- MoE and the new LM configs
+# phases 19-20: the four LM configs that came with the MoE layers,
+# served and trained at the registered widths
+NEW_LM_START_GIB = 2.0        # allocated when phase 19 starts
+QWEN_PEAK_GIB = 72.0          # PERF.md section 2: 56.3 GiB of bf16 weights
+MIXTRAL_LAYERS = 8            # of 56: 5.008 GB a layer, 280.9 GB in all
+MIXTRAL_PROMPT, MIXTRAL_NEW = 6144, 16   # a prompt the 4,096 window masks
+DENSE_REQUESTS = 4            # stablelm-3b and starcoder2-7b
+# Phase 19's layer-by-layer hold: each layer, fed the kernel path's
+# input, run with kernel 9 and with the plain attention; the gap of the
+# two outputs over max|output| of the plain run, on the tokens whose
+# top-k expert sets agree in both runs.  Derivation: kernel 9 is within
+# ref.tolerance of the plain attention, 2**-7 |o| + 1.25 * 2**-8 max|v|,
+# so within 2**-6 of max|v|; the output projection keeps that relative
+# size (the error and the signal are sums over the same Hq * dh terms);
+# the SwiGLU FFN, about 1-Lipschitz at these scales, carries it once
+# more; the two bf16 roundings of the residual stream (+ attention, then
+# + FFN) add half an ulp each, 2**-9 of max|output|.  2 * 2**-6 + 2 *
+# 2**-9 = 0.035: max 0.05.  Most elements differ by their rounding
+# alone, at most 2**-9 of max|output| on average: mean 0.005.
+MOE_LAYER_TOL = {"max": 0.05, "mean": 0.005}
+# A token's expert set flips where its k-th and (k+1)-th router logits lie
+# closer than the logits move: the input of the router moves by about
+# 2**-8 of its size (an ulp of bf16 where the attention's gap crosses a
+# rounding edge), its logits, about N(0, 1) at these weights, by about
+# 0.003, and the gap between the 8th and 9th largest of 128 such logits
+# is about 0.06 on average: about 5% of the tokens a layer (fewer at 8
+# experts top-2, whose gap is wider).  A wrong mask or head mapping moves
+# the logits by their own scale and flips most of them.
+MOE_FLIP_MAX = 0.25
+EP_GRID = (2, 4)              # phase 19e's simulated "data" x "model" mesh
+EP_TOKENS = 4096
+EP_CAP_MULT = 0.1             # queue capacity 128: a shard's 512 tokens
+#                               choose an expert about 32 times
+EP_TOL = 2e-5                 # float32 against max|reference| (two sums
+#                               over 2,048 and 768 terms in other orders)
+DP_STEPS = 100                # tests/_dist_nn_main.py's dp_compress run
+MOE_TRAIN_LAYERS = 2          # of 48: AdamW's float32 moments of all
+#                               30.2 B parameters are 242 GB
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 1024
+# PERF.md section 2: 1.557 B parameters, 2.9 GiB in bf16, 2.9 GiB of
+# gradients, 11.6 GiB of float32 moments, the optimizer's new state beside
+# the old (14.5 GiB), a layer's MoE activations recomputed (about 8 GiB at
+# 4,096 tokens) and the logit chunks: about 41 GiB
+MOE_TRAIN_PEAK_GIB = 56.0
+NEW_DRIVERS = [
+    ("launch.serve qwen3-moe-30b-a3b", "repro_torch.launch.serve",
+     ["--arch", "qwen3-moe-30b-a3b"], "req5:"),
+    ("launch.train mixtral-8x22b", "repro_torch.launch.train",
+     ["--arch", "mixtral-8x22b", "--steps", "20"],
+     "mixtral-8x22b: 20 steps")]
+
+
+def free_card() -> float:
+    """Collect garbage and return cached blocks; GiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def gap_on(got, want, rows=None) -> dict:
+    """{"max", "mean"} of |got - want| over max|want|, on the (token, :)
+    rows where ``rows`` (a bool mask over the flattened tokens) holds."""
+    d = (got.float() - want.float()).abs().reshape(-1, got.shape[-1])
+    if rows is not None:
+        d = d[rows]
+    scale = float(want.float().abs().max())
+    if d.numel() == 0:
+        return {"max": 0.0, "mean": 0.0}
+    return {"max": float(d.max()) / scale, "mean": float(d.mean()) / scale}
+
+
+def layer_hold(cfg, params, tokens, dev) -> dict:
+    """Phase 19's hold, layer by layer, of the prefill of ``tokens``:
+    each layer fed the kernel path's input and run with kernel 9 and with
+    the plain attention, held within MOE_LAYER_TOL on the tokens whose
+    expert sets agree (at most MOE_FLIP_MAX flipped); beside it the
+    plain path run on its own inputs, whose expert choices and final
+    logits are printed against the kernel path's."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import rms_norm
+    b, s = tokens.shape
+    keys = tf.layer_keys(cfg)
+    dt = params["wq"].dtype
+    kv = (b, s, cfg.n_kv_heads, cfg.d_head)
+
+    def run(h, lp, attn):
+        ck = torch.empty(kv, dtype=dt, device=dev)
+        cv = torch.empty(kv, dtype=dt, device=dev)
+        a = tf._attn(h, lp, cfg, 0, ck, cv, attn)
+        sets = None
+        if cfg.moe is not None:
+            hn = rms_norm(a, lp["ln2"], cfg.norm_eps).reshape(b * s, -1)
+            sets = tf.moe_route(hn, lp["router"], cfg.moe.top_k)[1].sort(
+                -1).values
+        return tf._ffn(a, lp, cfg), sets
+
+    rows = []
+    with torch.inference_mode():
+        h_k = params["embed"][tokens].to(dt)
+        h_p = h_k
+        for i in range(cfg.n_layers):
+            lp = {k: params[k][i] for k in keys}
+            out_k, set_k = run(h_k, lp, tf.kernel_attention)
+            out_p, set_p = run(h_k, lp, tf.plain_attention)
+            traj, set_t = run(h_p, lp, tf.plain_attention)
+            agree = None if set_k is None else (set_k == set_p).all(-1)
+            flips = 0.0 if agree is None else 1 - float(agree.float().mean())
+            flips_t = 0.0 if set_k is None else 1 - float(
+                (set_k == set_t).all(-1).float().mean())
+            gap = gap_on(out_k, out_p, agree)
+            rows.append({"layer": i, **gap, "flips": flips,
+                         "flips_trajectory": flips_t})
+            for key, lim in MOE_LAYER_TOL.items():
+                check(gap[key] <= lim, f"{cfg.arch} layer {i}: {key} gap "
+                                       f"{gap[key]:.5f} > {lim} on the "
+                                       f"tokens whose experts agree")
+            check(flips <= MOE_FLIP_MAX, f"{cfg.arch} layer {i}: "
+                                         f"{flips:.3f} of the tokens chose "
+                                         f"other experts")
+            h_k, h_p = out_k, traj
+        logits = [torch.einsum(
+            "bd,vd->bv", rms_norm(h, params["final_ln"], cfg.norm_eps)[
+                :, -1].float(), params["embed"].float())
+            for h in (h_k, h_p)]
+    whole = tf.logit_gap(*logits)
+    mx = max(rows, key=lambda r: r["max"])
+    print(f"{cfg.arch} layer by layer ({cfg.n_layers} layers, {b} x {s} "
+          f"tokens, each layer fed the kernel path's input): worst max gap "
+          f"{mx['max']:.5f} (layer {mx['layer']}), worst mean gap "
+          f"{max(r['mean'] for r in rows):.5f} (limits {MOE_LAYER_TOL}); "
+          f"expert sets flipped at the same input: "
+          f"{float(np.mean([r['flips'] for r in rows])):.4f} of the (token, "
+          f"layer) pairs, at most {max(r['flips'] for r in rows):.4f} a "
+          f"layer (limit {MOE_FLIP_MAX})")
+    print(f"{cfg.arch} whole model, each path on its own inputs: expert "
+          f"sets differ at {float(np.mean([r['flips_trajectory'] for r in rows])):.4f} "
+          f"of the (token, layer) pairs; last-position logit gap max "
+          f"{whole['max']:.5f}, mean {whole['mean']:.5f} over max|logit|")
+    return {"layers": rows, "whole_model_gap": whole,
+            "flip_share": float(np.mean([r["flips"] for r in rows])),
+            "flip_share_trajectory": float(np.mean(
+                [r["flips_trajectory"] for r in rows]))}
+
+
+def serve_config(dev, kernels, cfg, params, prompts, n_new, max_batch,
+                 max_len, bucket) -> dict:
+    """Serve ``prompts`` through ``Server`` with attention through kernel
+    9: each prefill and decode call timed, layer 0's call of kernel 9
+    recorded (copied), the launches counted; then the plain-attention
+    path teacher-forced on the same calls, its logit gaps printed."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import make_lm_server
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.server import Request
+    server = make_lm_server(cfg, params, dev, max_batch=max_batch,
+                            max_len=max_len, bucket=bucket)
+    log = []
+    pre, dec = server.prefill_fn, server.decode_fn
+
+    def timed(kind, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - ts) * 1e3
+            tok = a[0] if kind == "prefill" else a[1]
+            log.append((kind, ms, tok.clone(), None if kind == "prefill"
+                        else a[2], out[1].clone()))
+            return out
+        return call
+    server.prefill_fn = timed("prefill", pre)
+    server.decode_fn = timed("decode", dec)
+    reqs = [Request(prompt=p, max_new_tokens=n_new) for p in prompts]
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording([(fa_ops, "flash_attention_gqa", "flash_attention")],
+                   every=cfg.n_layers, clone=True) as calls, \
+            torch.inference_mode():
+        ts = time.perf_counter()
+        done = server.serve(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - ts
+    launches = fa_ops.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == len(log) * cfg.n_layers,
+          f"{cfg.arch}: flash_attention launched {launches} times for "
+          f"{len(log)} calls of {cfg.n_layers} layers")
+    n_gen = sum(len(r.out) for r in done)
+    check(n_gen == len(prompts) * n_new and all(
+        ((r.out >= 0) & (r.out < cfg.vocab)).all() for r in done),
+        f"{cfg.arch}: served tokens missing or out of the vocabulary")
+    pre_ms = [x[1] for x in log if x[0] == "prefill"]
+    dec_ms = [x[1] for x in log if x[0] == "decode"]
+    gaps = []
+    with torch.inference_mode():
+        for kind, _, tok, pos, logits in log:
+            check(bool(torch.isfinite(logits).all()),
+                  f"{cfg.arch}: non-finite logits")
+            if kind == "prefill":
+                c = tf.init_kv_cache(cfg, max_batch, max_len, device=dev)
+                c, want = tf.prefill(params, tok, c, cfg,
+                                     attn=tf.plain_attention)
+            else:
+                c, want = tf.decode_step(params, c, tok, pos, cfg,
+                                         attn=tf.plain_attention)
+            gaps.append((kind, tf.logit_gap(logits, want)))
+        del c
+    dmed = float(np.median(dec_ms))
+    print(f"{cfg.arch}: {len(prompts)} requests (prompts "
+          f"{[len(p) for p in prompts]}), {n_new} new tokens each, "
+          f"max_batch {max_batch}, bucket {bucket}: prefill ms "
+          f"{[round(x, 3) for x in pre_ms]}; decode ms a step median "
+          f"{dmed:.4f} (min {min(dec_ms):.4f}, max {max(dec_ms):.4f}, "
+          f"{len(dec_ms)} steps of {max_batch} rows); {n_gen / serve_s:.3f} "
+          f"tokens/s end to end, decode {max_batch / (dmed / 1e3):.3f} "
+          f"tokens/s at the median step; peak {peak:.3f} GiB; kernel 9 "
+          f"launched {launches} times ({smi_line()})")
+    pg = [g for k, g in gaps if k == "prefill"]
+    dg = [g for k, g in gaps if k == "decode"]
+    print(f"{cfg.arch} whole model, kernel path vs plain path, logit gaps "
+          f"over max|logit|: prefill max {[round(g['max'], 5) for g in pg]}, "
+          f"teacher-forced decode ({len(dg)} steps) max of max "
+          f"{max(g['max'] for g in dg):.5f}, max of mean "
+          f"{max(g['mean'] for g in dg):.5f}")
+    return {"calls": calls, "log": log, "launches": launches, "gaps": gaps,
+            "record": {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                       "decode_median_ms": dmed, "serve_s": serve_s,
+                       "tokens_per_s": n_gen / serve_s, "peak_gib": peak,
+                       "launches": launches, "gaps": gaps,
+                       "prompt_lens": [len(p) for p in prompts]}}
+
+
+def kernel9_slices(calls, label) -> float:
+    """Phase 19d: kernel 9 launched again at the first prefill call and
+    the last decode call recorded at layer 0 (q, k, v copied as the call
+    saw them), its first and last 128 query rows of the first and last
+    sequences held against the plain version; the largest error."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    worst = 0.0
+    picks = [calls[0], calls[-1]]
+    for _, (q, k, v), kw in picks:
+        causal, window, off = kw["causal"], kw["window"], kw["q_offset"]
+        out = fa_ops.launch(q, k, v, causal, window, off)
+        b, sq = q.shape[:2]
+        rows = min(128, sq)
+        for i in sorted({0, b - 1}):
+            for r0 in sorted({0, sq - rows}):
+                e, r = attn_close(out[i:i + 1, r0:r0 + rows],
+                                  q[i:i + 1, r0:r0 + rows], k[i:i + 1],
+                                  v[i:i + 1], causal, window, off + r0)
+                worst = max(worst, e)
+        print(f"kernel 9 at {label}'s {'prefill' if sq > 1 else 'decode'} "
+              f"call (q {tuple(q.shape)}, {k.shape[1]} keys, window "
+              f"{window}, q_offset {off}): the first and last {rows} query "
+              f"rows of sequences 0 and {b - 1} within ref.tolerance, max "
+              f"|kernel - plain| {e:.3e}")
+    return worst
+
+
+def serve_qwen(dev, kernels) -> dict:
+    """Phase 19a: qwen3-moe-30b-a3b at the registered width and depth."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config("qwen3-moe-30b-a3b")
+    start = free_card()
+    print(f"device memory allocated as the phase starts: {start:.3f} GiB "
+          f"(limit {NEW_LM_START_GIB})")
+    check(start < NEW_LM_START_GIB, f"{start:.3f} GiB still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.values())
+    print(f"qwen3-moe-30b-a3b: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}: {n_par:,} "
+          f"parameters (n_params() {cfg.n_params():,}, active "
+          f"{cfg.n_active_params():,}), {n_par * 2 / 2**30:.3f} GiB, made on "
+          f"the card layer by layer in {time.perf_counter() - t0:.3f} s")
+    check(n_par == cfg.n_params(), "parameter count differs from n_params()")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1025, LM_REQUESTS)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    sv = serve_config(dev, kernels, cfg, params, prompts, LM_NEW,
+                      LM_MAX_BATCH, LM_MAX_LEN, LM_BUCKET)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(peak < QWEN_PEAK_GIB, f"qwen3-moe-30b-a3b peak {peak:.3f} GiB")
+    err = kernel9_slices(sv["calls"], cfg.arch)
+    hold = layer_hold(cfg, params, sv["log"][0][2], dev)
+    # where a prefill's and a decode step's time goes: every expert on
+    # every token (_moe_reference) against attention and the rest
+    prof = {}
+    tokens = sv["log"][0][2]
+    tok = torch.ones(LM_MAX_BATCH, 1, dtype=torch.int32, device=dev)
+    cache = tf.init_kv_cache(cfg, LM_MAX_BATCH, LM_MAX_LEN, device=dev)
+    with torch.inference_mode():
+        print(f"-- profile of one prefill of {tuple(tokens.shape)}")
+        prof["prefill"] = profile_call(
+            lambda: tf.prefill(params, tokens, cache, cfg), "prefill")
+        print("-- profile of one decode step (4 rows at position 1500)")
+        prof["decode"] = profile_call(
+            lambda: tf.decode_step(params, cache, tok, 1500, cfg),
+            "decode step")
+    del cache
+    print(f"qwen3-moe-30b-a3b peak device memory over the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (limit "
+          f"{QWEN_PEAK_GIB})")
+    return {"launches": sv["launches"], "err": err,
+            "record": {**sv["record"], "hold": hold, "k9_err": err,
+                       "profile": prof}}
+
+
+def serve_mixtral(dev, kernels) -> dict:
+    """Phase 19b: mixtral-8x22b at the registered width, cut in depth."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    n_par = sum(p.numel() for p in params.values())
+    print(f"mixtral-8x22b cut to {MIXTRAL_LAYERS} of {full.n_layers} layers "
+          f"(its {full.n_params() * 2 / 1e9:.1f} GB of bf16 parameters do "
+          f"not fit one card): d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, window "
+          f"{cfg.swa_window}: {n_par:,} parameters, "
+          f"{n_par * 2 / 1e9:.3f} GB")
+    prompt = np.random.default_rng(1).integers(
+        1, cfg.vocab, MIXTRAL_PROMPT).astype(np.int32)
+    sv = serve_config(dev, kernels, cfg, params, [prompt], MIXTRAL_NEW, 1,
+                      MIXTRAL_PROMPT + LM_BUCKET, LM_BUCKET)
+    err = kernel9_slices(sv["calls"], cfg.arch)
+    hold = layer_hold(cfg, params, sv["log"][0][2], dev)
+    return {"launches": sv["launches"], "err": err,
+            "record": {**sv["record"], "hold": hold, "k9_err": err,
+                       "layers": MIXTRAL_LAYERS}}
+
+
+def serve_dense(dev, kernels, arch) -> dict:
+    """Phase 19c: a dense config at the registered width and depth, 4
+    requests, held end to end within LOGIT_TOL_BF16; where a full-depth
+    gap exceeds it, held layer by layer instead (and so printed)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    n_par = sum(p.numel() for p in params.values())
+    print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}: {n_par:,} parameters, {n_par * 2 / 1e9:.3f} GB")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in rng.integers(64, 1025, DENSE_REQUESTS)]
+    sv = serve_config(dev, kernels, cfg, params, prompts, LM_NEW,
+                      LM_MAX_BATCH, LM_MAX_LEN, LM_BUCKET)
+    err = kernel9_slices(sv["calls"], arch)
+    over = [(k, g) for k, g in sv["gaps"] if any(
+        g[key] > lim for key, lim in tf.LOGIT_TOL_BF16.items())]
+    rec = {**sv["record"], "k9_err": err, "held": "end to end"}
+    if over:
+        print(f"{arch}: {len(over)} of {len(sv['gaps'])} calls' full-depth "
+              f"logit gaps exceed LOGIT_TOL_BF16 {tf.LOGIT_TOL_BF16} (worst "
+              f"{max(g['max'] for _, g in over):.5f}): held layer by layer")
+        rec["held"] = "layer by layer"
+        rec["hold"] = layer_hold(cfg, params, sv["log"][0][2], dev)
+    else:
+        print(f"{arch}: every call's full-depth logits within "
+              f"LOGIT_TOL_BF16 {tf.LOGIT_TOL_BF16}")
+    return {"launches": sv["launches"], "err": err, "record": rec}
+
+
+def mesh_checks(dev) -> dict:
+    """Phase 19e: the simulated mesh's exchanges at the registered
+    widths, each counted by a ScheduleRecorder."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.collectives import ScheduleRecorder
+    from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+    from repro_torch.models import embedding
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.optim import dp_step
+    from repro_torch.optim.adamw import SGDM
+    free_card()
+    rec = {}
+    cfg = get_config("qwen3-moe-30b-a3b")
+    ctx = ShardCtx(make_local_mesh(*EP_GRID, device=dev))
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    d, e_n, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    x = rnd(EP_TOKENS, d)
+    w = [rnd(d, e_n, scale=d ** -0.5), rnd(e_n, d, f, scale=d ** -0.5),
+         rnd(e_n, d, f, scale=d ** -0.5), rnd(e_n, f, d, scale=f ** -0.5)]
+    n_dev = EP_GRID[0] * EP_GRID[1]
+    tp = EP_GRID[1]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        want = tf._moe_reference(x, *w, cfg)
+        cap = tf.ep_capacity(EP_TOKENS // n_dev, cfg, tp, EP_CAP_MULT)
+        r = tf.ep_route(x.reshape(n_dev, -1, d), w[0], cfg, tp, cap)
+        check(bool(r["keep"].all()), f"capacity {cap} dropped choices")
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with ScheduleRecorder() as sched:
+            got = tf.moe_ep_shardmap(x, *w, cfg, ctx,
+                                     capacity_mult=EP_CAP_MULT)
+        torch.cuda.synchronize()
+        ep_ms = (time.perf_counter() - ts) * 1e3
+        gap = gap_on(got, want)
+        check(sched.counts() == {"all-to-all": 2, "total": 2},
+              f"moe_ep_shardmap recorded {sched.counts()}")
+        check(gap["max"] <= EP_TOL, f"moe_ep_shardmap off _moe_reference by "
+                                    f"{gap['max']:.3e} of max|reference|")
+        r2 = dataclasses.replace(cfg.moe, capacity_factor=1.0)
+        cfg2 = dataclasses.replace(cfg, moe=r2)
+        cap2 = tf.ep_capacity(EP_TOKENS // n_dev, cfg2, tp)
+        drops = int((~tf.ep_route(x.reshape(n_dev, -1, d), w[0], cfg2, tp,
+                                  cap2)["keep"]).sum())
+        print(f"moe_ep_shardmap on a simulated {EP_GRID[0]}x{EP_GRID[1]} "
+              f"('data', 'model') mesh at qwen3-moe-30b-a3b's widths, "
+              f"{EP_TOKENS} float32 tokens, {e_n} experts top-"
+              f"{cfg.moe.top_k}, queue capacity {cap}: {ep_ms:.3f} ms, "
+              f"{sched.counts()['all-to-all']} all_to_alls recorded, max "
+              f"|EP - reference| {gap['max']:.3e} of max|reference| (limit "
+              f"{EP_TOL}), nothing dropped; at capacity_factor 1.0 "
+              f"(qwen3-moe-r2) capacity {cap2}: {drops} of "
+              f"{EP_TOKENS * cfg.moe.top_k} choices dropped; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        xd = x[:LM_MAX_BATCH]
+        with ScheduleRecorder() as sched_d:
+            got_d = tf.moe_decode_psum(xd, *w, cfg, ctx)
+        gap_d = gap_on(got_d, tf._moe_reference(xd, *w, cfg))
+        check(sched_d.counts() == {"all-reduce": 1, "total": 1},
+              f"moe_decode_psum recorded {sched_d.counts()}")
+        check(gap_d["max"] <= EP_TOL, f"moe_decode_psum off by "
+                                      f"{gap_d['max']:.3e}")
+        print(f"moe_decode_psum, {LM_MAX_BATCH} decode tokens on the same "
+              f"mesh: 1 psum recorded, max |psum - reference| "
+              f"{gap_d['max']:.3e} of max|reference|")
+    rec["ep"] = {"ms": ep_ms, "gap": gap, "cap": cap, "drops_cf1": drops,
+                 "cap_cf1": cap2, "decode_gap": gap_d}
+    del x, w, want, got, r
+    free_card()
+    # the row-sharded lookup over the registered AutoInt table
+    ai = get_config("autoint")
+    bulk = next(s for s in ai.shapes if s.name == "serve_bulk")
+    ga = torch.Generator(device=dev).manual_seed(SEED + 20)
+    table = embedding.init_table(ai, ga, dev)
+    idx = torch.stack([torch.randint(0, v, (bulk.batch,), generator=ga,
+                                     device=dev)
+                       for v in ai.vocab_sizes], 1).to(torch.int32)
+    rows = embedding.flat_indices(ai, idx)
+    ctx4 = ShardCtx(make_local_mesh(1, 4, device=dev))
+    with torch.inference_mode():
+        want = embedding.lookup(table, rows)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with ScheduleRecorder() as sched_l:
+            got = embedding.lookup(table, rows, ctx4)
+        torch.cuda.synchronize()
+        lk_ms = (time.perf_counter() - ts) * 1e3
+    same = bool(torch.equal(got, want))
+    check(same, "the row-sharded lookup differs from the lookup with no mesh")
+    check(sched_l.counts() == {"all-reduce": 1, "total": 1},
+          f"the sharded lookup recorded {sched_l.counts()}")
+    print(f"row-sharded lookup of the registered AutoInt table "
+          f"({table.shape[0]:,} rows x {table.shape[1]}) on 4 'model' "
+          f"shards, serve_bulk's {rows.numel():,} ids: {lk_ms:.3f} ms, 1 psum "
+          f"recorded, bit for bit the lookup with no mesh (kernel 8)")
+    rec["lookup"] = {"ms": lk_ms, "ids": rows.numel(), "bit_for_bit": same}
+    del table, idx, rows, want, got
+    free_card()
+    # dp_step's three modes on 4 simulated replicas: the JAX test's run
+    mesh = make_local_mesh_1d(4, device=dev)
+    rng = np.random.default_rng(0)
+    w_true = torch.from_numpy((rng.normal(size=(16, 1)) * 0.3).astype(
+        np.float32)).to(dev)
+    opt = SGDM(lr=0.02, momentum=0.8)
+
+    def loss_fn(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+    rec["dp"], l0 = {}, None
+    for mode in dp_step.MODES:
+        step = dp_step.make_dp_compressed_step(loss_fn, opt, mesh, "data",
+                                               mode=mode, ratio=0.25)
+        state = dp_step.init_dp_state({"w": torch.zeros(16, 1, device=dev)},
+                                      opt, mesh)
+        for i in range(DP_STEPS):
+            xb = torch.from_numpy(rng.normal(size=(4 * 8, 16)).astype(
+                np.float32)).to(dev)
+            with ScheduleRecorder() as sched_p:
+                state, m = step(state, {"x": xb, "y": xb @ w_true})
+            if l0 is None:
+                l0 = float(m["loss"])
+        last = float(m["loss"])
+        rec["dp"][mode] = {"final_loss": last,
+                           "residual_replicas": tuple(
+                               state[2].residual["w"].shape)}
+        check(sched_p.counts() == {"all-reduce": 2, "total": 2},
+              f"dp_step {mode} recorded {sched_p.counts()}")
+    lim = {"none": 0.05, "int8": 0.05, "topk": 0.5}
+    for mode, r_ in rec["dp"].items():
+        check(r_["final_loss"] < lim[mode] * l0,
+              f"dp_step {mode}: loss {r_['final_loss']} after {DP_STEPS} "
+              f"steps, not below {lim[mode]} x the first {l0}")
+    print(f"dp_step on 4 simulated replicas, {DP_STEPS} steps each (the JAX "
+          f"test's run): first loss {l0:.4f}; final "
+          + ", ".join(f"{m} {r_['final_loss']:.5f} (< {lim[m]} x first)"
+                      for m, r_ in rec["dp"].items())
+          + "; 2 pmeans a step recorded; top-k residuals stacked "
+          f"{rec['dp']['topk']['residual_replicas']}")
+    rec["dp"]["first_loss"] = l0
+    return rec
+
+
+def moe_train_phase(dev, kernels) -> dict:
+    """Phase 20: qwen3-moe-30b-a3b at the registered width, cut in depth,
+    trained through the launcher's setup and the Trainer with a
+    checkpoint at step 10, resumed; the same run under qwen3-moe-r1
+    (remat "dots"); then the launchers of the new archs as processes."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.optim.adamw import AdamW
+    free_card()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_moe_", dir=ROOT / "build"))
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = reduced(full, n_layers=MOE_TRAIN_LAYERS)
+    cfg_r1 = reduced(get_config("qwen3-moe-r1"), n_layers=MOE_TRAIN_LAYERS)
+    opt = AdamW(lr=1e-3, total_steps=100, warmup_steps=5,
+                schedule="constant")
+    keys = ("flash_attention", "flash_attention_bwd")
+    lse_pass = fa_ops.KERNEL_BWD_LSE.launches
+    launches = {k: 0 for k in keys}
+
+    def setup(c):
+        return lambda: lm_setup(c, dev, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, opt,
+                                seq_chunk=LM_TRAIN_CHUNK)
+    rec = {}
+    with plain_tripwire() as plain_calls:
+        torch.cuda.reset_peak_memory_stats()
+        a, losses, times, per_step = train_run(
+            "qwen3-moe-30b-a3b", setup(cfg), TRAIN_STEPS, work / "a",
+            kernels, keys)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_par = sum(p.numel() for p in a[0].values())
+        shutil.copytree(work / "a" / f"step_{TRAIN_RESUME_AT:010d}",
+                        work / "b" / f"step_{TRAIN_RESUME_AT:010d}")
+        shutil.rmtree(work / "a", ignore_errors=True)
+        b, losses_b, times_b, per_step_b = train_run(
+            "qwen3-moe-30b-a3b", setup(cfg), TRAIN_STEPS, work / "b",
+            kernels, keys, resume=True)
+        shutil.rmtree(work / "b", ignore_errors=True)
+        same = (losses_b == losses[TRAIN_RESUME_AT:]
+                and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+                and all(torch.equal(a[1].mu[k], b[1].mu[k])
+                        and torch.equal(a[1].nu[k], b[1].nu[k])
+                        for k in a[1].mu))
+        del a, b
+        free_card()
+        # the same run under remat "dots", without checkpoints
+        state, step_fn, make_batch = setup(cfg_r1)()
+        losses_r1 = []
+        for s in range(TRAIN_STEPS):
+            state, m = step_fn(state, make_batch(s))
+            losses_r1.append(float(m["loss"]))
+        del state
+        free_card()
+        for ps in per_step + per_step_b:
+            for k in keys:
+                launches[k] += ps[k]
+    step_s = float(np.median(times[1:]))
+    tok = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    r1_gap = max(abs(x - y) / abs(y) for x, y in zip(losses_r1, losses))
+    print(f"qwen3-moe-30b-a3b cut to {MOE_TRAIN_LAYERS} of {full.n_layers} "
+          f"layers ({n_par:,} parameters; AdamW's float32 moments of the "
+          f"whole model would be {full.n_params() * 8 / 1e9:.0f} GB), bf16, "
+          f"remat {cfg.remat_policy}, B {MOE_TRAIN_BATCH} x S "
+          f"{MOE_TRAIN_SEQ}, seq_chunk {LM_TRAIN_CHUNK}: step "
+          f"{step_s * 1e3:.3f} ms median (first {times[0] * 1e3:.1f} ms), "
+          f"{tok / step_s:,.1f} tokens/s; loss step 0 {losses[0]:.4f}, step "
+          f"{TRAIN_RESUME_AT} {losses[TRAIN_RESUME_AT]:.4f}, step "
+          f"{TRAIN_STEPS - 1} {losses[-1]:.4f}; peak {peak:.3f} GiB (limit "
+          f"{MOE_TRAIN_PEAK_GIB}) ({smi_line()})")
+    print(f"resumed from step {TRAIN_RESUME_AT}: losses, params and AdamW "
+          f"moments bit for bit {same}; qwen3-moe-r1 (remat dots) losses "
+          f"within {r1_gap:.3e} of remat full's (bit for bit "
+          f"{losses_r1 == losses})")
+    check(losses[-1] < losses[TRAIN_RESUME_AT] < losses[0],
+          f"qwen3-moe loss does not fall: {losses}")
+    check(same, "the resumed qwen3-moe run differs from the uninterrupted "
+                "one")
+    check(r1_gap <= 1e-5, f"remat dots losses off remat full's by {r1_gap}")
+    check(peak < MOE_TRAIN_PEAK_GIB, f"qwen3-moe training peak {peak:.3f} "
+                                     f"GiB")
+    check(all(ps["flash_attention_bwd"] == cfg.n_layers
+              and ps["flash_attention"] >= cfg.n_layers
+              for ps in per_step + per_step_b),
+          f"a step missed kernel 9 or 9b: {per_step + per_step_b}")
+    check(fa_ops.KERNEL_BWD_LSE.launches == lse_pass,
+          "9b recomputed the log-sum-exp while training")
+    check(not any(plain_calls.values()),
+          f"a plain version ran while training on the card: {plain_calls}")
+    print(f"kernel launches over the two runs: {launches}; plain versions "
+          f"called: {plain_calls}")
+    shutil.rmtree(work, ignore_errors=True)
+    rec.update({"step_ms": step_s * 1e3, "tokens_per_s": tok / step_s,
+                "first_step_ms": times[0] * 1e3, "losses": losses,
+                "losses_resumed": losses_b, "losses_r1": losses_r1,
+                "r1_gap": r1_gap, "peak_gib": peak, "resume_bit_for_bit":
+                same, "params": n_par, "launches_a_step": per_step[1]})
+    rec["drivers"] = run_train_drivers(NEW_DRIVERS)
+    rec["launches"] = launches
+    return rec
+
+
+def new_lm_phases(dev, kernels) -> dict:
+    """Phases 19-20 (``main`` and ``--moe``): the new configs served and
+    held, the simulated mesh, MoE training; their records and kernel
+    launches."""
+    rec, launches, errs, secs = {}, {}, {}, {}
+    t0 = time.perf_counter()
+
+    def lap(label):
+        secs[label] = time.perf_counter() - t0 - sum(secs.values())
+        print(f"({label}: {secs[label]:.1f} s)")
+    phase("19a qwen3-moe-30b-a3b served at the registered width and depth: "
+          "8 requests, held layer by layer")
+    parts = {"qwen3-moe-30b-a3b": serve_qwen(dev, kernels)}
+    lap("19a")
+    phase(f"19b mixtral-8x22b at the registered width, {MIXTRAL_LAYERS} of "
+          f"56 layers: a {MIXTRAL_PROMPT}-token prompt and {MIXTRAL_NEW} "
+          f"decode steps, held layer by layer")
+    parts["mixtral-8x22b"] = serve_mixtral(dev, kernels)
+    lap("19b")
+    phase("19c stablelm-3b and starcoder2-7b at the registered widths and "
+          "depths: 4 requests each, held end to end")
+    for arch in ("stablelm-3b", "starcoder2-7b"):
+        parts[arch] = serve_dense(dev, kernels, arch)
+    lap("19c")
+    for arch, p in parts.items():
+        rec[arch] = p["record"]
+    launches["flash_attention"] = sum(p["launches"] for p in parts.values())
+    errs["flash_attention"] = max(p["err"] for p in parts.values())
+    print(f"19d: kernel 9 held against its plain version at each config's "
+          f"prefill and decode call above; max |kernel - plain| "
+          f"{errs['flash_attention']:.3e}")
+    del parts
+    phase("19e the simulated mesh: moe_ep_shardmap and moe_decode_psum at "
+          "qwen3's widths, the row-sharded AutoInt lookup, dp_step's three "
+          "modes")
+    rec["mesh"] = mesh_checks(dev)
+    lap("19e")
+    phase(f"20 MoE training: qwen3-moe-30b-a3b, {MOE_TRAIN_LAYERS} of 48 "
+          f"layers, B {MOE_TRAIN_BATCH} x S {MOE_TRAIN_SEQ}, {TRAIN_STEPS} "
+          f"steps resumed from {TRAIN_RESUME_AT}; qwen3-moe-r1; the new "
+          f"archs' launchers")
+    rec["train"] = tr = moe_train_phase(dev, kernels)
+    lap("20")
+    rec["seconds"] = secs
+    for k, n in tr["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    return {"record": rec, "launches": launches, "errs": errs}
 
 
 def same_graph(got, want, tag: str) -> None:
@@ -4518,6 +5237,9 @@ def main() -> int:
     ap.add_argument("--backward", action="store_true",
                     help="only phase 17: kernels 8b and 9b checked and "
                          "timed")
+    ap.add_argument("--moe", action="store_true",
+                    help="only phases 19-20: the new LM configs served, "
+                         "the simulated mesh, MoE training")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this script runs "
@@ -4529,6 +5251,13 @@ def main() -> int:
         print(smi_line())
         check_kernel8b(torch.device("cuda"))
         check_kernel9b(torch.device("cuda"))
+        return 0
+    if args.moe:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        print(smi_line())
+        new_lm_phases(torch.device("cuda"), {
+            "flash_attention": fa_ops.KERNEL,
+            "flash_attention_bwd": fa_ops.KERNEL_BWD})
         return 0
 
     from repro_torch.graph import rmat
@@ -4806,6 +5535,15 @@ def main() -> int:
               f"training path; at phase 17's first shape {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del tr
+    new = new_lm_phases(dev, kernels)
+    record["new_lm"] = new["record"]
+    for k, n in new["launches"].items():
+        launches_nn[k] = launches_nn.get(k, 0) + n
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  new["errs"]["flash_attention"])
+    print(f"kernels 9 and 9b on the new configs' paths (phases 19-20): "
+          f"{new['launches']}")
 
     record["total_s"] = time.perf_counter() - t_start
     print(f"total {record['total_s']:.1f} s")

@@ -4,9 +4,11 @@ registry.
 
 Each config carries the same fields and defaults as the JAX package's,
 so one config object describes a session in either package.  The
-registry holds the archs the port runs: ``autoint``, ``smollm-135m`` and
+registry holds the archs the port runs: ``autoint``, the five LM archs
+(``smollm-135m``, ``stablelm-3b``, ``starcoder2-7b``, ``mixtral-8x22b``,
+``qwen3-moe-30b-a3b`` and its ``qwen3-moe-r1`` to ``-r4`` variants) and
 every ``bfs-rmat*`` arch (``configs/bfs_rmat.py``); ``get_config`` names
-any other arch as not ported yet.
+any other arch (the GNN archs) as not ported yet.
 
 The port runs every ``BFSConfig`` value the JAX package does: the three
 decompositions, both storages in either ``local_mode``, every
@@ -152,6 +154,20 @@ class LMConfig:
             ff = 3 * d * self.d_ff
         return L * (attn + ff + 2 * d) + self.vocab * d + d
 
+    def n_active_params(self) -> int:
+        """Parameters a token runs through: the MoE layers' top_k experts
+        (and the router) in place of all of them."""
+        d, L = self.d_model, self.n_layers
+        attn = d * (self.n_heads * self.d_head) \
+            + 2 * d * (self.n_kv_heads * self.d_head) \
+            + (self.n_heads * self.d_head) * d
+        if self.moe is not None:
+            ff = self.moe.top_k * 3 * d * self.moe.d_ff_expert \
+                + d * self.moe.n_experts
+        else:
+            ff = 3 * d * self.d_ff
+        return L * (attn + ff + 2 * d) + self.vocab * d + d
+
 
 @dataclass(frozen=True)
 class RecsysConfig:
@@ -225,4 +241,5 @@ def _ensure_loaded() -> None:
     # Importing the per-arch modules populates the registry (once: a
     # module body runs at its first import only).
     from repro_torch.configs import (  # noqa: F401
-        autoint, bfs_rmat, smollm_135m)
+        autoint, bfs_rmat, mixtral_8x22b, qwen3_moe_30b_a3b, smollm_135m,
+        stablelm_3b, starcoder2_7b)

@@ -20,6 +20,12 @@ a reduction the JAX package issues where the port already holds the
 value (the level loop's host read).  With no recorder active a call
 costs one test of a module global; a recorder reads no tensor and
 allocates nothing on the device.
+
+The NN side's shards (``models/``, ``optim/dp_step.py``) are stacked the
+same way over any named axes, ``(dp..., tp, ...)`` for a ("data",
+"model") mesh: ``all_to_all_axis``, ``psum_axis`` and ``pmean_axis`` run
+over one named axis of such a stack and keep the others, as a JAX
+collective inside ``shard_map`` does.
 """
 from __future__ import annotations
 
@@ -34,10 +40,10 @@ GRID_2D = (ROW, COL)
 STRIPS = (ROW,)
 
 # HLO kind of each JAX primitive the port records
-KINDS = {"psum": "all-reduce", "pmax": "all-reduce", "pmin": "all-reduce",
-         "all_gather": "all-gather", "all_to_all": "all-to-all",
-         "ppermute": "collective-permute"}
-REDUCTIONS = ("psum", "pmax", "pmin")
+KINDS = {"psum": "all-reduce", "pmean": "all-reduce", "pmax": "all-reduce",
+         "pmin": "all-reduce", "all_gather": "all-gather",
+         "all_to_all": "all-to-all", "ppermute": "collective-permute"}
+REDUCTIONS = ("psum", "pmean", "pmax", "pmin")
 
 
 @dataclass(frozen=True)
@@ -232,3 +238,44 @@ def pmax(x: torch.Tensor, axes: Tuple[str, ...] = GRID_2D) -> torch.Tensor:
     the same result."""
     _record("pmax", axes)
     return x.amax()
+
+
+def _axis_dim(x: torch.Tensor, axes: Sequence[str], axis: str) -> int:
+    if axis not in axes or x.dim() < len(axes):
+        raise ValueError(f"axis {axis!r} is not one of the stacked axes "
+                         f"{tuple(axes)} of a {x.dim()}-d tensor")
+    return list(axes).index(axis)
+
+
+def all_to_all_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
+                    tag: str = "") -> torch.Tensor:
+    """all_to_all over the named ``axis`` of ``x``, stacked over ``axes``
+    (its leading ``len(axes)`` dims, one a processor coordinate), split
+    and concat on the first per-processor dim: processor i along
+    ``axis`` sends block j to processor j, which stores it at position
+    i; the other axes are kept (the JAX package's ``lax.all_to_all(x,
+    axis, split_axis=0, concat_axis=0)`` inside ``shard_map``)."""
+    a, s = _axis_dim(x, axes, axis), len(axes)
+    if x.dim() <= s or x.shape[s] != x.shape[a]:
+        raise ValueError(f"all_to_all over {axis!r} of size {x.shape[a]} "
+                         f"needs as many blocks, got shape {tuple(x.shape)}")
+    _record("all_to_all", (axis,), tag)
+    return x.transpose(a, s).contiguous()
+
+
+def psum_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
+              tag: str = "") -> torch.Tensor:
+    """Sum over the named ``axis`` of ``x`` stacked over ``axes``: every
+    processor along it holds the sum (a broadcast view), the other axes
+    kept (``lax.psum(x, axis)`` inside ``shard_map``)."""
+    a = _axis_dim(x, axes, axis)
+    _record("psum", (axis,), tag)
+    return x.sum(dim=a, keepdim=True).expand_as(x)
+
+
+def pmean_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
+               tag: str = "") -> torch.Tensor:
+    """``psum_axis`` over the axis's size (``lax.pmean``)."""
+    a = _axis_dim(x, axes, axis)
+    _record("pmean", (axis,), tag)
+    return x.mean(dim=a, keepdim=True).expand_as(x)

@@ -1,15 +1,20 @@
 """Serving launcher: batched LM serving or recsys scoring on one card.
 The JAX package's launcher, ``launch/serve.py``, with its defaults
-(reduced dims) and its printed lines; ``--full`` serves the registered
-width.
+(reduced dims; an MoE arch cut to 4 experts, top-2, ``d_ff_expert`` 32,
+its ``swa_window`` kept) and its printed lines; ``--full`` serves the
+registered width, and is refused before anything is allocated where the
+config's parameters exceed the device's memory (mixtral-8x22b).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch autoint --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch autoint --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -22,6 +27,36 @@ RECSYS_SMALL = dict(n_sparse=8, embed_dim=8, n_attn_layers=2, n_heads=2,
                     d_attn=8, vocab_sizes=tuple([100] * 8), mlp_hidden=(32,))
 LM_SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                 vocab=512, d_head=16)
+MOE_SMALL = dict(n_experts=4, top_k=2, d_ff_expert=32)
+_BYTES = {"bfloat16": 2, "float32": 4}
+
+
+def reduced_lm(cfg):
+    """The launchers' reduced LM dims (``LM_SMALL``, and ``MOE_SMALL`` for
+    an MoE arch)."""
+    kw = dict(LM_SMALL)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, **MOE_SMALL)
+    return reduced(cfg, **kw)
+
+
+def device_bytes(dev: torch.device) -> int:
+    """The memory of ``dev``: the card's, or the host's for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg, dev: torch.device) -> None:
+    """Refuse an LM whose parameters alone exceed ``dev``'s memory,
+    naming both sizes, before anything is allocated."""
+    need = cfg.n_params() * _BYTES[cfg.dtype]
+    have = device_bytes(dev)
+    if need > have:
+        raise SystemExit(
+            f"{cfg.arch}: its {cfg.dtype} parameters take {need / 1e9:.1f} GB "
+            f"and {dev} has {have / 1e9:.1f} GB; run it at the reduced dims "
+            f"(without --full)")
 
 
 def serve_recsys(cfg, device, batch: int = 32) -> float:
@@ -77,8 +112,10 @@ def main(argv=None):
 
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.server import Request
-    if not args.full:
-        cfg = reduced(cfg, **LM_SMALL)
+    if args.full:
+        check_fits(cfg, dev)
+    else:
+        cfg = reduced_lm(cfg)
     params = tf.init_params(cfg, seed=0, device=dev)
     server = make_lm_server(cfg, params, dev, max_batch=4, max_len=128,
                             bucket=32)

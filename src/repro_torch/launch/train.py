@@ -1,7 +1,9 @@
 """Training launcher: ``--arch <id>`` picks a registered architecture and
 runs the fault-tolerant ``Trainer`` on one card; the JAX package's
-``launch/train.py`` with its defaults (reduced dims; ``--full`` for the
-registered width) and its printed lines.
+``launch/train.py`` with its defaults (reduced dims, an MoE arch cut to 4
+experts top-2 as ``launch/serve.py::reduced_lm`` cuts it; ``--full`` for
+the registered width, refused where its parameters exceed the device's
+memory) and its printed lines.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch autoint --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -26,7 +28,7 @@ import torch
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.data.pipeline import lm_batch, recsys_batch
 from repro_torch.launch.mesh import resolve_device
-from repro_torch.launch.serve import LM_SMALL, RECSYS_SMALL
+from repro_torch.launch.serve import RECSYS_SMALL, check_fits, reduced_lm
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.trainer import Trainer, value_and_grad_step
 
@@ -115,8 +117,10 @@ def main(argv=None):
 
     opt = AdamW(lr=1e-3, total_steps=args.steps)
     if cfg.kind == "lm":
-        if not args.full:
-            cfg = reduced(cfg, **LM_SMALL)
+        if args.full:
+            check_fits(cfg, dev)
+        else:
+            cfg = reduced_lm(cfg)
         state, step_fn, mk = lm_setup(cfg, dev, args.batch or 4, args.seq,
                                       opt)
     else:  # recsys

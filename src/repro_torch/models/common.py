@@ -1,12 +1,52 @@
-"""Shared model blocks of the port: RMSNorm, RoPE, and the chunked
-online-softmax attention in plain torch, each the twin of the JAX
-package's ``models/common.py`` function of the same name.  No sharding
-context: the port serves on one card."""
+"""Shared model blocks of the port: the sharding context, RMSNorm, RoPE,
+and the chunked online-softmax attention in plain torch, each the twin
+of the JAX package's ``models/common.py`` name.
+
+``ShardCtx`` threads a simulated mesh (``launch/mesh.py::SimMesh``)
+through the model code, as the JAX package's threads a device mesh: its
+``dp``, ``tp`` and ``tp_size`` name the mesh's data axes and its "model"
+axis.  The simulated mesh keeps every shard on one device, so ``cons``
+(a sharding constraint there) is the identity here."""
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh context threaded through model code; ``mesh=None`` is one
+    device with no mesh."""
+    mesh: Optional[object] = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return () if self.mesh is None else tuple(self.mesh.shape)
+
+    @property
+    def dp(self) -> Tuple[str, ...]:
+        return tuple(n for n in self.axis_names if n in ("pod", "data"))
+
+    @property
+    def tp(self) -> Optional[str]:
+        return "model" if "model" in self.axis_names else None
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.mesh.shape["model"]
+
+    @property
+    def dp_size(self) -> int:
+        """The product of the data axes' sizes (1 with none)."""
+        n = 1
+        for a in self.dp:
+            n *= self.mesh.shape[a]
+        return n
+
+    def cons(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        return x
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

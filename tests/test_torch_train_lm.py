@@ -172,10 +172,32 @@ def test_one_adamw_step_equals_reference(f32):
 
 
 def test_moe_configs_still_raise():
-    cfg = reduced(get_config("smollm-135m"), **_SMALL)
-    moe = reduced(cfg, moe=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tf.forward({}, torch.zeros(1, 4, dtype=torch.int64), moe)
+    """MoE configs no longer raise: qwen3-moe-30b-a3b at these dims with
+    the launchers' MoE cut (4 experts, top-2, d_ff_expert 32), its
+    ``lm_loss`` and every gradient (the router's and the experts') against
+    ``jax.value_and_grad`` of the JAX package's, in float32."""
+    from repro.configs.base import MoEConfig as RMoE
+    from repro_torch.configs.base import MoEConfig
+    moe = dict(n_experts=4, top_k=2, d_ff_expert=32)
+    kw = dict(_SMALL, dtype="float32")
+    rcfg = r_reduced(r_get_config("qwen3-moe-30b-a3b"), **kw,
+                     moe=RMoE(**moe))
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"), **kw,
+                  moe=MoEConfig(**moe))
+    p = r_tf.init_params(rcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 512, (2, 64)).astype(np.int32)
+    labels = rng.integers(0, 512, (2, 64)).astype(np.int32)
+    rloss, rgrads = jax.jit(jax.value_and_grad(lambda q: r_tf.lm_loss(
+        q, toks, labels, rcfg, ShardCtx(mesh=None), seq_chunk=32)))(p)
+    pt = tf.params_from_jax(cfg, {k: np.asarray(v) for k, v in p.items()},
+                            device="cpu")
+    loss, grads = _port_grads(cfg, pt, toks, labels)
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-6)
+    assert sorted(grads) == sorted(rgrads) and "wg_e" in grads
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(rgrads[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 # (B, Sq, Sk, Hq, Hkv, dh, causal, window, q_offset, dtype)

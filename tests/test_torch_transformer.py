@@ -30,10 +30,18 @@ CTX = ShardCtx(mesh=None)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _setup(**extra):
+def _setup(arch="smollm-135m", **extra):
     kw = dict(serve.LM_SMALL, dtype="float32", **extra)
-    jcfg = jax_base.reduced(jax_base.get_config("smollm-135m"), **kw)
-    cfg = base.reduced(base.get_config("smollm-135m"), **kw)
+    jcfg = jax_base.get_config(arch)
+    if jcfg.moe is not None:         # the launchers' MoE cut
+        kw["moe"] = dataclasses.replace(jcfg.moe, **serve.MOE_SMALL)
+    jcfg = jax_base.reduced(jcfg, **kw)
+    cfg = base.reduced(base.get_config(arch), **{
+        **kw, "moe": None if jcfg.moe is None else base.MoEConfig(
+            **dataclasses.asdict(jcfg.moe))})
+    assert cfg == serve.reduced_lm(base.reduced(base.get_config(arch),
+                                                dtype="float32",
+                                                **extra))
     jp = jax_tf.init_params(jcfg, jax.random.PRNGKey(0))
     params = tf.params_from_jax(cfg, {k: np.asarray(v) for k, v in
                                       jp.items()}, device="cpu")
@@ -82,10 +90,11 @@ def test_kernel_and_plain_attention_paths_agree():
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
-def test_server_greedy_tokens_match_jax():
+def _serve_both(arch):
     """The launcher's traffic (6 requests from default_rng(0), 5 new
-    tokens, max_batch 4, max_len 128, bucket 32) through both servers."""
-    jcfg, cfg, jp, params = _setup()
+    tokens, max_batch 4, max_len 128, bucket 32) through both servers,
+    at the launcher's reduced dims of ``arch``, in float32."""
+    jcfg, cfg, jp, params = _setup(arch)
     max_b, max_len = 4, 128
 
     @jax.jit
@@ -111,12 +120,18 @@ def test_server_greedy_tokens_match_jax():
         np.testing.assert_array_equal(g.out, w.out)
 
 
+def test_server_greedy_tokens_match_jax():
+    _serve_both("smollm-135m")
+
+
 def test_moe_config_is_rejected_by_name():
-    cfg = base.reduced(base.get_config("smollm-135m"), **serve.LM_SMALL,
-                       moe=base.MoEConfig(n_experts=4, top_k=2,
-                                          d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tf.init_params(cfg, device="cpu")
+    """MoE configs are no longer rejected: qwen3-moe-30b-a3b, by name, at
+    the serving launcher's reduced dims (4 experts, top-2) serves the
+    launcher's traffic to the JAX package's greedy tokens (its prefill
+    through ``moe_ep_shardmap`` and its decode through
+    ``moe_decode_psum``, each ``_moe_reference`` with no mesh)."""
+    assert base.get_config("qwen3-moe-30b-a3b").moe.n_experts == 128
+    _serve_both("qwen3-moe-30b-a3b")
 
 
 def test_full_config_param_count():
