@@ -135,7 +135,7 @@ Phases, in the order they run:
                  parents and levels equal; then route_slack =
                  undersize_route_slack(0), healed within 3 attempts to the
                  same digests
- 10c store       a born scale-22 graph on a 2x2 grid saved to a GraphStore
+ 10c store       a born scale-20 graph on a 2x2 grid saved to a GraphStore
                  under build/ (bytes, save s), loaded into a kernel session
                  (load s) whose parents equal the born graph's on 16 roots;
                  a flipped and a truncated shard quarantined and
@@ -148,7 +148,9 @@ Phases, in the order they run:
                  exit 0 and their TEPS or served line; then graph500_bfs
                  --scale 20 --born --store DIR twice in 2d 1x1 and in 1ds
                  16x1 dcsc: build and save, then load, the same roots and
-                 level counts in all four runs
+                 level counts in all four runs; DRIVER_LANES processes at
+                 a time (here and in phases 18 and 20), a layout's two
+                 runs in turn
  11 AutoInt      the registered autoint config (11,238,400-row table)
                  scoring the three recsys shapes: 200 serve_p99 batches,
                  4 serve_bulk batches, 16 retrieval_cand queries against
@@ -238,7 +240,7 @@ Phases, in the order they run:
                  model shards bit for bit, dp_step's three modes on 4
                  replicas within the JAX test's convergence bounds; each
                  exchange counted by a ScheduleRecorder
- 20 MoE training qwen3-moe-30b-a3b at the registered width cut to 2 of
+ 20 MoE training qwen3-moe-30b-a3b at the registered width cut to 1 of
                  48 layers (AdamW's moments of the whole model are 242
                  GB): B 4 x S 1,024 for 20 steps through the Trainer,
                  checkpointing at step 10, resumed from step 10 bit for
@@ -248,10 +250,28 @@ Phases, in the order they run:
                  then launch.serve --arch qwen3-moe-30b-a3b and
                  launch.train --arch mixtral-8x22b at their reduced
                  defaults as processes of their own
+ 21 GNN          the four GNN archs at the registered widths through
+                 launch.train's gnn_setup, each 20 steps through the
+                 Trainer and resumed from step 10 bit for bit (losses,
+                 params, moments), step ms, edges/s, peak: (a) gin-tu on
+                 ogb_products (2,449,029 nodes, 61,859,140 edges made by
+                 kernel 7 on the card, d_feat 100), peak < 72 GiB, one
+                 sorted segment sum beside the atomic index_add_, a
+                 profiled step by what its kernels do, kernel 7's stream
+                 against its plain version at both ends; (b) gat-cora on
+                 full_graph_sm and meshgraphnet on minibatch_lg (1,024
+                 seeds at fanout (15, 10) sampled from the 114.6 M-edge
+                 CSR kernel 7 makes); (c) mace on molecule; (d) spmm_2d on
+                 the ogb_products graph at d 64 on 1x1 and 4x4 against
+                 index_add_, timed, its exchanges recorded; (e) each
+                 arch's first step on the smoke graph, card against CPU;
+                 no plain version of kernel 7 on the path (a tripwire);
+                 launch.train --arch gin-tu and examples.gnn_full_graph
+                 run with phase 18's drivers
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.  ``python3 chip_smoke.py --backward`` runs phase 17 alone
 (its checks and times, no result line); ``--moe`` runs phases 19-20
-alone.
+alone; ``--gnn`` phase 21 alone, with its two drivers.
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
@@ -266,7 +286,9 @@ checkout or another one (``DIR``, for example a
 card in one call); see ``kernel_times``.  Any failed check
 exits non-zero; nothing is caught.  It exits non-zero without a CUDA
 card, and where the repository's ``src`` is missing.  The full record
-goes to ``chiprun_out/chip_smoke.json``.
+goes to ``chiprun_out/chip_smoke.json``.  Each phase's banner shows the
+seconds since the start; the seconds a phase are printed before the
+card's line and kept as the record's ``phase_s``.
 """
 from __future__ import annotations
 
@@ -294,7 +316,7 @@ MESH_SCALE = 16
 STRIPS = 16                   # the 1ds path's simulated mesh
 STRIP_CHUNKS = (1, 4)         # its expand_chunks runs
 OVER_CAP = 64                 # a bucket capacity that makes levels overflow
-STORE_SCALE = 22              # phase 10c: 4 shards of a 2x2 grid on disk
+STORE_SCALE = 20              # phase 10c: 4 shards of a 2x2 grid on disk
 HEAL_ATTEMPTS = 12            # phase 8e: undersize_cap(52448) = 3264 doubles
 #                               to the 2**20-vertex chunk in 9 steps
 # H100 SXM published memory rate (NVIDIA data sheet, at the 700 W limit)
@@ -321,8 +343,27 @@ def check(ok: bool, msg: str) -> None:
         sys.exit(1)
 
 
+_T0 = time.perf_counter()
+PHASE_S: dict = {}               # seconds of each phase, by its number
+_open_phase = [None, _T0]
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title} ==", flush=True)
+    """Print the phase's banner with the seconds since the script
+    started, and charge the seconds since the last banner to the phase
+    that it opened (the record's ``phase_s``)."""
+    now = time.perf_counter()
+    close_phase(now)
+    _open_phase[:] = [title.split()[0], now]
+    print(f"\n== {title} == [+{now - _T0:.1f} s]", flush=True)
+
+
+def close_phase(now: float) -> None:
+    """Charge the open phase its seconds up to ``now``."""
+    key, since = _open_phase
+    if key is not None:
+        PHASE_S[key] = PHASE_S.get(key, 0.0) + now - since
+    _open_phase[:] = [None, now]
 
 
 def cuda_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -1902,6 +1943,15 @@ def train_run(label, setup, steps, ckpt_dir, kernels, counted_keys,
     return state, [m["loss"] for m in log], times, launches
 
 
+def resume_point(run_a: Path, run_b: Path) -> None:
+    """Hand run a's step-TRAIN_RESUME_AT checkpoint to run b's directory
+    by a rename (phase 20's checkpoint is 8.7 GiB; a copy would write it
+    again)."""
+    step = f"step_{TRAIN_RESUME_AT:010d}"
+    run_b.mkdir(parents=True, exist_ok=True)
+    (run_a / step).rename(run_b / step)
+
+
 def check_prefetcher(dev, cfg) -> None:
     """DevicePrefetcher on the card: step_stream's batches, in order, as
     CUDA tensors."""
@@ -1968,8 +2018,7 @@ def train_phase(dev, kernels) -> dict:
         full, losses, times, per_step = train_run(
             "smollm-135m", lm, TRAIN_STEPS, work / "lm_a", kernels, lm_keys)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        shutil.copytree(work / "lm_a" / f"step_{TRAIN_RESUME_AT:010d}",
-                        work / "lm_b" / f"step_{TRAIN_RESUME_AT:010d}")
+        resume_point(work / "lm_a", work / "lm_b")
         resumed, losses_b, times_b, per_step_b = train_run(
             "smollm-135m", lm, TRAIN_STEPS, work / "lm_b", kernels, lm_keys,
             resume=True)
@@ -2069,24 +2118,29 @@ def train_phase(dev, kernels) -> dict:
 
 def run_train_drivers(drivers=TRAIN_DRIVERS) -> dict:
     """Phase 18's (and 20's) drivers: each of ``drivers`` in a process of
-    its own on the card, as users run them, a trainer's checkpoint
-    directory of its own under build/; each must exit 0 and print its
-    line."""
-    import os
+    its own on the card, as users run them, ``DRIVER_LANES`` at a time,
+    a trainer's checkpoint directory of its own under build/; each must
+    exit 0 and print its line."""
     import shutil
     import tempfile
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    rec = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    chains, cks = [], []
     for label, module, args, want in drivers:
         ck = tempfile.mkdtemp(prefix="train_ck_", dir=ROOT / "build")
         trains = "train" in module and "bfs" not in label
-        extra = ["--ckpt-dir", ck] if trains else []
-        ts = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", module, *args, *extra],
-                           cwd=ROOT, env=env, capture_output=True, text=True,
-                           timeout=600)
-        wall = time.perf_counter() - ts
-        shutil.rmtree(ck, ignore_errors=True)
+        cks.append(ck)
+        chains.append([[sys.executable, "-m", module, *args,
+                        *(["--ckpt-dir", ck] if trains else [])]])
+    ts = time.perf_counter()
+    try:
+        results = run_lanes(chains)
+    finally:
+        for ck in cks:
+            shutil.rmtree(ck, ignore_errors=True)
+    print(f"{len(drivers)} training drivers, {DRIVER_LANES} at a time: "
+          f"{time.perf_counter() - ts:.1f} s")
+    rec = {}
+    for (label, module, args, want), [(r, wall)] in zip(drivers, results):
         check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
                                  f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
         hit = [x for x in r.stdout.splitlines() if want in x]
@@ -2134,13 +2188,15 @@ EP_CAP_MULT = 0.1             # queue capacity 128: a shard's 512 tokens
 EP_TOL = 2e-5                 # float32 against max|reference| (two sums
 #                               over 2,048 and 768 terms in other orders)
 DP_STEPS = 100                # tests/_dist_nn_main.py's dp_compress run
-MOE_TRAIN_LAYERS = 2          # of 48: AdamW's float32 moments of all
-#                               30.2 B parameters are 242 GB
+MOE_TRAIN_LAYERS = 1          # of 48: AdamW's float32 moments of all
+#                               30.2 B parameters are 242 GB; one layer
+#                               keeps each of the run's three checkpoints
+#                               to 8.7 GiB
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 1024
-# PERF.md section 2: 1.557 B parameters, 2.9 GiB in bf16, 2.9 GiB of
-# gradients, 11.6 GiB of float32 moments, the optimizer's new state beside
-# the old (14.5 GiB), a layer's MoE activations recomputed (about 8 GiB at
-# 4,096 tokens) and the logit chunks: about 41 GiB
+# PERF.md section 2: 0.934 B parameters, 1.7 GiB in bf16, 1.7 GiB of
+# gradients, 7.0 GiB of float32 moments, the optimizer's new state beside
+# the old (8.7 GiB), a layer's MoE activations recomputed (about 8 GiB at
+# 4,096 tokens) and the logit chunks: about 28 GiB
 MOE_TRAIN_PEAK_GIB = 56.0
 NEW_DRIVERS = [
     ("launch.serve qwen3-moe-30b-a3b", "repro_torch.launch.serve",
@@ -2658,8 +2714,7 @@ def moe_train_phase(dev, kernels) -> dict:
             kernels, keys)
         peak = torch.cuda.max_memory_allocated() / 2**30
         n_par = sum(p.numel() for p in a[0].values())
-        shutil.copytree(work / "a" / f"step_{TRAIN_RESUME_AT:010d}",
-                        work / "b" / f"step_{TRAIN_RESUME_AT:010d}")
+        resume_point(work / "a", work / "b")
         shutil.rmtree(work / "a", ignore_errors=True)
         b, losses_b, times_b, per_step_b = train_run(
             "qwen3-moe-30b-a3b", setup(cfg), TRAIN_STEPS, work / "b",
@@ -4947,6 +5002,33 @@ BORN = [("2d 1x1", []),
                            "--storage", "dcsc"])]
 
 
+DRIVER_LANES = 4     # driver processes on the card at once (8 host cores)
+
+
+def run_lanes(chains, lanes: int = DRIVER_LANES) -> list:
+    """Run each chain of commands in its order, the chains side by side
+    in ``lanes`` threads, each command a process of its own on the card
+    (``PYTHONPATH`` the checkout's ``src``, at most 600 s): for each
+    chain, in the chains' order, its ``(CompletedProcess, wall seconds)``
+    pairs.  Every process has ended when it returns."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run_chain(chain):
+        out = []
+        for cmd in chain:
+            ts = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=600)
+            out.append((r, time.perf_counter() - ts))
+        return out
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(lanes) as ex:
+        return list(ex.map(run_chain, chains))
+
+
 def run_drivers() -> dict:
     """Phase 10b: each driver of ``repro_torch.examples`` in a process of
     its own, as ``python -m repro_torch.examples.<name>`` (on the card by
@@ -4955,24 +5037,38 @@ def run_drivers() -> dict:
     ``graph500_bfs --scale 20 --born --store DIR --local-mode kernel``
     twice in each layout of ``BORN``: the first run prints its born build
     and its store save, the second its store load; every run's roots and
-    level counts are the same.  The store lives under ``build/`` and is
-    removed at the end."""
-    import os
+    level counts are the same.  Each layout's store lives under
+    ``build/`` and is removed at the end.  The drivers run
+    ``DRIVER_LANES`` at a time (a layout's two runs in turn), so their
+    walls and TEPS are those of a shared card."""
     import re
     import shutil
     import tempfile
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
-    def start(module, args):
-        ts = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", f"repro_torch.examples.{module}", *args],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        return r, time.perf_counter() - ts
+    def cmd(module, args):
+        return [sys.executable, "-m", f"repro_torch.examples.{module}",
+                *args]
 
     rec = {}
-    for label, module, args, want in DRIVERS:
-        r, wall = start(module, args)
+    (ROOT / "build").mkdir(exist_ok=True)
+    stores = [tempfile.mkdtemp(prefix="driver_store_", dir=ROOT / "build")
+              for _ in BORN]
+    born = []
+    for (layout, extra), store in zip(BORN, stores):
+        args = ["--scale", "20", "--roots", "16", "--local-mode", "kernel",
+                "--born", "--store", store, *extra]
+        born.append([cmd("graph500_bfs", args)] * 2)
+    ts = time.perf_counter()
+    try:
+        results = run_lanes(born + [[cmd(module, args)]
+                                    for _, module, args, _ in DRIVERS])
+    finally:
+        for store in stores:
+            shutil.rmtree(store, ignore_errors=True)
+    print(f"{len(DRIVERS) + 2 * len(BORN)} driver runs, {DRIVER_LANES} at a "
+          f"time: {time.perf_counter() - ts:.1f} s")
+    for (label, module, args, want), [(r, wall)] in zip(
+            DRIVERS, results[len(BORN):]):
         check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
                                  f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
         lines = r.stdout.splitlines()
@@ -4988,36 +5084,28 @@ def run_drivers() -> dict:
                       "stdout": r.stdout[-20000:]}
     levels = re.compile(r"^root\s+(\d+): (\d+) levels")
     trees = []
-    (ROOT / "build").mkdir(exist_ok=True)
-    store = tempfile.mkdtemp(prefix="driver_store_", dir=ROOT / "build")
-    try:
-        for layout, extra in BORN:
-            for first in (True, False):
-                label = (f"graph500_bfs {layout} --born --store "
-                         f"({'build and save' if first else 'load'})")
-                args = ["--scale", "20", "--roots", "16", "--local-mode",
-                        "kernel", "--born", "--store", store, *extra]
-                r, wall = start("graph500_bfs", args)
-                check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
-                      f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-                out = r.stdout
-                for line, want in (("born-sharded build", first),
-                                   ("store save", first),
-                                   ("store load", not first)):
-                    check((line in out) == want,
-                          f"{label}: '{line}' printed {line in out}")
-                roots = [m.groups() for m in map(levels.match,
-                                                 out.splitlines()) if m]
-                check(len(roots) == 16, f"{label}: {len(roots)} root lines")
-                trees.append(roots)
-                print(f"-- {label}: exit 0 in {wall:.1f} s")
-                for x in out.splitlines():
-                    if x.startswith(("born-sharded", "store ", "compile",
-                                     "harmonic")):
-                        print(f"   {x}")
-                rec[label] = {"wall_s": wall, "stdout": out[-20000:]}
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
+    for (layout, _), runs in zip(BORN, results):
+        for first, (r, wall) in zip((True, False), runs):
+            label = (f"graph500_bfs {layout} --born --store "
+                     f"({'build and save' if first else 'load'})")
+            check(r.returncode == 0, f"{label} exited {r.returncode}:\n"
+                  f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+            out = r.stdout
+            for line, want in (("born-sharded build", first),
+                               ("store save", first),
+                               ("store load", not first)):
+                check((line in out) == want,
+                      f"{label}: '{line}' printed {line in out}")
+            roots = [m.groups() for m in map(levels.match,
+                                             out.splitlines()) if m]
+            check(len(roots) == 16, f"{label}: {len(roots)} root lines")
+            trees.append(roots)
+            print(f"-- {label}: exit 0 in {wall:.1f} s")
+            for x in out.splitlines():
+                if x.startswith(("born-sharded", "store ", "compile",
+                                 "harmonic")):
+                    print(f"   {x}")
+            rec[label] = {"wall_s": wall, "stdout": out[-20000:]}
     check(all(t == trees[0] for t in trees),
           "the born drivers' roots or level counts differ between runs")
     print(f"the {len(trees)} born runs drew the same 16 roots with the same "
@@ -5228,6 +5316,398 @@ def kernel9_times(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------ the GNN side
+# phase 21: the four GNN archs trained at the registered widths through
+# launch.train's gnn_setup (kernel 7 making the large graphs on the
+# card), the 2D SpMM on the ogb_products graph, and each arch's first
+# step against the CPU path
+GNN_STEPS = TRAIN_STEPS            # 20, checkpointed at TRAIN_RESUME_AT
+GIN_PEAK_GIB = 72.0                # PERF.md section 2 (reckoned ~52 GB)
+GNN_PEAK_GIB = 40.0                # the other three cells
+GNN_FWD, GNN_GRAD = 1e-5, 1e-4     # 21e: the CPU tests' tolerances
+K7_SLICE = 1 << 20                 # kernel 7's checked head and tail
+SPMM_D = 64
+SPMM_GRIDS = ((1, 1), (4, 4))
+# (label, arch, shape): the cells of 21a-21c
+GNN_CELLS = (("21a", "gin-tu", "ogb_products"),
+             ("21b", "gat-cora", "full_graph_sm"),
+             ("21b", "meshgraphnet", "minibatch_lg"),
+             ("21c", "mace", "molecule"))
+GNN_DRIVERS = [
+    ("launch.train gin-tu", "repro_torch.launch.train",
+     ["--arch", "gin-tu", "--steps", "20"], "gin-tu: 20 steps"),
+    ("examples.gnn_full_graph", "repro_torch.examples.gnn_full_graph", [],
+     "over 30 steps")]
+TRAIN_DRIVERS += GNN_DRIVERS       # phase 18 runs them; --gnn at its end
+# the profile's kernels by what they do (21a's step, PERF.md section 5)
+GNN_KERNEL_GROUPS = (
+    ("gather", ("gather_kernel", "indexSelect", "index_select")),
+    ("segment-sum", ("index_put", "indexing_backward", "indexFunc",
+                     "index_add", "RadixSort", "radix", "scatter")),
+    ("GEMM", ("gemm", "xmma", "cutlass", "Kernel2", "gemv", "nvjet")))
+
+
+@contextlib.contextmanager
+def rmat_plain_tripwire():
+    """Count calls of kernel 7's plain version while the block runs."""
+    from repro_torch.graph import rmat
+    calls = {"rmat_edges_counter_plain": 0}
+    fn = rmat.rmat_edges_counter_plain
+
+    def counted(*a, **kw):
+        calls["rmat_edges_counter_plain"] += 1
+        return fn(*a, **kw)
+    rmat.rmat_edges_counter_plain = counted
+    try:
+        yield calls
+    finally:
+        rmat.rmat_edges_counter_plain = fn
+
+
+def check_gnn_stream(shape, dev, senders, receivers) -> int:
+    """Kernel 7's stream under ``_edges_for`` at ``shape``'s size: the
+    kernel's head and tail slices against its plain version on the card
+    (launches that compare, not counted), and the ids ``_edges_for``
+    returns (folded into n_nodes and tiled to n_edges on the card)
+    against the plain stream folded on the host, at both ends.  Returns
+    the largest difference (0 when equal)."""
+    from repro_torch.graph import datasets, rmat
+    N, E = shape.n_nodes, shape.n_edges
+    scale = max(int(np.ceil(np.log2(N))), 2)
+    ef = max(1, E // (1 << scale))
+    count = min(E, ef << scale)
+    err = 0
+    for start in (0, count - K7_SLICE):
+        ks, kd = rmat.rmat_edges_counter(scale, ef, seed=0, start=start,
+                                         count=K7_SLICE, device=dev)
+        ps, pd = rmat.rmat_edges_counter_plain(scale, ef, seed=0,
+                                               start=start, count=K7_SLICE,
+                                               device=dev)
+        err = max(err, max_err(ks, ps), max_err(kd, pd))
+    # output position i holds stream edge i % count, folded on the host
+    for lo in (0, E - K7_SLICE):
+        pos = np.arange(lo, lo + K7_SLICE) % count
+        first = int(pos[0])
+        span = min(K7_SLICE, count - first)
+        hs, hd = rmat.rmat_edges_counter_plain(scale, ef, seed=0,
+                                               start=first, count=span)
+        if span < K7_SLICE:
+            ts, td = rmat.rmat_edges_counter_plain(
+                scale, ef, seed=0, start=0, count=K7_SLICE - span)
+            hs, hd = torch.cat([hs, ts]), torch.cat([hd, td])
+        want_s = (hs.long() % N).to(torch.int32)
+        want_d = (hd.long() % N).to(torch.int32)
+        err = max(err, max_err(senders[lo:lo + K7_SLICE].cpu(), want_s),
+                  max_err(receivers[lo:lo + K7_SLICE].cpu(), want_d))
+    print(f"kernel 7 at {shape.name} (scale {scale}, edge factor {ef}, "
+          f"{count:,} stream edges tiled to {E:,}): head and tail "
+          f"{K7_SLICE}-edge slices against the plain version on the card, "
+          f"and _edges_for's first and last {K7_SLICE} ids (folded into "
+          f"{N:,} and tiled on the card) against the plain stream folded "
+          f"on the host: max difference {err}")
+    check(err == 0, f"kernel 7's {shape.name} stream differs from its plain "
+                    f"version")
+    check(scale > datasets._MAX_HOST_SCALE or ef > datasets._MAX_HOST_EF,
+          f"{shape.name} takes the host stream, not kernel 7")
+    return err
+
+
+def gnn_atomic_step(built) -> dict:
+    """What ordering the aggregation costs: one segment sum of 21a's
+    (61.9 M, 64) messages into the receivers as the port runs it on the
+    card (an accumulating ``index_put``, sorted by receiver; the same
+    kernels with the deterministic mode on or off) beside the atomic
+    ``index_add_``, each timed, and the two sums' largest gap."""
+    from repro_torch.models import gnn as gnn_mod
+    b = built[2](0)
+    n, r = b["x"].shape[0], b["receivers"]
+    gen = torch.Generator(r.device).manual_seed(1)
+    msg = torch.randn(r.numel(), 64, generator=gen, device=r.device)
+    sorted_ms = cuda_ms(lambda: gnn_mod._seg_sum_card(msg, r, n), reps=3)
+    atomic_ms = cuda_ms(lambda: torch.zeros(n, 64, device=r.device)
+                        .index_add_(0, r, msg), reps=3)
+    gap = float((gnn_mod._seg_sum_card(msg, r, n) - torch.zeros(
+        n, 64, device=r.device).index_add_(0, r, msg)).abs().max())
+    print(f"  one segment sum of ({r.numel():,}, 64) float32 messages into "
+          f"{n:,} receivers: sorted accumulating index_put (the port's, "
+          f"bit for bit run to run) {sorted_ms:.3f} ms, atomic index_add_ "
+          f"{atomic_ms:.3f} ms; largest gap {gap:.3e}")
+    del msg
+    return {"sorted_segment_sum_ms": sorted_ms,
+            "atomic_segment_sum_ms": atomic_ms, "sum_gap": gap}
+
+
+def gnn_profile(setup) -> dict:
+    """``profile_call`` of one training step, its kernels grouped by what
+    they do, and AdamW's update timed alone (on gradients of ones)."""
+    from repro_torch.optim.adamw import AdamW
+    state, step_fn, make_batch = setup()
+    batch = make_batch(0)
+    prof = profile_call(lambda: step_fn(state, batch), "training step")
+    groups = {g: 0.0 for g, _ in GNN_KERNEL_GROUPS}
+    groups["other (elementwise, AdamW, norms)"] = 0.0
+    for nm, ms in prof["by_name_ms"].items():
+        for g, keys in GNN_KERNEL_GROUPS:
+            if any(k in nm for k in keys):
+                groups[g] += ms
+                break
+        else:
+            groups["other (elementwise, AdamW, norms)"] += ms
+    params, ost = state
+    opt = AdamW(lr=1e-3, total_steps=GNN_STEPS)
+    grads = {k: torch.ones_like(v) for k, v in params.items()}
+    adamw_ms = cuda_ms(lambda: opt.update(grads, ost, params))
+    print("  by what the kernels do: " + ", ".join(
+        f"{g} {ms:.3f} ms" for g, ms in groups.items())
+        + f"; AdamW's update alone {adamw_ms:.3f} ms "
+          f"({len(params)} tensors)")
+    prof["groups_ms"] = groups
+    prof["adamw_ms"] = adamw_ms
+    return prof
+
+
+def gnn_cell(label, arch, shape_name, dev, kernels, work) -> dict:
+    """One cell of 21a-21c: ``gnn_setup`` at the registered width on the
+    shape (kernel 7's launches counted around exactly this and the runs),
+    20 steps through the Trainer checkpointing at step 10, then a run
+    resumed from step 10: losses, parameters and moments bit for bit,
+    step ms (median of steps 1-19), edges a second, peak memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(arch)
+    shape = next(s for s in cfg.shapes if s.name == shape_name)
+    opt = AdamW(lr=1e-3, total_steps=GNN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k7 = kernels["rmat_counter"]
+    n0 = k7.launches
+    with rmat_plain_tripwire() as plain_calls:
+        ts = time.perf_counter()
+        built = gnn_setup(cfg, dev, opt, shape_name)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - ts
+        launches = k7.launches - n0
+        setup = lambda: built                              # noqa: E731
+        full, losses, times, _ = train_run(arch, setup, GNN_STEPS,
+                                           work / f"{arch}_a", kernels, ())
+        resume_point(work / f"{arch}_a", work / f"{arch}_b")
+        resumed, losses_b, _, _ = train_run(arch, setup, GNN_STEPS,
+                                            work / f"{arch}_b", kernels, (),
+                                            resume=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(plain_calls["rmat_edges_counter_plain"] == 0,
+          f"{arch}: kernel 7's plain version ran on the main path")
+    check(launches > 0 or shape_name not in ("ogb_products", "minibatch_lg"),
+          f"{arch} on {shape_name}: kernel 7 made no edges")
+    same = (losses_b == losses[TRAIN_RESUME_AT:]
+            and all(torch.equal(full[0][k], resumed[0][k]) for k in full[0])
+            and all(torch.equal(full[1].mu[k], resumed[1].mu[k])
+                    and torch.equal(full[1].nu[k], resumed[1].nu[k])
+                    for k in full[1].mu))
+    step_s = float(np.median(times[1:]))
+    if shape.kind == "sampled":
+        from repro_torch.launch.cells import sampled_sizes
+        n_sub, edges = sampled_sizes(shape)
+        size = (f"{shape.n_nodes:,} nodes, {shape.n_edges:,} edges in the "
+                f"CSR; {shape.batch_nodes} seeds at fanout {shape.fanout}: "
+                f"{n_sub:,} nodes, {edges:,} edges a step")
+    else:
+        b = built[2](0)
+        edges = int(b["senders"].numel())
+        size = (f"{b['x'].shape[0]:,} nodes, {edges:,} edges, d_feat "
+                f"{b['x'].shape[1]}")
+    n_par = sum(v.numel() for v in built[0][0].values())
+    print(f"{label} {arch} ({cfg.n_layers} layers, d_hidden {cfg.d_hidden}, "
+          f"{n_par:,} parameters) on {shape_name} ({size}): setup "
+          f"{setup_s:.2f} s with {launches} kernel-7 launches; step "
+          f"{step_s * 1e3:.3f} ms median (first {times[0] * 1e3:.1f} ms), "
+          f"{edges / step_s:,.1f} edges/s; loss step 0 {losses[0]:.4f}, "
+          f"step {TRAIN_RESUME_AT} {losses[TRAIN_RESUME_AT]:.4f}, step "
+          f"{GNN_STEPS - 1} {losses[-1]:.4f}; peak {peak:.3f} GiB; resumed "
+          f"from step {TRAIN_RESUME_AT}: losses, params and AdamW moments "
+          f"bit for bit {same}")
+    check(same, f"{arch}: the resumed run differs from the uninterrupted one")
+    check(all(np.isfinite(losses)), f"{arch}: a loss is not finite: {losses}")
+    check(peak < (GIN_PEAK_GIB if arch == "gin-tu" else GNN_PEAK_GIB),
+          f"{arch} on {shape_name}: peak {peak:.3f} GiB")
+    rec = {"step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+           "edges_per_s": edges / step_s, "edges_a_step": edges,
+           "setup_s": setup_s, "losses": losses, "losses_resumed": losses_b,
+           "peak_gib": peak, "resume_bit_for_bit": same,
+           "rmat_counter_launches": launches, "params": n_par}
+    if arch == "gin-tu":
+        rec.update(gnn_atomic_step(built))
+        print("-- profile of one gin-tu ogb_products step (trained state)")
+        rec["profile"] = gnn_profile(lambda: (full, built[1], built[2]))
+        batch = built[2](0)
+        rec["graph"] = (batch["senders"], batch["receivers"],
+                        batch["x"].shape[0])
+        rec["stream_err"] = check_gnn_stream(shape, dev, batch["senders"],
+                                             batch["receivers"])
+    if shape.kind == "sampled":
+        # the CSR holds the edges sorted by sender: regenerate them in
+        # _edges_for's order for the check
+        from repro_torch.graph.datasets import _edges_for
+        rec["stream_err"] = check_gnn_stream(
+            shape, dev, *_edges_for(shape.n_nodes, shape.n_edges, 0, dev))
+    del full, resumed, built
+    return rec
+
+
+def gnn_first_step_gaps(dev) -> dict:
+    """21e: each arch's loss and gradients on the smoke graph on the card
+    against the CPU path on the same batch and parameters: the float32
+    loss within 1e-5, and loss and gradients in float64 within the CPU
+    tests' 1e-5 and 1e-4.  Float32 gradients are printed, not held: a
+    pre-activation within rounding of 0 flips a ReLU between the two
+    devices' summation orders (one of MeshGraphNet's 15 layers' units did
+    on the card), a kink no rounding tolerance covers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.graph.datasets import build_gnn_batch
+    from repro_torch.launch import cells
+    from repro_torch.launch.train import GNN_SMOKE
+    out = {}
+    for _, arch, _ in GNN_CELLS:
+        cfg = get_config(arch)
+        rec = {}
+        for dt in (torch.float32, torch.float64):
+            res = []
+            for d in (torch.device("cpu"), dev):
+                b = build_gnn_batch(cfg, GNN_SMOKE, seed=0, device=d)
+                b["node_mask"] = torch.ones(b["x"].shape[0], device=d)
+                b["targets_g"] = torch.zeros(1, device=d)
+                b = {k: v.to(dt) if v.is_floating_point() else v
+                     for k, v in b.items()}
+                init, loss_fn = cells._gnn_loss(
+                    cfg, GNN_SMOKE, b["x"].shape[0], 1, b["x"].shape[1])
+                p = {k: v.to(dt).requires_grad_(True)
+                     for k, v in init(seed=0, device=d).items()}
+                with cells.deterministic():
+                    loss = loss_fn(p, b)
+                    g = torch.autograd.grad(loss, list(p.values()))
+                res.append((loss.detach().cpu(),
+                            {k: v.cpu() for k, v in zip(p, g)}))
+            (lc, gcpu), (lg, gg) = res
+            tag = str(dt).split(".")[-1]
+            rec[f"loss_gap_{tag}"] = float((lg - lc).abs())
+            rec[f"loss_tol_{tag}"] = GNN_FWD * float(lc.abs()) + 1e-6
+            rec[f"grad_worst_share_{tag}"] = max(
+                float((gg[k] - gcpu[k]).abs().max()
+                      / (GNN_GRAD * float(gcpu[k].abs().max()) + 1e-6))
+                for k in gcpu)
+            print(f"21e {arch} smoke graph, step 0 in {tag}, the card against "
+                  f"the CPU: loss {float(lg):.6f} vs {float(lc):.6f} (gap "
+                  f"{rec[f'loss_gap_{tag}']:.3e}, tolerance "
+                  f"{rec[f'loss_tol_{tag}']:.3e}); gradients at worst "
+                  f"{rec[f'grad_worst_share_{tag}']:.4f} of their tolerance"
+                  + ("" if dt == torch.float64 else " (printed, not held)"))
+            check(rec[f"loss_gap_{tag}"] <= rec[f"loss_tol_{tag}"],
+                  f"21e {arch}: the card's {tag} loss differs from the CPU's")
+        check(rec["grad_worst_share_float64"] <= 1,
+              f"21e {arch}: the card's gradients differ from the CPU's")
+        out[arch] = rec
+    return out
+
+
+def gnn_spmm(dev, senders, receivers, n) -> dict:
+    """21d: ``spmm_2d`` on the ogb_products graph at d 64 on the simulated
+    1x1 and 4x4 grids against one ``index_add_`` of the same edges, within
+    1e-4 of each output's sum of |terms| plus 1e-4 (a hub row sums ~10^5
+    terms in another order), each call timed and its exchanges
+    recorded."""
+    from repro_torch.core import collectives
+    from repro_torch.core.spmm import make_spmm_fn
+    from repro_torch.graph.formats import build_blocked
+    from repro_torch.graph.rmat import preprocess
+    out = {}
+    e = preprocess(senders, receivers, n, symmetrize=False)
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(n, SPMM_D, generator=gen, device=dev)
+    want = torch.zeros_like(x).index_add_(0, e.dst, x.index_select(0, e.src))
+    # float32 sums of up to a hub's in-degree of terms: the error bound
+    # scales with the sum of the terms' magnitudes, not with the sum
+    scale = torch.zeros_like(x).index_add_(0, e.dst,
+                                           x.abs().index_select(0, e.src))
+    lib_ms = cuda_ms(lambda: torch.zeros_like(x).index_add_(
+        0, e.dst, x.index_select(0, e.src)), reps=5)
+    for pr, pc in SPMM_GRIDS:
+        ts = time.perf_counter()
+        g = build_blocked(e, pr, pc, align=32)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - ts
+        part = g.part
+        fn = make_spmm_fn(part, dev)
+        xb = torch.zeros(part.n, SPMM_D, device=dev)
+        xb[:n] = x
+        xb = xb.reshape(pr, pc, part.chunk, SPMM_D)
+        with collectives.ScheduleRecorder() as rec:
+            y = fn(g, xb)
+        got = y.reshape(part.n, SPMM_D)[:n]
+        gap = float(((got - want).abs() - 1e-4 * scale).max())
+        ms = cuda_ms(lambda: fn(g, xb), reps=5)
+        counts = rec.counts()
+        print(f"21d spmm_2d {pr}x{pc} on ogb_products ({e.m:,} edges after "
+              f"dedup, d {SPMM_D}): {ms:.3f} ms a call (build_blocked "
+              f"{build_s:.2f} s), one index_add_ of the same edges "
+              f"{lib_ms:.3f} ms; |spmm - index_add_| - 1e-4 x (the row's "
+              f"sum of |terms|) at most {gap:.3e}; recorded {counts}")
+        check(gap <= 1e-4, f"spmm_2d {pr}x{pc} differs from index_add_")
+        check(counts == {"collective-permute": 1, "all-gather": 1,
+                         "reduce-scatter": 1, "total": 3},
+              f"spmm_2d {pr}x{pc} recorded {counts}")
+        out[f"{pr}x{pc}"] = {"ms": ms, "build_s": build_s, "gap": gap,
+                             "recorded": counts}
+        del g, y, got, xb
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["index_add_ms"] = lib_ms
+    out["edges"] = e.m
+    return out
+
+
+def gnn_phases(dev, kernels) -> dict:
+    """Phase 21 (``main`` and ``--gnn``): the GNN cells trained and
+    resumed, the 2D SpMM, the first steps against the CPU, the GNN
+    drivers; their records and kernel 7's launches."""
+    import shutil
+    import tempfile
+    rec, secs = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(lbl):
+        secs[lbl] = time.perf_counter() - t0 - sum(secs.values())
+        print(f"({lbl}: {secs[lbl]:.1f} s)")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="gnn_", dir=ROOT / "build"))
+    launches = 0
+    for label, arch, shape_name in GNN_CELLS:
+        phase(f"{label} {arch} on {shape_name} at the registered width: "
+              f"{GNN_STEPS} steps, resumed from step {TRAIN_RESUME_AT}")
+        r = rec[arch] = gnn_cell(label, arch, shape_name, dev, kernels, work)
+        launches += r["rmat_counter_launches"]
+        lap(f"{label} {arch}")
+        if arch == "gin-tu":
+            senders, receivers, n = r.pop("graph")
+            phase(f"21d spmm_2d on the ogb_products graph at d {SPMM_D} on "
+                  f"the simulated 1x1 and 4x4 grids")
+            rec["spmm"] = gnn_spmm(dev, senders, receivers, n)
+            del senders, receivers
+            lap("21d")
+    print(f"kernel 7 launches on the GNN path (21a-21c, the graphs' "
+          f"generation): {launches}; its plain version called there: 0")
+    errs = max(rec[a].get("stream_err", 0) for _, a, _ in GNN_CELLS)
+    phase("21e the first step of each cell's arch on the smoke graph: the "
+          "card against the CPU path")
+    rec["first_steps"] = gnn_first_step_gaps(dev)
+    lap("21e")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = secs
+    return {"record": rec, "launches": {"rmat_counter": launches},
+            "errs": {"rmat_counter": errs}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -5240,6 +5720,9 @@ def main() -> int:
     ap.add_argument("--moe", action="store_true",
                     help="only phases 19-20: the new LM configs served, "
                          "the simulated mesh, MoE training")
+    ap.add_argument("--gnn", action="store_true",
+                    help="only phase 21: the GNN archs trained at the "
+                         "registered widths, the 2D SpMM, the GNN drivers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this script runs "
@@ -5258,6 +5741,14 @@ def main() -> int:
         new_lm_phases(torch.device("cuda"), {
             "flash_attention": fa_ops.KERNEL,
             "flash_attention_bwd": fa_ops.KERNEL_BWD})
+        return 0
+    if args.gnn:
+        from repro_torch.graph import rmat
+        print(smi_line())
+        gnn_phases(torch.device("cuda"), {"rmat_counter": rmat.RMAT_COUNTER})
+        phase("21 drivers: launch.train --arch gin-tu and "
+              "examples.gnn_full_graph on the card")
+        run_train_drivers(GNN_DRIVERS)
         return 0
 
     from repro_torch.graph import rmat
@@ -5544,8 +6035,21 @@ def main() -> int:
                                   new["errs"]["flash_attention"])
     print(f"kernels 9 and 9b on the new configs' paths (phases 19-20): "
           f"{new['launches']}")
+    del new
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn = gnn_phases(dev, kernels)
+    record["gnn"] = gnn["record"]
+    launches_new["rmat_counter"] = (launches_new.get("rmat_counter", 0)
+                                    + gnn["launches"]["rmat_counter"])
+    errs["rmat_counter"] = max(errs["rmat_counter"],
+                               gnn["errs"]["rmat_counter"])
 
     record["total_s"] = time.perf_counter() - t_start
+    close_phase(time.perf_counter())
+    record["phase_s"] = PHASE_S
+    print("seconds a phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in PHASE_S.items()))
     print(f"total {record['total_s']:.1f} s")
 
     out_dir = ROOT / "chiprun_out"

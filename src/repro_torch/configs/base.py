@@ -1,14 +1,15 @@
-"""The configurations of the PyTorch port: the traversal's ``BFSConfig``
-and the serving archs' ``LMConfig`` and ``RecsysConfig`` with their
-registry.
+"""The configurations of the PyTorch port: the traversal's ``BFSConfig``,
+the serving archs' ``LMConfig`` and ``RecsysConfig`` and the graph
+networks' ``GNNConfig``, with their registry.
 
 Each config carries the same fields and defaults as the JAX package's,
 so one config object describes a session in either package.  The
 registry holds the archs the port runs: ``autoint``, the five LM archs
 (``smollm-135m``, ``stablelm-3b``, ``starcoder2-7b``, ``mixtral-8x22b``,
-``qwen3-moe-30b-a3b`` and its ``qwen3-moe-r1`` to ``-r4`` variants) and
-every ``bfs-rmat*`` arch (``configs/bfs_rmat.py``); ``get_config`` names
-any other arch (the GNN archs) as not ported yet.
+``qwen3-moe-30b-a3b`` and its ``qwen3-moe-r1`` to ``-r4`` variants), the
+four GNN archs (``gin-tu``, ``gat-cora``, ``meshgraphnet``, ``mace``, each
+with the four ``GNN_SHAPES``) and every ``bfs-rmat*`` arch
+(``configs/bfs_rmat.py``): every arch of the JAX package.
 
 The port runs every ``BFSConfig`` value the JAX package does: the three
 decompositions, both storages in either ``local_mode``, every
@@ -40,6 +41,27 @@ LM_SHAPES: Tuple[LMShape, ...] = (
     LMShape("prefill_32k", 32768, 32, "prefill"),
     LMShape("decode_32k", 32768, 128, "decode"),
     LMShape("long_500k", 524288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
+class GNNShape:
+    name: str
+    n_nodes: int
+    n_edges: int
+    d_feat: int = 0
+    batch_nodes: int = 0            # sampled-training seed batch
+    fanout: Tuple[int, ...] = ()    # neighbor-sampler fanouts
+    batch_graphs: int = 0           # batched-small-graphs
+    kind: str = "full"              # "full" | "sampled" | "batched"
+
+
+GNN_SHAPES: Tuple[GNNShape, ...] = (
+    GNNShape("full_graph_sm", 2708, 10556, d_feat=1433, kind="full"),
+    GNNShape("minibatch_lg", 232965, 114615892, batch_nodes=1024,
+             fanout=(15, 10), kind="sampled"),
+    GNNShape("ogb_products", 2449029, 61859140, d_feat=100, kind="full"),
+    GNNShape("molecule", 30, 64, batch_graphs=128, kind="batched"),
 )
 
 
@@ -170,6 +192,28 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    arch: str
+    model: str              # "gin" | "gat" | "meshgraphnet" | "mace"
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    aggregator: str = "sum"
+    l_max: int = 0                   # MACE
+    correlation_order: int = 0       # MACE
+    n_rbf: int = 0                   # MACE
+    eps_learnable: bool = False      # GIN
+    mlp_layers: int = 2              # MeshGraphNet
+    n_classes: int = 16
+    dtype: str = "float32"
+    shapes: Tuple[GNNShape, ...] = GNN_SHAPES
+
+    @property
+    def kind(self) -> str:
+        return "gnn"
+
+
+@dataclass(frozen=True)
 class RecsysConfig:
     arch: str
     n_sparse: int
@@ -241,5 +285,6 @@ def _ensure_loaded() -> None:
     # Importing the per-arch modules populates the registry (once: a
     # module body runs at its first import only).
     from repro_torch.configs import (  # noqa: F401
-        autoint, bfs_rmat, mixtral_8x22b, qwen3_moe_30b_a3b, smollm_135m,
-        stablelm_3b, starcoder2_7b)
+        autoint, bfs_rmat, gat_cora, gin_tu, mace, meshgraphnet,
+        mixtral_8x22b, qwen3_moe_30b_a3b, smollm_135m, stablelm_3b,
+        starcoder2_7b)

@@ -23,9 +23,10 @@ allocates nothing on the device.
 
 The NN side's shards (``models/``, ``optim/dp_step.py``) are stacked the
 same way over any named axes, ``(dp..., tp, ...)`` for a ("data",
-"model") mesh: ``all_to_all_axis``, ``psum_axis`` and ``pmean_axis`` run
-over one named axis of such a stack and keep the others, as a JAX
-collective inside ``shard_map`` does.
+"model") mesh: ``all_to_all_axis``, ``psum_axis``, ``pmean_axis`` and
+``psum_scatter_axis`` run over one named axis of such a stack and keep
+the others, as a JAX collective inside ``shard_map`` does (the 2D SpMM,
+``core/spmm.py``, folds with the last).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ STRIPS = (ROW,)
 # HLO kind of each JAX primitive the port records
 KINDS = {"psum": "all-reduce", "pmean": "all-reduce", "pmax": "all-reduce",
          "pmin": "all-reduce", "all_gather": "all-gather",
-         "all_to_all": "all-to-all", "ppermute": "collective-permute"}
+         "all_to_all": "all-to-all", "ppermute": "collective-permute",
+         "psum_scatter": "reduce-scatter"}
 REDUCTIONS = ("psum", "pmean", "pmax", "pmin")
 
 
@@ -279,3 +281,23 @@ def pmean_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
     a = _axis_dim(x, axes, axis)
     _record("pmean", (axis,), tag)
     return x.mean(dim=a, keepdim=True).expand_as(x)
+
+
+def psum_scatter_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
+                      tag: str = "") -> torch.Tensor:
+    """Combining reduce-scatter over the named ``axis`` of ``x`` stacked
+    over ``axes``: the sum over the axis, of which processor q along it
+    keeps the q-th of as many tiles of the first per-processor dim, the
+    other axes kept (``lax.psum_scatter(x, axis, scatter_dimension=0,
+    tiled=True)`` inside ``shard_map``)."""
+    a, s = _axis_dim(x, axes, axis), len(axes)
+    size = x.shape[a]
+    if x.dim() <= s or x.shape[s] % size:
+        raise ValueError(f"psum_scatter over {axis!r} of size {size} needs "
+                         f"a first per-processor dim it divides, got shape "
+                         f"{tuple(x.shape)}")
+    _record("psum_scatter", (axis,), tag)
+    summed = x.sum(dim=a)              # the axis gone; the rows at s - 1
+    tiles = summed.reshape(*summed.shape[:s - 1], size,
+                           x.shape[s] // size, *x.shape[s + 1:])
+    return tiles.movedim(s - 1, a)

@@ -10,11 +10,19 @@ memory) and its printed lines.
         --full --batch 8 --seq 1024 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch bfs-rmat --scale 12
     PYTHONPATH=src python -m repro_torch.launch.train --arch autoint --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu \
+        --shape ogb_products --steps 20
 
 The lm and recsys kinds train with AdamW (kernels 9 and 9b, or 8 and 8b,
 on the card); the bfs kind runs up to 8 searches through the kernel
-entries and validates each tree.  The GNN archs are not ported yet.
-``--device cuda`` (the default) raises without a card.
+entries and validates each tree.  The gnn kind trains on the JAX
+launcher's smoke graph (512 nodes, 2,048 edges, 32 features) with
+AdamW, or with ``--shape`` on one of the arch's registered shapes at
+full size, laid out for one device as the JAX package's GNN cells lay it
+out (the large graphs' edges from kernel 7 on the card); its steps run
+under ``cells.deterministic()``.  ``--device cuda`` (the default) raises
+without a card.
 """
 from __future__ import annotations
 
@@ -25,16 +33,16 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs.base import GNNShape, get_config, reduced
 from repro_torch.data.pipeline import lm_batch, recsys_batch
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.launch.serve import RECSYS_SMALL, check_fits, reduced_lm
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.trainer import Trainer, value_and_grad_step
 
-# the JAX package's GNN archs (configs/{gat_cora,gin_tu,mace,meshgraphnet}.py)
-GNN_ARCHS = ("gat-cora", "gin-tu", "mace", "meshgraphnet")
 LM_SEQ_CHUNK = 64        # the JAX launcher's lm_loss(..., seq_chunk=64)
+# the JAX launcher's GNN smoke graph
+GNN_SMOKE = GNNShape("smoke", 512, 2048, d_feat=32, kind="full")
 
 
 def run_bfs_kind(cfg, scale: int, steps: int, device) -> None:
@@ -90,6 +98,49 @@ def recsys_setup(cfg, device, batch: int, opt: AdamW):
     return (params, opt.init(params)), step_fn, make_batch
 
 
+def gnn_setup(cfg, device, opt: AdamW, shape_name=None, seed: int = 0):
+    """(state, step_fn, make_batch) of a GNN arch: seeded params, AdamW
+    state and ``cells._gnn_loss`` under ``cells.deterministic()``.  With
+    no ``shape_name``, the JAX launcher's smoke graph (every step the same
+    batch, ``node_mask`` ones, ``targets_g`` zeros); else the registered
+    shape at full size on one device: a full or batched shape's batch
+    from ``build_gnn_batch``, or for a sampled shape its CSR and features
+    (``cells.sampled_graph``) with the step's seeds and sampler seed a
+    function of the step."""
+    from repro_torch.graph.datasets import build_gnn_batch
+    from repro_torch.launch import cells
+    shape = GNN_SMOKE if shape_name is None else next(
+        (s for s in cfg.shapes if s.name == shape_name), None)
+    if shape is None:
+        raise ValueError(f"{cfg.arch} has no shape {shape_name!r}; have "
+                         f"{[s.name for s in cfg.shapes]}")
+    if shape.kind == "sampled":
+        init, loss_fn = cells.sampled_loss(cfg, shape)
+        graph = cells.sampled_graph(shape, cfg.n_classes, seed, device)
+
+        def make_batch(step):
+            g = torch.Generator().manual_seed(seed + step)
+            seeds = torch.randint(0, shape.n_nodes, (shape.batch_nodes,),
+                                  generator=g, dtype=torch.int32)
+            return {"graph": graph, "seeds": seeds.to(device),
+                    "sample_seed": seed + step}
+    else:
+        b = build_gnn_batch(cfg, shape, seed=seed, device=device)
+        n = b["x"].shape[0]
+        n_graphs = shape.batch_graphs if shape.kind == "batched" else 1
+        b["node_mask"] = torch.ones(n, dtype=torch.float32, device=device)
+        b["targets_g"] = torch.zeros(n_graphs, dtype=torch.float32,
+                                     device=device)
+        init, loss_fn = cells._gnn_loss(cfg, shape, n, n_graphs,
+                                        b["x"].shape[1])
+
+        def make_batch(step):
+            return b
+    params = init(seed=seed, device=device)
+    step_fn = cells.deterministic_step(value_and_grad_step(loss_fn, opt))
+    return (params, opt.init(params)), step_fn, make_batch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -103,11 +154,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None,
                     help="rows a step (default: lm 4, recsys 64)")
     ap.add_argument("--seq", type=int, default=64, help="lm tokens a row")
+    ap.add_argument("--shape", default=None,
+                    help="gnn: a registered shape at full size (default: "
+                         "the smoke graph)")
     args = ap.parse_args(argv)
-    if args.arch in GNN_ARCHS:
-        raise NotImplementedError(
-            f"{args.arch}: the GNN archs are not ported yet (ROADMAP queue "
-            f"1, 'GNN and the other arch configs')")
     cfg = get_config(args.arch)
     dev = resolve_device(args.device)
 
@@ -123,6 +173,8 @@ def main(argv=None):
             cfg = reduced_lm(cfg)
         state, step_fn, mk = lm_setup(cfg, dev, args.batch or 4, args.seq,
                                       opt)
+    elif cfg.kind == "gnn":
+        state, step_fn, mk = gnn_setup(cfg, dev, opt, args.shape)
     else:  # recsys
         if not args.full:
             cfg = reduced(cfg, **RECSYS_SMALL)

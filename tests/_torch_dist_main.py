@@ -1,6 +1,7 @@
 """Subprocess entry: the port's simulated-mesh sessions on 2x2 and 4x4
 grids against the JAX package's ``local_mode="dense"`` sessions on 16
-forced host devices, plus ``expand_bitmap`` on those grids.
+forced host devices, plus ``expand_bitmap`` on those grids and the 2D
+SpMM (``core/spmm.py::spmm_2d``) on the 4x4 and 2x8 grids.
 
 Run as:  python tests/_torch_dist_main.py
 (sets XLA_FLAGS before importing jax, so pytest's process keeps 1 device).
@@ -21,6 +22,7 @@ from repro.configs.base import BFSConfig as RConfig  # noqa: E402
 from repro.core import frontier as rf  # noqa: E402
 from repro.core.compat import shard_map  # noqa: E402
 from repro.core.engine import plan_bfs as r_plan_bfs  # noqa: E402
+from repro.core.spmm import spmm_2d as r_spmm_2d  # noqa: E402
 from repro.core.partition import make_partition as r_make_partition  # noqa: E402,E501
 from repro.graph.formats import build_blocked as r_build_blocked  # noqa: E402
 from repro.graph.rmat import rmat_graph as r_rmat_graph  # noqa: E402
@@ -30,6 +32,7 @@ from repro_torch.core import collectives  # noqa: E402
 from repro_torch.core import frontier as tf  # noqa: E402
 from repro_torch.core.engine import plan_bfs  # noqa: E402
 from repro_torch.core.partition import make_partition  # noqa: E402
+from repro_torch.core.spmm import spmm_2d  # noqa: E402
 from repro_torch.graph.formats import build_blocked  # noqa: E402
 from repro_torch.graph.rmat import rmat_graph  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
@@ -71,10 +74,30 @@ def check_expand(pr, pc, rng):
     assert wire == np.float32(wire_ref), (pr, pc)
 
 
+def check_spmm(grids):
+    """The port's spmm_2d against the JAX package's on the same graph
+    (scale 10, edge factor 8, seed 11, as ``_dist_spmm_main.py``), within
+    1e-5 of the largest output plus 1e-6."""
+    r_edges = r_rmat_graph(10, 8, seed=11)
+    t_edges = rmat_graph(10, 8, seed=11, device="cpu")
+    x = np.random.default_rng(0).normal(size=(r_edges.n, 8)).astype(
+        np.float32)
+    for pr, pc in grids:
+        want = np.asarray(r_spmm_2d(r_build_blocked(r_edges, pr, pc, align=32,
+                                                    cap_pad=32),
+                                    x, r_mesh(pr, pc)))
+        got = spmm_2d(build_blocked(t_edges, pr, pc, align=32, cap_pad=32),
+                      torch.from_numpy(x)).numpy()
+        tol = 1e-5 * np.abs(want).max() + 1e-6
+        assert np.abs(got - want).max() <= tol, (pr, pc)
+        print(f"spmm {pr}x{pc} == reference")
+
+
 def main():
     rng = np.random.default_rng(0)
     for grid in ((2, 2), (4, 4)):
         check_expand(*grid, rng)
+    check_spmm(((4, 4), (2, 8)))
     r_edges = r_rmat_graph(10, 8, seed=3)
     t_edges = rmat_graph(10, 8, seed=3, device="cpu")
     deg = r_edges.out_degrees()

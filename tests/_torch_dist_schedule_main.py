@@ -7,12 +7,16 @@ the schedule sweep's scale-9 2x4 grid of 8 forced host devices
 registry), in the port's dense and kernel modes.
 
 Parents, n_levels, level_stats and counters must be equal
-(``same_result``), instrumented and not, and both fallbacks must be seen
-to fire, so their dense branch is what the equal parents come through.
+(``same_result``), instrumented and not, and a variant's fallbacks must
+be seen to fire (the fold's where it folds by "bitmap", the update's
+where it sends compact updates), so their dense branch is what the equal
+parents come through.
 
-Run as:  python tests/_torch_dist_schedule_main.py
-(sets XLA_FLAGS before importing jax).  Prints ``OK torch-dist-schedule
-(F fold and U update overflows)`` on success.
+Run as:  python tests/_torch_dist_schedule_main.py VARIANT
+with VARIANT one of ``CASES``' names (sets XLA_FLAGS before importing
+jax): each variant is a process of its own, so the four can run side by
+side.  Prints ``OK torch-dist-schedule VARIANT (F fold and U update
+overflows)`` on success.
 """
 import os
 import sys
@@ -28,15 +32,17 @@ from repro.analysis.registry import plan_case as r_plan_case  # noqa: E402
 from repro_torch.analysis.registry import plan_case  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 
-CASES = (
-    {"fold_mode": "bitmap"},
-    {"compact_updates": True},
-    {"expand_chunks": 2},
-    {"fold_mode": "bitmap", "compact_updates": True, "expand_chunks": 2},
-)
+CASES = {
+    "bitmap": {"fold_mode": "bitmap"},
+    "compact_updates": {"compact_updates": True},
+    "expand_chunks=2": {"expand_chunks": 2},
+    "all": {"fold_mode": "bitmap", "compact_updates": True,
+            "expand_chunks": 2},
+}
 
 
-def main():
+def main(variant: str):
+    ov = CASES[variant]
     fold_over, upd_over = [], []
     bitmap, pack = steps._fold_bitmap, steps.pack_ids
 
@@ -51,26 +57,28 @@ def main():
 
     steps._fold_bitmap, steps.pack_ids = watch_fold, watch_pack
     roots = None
-    for ov in CASES:
-        for instrument in (True, False):
-            ref = r_plan_case("2d", ov, instrument=instrument).compile()
-            if roots is None:
-                deg = np.asarray(ref.plan.graph.deg_A).reshape(-1)
-                roots = [int(r) for r in np.argsort(-deg, kind="stable")[:20]]
-                roots += [int(r) for r in np.flatnonzero(deg > 0)[[0, 77]]]
-            want = [ref.run(r) for r in roots]
-            for local_mode in ("dense", "kernel"):
-                eng = plan_case("2d", ov, instrument=instrument,
-                                local_mode=local_mode, device="cpu").compile()
-                for r, w in zip(roots, want):
-                    same_result(w, eng.run(r), local_mode,
-                                (ov, instrument, local_mode, r))
-            print(f"2d {ov} instrument={instrument}: dense and kernel == "
-                  f"reference on {len(roots)} roots", flush=True)
-    assert any(fold_over) and any(upd_over), (sum(fold_over), sum(upd_over))
-    print(f"OK torch-dist-schedule ({sum(fold_over)} fold and "
+    for instrument in (True, False):
+        ref = r_plan_case("2d", ov, instrument=instrument).compile()
+        if roots is None:
+            deg = np.asarray(ref.plan.graph.deg_A).reshape(-1)
+            roots = [int(r) for r in np.argsort(-deg, kind="stable")[:20]]
+            roots += [int(r) for r in np.flatnonzero(deg > 0)[[0, 77]]]
+        want = [ref.run(r) for r in roots]
+        for local_mode in ("dense", "kernel"):
+            eng = plan_case("2d", ov, instrument=instrument,
+                            local_mode=local_mode, device="cpu").compile()
+            for r, w in zip(roots, want):
+                same_result(w, eng.run(r), local_mode,
+                            (ov, instrument, local_mode, r))
+        print(f"2d {ov} instrument={instrument}: dense and kernel == "
+              f"reference on {len(roots)} roots", flush=True)
+    if ov.get("fold_mode") == "bitmap":
+        assert any(fold_over), "the bitmap fold's fallback never fired"
+    if ov.get("compact_updates"):
+        assert any(upd_over), "the compact updates' fallback never fired"
+    print(f"OK torch-dist-schedule {variant} ({sum(fold_over)} fold and "
           f"{sum(upd_over)} update overflows)")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1])

@@ -16,6 +16,7 @@ from repro.optim.adamw import AdamW as RAdamW
 from repro.optim.adamw import SGDM as RSGDM
 from repro.optim.adamw import global_norm as r_global_norm
 from repro_torch.optim.adamw import SGDM, AdamW, AdamWState, global_norm
+from _torch_threads import one_thread  # noqa: F401
 
 _SHAPES = {"w": (8, 16), "b": (16,), "emb": (32, 4)}
 

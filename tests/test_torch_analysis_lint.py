@@ -32,6 +32,7 @@ from repro_torch.core.steps_1d import bottomup_level_1d, topdown_level_1d
 from repro_torch.graph.formats import build_blocked
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -168,7 +169,8 @@ def test_r3_flags_a_pod_leak_and_an_under_declared_rendezvous():
 
 def _run_cli(*args):
     env = dict(os.environ, PYTHONPATH=_SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""),
+               **ONE_THREAD_ENV)
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.analysis.lint", *args],
         capture_output=True, text=True, timeout=600, env=env)

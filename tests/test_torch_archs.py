@@ -32,6 +32,7 @@ from repro_torch.graph.rmat import rmat_graph
 from repro_torch.kernels.spmsv import ops as sp_ops
 from repro_torch.kernels.spmsv import strip
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _HERE = os.path.dirname(__file__)
 # bfs-rmat-multiroot is bfs-rmat run through run_batch
@@ -215,7 +216,7 @@ def test_2d_arch_sessions_match_reference_1x1(edges, arch):
 
 
 def test_1d_archs_match_reference_on_4_and_16_strips():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable,
                           os.path.join(_HERE, "_torch_dist_archs_main.py"),

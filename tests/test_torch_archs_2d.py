@@ -7,12 +7,13 @@ devices, in the port's dense and kernel modes, with the drops of
 import os
 import subprocess
 import sys
+from _torch_threads import ONE_THREAD_ENV
 
 _HERE = os.path.dirname(__file__)
 
 
 def test_2d_archs_match_reference_on_2x2_and_4x4_meshes():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable,
                           os.path.join(_HERE, "_torch_dist_archs_main.py"),

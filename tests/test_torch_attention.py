@@ -19,6 +19,7 @@ from repro.models import common as jax_common
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import common
+from _torch_threads import one_thread  # noqa: F401
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

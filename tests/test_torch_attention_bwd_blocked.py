@@ -19,6 +19,7 @@ import torch
 from repro.models.common import chunked_attention as r_chunked_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from _torch_threads import one_thread  # noqa: F401
 
 TILE = 16
 

@@ -21,6 +21,7 @@ from repro_torch.core.engine import plan_bfs
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from repro.ckpt import checkpoint as r_ckpt
 from repro.optim.adamw import AdamW as RAdamW
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.optim.adamw import AdamW, AdamWState
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _toy_state(seed=0):

@@ -20,6 +20,7 @@ from repro.kernels.frontier_codec import ref as r_ref
 from repro_torch.core.comm_model import codec_bits, codec_bucket_words
 from repro_torch.kernels.frontier_codec import ops as t_ops
 from repro_torch.kernels.frontier_codec import ref as t_ref
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _buckets(chunk, cap, seed):

@@ -12,6 +12,7 @@ import pytest
 from repro.core import comm_model as R
 from repro_torch.analysis.registry import SCHEDULE_DOMAINS
 from repro_torch.core import comm_model as T
+from _torch_threads import one_thread  # noqa: F401
 
 DECOMPS = ("2d", "1d", "1ds", "3d")
 MODES = ("td", "bu", "fold")

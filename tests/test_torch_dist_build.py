@@ -28,6 +28,7 @@ from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 from repro_torch.runtime.retry import CapacityOverflow
+from _torch_threads import one_thread  # noqa: F401
 
 SPEC = T.BuildSpec(scale=9, edge_factor=8, seed=3)
 R_SPEC = R.BuildSpec(scale=9, edge_factor=8, seed=3)

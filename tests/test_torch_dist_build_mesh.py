@@ -7,12 +7,13 @@ three route-word figures and the healed ``retry_log`` of a squeezed
 import os
 import subprocess
 import sys
+from _torch_threads import ONE_THREAD_ENV
 
 _HERE = os.path.dirname(__file__)
 
 
 def test_dist_build_matches_reference_on_meshes():
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable,
                         os.path.join(_HERE, "_torch_dist_build_main.py")],

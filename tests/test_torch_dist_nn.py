@@ -13,13 +13,14 @@ import subprocess
 import sys
 
 import pytest
+from _torch_threads import ONE_THREAD_ENV
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 @pytest.fixture(scope="module")
 def cases():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable,
                           os.path.join(_HERE, "_torch_dist_nn_main.py")],

@@ -16,6 +16,7 @@ import torch
 from repro.kernels.embedding_bag import ops as jax_eb
 from repro.kernels.embedding_bag import ref as jax_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
+from _torch_threads import one_thread  # noqa: F401
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

@@ -26,6 +26,7 @@ from repro_torch.core.ref import TreeValidator, bfs_depths, validate_parents
 from repro_torch.graph.formats import build_blocked
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _HERE = os.path.dirname(__file__)
 
@@ -101,7 +102,7 @@ def test_fast_sessions_match_reference_1x1(graphs, fold, diro):
 
 
 def test_sessions_match_reference_on_2x2_and_4x4_meshes():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable,
                         os.path.join(_HERE, "_torch_dist_main.py")],

@@ -16,6 +16,7 @@ from repro_torch.core import comm_model
 from repro_torch.examples import graph500_bfs, quickstart, serve_lm, train_lm
 from repro_torch.launch import train
 from repro_torch.graph.rmat import scale_free_standin
+from _torch_threads import one_thread  # noqa: F401
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..")
 _BASE = ["--scale", "11", "--roots", "4", "--device", "cpu"]
@@ -130,8 +131,8 @@ def test_training_drivers_default_to_the_card(tmp_path):
         train_lm.main(["--ckpt-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--arch", "autoint", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="GNN"):
-        train.main(["--arch", "gin-tu", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "gin-tu", "--ckpt-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("pr,pc", [(1, 1), (2, 2), (4, 4), (16, 16),

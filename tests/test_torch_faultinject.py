@@ -39,6 +39,7 @@ from repro_torch.runtime.faultinject import (PARENT_FAULTS, InjectionError,
                                              run_fault_matrix, undersize_cap,
                                              undersize_route_slack)
 from repro_torch.runtime.straggler import StragglerMonitor
+from _torch_threads import one_thread  # noqa: F401
 
 ROOT = 5
 

@@ -20,6 +20,7 @@ import torch
 from repro.kernels.flash_attention import ref as jax_fa_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -13,6 +13,7 @@ from repro.launch.mesh import make_local_mesh as r_make_local_mesh
 from repro_torch.core import collectives
 from repro_torch.core import frontier as tf
 from repro_torch.core.partition import make_partition
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _mask(rng, n, density):

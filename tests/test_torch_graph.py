@@ -9,6 +9,7 @@ from repro.graph import formats as rformats
 from repro.graph import rmat as rrmat
 from repro_torch.graph import formats as tformats
 from repro_torch.graph import rmat as trmat
+from _torch_threads import one_thread  # noqa: F401
 
 
 def test_level_salts_and_thresholds_match():

@@ -28,6 +28,7 @@ from repro_torch.core.engine import plan_bfs
 from repro_torch.graph import dist_build as T
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 from repro_torch.runtime.faultinject import corrupt_shard
+from _torch_threads import one_thread  # noqa: F401
 
 SPEC = T.BuildSpec(scale=8, edge_factor=8, seed=3)
 R_SPEC = R.BuildSpec(scale=8, edge_factor=8, seed=3)

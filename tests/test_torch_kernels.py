@@ -19,6 +19,7 @@ from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.bottomup import ref as bu_ref
 from repro_torch.kernels.spmsv import ops as sp_ops
 from repro_torch.kernels.spmsv import ref as sp_ref
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from repro_torch.core.partition import make_partition, make_partition_1d
 from repro_torch.graph import formats as t_formats
 from repro_torch.graph import rmat as t_rmat
 from repro_torch.launch.mesh import make_local_mesh_1d
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n_orig,p,align", [(2048, 16, 128), (1000, 16, 32),

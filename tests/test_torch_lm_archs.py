@@ -23,6 +23,7 @@ from repro.models import transformer as r_tf
 from repro.models.common import ShardCtx as RShardCtx
 from repro_torch.configs import base
 from repro_torch.models import transformer as tf
+from _torch_threads import one_thread  # noqa: F401
 
 LM_ARCHS = ["stablelm-3b", "smollm-135m", "starcoder2-7b",
             "qwen3-moe-30b-a3b", "mixtral-8x22b"]

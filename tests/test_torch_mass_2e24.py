@@ -33,6 +33,7 @@ from repro_torch.core.engine import plan_bfs
 from repro_torch.graph.formats import build_blocked
 from repro_torch.graph.rmat import EdgeList
 from repro_torch.launch.mesh import make_local_mesh
+from _torch_threads import one_thread  # noqa: F401
 
 SCALE = 20
 F32_EPS = 2.0 ** -24          # unit roundoff of float32

@@ -28,6 +28,7 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ShardCtx
 from repro_torch.optim import grad_compress as gc
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -21,8 +21,9 @@ A body without a ``cond`` records the reference's count exactly.  The
 the text).  The exact bitmap fold and compact updates run both branches
 on the device and select, so they record both, as the text does.  The
 parents of those variants and of the R/G ring are held against the
-reference's dense sessions in a subprocess
-(``_torch_dist_schedule_main.py``).
+reference's dense sessions in a subprocess a variant
+(``_torch_dist_schedule_main.py``, run by ``test_torch_schedule_{bitmap,
+compact,chunks,all}.py``).
 """
 import json
 import os
@@ -37,6 +38,7 @@ from repro_torch.analysis import registry
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core import collectives, comm_model
 from repro_torch.core.engine import plan_bfs
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _HERE = os.path.dirname(__file__)
 
@@ -138,7 +140,7 @@ SLOTS = (("fast", "td"), ("fast", "bu"), ("instrumented", "td"),
 
 @pytest.fixture(scope="module")
 def ref():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable,
                         os.path.join(_HERE, "_perf_guard_main.py")],
@@ -270,16 +272,6 @@ def test_recorder_costs_one_global_when_off_and_nests():
         ("psum", ("data",))]
     assert outer.records[-1].tag == "counter"
     assert outer.records[0].site.startswith("test_torch_schedule.py:")
-
-
-def test_variants_match_reference_parents_in_subprocess():
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    out = subprocess.run([sys.executable,
-                          os.path.join(_HERE, "_torch_dist_schedule_main.py")],
-                         capture_output=True, text=True, timeout=900, env=env)
-    assert out.returncode == 0, f"{out.stdout}\n{out.stderr}"
-    assert "OK torch-dist-schedule" in out.stdout
 
 
 def test_one_word_subchunks_run_on_the_strip_dcsc_kernel_entry():

@@ -21,6 +21,7 @@ from repro_torch.core.ref import TreeValidator, validate_parents
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _HERE = os.path.dirname(__file__)
 
@@ -38,7 +39,7 @@ def small():
 
 
 def test_sessions_match_reference_on_16_strips():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable,
                         os.path.join(_HERE, "_torch_dist_1d_main.py")],

@@ -20,6 +20,7 @@ from repro_torch.core.frontier import INT_INF, pack_bits
 from repro_torch.graph import formats as t_formats
 from repro_torch.graph import rmat as t_rmat
 from repro_torch.kernels.spmsv import strip
+from _torch_threads import one_thread  # noqa: F401
 
 P = 16
 

@@ -27,6 +27,7 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.models import autoint as ai
 from repro_torch.models import embedding
+from _torch_threads import one_thread  # noqa: F401
 
 _SMALL = dict(n_sparse=8, embed_dim=8, n_attn_layers=2, n_heads=2, d_attn=8,
               vocab_sizes=tuple([100] * 8), mlp_hidden=(32,))

@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import AdamW
+from _torch_threads import one_thread  # noqa: F401
 
 _SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
               vocab=512, d_head=16)

@@ -20,6 +20,7 @@ from repro_torch.data.pipeline import (DevicePrefetcher, lm_batch,
 from repro_torch.optim.adamw import SGDM
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.runtime.trainer import Trainer, value_and_grad_step
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _batch_np(step):

@@ -25,6 +25,7 @@ from repro_torch.configs import base
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
 from repro_torch.runtime.server import Request
+from _torch_threads import one_thread  # noqa: F401
 
 CTX = ShardCtx(mesh=None)
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -34,6 +34,7 @@ from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
 from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
 from repro_torch.runtime.faultinject import PARENT_FAULTS, inject_parents
+from _torch_threads import ONE_THREAD_ENV, one_thread  # noqa: F401
 
 _HERE = os.path.dirname(__file__)
 ROOT = 5
@@ -280,7 +281,7 @@ def test_validate_collective_budget_rejects_unknown_decomposition():
 
 
 def test_counts_match_reference_on_2x2_and_4_strips():
-    env = dict(os.environ)
+    env = dict(os.environ, **ONE_THREAD_ENV)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable,
                         os.path.join(_HERE, "_torch_dist_validate_main.py")],

@@ -26,6 +26,7 @@ from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.bottomup import ref as bu_ref
 from repro_torch.kernels.spmsv import strip
 from repro_torch.launch.mesh import make_local_mesh_1d
+from _torch_threads import one_thread  # noqa: F401
 
 P = 16
 BU_P, BU_CHUNK = 2, 1 << 15          # bottom-up cases: 65,536 sources
