@@ -268,10 +268,29 @@ Phases, in the order they run:
                  no plain version of kernel 7 on the path (a tripwire);
                  launch.train --arch gin-tu and examples.gnn_full_graph
                  run with phase 18's drivers
+ 22 dry-run      the dry-run and roofline tooling: (a) python -m
+                 repro_torch.launch.dryrun --cells all --mesh both in
+                 DRYRUN_JOBS processes (every cell traced on meta on the
+                 16x16 and 2x16x16 meshes, the BFS level steps, the eight
+                 hill-climb records), exit 0 and a record each, the
+                 report's two tables; (b) the 1x1 cells the card holds at
+                 their registered size (CARD_CELLS), each counted on meta
+                 and then run on the card with seeded inputs under the
+                 same counter: FLOPs and bytes equal, the reckoned peak
+                 within 10% or 512 MiB of max_memory_allocated, step ms
+                 (median of 5 after 2), bound, roofline share <= 1, MFU;
+                 (c) gin-tu-2d on ogb_products at full width on the
+                 simulated 4x4 grid over phase 21a's graph, 10 steps: the
+                 first loss within 1e-4 of gin-tu 1x1's, the loss
+                 falling, peak < 60 GiB, the recorded exchanges against
+                 comm_model's expand and fold volumes; (d) mace-2d on
+                 full_graph_sm on 2x2, the card against the CPU; the
+                 kernels' launches counted around the phase
 Then the card's name and power limit, the ``kernels`` JSON line and the
 result line.  ``python3 chip_smoke.py --backward`` runs phase 17 alone
 (its checks and times, no result line); ``--moe`` runs phases 19-20
-alone; ``--gnn`` phase 21 alone, with its two drivers.
+alone; ``--gnn`` phase 21 alone, with its two drivers; ``--dryrun``
+phase 22 alone (building 22c's graph itself).
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
@@ -296,6 +315,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -306,6 +326,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# the card's figures (H100 SXM data sheet, 700 W) from the package, which
+# the dry-run's roofline prices with too: HBM3's bytes/s, the dense bf16
+# tensor-core FLOP/s and float32's outside the tensor cores (kernel 9b's
+# bound on float32 inputs)
+from repro_torch.launch.roofline import FP32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 
 SCALE = 24
 EDGE_FACTOR = 16
@@ -319,8 +345,6 @@ OVER_CAP = 64                 # a bucket capacity that makes levels overflow
 STORE_SCALE = 20              # phase 10c: 4 shards of a 2x2 grid on disk
 HEAL_ATTEMPTS = 12            # phase 8e: undersize_cap(52448) = 3264 doubles
 #                               to the 2**20-vertex chunk in 9 steps
-# H100 SXM published memory rate (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer instructions: a GH100 SM has 64 INT32 lanes (against 128
 # FP32 lanes), and the CUDA C++ programming guide's throughput table gives
 # 64 results per clock per SM at compute capability 9.0 for 32-bit integer
@@ -687,8 +711,6 @@ LM_PEAK_GIB = 4.0             # PERF.md section 2
 PREFILL_32K_PEAK_GIB = 60.0   # PERF.md section 2
 PLAIN_ROWS = 2048             # query rows of each piece in which
                               # prefill_32k's plain attention is timed
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
-BF16_FLOPS_PER_S = 989e12
 # kernel 9 at the mixtral config's window: (BH, Sq, Sk, dh, causal,
 # window, q_offset, dtype)
 WINDOW_CASE = (8, 8192, 8192, 128, True, 4096, 0, torch.bfloat16)
@@ -725,18 +747,11 @@ def attn_bound(q, k, causal, window, q_offset) -> tuple:
     """(bound ms, by, flops, bytes) of one attention call on these
     inputs: q read and the output written once, the keys and values
     that some query's mask reaches read once; 4 dh flops per live
-    (query, key) pair, over the dense bf16 peak."""
-    b, sq, hq, dh = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qpos = q_offset + np.arange(sq)
-    hi = np.minimum(sk, qpos + 1) if causal else np.full(sq, sk)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
-    pairs = int(np.clip(hi - lo, 0, None).sum())
-    keys = int(max(hi.max() - lo.min(), 0))
-    elt = q.element_size()
-    nbytes = 2 * b * sq * hq * dh * elt + 2 * b * hkv * keys * dh * elt
-    flops = 4 * dh * pairs * b * hq
-    tb, tf_ = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    (query, key) pair, over the dense bf16 peak (``fa_ops.forward_cost``,
+    which the dry-run counts too)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    flops, nbytes = fa_ops.forward_cost(q, k, causal, window, q_offset)
+    tb, tf_ = nbytes / HBM_BW * 1e3, flops / PEAK_FLOPS * 1e3
     return max(tb, tf_), ("bytes" if tb >= tf_ else "operations"), flops, \
         nbytes
 
@@ -949,9 +964,10 @@ def check_kernel8(ai, dev) -> dict:
         n = rows[0].shape[0]
         # ids read, each distinct row read once, the output written once;
         # the timed launches cycle through the batches, so the mean
-        nbytes = sum(4 * n + distinct_rows(r) * d * 4 + n * d * 4
+        nbytes = sum(eb_ops.forward_cost(n, n, tab.shape[0], d, 4,
+                                         distinct=distinct_rows(r))[1]
                      for r in rows) / len(rows)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = nbytes / HBM_BW * 1e3
         for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
                          ("library_ms", l_ms)):
             tot[key] += count * val
@@ -1002,9 +1018,10 @@ def check_kernel8(ai, dev) -> dict:
         with torch.inference_mode():
             kd_ms = device_ms(lambda: eb_ops.launch(t, bulk, None, "sum"))
             ld_ms = device_ms(lambda: F.embedding(lbulk, t))
-        row_b = t.shape[1] * t.element_size()
-        nbytes = 4 * n + distinct_rows(bulk) * row_b + n * row_b
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = eb_ops.forward_cost(n, n, t.shape[0], t.shape[1],
+                                     t.element_size(),
+                                     distinct=distinct_rows(bulk))[1]
+        b_ms = nbytes / HBM_BW * 1e3
         print(f"embedding_bag serve_bulk, {label} ({vec} elements a lane, "
               f"{lanes} lanes a bag): {n} bags of one: kernel == plain == "
               f"F.embedding; on the card alone kernel {kd_ms:.5f} ms, "
@@ -1049,9 +1066,11 @@ def check_kernel8(ai, dev) -> dict:
                         with torch.inference_mode():
                             lib = cuda_ms(run_lib)
                 elt = t.element_size()
-                nbytes = 4 * ids.numel() * (1 if ww is None else 2) \
-                    + n_rows * d * elt + MH_BAGS * d * elt
-                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                nbytes = eb_ops.forward_cost(MH_BAGS, ids.numel(),
+                                             t.shape[0], d, elt,
+                                             ww is not None,
+                                             distinct=n_rows)[1]
+                b_ms = nbytes / HBM_BW * 1e3
                 print(f"embedding_bag {label}: {MH_BAGS} bags of up to "
                       f"{MH_WIDTH} ids ({n_valid} valid, {n_rows} distinct "
                       f"rows): kernel == plain; "
@@ -1394,8 +1413,8 @@ def check_kernel9(lm, dev) -> dict:
     lm["record"]["k9_calls"] = rows
     lm["record"]["k9_bound_ratio"] = ratio
     lm["record"]["k9_sweep"] = sweep_rec
-    by = "operations" if tot["flops"] / BF16_FLOPS_PER_S \
-        >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"
+    by = "operations" if tot["flops"] / PEAK_FLOPS \
+        >= tot["bytes"] / HBM_BW else "bytes"
     return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "library_ms": tot["library_ms"],
             "flops": tot["flops"], "bytes": tot["bytes"],
@@ -1499,7 +1518,7 @@ def prefill_32k(dev, kernels, params) -> dict:
           f"card alone {kd_ms:.4f} ms (SDPA "
           f"{ld_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, "
           f"{flops / (kd_ms / 1e3) / 1e12:.1f} TFLOP/s, "
-          f"{flops / (kd_ms / 1e3) / BF16_FLOPS_PER_S:.1%} of the bf16 "
+          f"{flops / (kd_ms / 1e3) / PEAK_FLOPS:.1%} of the bf16 "
           f"peak); x {cfg.n_layers} layers {attn_s:.4f} s, "
           f"{attn_s / total_s:.1%} of the prefill")
     print("-- profile of one more prefill_32k pass")
@@ -1527,10 +1546,6 @@ LM_TRAIN_PEAK_GIB = 24.0      # PERF.md section 2
 AI_TRAIN_ROWS = 65536         # RECSYS_SHAPES train_batch
 AI_TRAIN_PEAK_GIB = 30.0      # PERF.md section 2
 MH_BWD = (16384, 32)          # kernel 8b's multi-hot bags (B, L), bf16
-# H100 SXM float32 outside the tensor cores (NVIDIA data sheet, 700 W):
-# kernel 9b's bound on float32 inputs; on bf16 inputs it takes the bf16
-# tensor-core peak, the card's rate for that type
-FP32_FLOPS_PER_S = 67e12
 # kernel 9b's checks: (label, (B, Sq, Sk, Hq, Hkv, dh, causal, window,
 # q_offset, dtype)); the first is the training path's call
 K9B_CASES = (
@@ -1702,17 +1717,17 @@ def check_kernel8b(dev) -> dict:
     l_dev = device_ms(dense)
     l_ms = cuda_ms(dense)
     # bytes: the ids and dout read once, the dense (V, D) output written
-    nbytes = n * 4 + n * d * 4 + n_rows * d * 4
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = eb_ops.backward_cost(n, n, n_rows, d, 4)[1]
+    bound = nbytes / HBM_BW * 1e3
     # the key kernel: the ids read and the keys written once; the tile
     # kernel: the sorted keys read and the tile bounds written once
     key_bytes = n * 4 + n * 4
-    key_bound = key_bytes / HBM_BYTES_PER_S * 1e3
+    key_bound = key_bytes / HBM_BW * 1e3
     tile_bytes = n * 4 + bounds.numel() * 4
-    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
+    tile_bound = tile_bytes / HBM_BW * 1e3
     # the sort: the keys read, the sorted keys and positions written once
     sort_bytes = n * 4 + n * 8
-    sort_bound = sort_bytes / HBM_BYTES_PER_S * 1e3
+    sort_bound = sort_bytes / HBM_BW * 1e3
     print(f"kernel 8b at train_batch ({n:,} ids, {n_rows:,} x {d} float32): "
           f"the public entry {k_dev:.4f} ms on the card alone ({k_ms:.4f} "
           f"ms host-timed, {bound / k_dev:.1%} of its bound); the key "
@@ -1755,19 +1770,12 @@ def bwd_bound(q, k, causal, window, q_offset) -> tuple:
     read and dq written, k, v read and dk, dv written, once each; 10 dh
     flops per live (query, key) pair (S, dP, dV, dQ, dK) at the card's
     peak for the inputs' type: the dense bf16 tensor-core rate for bf16,
-    the CUDA cores' rate for float32."""
-    b, sq, hq, dh = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    qpos = q_offset + np.arange(sq)
-    hi = np.minimum(sk, qpos + 1) if causal else np.full(sq, sk)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
-    pairs = int(np.clip(hi - lo, 0, None).sum())
-    elt = q.element_size()
-    nbytes = 4 * b * sq * hq * dh * elt + 4 * b * sk * hkv * dh * elt
-    flops = 10 * dh * pairs * b * hq
-    peak = (FP32_FLOPS_PER_S if q.dtype == torch.float32
-            else BF16_FLOPS_PER_S)
-    tb, tf_ = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    the CUDA cores' rate for float32 (``fa_ops.backward_cost``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    flops, nbytes = fa_ops.backward_cost(q, k, causal, window, q_offset)
+    peak = (FP32_FLOPS if q.dtype == torch.float32
+            else PEAK_FLOPS)
+    tb, tf_ = nbytes / HBM_BW * 1e3, flops / peak * 1e3
     return max(tb, tf_), ("bytes" if tb >= tf_ else "operations"), flops, \
         nbytes
 
@@ -3571,7 +3579,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         # ids, slots, offsets, the cp word of each id, one row id an
         # edge, the candidates
         nbytes = 4 * n + 4 * n + 8 * (n + 1) + 4 * n + 4 * total + 4 * nr
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = nbytes / HBM_BW * 1e3
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
                        ("library_ms", lib_ms), ("csr_ms", c_ms),
                        ("wrapper_ms", w_ms), ("csr_wrapper_ms", cw_ms)):
@@ -3792,10 +3800,10 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_plain(
                 rp, uew, fw, cv, coff, ne), reps=3)
             nbytes, n_live, read = bottomup_bytes(rp, uew, fw, cv)
-            over = k_ms / (nbytes / HBM_BYTES_PER_S * 1e3)
+            over = k_ms / (nbytes / HBM_BW * 1e3)
             desc = (f"{n_live} live rows, {read} edges read to the first "
                     f"hit, on the card alone {over:.2f}x its bound")
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = nbytes / HBM_BW * 1e3
         row["ms"] += k_ms
         row["plain_ms"] += p_ms
         row["bound_ms"] += b_ms
@@ -3815,7 +3823,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     own_per_s = (record["int_rate"]["rmat_counter_instr_per_level"] * SCALE
                  * m_in / (per["rmat_counter"]["ms"] / 1e3))
     rate = max(instr_per_s, own_per_s)
-    rb = 8 * m_in / HBM_BYTES_PER_S * 1e3
+    rb = 8 * m_in / HBM_BW * 1e3
     ro = RMAT_INSTR_PER_EDGE_LEVEL * SCALE * m_in / rate * 1e3
     per["rmat_counter"]["bound_ms"] = max(rb, ro)
     per["rmat_counter"]["calls"] = 1
@@ -4477,7 +4485,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
               f"live columns, {total} edges, {walk_name[w]} walk{forced}"
               f": max |kernel - plain| = {e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes)")
+              f"{nbytes / HBM_BW * 1e3:.5f} ms ({nbytes} bytes)")
         return e, k_ms, p_ms, nbytes
 
     big_fw = None
@@ -4515,7 +4523,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                       f"= {e}; kernel {k_ms:.4f} ms ({d_ms:.5f} on the card "
                       f"alone; the zero-fill of its {words.numel()} words "
                       f"{f_ms:.5f}), plain {p_ms:.4f} ms, bound "
-                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} "
+                      f"{nbytes / HBM_BW * 1e3:.5f} ms ({nbytes} "
                       f"bytes)")
                 del words
             elif kname == "codec_decode":
@@ -4530,7 +4538,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                 print(f"  {label}: {p_} buckets of {cap} slots: max |kernel "
                       f"- plain| = {e}; kernel {k_ms:.4f} ms, plain "
                       f"{p_ms:.4f} ms, bound "
-                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} "
+                      f"{nbytes / HBM_BW * 1e3:.5f} ms ({nbytes} "
                       f"bytes)")
             else:
                 rp, ci, fw, cv, ne = a
@@ -4550,7 +4558,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                     b, lv, rd = bottomup_bytes(rp[j], ci[j], fw, cv[j])
                     nbytes += b - (4 * fw.numel() if j else 0)
                     n_live, read = n_live + lv, read + rd
-                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                b_ms = nbytes / HBM_BW * 1e3
                 print(f"  {label} (all {rp.shape[0]} strips, one launch): "
                       f"{n_live} live rows, {read} edges read to the first "
                       f"hit: max |kernel - plain| = {e}; kernel {k_ms:.4f} "
@@ -4559,7 +4567,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
             errs[kname] = max(errs[kname], e)
             row["ms"] += k_ms
             row["plain_ms"] += p_ms
-            row["bound_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            row["bound_ms"] += nbytes / HBM_BW * 1e3
     # a large frontier of a real level: the frontier a bottom-up level
     # of the recorded search received, through both strip kernels
     jc, cp, nzc, ridx = graph.jc, graph.cp, graph.nzc, graph.row_idx
@@ -4716,7 +4724,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         # one row id an edge, the (p, nr) candidates
         nbytes = 4 * n + 8 * (p_ * n + 1) + 4 * p_ * n + 4 * total \
             + 4 * p_ * nr
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = nbytes / HBM_BW * 1e3
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
                        ("library_ms", lib_ms), ("dcsc_ms", d_ms)):
             row[key] += v
@@ -5544,6 +5552,7 @@ def gnn_cell(label, arch, shape_name, dev, kernels, work) -> dict:
         batch = built[2](0)
         rec["graph"] = (batch["senders"], batch["receivers"],
                         batch["x"].shape[0])
+        rec["batch"] = batch           # phase 22c trains gin-tu-2d on it
         rec["stream_err"] = check_gnn_stream(shape, dev, batch["senders"],
                                              batch["receivers"])
     if shape.kind == "sampled":
@@ -5690,6 +5699,7 @@ def gnn_phases(dev, kernels) -> dict:
         lap(f"{label} {arch}")
         if arch == "gin-tu":
             senders, receivers, n = r.pop("graph")
+            gin_batch = r.pop("batch")
             phase(f"21d spmm_2d on the ogb_products graph at d {SPMM_D} on "
                   f"the simulated 1x1 and 4x4 grids")
             rec["spmm"] = gnn_spmm(dev, senders, receivers, n)
@@ -5705,7 +5715,408 @@ def gnn_phases(dev, kernels) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     rec["seconds"] = secs
     return {"record": rec, "launches": {"rmat_counter": launches},
-            "errs": {"rmat_counter": errs}}
+            "errs": {"rmat_counter": errs}, "gin_batch": gin_batch}
+
+
+# phase 22: the dry-run and roofline tooling (launch/{cells,dryrun,
+# roofline,report,optimized}.py) on the card
+DRYRUN_JOBS = 8                    # 22a's worker processes (8 host cores)
+DRYRUN_RECORDS = 40 * 2 + 3 * 2 + 8   # cells x meshes, BFS scales, hill-climb
+# 22b: the 1x1 cells the card holds at their registered size
+CARD_CELLS = (("smollm-135m", "prefill_32k"), ("autoint", "train_batch"),
+              ("autoint", "serve_p99"), ("autoint", "serve_bulk"),
+              ("autoint", "retrieval_cand"), ("gat-cora", "full_graph_sm"),
+              ("mace", "molecule"), ("meshgraphnet", "minibatch_lg"),
+              ("gin-tu", "ogb_products"))
+CARD_REPS, CARD_WARM = 5, 2        # timed steps (median) after warm-up ones
+PEAK_TOL = (0.10, 512 * 2**20)     # reckoned peak against the card's: the
+#                                    larger of 10% and 512 MiB
+GIN2D_GRID = (4, 4)
+GIN2D_STEPS = 10
+GIN2D_LR = 1e-2                    # AdamW, no warm-up, constant: 10 steps
+#                                    that move the loss
+# the first 2D loss against gin-tu 1x1's: the same float32 sums in another
+# order, hub rows of ~1e5 terms (21e holds 1e-5 on the smoke graph)
+GIN2D_LOSS_RTOL = 1e-4
+# 22c's peak limit: 21a's 1x1 step peaked at 44.343 GiB; the 2D step adds
+# the blocks' row strips (p * nr rows = pc * n, 3.9 GB at d 100 in the
+# forward and as much in the backward), the blocked edge arrays (16 x cap
+# int32, twice) and the live edges' int64 indices (4 x 61.9 M x 8 B): about
+# 12 GiB more
+GIN2D_PEAK_GIB = 60.0
+MACE2D_GRID = (2, 2)
+MACE2D_TOL = {"loss": 1e-4, "param": 1e-5}   # card against CPU, float32
+
+
+def _ints(t, hi, gen):
+    t.copy_(torch.randint(0, hi, t.shape, generator=gen, device=t.device,
+                          dtype=t.dtype))
+
+
+def fill_cell(cell, cfg, gen) -> None:
+    """Seeded values in a cell's non-parameter arguments, valid for its
+    model: token, field and node ids in range, a CSR of even rows, masks
+    of ones, normal floats."""
+    fam, meta = cell.meta["family"], cell.meta
+    dev = gen.device
+
+    def normal(t):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    if fam == "lm":
+        _ints(cell.args[1], cfg.vocab, gen)
+        for c in cell.args[2].values():
+            c.zero_()
+    elif fam == "recsys":
+        train = meta["kind"] == "train"
+        idx = cell.args[2 if train else 1]
+        for f, v in enumerate(cfg.vocab_sizes):
+            _ints(idx[:, f], v, gen)
+        if train:
+            cell.args[3].copy_((torch.rand(cell.args[3].shape, generator=gen,
+                                           device=dev) < 0.5).float())
+        elif meta["kind"] == "retrieval":
+            normal(cell.args[2])
+    elif meta.get("sampled"):
+        row_ptr, col_idx, feats, labels, seeds, key = cell.args[2:]
+        n, m = feats.shape[0], col_idx.shape[0]
+        row_ptr.copy_(torch.arange(n + 1, device=dev) * m // n)
+        for t, hi in ((col_idx, n), (labels, cfg.n_classes), (seeds, n)):
+            _ints(t, hi, gen)
+        normal(feats)
+        key.zero_()
+    else:
+        b = cell.args[2]
+        n = b["graph_ids"].shape[0]
+        for k in ("senders", "receivers"):
+            _ints(b[k], n, gen)
+        n_graphs = b["labels"].shape[0] if b["labels"].shape[0] != n else 1
+        b["graph_ids"].copy_(torch.arange(n, device=dev) * n_graphs // n)
+        _ints(b["labels"], cfg.n_classes, gen)
+        for k in ("edge_mask", "node_mask"):
+            b[k].fill_(1.0)
+        if "species" in b:
+            _ints(b["species"], 16, gen)
+        for k in ("x", "pos", "targets_g", "e_feat", "targets"):
+            if k in b:
+                normal(b[k])
+
+
+def _counts(c) -> dict:
+    s = c.summary()
+    return {k: s[k] for k in ("flops", "flops_by_class", "bytes_read",
+                              "bytes_written", "kernels")}
+
+
+def card_cell(arch, shape_name, dev) -> dict:
+    """22b: one 1x1 cell counted on meta, then run on the card with seeded
+    inputs of the same shapes under the same counter: both counts (equal),
+    the reckoned peak (argument bytes plus the trace's peak) against
+    ``max_memory_allocated``, the step's median ms, the roofline's bound,
+    share and MFU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import cells, roofline
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_config(arch)
+    mesh_m = make_mesh(1, 1, device="meta")
+    cell_m = cells.build_cell(arch, shape_name, mesh_m)
+    t0 = time.perf_counter()
+    with roofline.StepCounter() as cm:
+        cell_m.fn(*cell_m.args)
+    trace_s = time.perf_counter() - t0
+    reckoned = cells.per_device_bytes(cell_m.args, cell_m.specs, mesh_m) \
+        + cm.peak_bytes
+    del cell_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cell = cells.build_cell(arch, shape_name, make_mesh(1, 1, device=dev))
+    fill_cell(cell, cfg, torch.Generator(device=dev).manual_seed(SEED + 22))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with roofline.StepCounter() as cc:
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    meta_c, card_c = _counts(cm), _counts(cc)
+    if meta_c != card_c:
+        for k in sorted(set(cm.ops) | set(cc.ops)):
+            if cm.ops.get(k) != cc.ops.get(k):
+                print(f"   op {k}: meta {cm.ops.get(k)} card {cc.ops.get(k)}")
+    fails = [] if meta_c == card_c else [
+        f"22b {arch}/{shape_name}: the meta count {meta_c} differs from the "
+        f"card's {card_c}"]
+    times = []
+    for i in range(CARD_WARM + CARD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    step_s = float(np.median(times[CARD_WARM:]))
+    rec = {"n_devices": 1, "flops": cc.total_flops,
+           "flops_by_class": dict(cc.flops),
+           "bytes_accessed": cc.bytes_accessed,
+           "collectives": {"total_bytes": 0.0}, "meta": cell.meta}
+    roof = roofline.roofline_report(rec)
+    share = roof["bound_time_s"] / step_s
+    mfu = roof["model_flops"] / (step_s * PEAK_FLOPS)
+    gib = 2**30
+    tol = max(PEAK_TOL[0] * peak, PEAK_TOL[1])
+    print(f"22b {arch}/{shape_name}: meta trace {trace_s:.2f} s; meta "
+          f"FLOPs {meta_c['flops']:.6g}, bytes {meta_c['bytes_read']:,} "
+          f"read, {meta_c['bytes_written']:,} written; card FLOPs "
+          f"{card_c['flops']:.6g} (bf16 {card_c['flops_by_class']['bf16']:.6g}, "
+          f"fp32 {card_c['flops_by_class']['fp32']:.6g}), bytes "
+          f"{card_c['bytes_read']:,} read, {card_c['bytes_written']:,} "
+          f"written: equal {meta_c == card_c}; kernels {card_c['kernels']}; "
+          f"reckoned peak "
+          f"{reckoned / gib:.3f} GiB, the card's {peak / gib:.3f} GiB; step "
+          f"{step_s * 1e3:.3f} ms (median of {CARD_REPS} after "
+          f"{CARD_WARM}); bound {roof['bound_time_s'] * 1e3:.3f} ms "
+          f"({roof['dominant']}: compute {roof['compute_s'] * 1e3:.3f}, "
+          f"memory {roof['memory_s'] * 1e3:.3f} ms); roofline share "
+          f"{share:.4f}, MFU {mfu:.4f} (model FLOPs "
+          f"{roof['model_flops']:.6g})")
+    if abs(reckoned - peak) > tol:
+        fails.append(f"22b {arch}/{shape_name}: reckoned peak "
+                     f"{reckoned / gib:.3f} GiB against the card's "
+                     f"{peak / gib:.3f} GiB")
+    if share > 1.0:
+        fails.append(f"22b {arch}/{shape_name}: roofline share {share}")
+    for f in fails:
+        print(f"   {f}")
+    del cell
+    return {"trace_s": trace_s, "counts": card_c, "reckoned_peak": reckoned,
+            "card_peak": peak, "step_ms": step_s * 1e3,
+            "step_ms_all": [t * 1e3 for t in times],
+            "bound_ms": roof["bound_time_s"] * 1e3,
+            "dominant": roof["dominant"], "share": share, "mfu": mfu,
+            "model_flops": roof["model_flops"], "fails": fails}
+
+
+def gin2d_phase(dev, batch) -> dict:
+    """22c: gin-tu-2d on ogb_products at full width on the simulated 4x4
+    grid (edges blocked without deduplication, so the step sums gin-tu
+    1x1's edge multiset), 10 steps; the first loss against gin-tu 1x1's on
+    the same edges, parameters and labels; the recorded exchanges a step
+    against comm_model's expand and fold volumes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import collectives
+    from repro_torch.core.comm_model import AlphaBeta
+    from repro_torch.core.partition import make_partition
+    from repro_torch.launch import cells, roofline
+    from repro_torch.launch.optimized import (block_edges, gin2d_loss,
+                                              node_blocks)
+    from repro_torch.models.gnn import init_gin
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config("gin-tu")
+    shape = next(s for s in cfg.shapes if s.name == "ogb_products")
+    x, y = batch["x"], batch["labels"]
+    n, d_feat = x.shape
+    params = init_gin(cfg, d_feat, cfg.n_classes, seed=0, device=dev)
+    _, loss1_fn = cells._gnn_loss(cfg, shape, n, 1, d_feat)
+    with torch.no_grad():
+        loss1 = float(loss1_fn(params, batch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    pr, pc = GIN2D_GRID
+    part = make_partition(n, pr, pc, align=128)
+    t0 = time.perf_counter()
+    esrc, ridx, nnz = block_edges(part, batch["senders"], batch["receivers"])
+    xs, ys = node_blocks(part, x), node_blocks(part, y)
+    mask = node_blocks(part, batch["node_mask"])
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    loss_fn = gin2d_loss(part, cfg.n_layers)
+    with torch.no_grad():
+        first = float(loss_fn(params, esrc, ridx, nnz, xs, ys, mask))
+    gap = abs(first - loss1) / abs(loss1)
+    print(f"22c gin-tu-2d on ogb_products ({n:,} nodes, "
+          f"{int(nnz.sum()):,} edges in {part.p} blocks of up to "
+          f"{esrc.shape[-1]:,}, blocked in {block_s:.2f} s): first loss "
+          f"{first:.6f} against gin-tu 1x1's {loss1:.6f}: relative gap "
+          f"{gap:.3g} (tolerance {GIN2D_LOSS_RTOL})")
+    check(int(nnz.sum()) == batch["senders"].numel(),
+          "22c: the blocks lost edges")
+    check(gap <= GIN2D_LOSS_RTOL, f"22c: first loss {first} against {loss1}")
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    opt = AdamW(lr=GIN2D_LR, warmup_steps=1, schedule="constant",
+                total_steps=GIN2D_STEPS)
+    step = cells._train_step(loss_fn, opt)
+    ost = opt.init(p)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, recs = [], [], None
+    for i in range(GIN2D_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.ScheduleRecorder() as rec:
+            p2, ost, loss = step(p, ost, esrc, ridx, nnz, xs, ys, mask)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        p = {k: v.detach().requires_grad_() for k, v in p2.items()}
+        recs = rec.records
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(times[1:])) * 1e3
+    # the recorded exchanges of a step against the closed forms: each
+    # layer's expand gathers n/pc rows of d floats a device and its fold
+    # keeps n/p of them (comm_model.AlphaBeta's volume terms, word = 4d B)
+    ab = AlphaBeta(alpha_n=0.0)
+    widths = [d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1)
+    by = {}
+    for r in recs:
+        by.setdefault(r.kind, []).append(r.nbytes)
+    want_ag = [round(ab.expand_cost(part.n, pr, pc, 4 * d) * roofline.LINK_BW)
+               for d in widths]
+    want_rs = [round(ab.fold_cost(part.n, pr, pc, 4 * d) * roofline.LINK_BW)
+               for d in widths]
+    coll = roofline.collective_bytes_from_records(recs)
+    print(f"22c {GIN2D_STEPS} steps on {pr}x{pc}: losses "
+          f"{[round(v, 5) for v in losses]}; step {step_ms:.3f} ms median "
+          f"of steps 1-{GIN2D_STEPS - 1} (first {times[0] * 1e3:.1f} ms); "
+          f"peak {peak:.3f} GiB (limit {GIN2D_PEAK_GIB}); recorded a step: "
+          f"{dict(collectives.count_kinds(recs))}, bytes a device {coll}; "
+          f"all-gathers {by.get('all-gather')} against the expand's "
+          f"{want_ag}, reduce-scatters {by.get('reduce-scatter')} against "
+          f"the fold's {want_rs}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"22c: the loss does not fall: {losses}")
+    check(peak < GIN2D_PEAK_GIB, f"22c: peak {peak:.3f} GiB")
+    check(by.get("all-gather") == want_ag
+          and by.get("reduce-scatter") == want_rs
+          and len(by.get("collective-permute", ())) == cfg.n_layers,
+          "22c: the recorded exchanges differ from the closed forms")
+    del esrc, ridx, xs, ys, mask, p, p2, ost
+    return {"first_loss": first, "loss_1x1": loss1, "gap": gap,
+            "losses": losses, "step_ms": step_ms,
+            "first_step_ms": times[0] * 1e3, "peak_gib": peak,
+            "block_s": block_s, "collectives": coll,
+            "edges": int(batch["senders"].numel())}
+
+
+def mace2d_phase(dev) -> dict:
+    """22d: mace-2d at full_graph_sm on the simulated 2x2 grid, one step
+    on the card against the CPU on the same seeded inputs: the loss and
+    the updated parameters; the step's ms on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.optimized import (_part_and_cap, block_edges,
+                                              build_mace2d_cell, node_blocks)
+    from repro_torch.models.mace import init_mace
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config("mace")
+    shape = next(s for s in cfg.shapes if s.name == "full_graph_sm")
+    part, cap = _part_and_cap(shape, make_mesh(*MACE2D_GRID, device="meta"))
+    rng = np.random.default_rng(SEED + 22)
+    n, e = shape.n_nodes, shape.n_edges
+    s = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    r = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    sp = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32))
+    pos = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    args = [*block_edges(part, s, r, cap), node_blocks(part, sp),
+            node_blocks(part, pos), torch.tensor([1.5])]
+    params = init_mace(cfg, seed=SEED)
+    out = {}
+    for where in ("cpu", dev):
+        cell = build_mace2d_cell("full_graph_sm",
+                                 make_mesh(*MACE2D_GRID, device=where))
+        p = {k: v.to(where).requires_grad_() for k, v in params.items()}
+        a = [t.to(where) for t in args]
+        times = []
+        for i in range(3 if where != "cpu" else 1):
+            if where != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p2, _, loss = cell.fn(p, AdamW().init(p), *a)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[str(where)] = (float(loss), {k: v.detach().cpu()
+                                         for k, v in p2.items()}, times)
+    (l_cpu, p_cpu, _), (l_card, p_card, t_card) = out["cpu"], out[str(dev)]
+    gap = abs(l_card - l_cpu) / abs(l_cpu)
+    pgap = max(float((p_card[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    print(f"22d mace-2d on full_graph_sm, {MACE2D_GRID[0]}x{MACE2D_GRID[1]}: "
+          f"loss card {l_card:.6f}, CPU {l_cpu:.6f} (relative gap {gap:.3g}, "
+          f"tolerance {MACE2D_TOL['loss']}); updated parameters max |card - "
+          f"CPU| {pgap:.3g} (tolerance {MACE2D_TOL['param']}); a step "
+          f"{float(np.median(t_card[1:])) * 1e3:.3f} ms on the card")
+    check(gap <= MACE2D_TOL["loss"] and pgap <= MACE2D_TOL["param"],
+          "22d: mace-2d on the card differs from the CPU")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "gap": gap,
+            "param_gap": pgap, "step_ms": float(np.median(t_card[1:])) * 1e3}
+
+
+def dryrun_phases(dev, gin_batch=None) -> dict:
+    """Phase 22 (``main`` and ``--dryrun``): the dry-run of every cell on
+    the host (22a), the 1x1 cells on the card against their meta counts
+    (22b), gin-tu-2d at full width (22c) and mace-2d against the CPU
+    (22d); their records."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import report
+    rec = {}
+    phase(f"22a the dry-run: every cell on meta, both meshes, "
+          f"{DRYRUN_JOBS} worker processes")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    results = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--cells", "all", "--mesh", "both", "--results",
+                        str(results), "--jobs", str(DRYRUN_JOBS)],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    dry_s = time.perf_counter() - t0
+    (out_dir / "dryrun.log").write_text(r.stdout + r.stderr)
+    n_rec = len(list(results.glob("*.json")))
+    print(f"22a dry-run: exit {r.returncode}, {n_rec} records (want "
+          f"{DRYRUN_RECORDS}) in {dry_s:.1f} s; the log in "
+          f"chiprun_out/dryrun.log")
+    if r.returncode:
+        print(r.stdout[-4000:] + r.stderr[-4000:])
+    check(r.returncode == 0 and n_rec == DRYRUN_RECORDS,
+          "22a: the dry-run failed")
+    recs = report.load_all(str(results))
+    tables = (report.dryrun_table(recs) + "\n\n"
+              + report.roofline_table(recs))
+    (out_dir / "dryrun_report.md").write_text(tables + "\n")
+    (out_dir / "dryrun_records.json").write_text(json.dumps(recs))
+    print(tables)
+    rec["dryrun"] = {"seconds": dry_s, "records": n_rec}
+    shutil.rmtree(results, ignore_errors=True)
+
+    phase("22b the 1x1 cells at their registered size: counted on meta, "
+          "run on the card under the same counter")
+    rec["cells"] = {f"{a}/{s}": card_cell(a, s, dev) for a, s in CARD_CELLS}
+    fails = [f for r in rec["cells"].values() for f in r["fails"]]
+    check(not fails, "; ".join(fails))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"22c gin-tu-2d on ogb_products at full width on the simulated "
+          f"{GIN2D_GRID[0]}x{GIN2D_GRID[1]} grid, {GIN2D_STEPS} steps")
+    if gin_batch is None:
+        from repro_torch.configs.base import get_config
+        from repro_torch.graph.datasets import build_gnn_batch
+        cfg = get_config("gin-tu")
+        shape = next(s for s in cfg.shapes if s.name == "ogb_products")
+        gin_batch = build_gnn_batch(cfg, shape, seed=0, device=dev)
+        gin_batch["node_mask"] = torch.ones(gin_batch["x"].shape[0],
+                                            device=dev)
+    rec["gin2d"] = gin2d_phase(dev, gin_batch)
+    del gin_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("22d mace-2d on full_graph_sm on the simulated 2x2 grid: the card "
+          "against the CPU")
+    rec["mace2d"] = mace2d_phase(dev)
+    return rec
 
 
 def main() -> int:
@@ -5720,6 +6131,10 @@ def main() -> int:
     ap.add_argument("--moe", action="store_true",
                     help="only phases 19-20: the new LM configs served, "
                          "the simulated mesh, MoE training")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="only phase 22: the dry-run of every cell, the 1x1 "
+                         "cells on the card against their meta counts, "
+                         "gin-tu-2d at full width, mace-2d")
     ap.add_argument("--gnn", action="store_true",
                     help="only phase 21: the GNN archs trained at the "
                          "registered widths, the 2D SpMM, the GNN drivers")
@@ -5741,6 +6156,10 @@ def main() -> int:
         new_lm_phases(torch.device("cuda"), {
             "flash_attention": fa_ops.KERNEL,
             "flash_attention_bwd": fa_ops.KERNEL_BWD})
+        return 0
+    if args.dryrun:
+        print(smi_line())
+        dryrun_phases(torch.device("cuda"))
         return 0
     if args.gnn:
         from repro_torch.graph import rmat
@@ -5821,7 +6240,7 @@ def main() -> int:
     print(f"device: {name} (count {torch.cuda.device_count()}); torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(f"nvidia-smi: {smi_nl}")
-    print(f"bounds use {HBM_BYTES_PER_S / 1e12} TB/s (published H100 SXM "
+    print(f"bounds use {HBM_BW / 1e12} TB/s (published H100 SXM "
           f"peak); the integer rate's peak is {INSTR_PER_CLOCK_PER_SM} x "
           f"{n_sm} SMs x {sm_mhz} MHz max SM clock = "
           f"{instr_per_s / 1e12:.3f} T instructions/s (phase 2 measures "
@@ -5980,8 +6399,8 @@ def main() -> int:
     for key in ("ms", "plain_ms", "bound_ms", "library_ms", "flops",
                 "bytes"):
         fa[key] += p32[key]
-    fa["bound_by"] = "operations" if fa["flops"] / BF16_FLOPS_PER_S \
-        >= fa["bytes"] / HBM_BYTES_PER_S else "bytes"
+    fa["bound_by"] = "operations" if fa["flops"] / PEAK_FLOPS \
+        >= fa["bytes"] / HBM_BW else "bytes"
     print(f"kernel 9 over its {launches_nn['flash_attention']} launches "
           f"(LM path and prefill_32k): {fa['ms']:.4f} ms, plain "
           f"{fa['plain_ms']:.4f} ms, library {fa['library_ms']:.4f} ms, "
@@ -6044,6 +6463,25 @@ def main() -> int:
                                     + gnn["launches"]["rmat_counter"])
     errs["rmat_counter"] = max(errs["rmat_counter"],
                                gnn["errs"]["rmat_counter"])
+    gin_batch = gnn.pop("gin_batch")
+    del gnn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 22 drives the dry-run's cells on the card: its kernels' counts
+    # are set to 0 just before it and read just after
+    for k in kernels.values():
+        k.launches = 0
+    record["dryrun"] = dryrun_phases(dev, gin_batch)
+    del gin_batch
+    launches_22 = {k: kn.launches for k, kn in kernels.items()
+                   if kn.launches}
+    print(f"kernel launches in phase 22 (its 1x1 cells on the card): "
+          f"{launches_22}")
+    for k in ("flash_attention", "embedding_bag", "embedding_bag_bwd"):
+        check(launches_22.get(k, 0) > 0, f"phase 22 launched no {k}")
+    for k, n in launches_22.items():
+        launches_nn[k] = launches_nn.get(k, 0) + n
 
     record["total_s"] = time.perf_counter() - t_start
     close_phase(time.perf_counter())

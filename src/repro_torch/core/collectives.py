@@ -21,6 +21,15 @@ value (the level loop's host read).  With no recorder active a call
 costs one test of a module global; a recorder reads no tensor and
 allocates nothing on the device.
 
+Each record carries ``nbytes``, the per-device bytes of the
+collective's output, read from shapes only: the output tensor's bytes
+over the processors it is stacked over, as the JAX package's roofline
+sums the per-device (SPMD) output shapes of a compiled program's
+collectives (``launch/roofline.py``).  A reduction to one value a
+device (the counters, the level's decision) is one 32-bit word, the
+int32 or float32 scalar the JAX package reduces, whatever wider type
+the port sums in.
+
 The NN side's shards (``models/``, ``optim/dp_step.py``) are stacked the
 same way over any named axes, ``(dp..., tp, ...)`` for a ("data",
 "model") mesh: ``all_to_all_axis``, ``psum_axis``, ``pmean_axis`` and
@@ -60,6 +69,7 @@ class Record:
     tag: str                  # "" | "counter" | "decision" | "lockstep" |
     #                           a branch: "sparse" | "dense" | "fallback"
     site: str                 # "file.py:line function" of the caller
+    nbytes: int = 0           # per-device bytes of the output
 
 
 class ScheduleRecorder:
@@ -138,7 +148,11 @@ def at(level: int, mode: str, pod: Optional[int] = None) -> None:
         rec.level, rec.mode, rec.pod = level, mode, pod
 
 
-def _record(op: str, axes: Tuple[str, ...], tag: str = "") -> None:
+SCALAR_BYTES = 4      # a reduced int32 or float32 scalar
+
+
+def _record(op: str, axes: Tuple[str, ...], tag: str = "",
+            nbytes: int = SCALAR_BYTES) -> None:
     rec = _ACTIVE
     if rec is None:
         return
@@ -146,14 +160,24 @@ def _record(op: str, axes: Tuple[str, ...], tag: str = "") -> None:
     site = (f"{f.f_code.co_filename.rsplit('/', 2)[-1]}:{f.f_lineno} "
             f"{f.f_code.co_name}")
     rec.records.append(Record(KINDS[op], op, tuple(axes), rec.level,
-                              rec.mode, rec.pod, tag, site))
+                              rec.mode, rec.pod, tag, site, int(nbytes)))
 
 
-def noted(op: str, axes: Tuple[str, ...], tag: str = "") -> None:
+def _block_bytes(x: torch.Tensor, n_lead: int) -> int:
+    """Bytes of one processor's block of ``x``, whose leading ``n_lead``
+    dims are the processors."""
+    return x[(0,) * n_lead].numel() * x.element_size() if x.dim() > n_lead \
+        else x.element_size()
+
+
+def noted(op: str, axes: Tuple[str, ...], tag: str = "",
+          nbytes: int = SCALAR_BYTES) -> None:
     """A reduction the JAX package issues here whose value the port
-    already holds (read with the level's masses): recorded only."""
+    already holds (read with the level's masses): recorded only, with
+    the per-device bytes of the value the JAX package reduces (one
+    scalar unless given)."""
     if _ACTIVE is not None:
-        _record(op, axes, tag)
+        _record(op, axes, tag, nbytes)
 
 
 def perm_index(perm: Sequence[Tuple[int, int]], device
@@ -170,7 +194,8 @@ def ppermute(x: torch.Tensor, perm: Tuple[torch.Tensor, torch.Tensor]
     """Whole-mesh permute over (row, col): processor ``src[k]`` sends its
     block to ``dst[k]`` (``perm`` from ``perm_index``); processors that
     receive nothing hold zeros."""
-    _record("ppermute", GRID_2D)
+    if _ACTIVE is not None:
+        _record("ppermute", GRID_2D, nbytes=_block_bytes(x, 2))
     pr, pc = x.shape[:2]
     src, dst = perm
     flat = x.reshape(pr * pc, *x.shape[2:])
@@ -182,7 +207,8 @@ def ppermute(x: torch.Tensor, perm: Tuple[torch.Tensor, torch.Tensor]
 def ppermute_col_ring(x: torch.Tensor) -> torch.Tensor:
     """The ring permute along the processor row, pairs (q, q+1 mod pc):
     processor (i, j) receives from (i, j-1)."""
-    _record("ppermute", (COL,))
+    if _ACTIVE is not None:
+        _record("ppermute", (COL,), nbytes=_block_bytes(x, 2))
     return torch.roll(x, shifts=1, dims=1)
 
 
@@ -190,10 +216,22 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Tiled all_gather along the row axis: processor (i, j) receives the
     concatenation over i' of x[i', j].  The result is the same for every
     i, so it is returned as a broadcast view."""
-    _record("all_gather", (ROW,))
     pr, pc = x.shape[:2]
+    if _ACTIVE is not None:
+        _record("all_gather", (ROW,), nbytes=pr * _block_bytes(x, 2))
     g = x.transpose(0, 1).reshape(pc, pr * x.shape[2], *x.shape[3:])
     return g.unsqueeze(0).expand(pr, *g.shape)
+
+
+def all_gather_cols(x: torch.Tensor) -> torch.Tensor:
+    """Tiled all_gather along the col axis: processor (i, j) receives the
+    concatenation over j' of x[i, j'], the same for every j (a broadcast
+    view)."""
+    pr, pc = x.shape[:2]
+    if _ACTIVE is not None:
+        _record("all_gather", (COL,), nbytes=pc * _block_bytes(x, 2))
+    g = x.reshape(pr, pc * x.shape[2], *x.shape[3:])
+    return g.unsqueeze(1).expand(pr, pc, *g.shape[1:])
 
 
 def all_gather_tiled(x: torch.Tensor, axes: Tuple[str, ...],
@@ -205,8 +243,11 @@ def all_gather_tiled(x: torch.Tensor, axes: Tuple[str, ...],
     over the processors and contiguous, as a gather writes it: the
     strips' bitmap and bucket exchanges and the validator's replicated
     parents."""
-    for ax in reversed(axes):
-        _record("all_gather", (ax,), tag)
+    if _ACTIVE is not None:
+        size = _block_bytes(x, len(axes))
+        for d in reversed(range(len(axes))):
+            size *= x.shape[d]
+            _record("all_gather", (axes[d],), tag, size)
     return x.reshape(-1).contiguous()
 
 
@@ -214,7 +255,8 @@ def all_to_all_cols(x: torch.Tensor, tag: str = "") -> torch.Tensor:
     """all_to_all along the col axis (split and concat axis 2): x is
     ``(pr, pc, pc, ...)`` and processor (i, j) sends x[i, j, q] to (i, q),
     which stores it at position j."""
-    _record("all_to_all", (COL,), tag)
+    if _ACTIVE is not None:
+        _record("all_to_all", (COL,), tag, _block_bytes(x, 2))
     return x.transpose(1, 2).contiguous()
 
 
@@ -231,7 +273,7 @@ def psum_stacked(vals: Sequence[torch.Tensor], axes: Tuple[str, ...]
     """One fused psum over ``axes`` of several per-processor sums, each
     already taken over the processors: the level loop's vector
     reduction, stacked into one tensor for one host read."""
-    _record("psum", axes)
+    _record("psum", axes, nbytes=SCALAR_BYTES * len(vals))
     return torch.stack(list(vals))
 
 
@@ -261,7 +303,8 @@ def all_to_all_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
     if x.dim() <= s or x.shape[s] != x.shape[a]:
         raise ValueError(f"all_to_all over {axis!r} of size {x.shape[a]} "
                          f"needs as many blocks, got shape {tuple(x.shape)}")
-    _record("all_to_all", (axis,), tag)
+    if _ACTIVE is not None:
+        _record("all_to_all", (axis,), tag, _block_bytes(x, len(axes)))
     return x.transpose(a, s).contiguous()
 
 
@@ -271,7 +314,8 @@ def psum_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
     processor along it holds the sum (a broadcast view), the other axes
     kept (``lax.psum(x, axis)`` inside ``shard_map``)."""
     a = _axis_dim(x, axes, axis)
-    _record("psum", (axis,), tag)
+    if _ACTIVE is not None:
+        _record("psum", (axis,), tag, _block_bytes(x, len(axes)))
     return x.sum(dim=a, keepdim=True).expand_as(x)
 
 
@@ -279,7 +323,8 @@ def pmean_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
                tag: str = "") -> torch.Tensor:
     """``psum_axis`` over the axis's size (``lax.pmean``)."""
     a = _axis_dim(x, axes, axis)
-    _record("pmean", (axis,), tag)
+    if _ACTIVE is not None:
+        _record("pmean", (axis,), tag, _block_bytes(x, len(axes)))
     return x.mean(dim=a, keepdim=True).expand_as(x)
 
 
@@ -296,7 +341,9 @@ def psum_scatter_axis(x: torch.Tensor, axes: Sequence[str], axis: str,
         raise ValueError(f"psum_scatter over {axis!r} of size {size} needs "
                          f"a first per-processor dim it divides, got shape "
                          f"{tuple(x.shape)}")
-    _record("psum_scatter", (axis,), tag)
+    if _ACTIVE is not None:
+        _record("psum_scatter", (axis,), tag,
+                _block_bytes(x, len(axes)) // size)
     summed = x.sum(dim=a)              # the axis gone; the rows at s - 1
     tiles = summed.reshape(*summed.shape[:s - 1], size,
                            x.shape[s] // size, *x.shape[s + 1:])

@@ -3,7 +3,8 @@ whole-search 2D forms of Table 1 and Eq. 2, wire words per level of the
 1D dense, chunked, sparse and packed frontier exchanges and of the 2D
 bitmap fold, the packed codec's widths, the 1ds bucket planning, the
 born-sharded build's routing volumes and bucket capacities, and the
-Graph500 validator's collective budget.
+Graph500 validator's collective budget, and ``AlphaBeta``'s
+latency/bandwidth costs on the H100's NVLink.
 
 Counts are in the paper's 64-bit words.  These are the closed forms of
 the JAX package's ``core/comm_model.py`` (which imports no JAX but is
@@ -15,7 +16,10 @@ operation order, as its in-program counters do.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict
+
+from repro_torch.launch import roofline
 
 
 def topdown_words(n: int, m: int, pr: int, pc: int) -> float:
@@ -222,6 +226,30 @@ def plan_cap_route(records: int, p: int, a: float = 0.57, b: float = 0.19,
     frac = max(rmat_strip_skew(p, a, b), 1.0 / max(p, 1))
     cap = int(slack * frac * records) + pad
     return ((cap + pad - 1) // pad) * pad
+
+
+@dataclass(frozen=True)
+class AlphaBeta:
+    """Machine terms of the latency/bandwidth model, for relative
+    predictions.  ``beta_n`` is the H100's NVLink 4 rate each way
+    (``roofline.LINK_BW``); ``alpha_n`` keeps the JAX package's 1 us, a
+    stand-in that no card measured."""
+    alpha_n: float = 1e-6                  # network latency (s)
+    beta_n: float = 1.0 / roofline.LINK_BW  # s per byte per link
+
+    def expand_cost(self, n: int, pr: int, pc: int, word_bytes: int = 8) -> float:
+        return pr * self.alpha_n + (n / pc) * word_bytes * self.beta_n
+
+    def fold_cost(self, m: int, pr: int, pc: int, word_bytes: int = 8) -> float:
+        p = pr * pc
+        return pc * self.alpha_n + (m / p) * word_bytes * self.beta_n
+
+    def bottomup_level_cost(self, n: int, pr: int, pc: int) -> float:
+        # pc sub-steps of rotation + updates, bitmap-compressed
+        rotate = pc * (self.alpha_n + (n / (pr * pc) / 8) * self.beta_n)
+        gather = pr * self.alpha_n + (n / pc / 8) * self.beta_n
+        updates = pc * self.alpha_n + (n / (pr * pc)) * 8 * self.beta_n
+        return rotate + gather + updates
 
 
 def level_collective_budget(decomposition: str, mode: str, pc: int = 1,

@@ -127,12 +127,31 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1
 
+    def launch_on(self, device, *args) -> None:
+        """``launch``, or nothing on PyTorch's meta device: there the
+        entry has allocated its outputs and scratch on ``meta`` (shape
+        propagation for a counted trace; there is no card to launch
+        on)."""
+        if device.type != "meta":
+            self.launch(*args)
+
+    def ready(self, *tensors) -> None:
+        """Build and load the kernel, and check that ``tensors`` lie on
+        one CUDA device (``require_cuda``); on ``meta`` inputs nothing is
+        built."""
+        if tensors[0].is_meta and all(t.is_meta for t in tensors):
+            return
+        self.load()
+        require_cuda(*tensors)
+
 
 def stream_handle(device) -> int:
     """The raw handle of the current stream on the CUDA ``device``, for a
     kernel's ``c_void_p`` stream argument.  Read without building a
     ``torch.cuda.Stream`` object, which costs microseconds a launch."""
     import torch
+    if device.type == "meta":
+        return 0
     idx = device.index
     return torch._C._cuda_getCurrentRawStream(
         torch.cuda.current_device() if idx is None else idx)

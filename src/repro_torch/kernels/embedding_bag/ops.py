@@ -21,6 +21,12 @@ the dense output once.  ``backward_keys_plain``, ``sort_keys_plain`` and
 ``tile_bounds_plain`` are the plain twins of that prep, which
 ``prepare_backward`` and ``tile_bounds`` take for CPU tensors.  ``embedding_bag_trainable`` is kernel 8 with that
 gradient, the ``torch.autograd.Function`` the training path calls.
+
+``forward_cost`` and ``backward_cost`` are a call's FLOPs and bytes,
+which the public entries report to an active ``launch/roofline.py``
+counter and from which ``chip_smoke.py`` takes the kernel table's
+bounds.  On PyTorch's ``meta`` device the entries allocate their outputs
+and scratch (8b's keys, sort and tile buffers) there and launch nothing.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import CudaKernel, stream_handle
 from repro_torch.kernels.embedding_bag import ref
+from repro_torch.launch.roofline import kernel as count_kernel
 
 # The C entry takes one argument, the launch's 15 values packed as int64
 # (table, ids, weights or 0, out, n_bags, L, n_rows, D, mean, bf16, vec,
@@ -99,6 +106,30 @@ def tile_items(vec: int, lanes: int) -> int:
     return max(1, min(MAX_ITEMS, STAGE_FLOATS // (lanes * vec) * 15 // 16))
 
 
+def forward_cost(n_bags: int, n_ids: int, n_rows: int, dim: int, elt: int,
+                 weighted: bool = False,
+                 distinct: Optional[int] = None) -> Tuple[int, int]:
+    """(flops, bytes) of one kernel-8 call: the ids (and weights) read,
+    each distinct row read once, the (B, D) output written once; 2 flops
+    a term and element.  The rows read are ``distinct`` where the caller
+    counted them, else the static bound min(ids, rows) (the entry reads
+    nothing back to count them)."""
+    rows = min(n_ids, n_rows) if distinct is None else distinct
+    return (2 * n_ids * dim,
+            4 * n_ids * (2 if weighted else 1) + rows * dim * elt
+            + n_bags * dim * elt)
+
+
+def backward_cost(n_bags: int, n_ids: int, n_rows: int, dim: int, elt: int,
+                  weighted: bool = False) -> Tuple[int, int]:
+    """(flops, bytes) of one kernel-8b call (its public entry): the ids
+    (and weights) and dOut read once, the dense (n_rows, D) gradient
+    written once; 2 flops a term and element."""
+    return (2 * n_ids * dim,
+            4 * n_ids * (2 if weighted else 1) + n_bags * dim * elt
+            + n_rows * dim * elt)
+
+
 @functools.lru_cache(maxsize=256)
 def _shape(n_bags: int, dim: int, elt_size: int, aligned: bool):
     """(vec, lanes, gx, gy) of a launch; serving repeats its batch sizes,
@@ -142,7 +173,7 @@ def launch(table: torch.Tensor, bag_ids: torch.Tensor,
     vec, lanes, gx, gy = _shape(n_bags, dim, table.element_size(),
                                 ptr % VECTOR_BYTES == 0)
     out = torch.empty(n_bags, dim, dtype=table.dtype, device=table.device)
-    KERNEL.launch(_ARGS.pack(
+    KERNEL.launch_on(table.device, _ARGS.pack(
         ptr, bag_ids.data_ptr(),
         0 if bag_weights is None else bag_weights.data_ptr(),
         out.data_ptr(), n_bags, width, n_rows, dim, mode == "mean",
@@ -159,15 +190,18 @@ def embedding_bag(table: torch.Tensor, bag_ids: torch.Tensor,
     accumulated in float32.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     _check(table, bag_ids, bag_weights, mode)
-    if table.is_cpu and bag_ids.is_cpu and (bag_weights is None
-                                            or bag_weights.is_cpu):
-        return ref.embedding_bag(table, bag_ids, bag_weights, mode)
-    KERNEL.load()
-    if bag_weights is None:
-        require_cuda(table, bag_ids)
-    else:
-        require_cuda(table, bag_ids, bag_weights)
-    return launch(table, bag_ids, bag_weights, mode)
+    with count_kernel("embedding_bag", lambda: forward_cost(
+            bag_ids.shape[0], bag_ids.numel(), table.shape[0],
+            table.shape[1], table.element_size(), bag_weights is not None),
+            table.dtype):
+        if table.is_cpu and bag_ids.is_cpu and (bag_weights is None
+                                                or bag_weights.is_cpu):
+            return ref.embedding_bag(table, bag_ids, bag_weights, mode)
+        if bag_weights is None:
+            KERNEL.ready(table, bag_ids)
+        else:
+            KERNEL.ready(table, bag_ids, bag_weights)
+        return launch(table, bag_ids, bag_weights, mode)
 
 
 class BackwardPrep(NamedTuple):
@@ -247,11 +281,10 @@ def tile_bounds(keys: torch.Tensor, n_rows: int,
         raise ValueError(f"items must be 1..{MAX_ITEMS} and the places "
                          f"int32, got {items} items, {keys.numel()} terms, "
                          f"{n_rows} rows")
-    KERNEL_BWD_TILES.load()
-    require_cuda(keys)
+    KERNEL_BWD_TILES.ready(keys)
     bounds = torch.empty(n_tiles(keys.numel(), n_rows, items) + 1, 2,
                          dtype=torch.int32, device=keys.device)
-    KERNEL_BWD_TILES.launch(_TILE_ARGS.pack(
+    KERNEL_BWD_TILES.launch_on(keys.device, _TILE_ARGS.pack(
         keys.data_ptr(), bounds.data_ptr(), keys.numel(), n_rows, items,
         stream_handle(keys.device)))
     return bounds
@@ -266,17 +299,16 @@ def backward_keys(bag_ids: torch.Tensor,
     _check_terms(bag_ids, n_rows)
     if bag_ids.is_cpu and (bag_weights is None or bag_weights.is_cpu):
         return backward_keys_plain(bag_ids, bag_weights, mode, n_rows)
-    KERNEL_BWD_KEYS.load()
     if bag_weights is None:
-        require_cuda(bag_ids)
+        KERNEL_BWD_KEYS.ready(bag_ids)
     else:
-        require_cuda(bag_ids, bag_weights)
+        KERNEL_BWD_KEYS.ready(bag_ids, bag_weights)
     n_bags, width = bag_ids.shape
     keys = torch.empty(bag_ids.numel(), dtype=torch.int32,
                        device=bag_ids.device)
     den = (torch.empty(n_bags, dtype=torch.float32, device=bag_ids.device)
            if mode == "mean" else None)
-    KERNEL_BWD_KEYS.launch(_KEY_ARGS.pack(
+    KERNEL_BWD_KEYS.launch_on(bag_ids.device, _KEY_ARGS.pack(
         bag_ids.data_ptr(),
         0 if bag_weights is None else bag_weights.data_ptr(),
         keys.data_ptr(), 0 if den is None else den.data_ptr(),
@@ -293,15 +325,14 @@ def sort_keys(keys: torch.Tensor, n_rows: int):
     plain twin."""
     if keys.is_cpu:
         return sort_keys_plain(keys)
-    KERNEL_BWD_SORT.load()
-    require_cuda(keys)
+    KERNEL_BWD_SORT.ready(keys)
     n, bits = keys.numel(), n_rows.bit_length()
     work = torch.empty(5 * n + RADIX_BINS * (-(-n // SORT_TILE) + 1),
                        dtype=torch.int32, device=keys.device)
     keys_a, keys_b, pos_a, pos_b, hist = (work[:n], work[n:2 * n],
                                           work[2 * n:3 * n],
                                           work[3 * n:4 * n], work[4 * n:])
-    KERNEL_BWD_SORT.launch(_SORT_ARGS.pack(
+    KERNEL_BWD_SORT.launch_on(keys.device, _SORT_ARGS.pack(
         keys.data_ptr(), keys_a.data_ptr(), keys_b.data_ptr(),
         pos_a.data_ptr(), pos_b.data_ptr(), hist.data_ptr(),
         hist[-RADIX_BINS:].data_ptr(), n, bits,
@@ -340,7 +371,7 @@ def launch_backward(grad_out: torch.Tensor, prep: BackwardPrep,
                and out.data_ptr() % VECTOR_BYTES == 0)
     vec, lanes = layout(dim, grad_out.element_size(), aligned)
     bounds = tile_bounds(prep.keys, n_rows, tile_items(vec, lanes))
-    KERNEL_BWD.launch(_BWD_ARGS.pack(
+    KERNEL_BWD.launch_on(grad_out.device, _BWD_ARGS.pack(
         grad_out.data_ptr(), prep.keys.data_ptr(), prep.pos.data_ptr(),
         bounds.data_ptr(),
         0 if prep.weights is None else prep.weights.data_ptr(),
@@ -369,14 +400,17 @@ def embedding_bag_backward(grad_out: torch.Tensor, bag_ids: torch.Tensor,
     grad_out = grad_out.contiguous()
     tensors = [grad_out, bag_ids] + ([] if bag_weights is None
                                      else [bag_weights])
-    if all(t.is_cpu for t in tensors):
-        return ref.embedding_bag_backward(grad_out, bag_ids, n_rows,
-                                          bag_weights, mode)
-    KERNEL_BWD.load()
-    require_cuda(*tensors)
-    return launch_backward(grad_out,
-                           prepare_backward(bag_ids, bag_weights, mode,
-                                            n_rows), n_rows)
+    with count_kernel("embedding_bag_bwd", lambda: backward_cost(
+            bag_ids.shape[0], bag_ids.numel(), n_rows, grad_out.shape[1],
+            grad_out.element_size(), bag_weights is not None),
+            grad_out.dtype):
+        if all(t.is_cpu for t in tensors):
+            return ref.embedding_bag_backward(grad_out, bag_ids, n_rows,
+                                              bag_weights, mode)
+        KERNEL_BWD.ready(*tensors)
+        return launch_backward(grad_out,
+                               prepare_backward(bag_ids, bag_weights, mode,
+                                                n_rows), n_rows)
 
 
 class _EmbeddingBag(torch.autograd.Function):

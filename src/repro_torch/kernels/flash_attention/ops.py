@@ -31,6 +31,12 @@ first pass computes it).  ``backward_blocked_plain`` is the plain twin
 of its bf16 schedule, for the tests.  ``attention`` is kernel 9 with
 that gradient, the ``torch.autograd.Function`` the training path calls;
 its forward saves the log-sum-exp (``attention_with_lse``).
+
+``forward_cost`` and ``backward_cost`` are each call's FLOPs and bytes,
+which the entries report to an active ``launch/roofline.py`` counter and
+from which ``chip_smoke.py`` takes the kernel table's bounds.  On
+PyTorch's ``meta`` device an entry allocates its outputs and scratch (9's
+saved log-sum-exp, 9b's row buffers) there and launches nothing.
 """
 from __future__ import annotations
 
@@ -38,10 +44,12 @@ import ctypes
 import struct
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import CudaKernel, stream_handle
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.launch.roofline import kernel as count_kernel
 
 KERNEL = CudaKernel("flash_attention", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -94,6 +102,42 @@ def wide_tiles(dh: int, sq: int) -> Tuple[int, int]:
 WIDE_MAX_DH = max(dh for dh in range(_HEAD_DIMS[-1], 4096)
                   if wide_smem(dh, WIDE_MAX_ROWS, WIDE_KEYS[-1])
                   <= WIDE_SMEM_MAX)
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+               q_offset: int) -> Tuple[int, int]:
+    """(live (query, key) pairs, keys some query reaches) of one head."""
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(sk, qpos + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    return pairs, int(max(hi.max() - lo.min(), 0))
+
+
+def forward_cost(q, k, causal: bool = True, window: Optional[int] = None,
+                 q_offset: int = 0) -> Tuple[int, int]:
+    """(flops, bytes) of one kernel-9 call on these shapes: 4 dh flops a
+    live (query, key) pair; q read and the output written once, the keys
+    and values that some query's mask reaches read once."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pairs, keys = live_pairs(sq, sk, causal, window, q_offset)
+    elt = q.element_size()
+    return (4 * dh * pairs * b * hq,
+            2 * b * sq * hq * dh * elt + 2 * b * hkv * keys * dh * elt)
+
+
+def backward_cost(q, k, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> Tuple[int, int]:
+    """(flops, bytes) of one kernel-9b call: 10 dh flops a live pair (S,
+    dP, dV, dQ, dK); q, o, dO read and dq written, k, v read and dk, dv
+    written, once each."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pairs, _ = live_pairs(sq, sk, causal, window, q_offset)
+    elt = q.element_size()
+    return (10 * dh * pairs * b * hq,
+            4 * b * sq * hq * dh * elt + 4 * b * sk * hkv * dh * elt)
 
 
 def _check(q, k, v, window, q_offset):
@@ -284,7 +328,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int], q_offset: int,
     out = torch.empty(b, sq, hq, dh, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *[x.stride(i) for x in (q, k, v, out) for i in (0, 2, 1)])
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    KERNEL.launch_on(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if lse is None else lse.data_ptr(), strides, b, hq,
                   rep, sq, sk, dh, q_offset, 0 if window is None else window,
@@ -303,13 +348,16 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors take the plain version, at any head dim; CUDA tensors launch
     the kernel, at head dims up to WIDE_MAX_DH (``padded_dim``)."""
     _check(q, k, v, window, q_offset)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return ref.attention_gqa(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
-    padded_dim(q.shape[3])
-    KERNEL.load()
-    require_cuda(q, k, v)
-    return launch(q, k, v, causal, window, q_offset)
+    with count_kernel("flash_attention",
+                      lambda: forward_cost(q, k, causal, window, q_offset),
+                      q.dtype):
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            # contiguous, as the kernel writes it
+            return ref.attention_gqa(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset).contiguous()
+        padded_dim(q.shape[3])
+        KERNEL.ready(q, k, v)
+        return launch(q, k, v, causal, window, q_offset)
 
 
 def saves_lse(q, k, causal: bool = True, window: Optional[int] = None,
@@ -331,19 +379,22 @@ def attention_with_lse(q, k, v, causal: bool = True,
     the card the prefill path's stored by the same launch, None on the
     other paths (kernel 9b then computes it)."""
     _check(q, k, v, window, q_offset)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return (ref.attention_gqa(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset),
-                ref.attention_lse(q, k, causal=causal, window=window,
-                                  q_offset=q_offset))
-    padded_dim(q.shape[3])
-    KERNEL.load()
-    require_cuda(q, k, v)
-    lse = None
-    if saves_lse(q, k, causal, window, q_offset):
-        b, sq, hq, _ = q.shape
-        lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
-    return launch(q, k, v, causal, window, q_offset, lse), lse
+    with count_kernel("flash_attention",
+                      lambda: forward_cost(q, k, causal, window, q_offset),
+                      q.dtype):
+        if all(t.device.type == "cpu" for t in (q, k, v)):
+            return (ref.attention_gqa(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset).contiguous(),
+                    ref.attention_lse(q, k, causal=causal, window=window,
+                                      q_offset=q_offset))
+        padded_dim(q.shape[3])
+        KERNEL.ready(q, k, v)
+        lse = None
+        if saves_lse(q, k, causal, window, q_offset):
+            b, sq, hq, _ = q.shape
+            lse = torch.empty(b, hq, sq, dtype=torch.float32,
+                              device=q.device)
+        return launch(q, k, v, causal, window, q_offset, lse), lse
 
 
 # kernel 9b's two entries, each on 22 values packed as int64 (q, k, v, o,
@@ -395,8 +446,8 @@ def launch_backward(q, k, v, o, do, causal: bool, window: Optional[int],
     if lse is None or not bf16:
         lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse)
-        KERNEL_BWD_LSE.launch(pack(lse.data_ptr()), dh ** -0.5)
-    KERNEL_BWD.launch(pack(lse.data_ptr()), dh ** -0.5)
+        KERNEL_BWD_LSE.launch_on(q.device, pack(lse.data_ptr()), dh ** -0.5)
+    KERNEL_BWD.launch_on(q.device, pack(lse.data_ptr()), dh ** -0.5)
     return tuple(g if width == dh else g[..., :dh] for g in grads)
 
 
@@ -425,16 +476,19 @@ def flash_attention_gqa_backward(q, k, v, o, do, causal: bool = True,
                          f"{(b, hq, sq)} tensor, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     ts = (q, k, v, o, do) + (() if lse is None else (lse,))
-    if all(t.device.type == "cpu" for t in ts):
-        return ref.attention_gqa_backward(q, k, v, o, do, causal=causal,
-                                          window=window, q_offset=q_offset,
-                                          lse=lse)
-    if dh > BWD_MAX_DH:
-        raise ValueError(f"head dim {dh} > {BWD_MAX_DH}: kernel 9b "
-                         f"takes head dims up to {BWD_MAX_DH}")
-    KERNEL_BWD.load()
-    require_cuda(*ts)
-    return launch_backward(q, k, v, o, do, causal, window, q_offset, lse)
+    with count_kernel("flash_attention_bwd",
+                      lambda: backward_cost(q, k, causal, window, q_offset),
+                      q.dtype):
+        if all(t.device.type == "cpu" for t in ts):
+            return tuple(g.contiguous() for g in ref.attention_gqa_backward(
+                q, k, v, o, do, causal=causal, window=window,
+                q_offset=q_offset, lse=lse))
+        if dh > BWD_MAX_DH:
+            raise ValueError(f"head dim {dh} > {BWD_MAX_DH}: kernel 9b "
+                             f"takes head dims up to {BWD_MAX_DH}")
+        KERNEL_BWD.ready(*ts)
+        return launch_backward(q, k, v, o, do, causal, window, q_offset,
+                               lse)
 
 
 def _live_queries(k0: int, tile: int, sq: int, sk: int, causal: bool,

@@ -12,8 +12,12 @@ a p-strip mesh is the grid (p, 1).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
+
+PRODUCTION_GRID = (16, 16)   # the JAX package's single-pod mesh
+PRODUCTION_PODS = 2          # and its multi-pod one, 2 x 16 x 16
 
 
 def resolve_device(device) -> torch.device:
@@ -42,6 +46,15 @@ class SimMesh:
         pod = {} if self.pods is None else {"pod": self.pods}
         return {**pod, **dict(zip(self.names, (self.pr, self.pc)))}
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        """The processors of the whole mesh (pods included)."""
+        return (self.pods or 1) * self.pr * self.pc
+
 
 def _check_pods(pods: Optional[int]) -> None:
     if pods is not None and pods < 1:
@@ -66,3 +79,28 @@ def make_local_mesh_1d(p: int, device="cuda",
     _check_pods(pods)
     return SimMesh(pr=p, pc=1, device=resolve_device(device), pods=pods,
                    names=("data",))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> SimMesh:
+    """The JAX package's production meshes as simulated ones: 16 x 16 on
+    ("data", "model"), and with ``multi_pod`` 2 x 16 x 16 with "pod" in
+    front, on any device (the dry-run's is ``meta``)."""
+    return make_mesh(*PRODUCTION_GRID,
+                     pods=PRODUCTION_PODS if multi_pod else 1, device=device)
+
+
+def make_mesh(pr: int, pc: int, pods: int = 1, device="cuda") -> SimMesh:
+    """An arbitrary rectangular grid (the paper's generalization); a
+    "pod" axis in front where ``pods > 1``."""
+    return make_local_mesh(pr, pc, device=device,
+                           pods=pods if pods > 1 else None)
+
+
+def make_generator(device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for draws on ``device``.  The meta
+    device has none of its own, so its draws take a CPU generator (they
+    produce shapes only)."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev
+                           ).manual_seed(seed)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.launch.mesh import make_generator
 from repro_torch.models import embedding
 
 
@@ -104,7 +105,7 @@ class AutoInt(nn.Module):
                  trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = make_generator(device, seed)
         self.table = nn.Parameter(embedding.init_table(cfg, gen, device),
                                   requires_grad=trainable)
         self.w = nn.ParameterDict()

@@ -33,8 +33,10 @@ def gather(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ``deterministic()``); on the CPU ``index_select``, whose gradient is
     an ``index_add`` (``x[ids]``'s is two orders of magnitude slower
     there, and on a card the deterministic ``index_add`` copies its
-    source first: 15.8 GB a layer at ogb_products)."""
-    return _gather_card(x, ids) if x.is_cuda else x.index_select(0, ids)
+    source first: 15.8 GB a layer at ogb_products).  Any device but the
+    CPU (``meta`` too, so that a counted trace follows the card) takes
+    the card's form."""
+    return x.index_select(0, ids) if x.is_cpu else _gather_card(x, ids)
 
 
 def _gather_card(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -51,7 +53,7 @@ def seg_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """Rows of ``x`` summed into ``n`` segments by ``ids``: an
     accumulating ``index_put`` on a card, ``index_add`` on the CPU (the
     same sum; see ``gather``)."""
-    if x.is_cuda:
+    if not x.is_cpu:
         return _seg_sum_card(x, ids, n)
     out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
     return out.index_add(0, ids, x)

@@ -50,6 +50,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import collectives as coll
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch.mesh import make_generator
 from repro_torch.models.common import (ShardCtx, chunked_attention, rms_norm,
                                        rope)
 
@@ -93,7 +94,7 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda",
     layer's tensor (qwen3-moe-30b-a3b's whole ``wg_e`` would be 38.7 GB),
     and a config cut in depth holds the first layers of the full one."""
     dtype = dtype or _DTYPES[cfg.dtype]
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(device, seed)
     d, n_l = cfg.d_model, cfg.n_layers
 
     def nrm(shape, fan_in):
@@ -542,7 +543,7 @@ class _LogitsF32Out(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, emb):
         ctx.save_for_backward(h, emb)
-        if h.is_cuda and h.dtype != torch.float32:
+        if not h.is_cpu and h.dtype != torch.float32:
             return torch.mm(h, emb.t(), out_dtype=torch.float32)
         return torch.mm(h.float(), emb.float().t())
 

@@ -242,6 +242,9 @@ class _Recorder:
     def launch(self, *args):
         self.calls.append(args)
 
+    def launch_on(self, device, *args):
+        self.calls.append(args)
+
 
 @pytest.mark.parametrize("dh", [48, 80, 128, 129, 160, 256, 1024])
 @pytest.mark.parametrize("dtype,sq", [(torch.bfloat16, 64),

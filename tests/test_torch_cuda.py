@@ -1131,3 +1131,59 @@ def test_loss_bf16_logits_on_the_card_match_the_cpu(dev, dtype):
     for i, (got, want) in enumerate(zip(outs[1], outs[0])):
         tol = 1e-5 if i == 0 or dtype == torch.float32 else 2 ** -7
         assert (got - want).abs().max() <= tol * want.abs().max(), i
+
+
+def _fill_ids(tree, gen):
+    """Seeded values in a cell's non-parameter arguments (ids 0)."""
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                x.copy_(torch.rand(x.shape, generator=gen, device=x.device))
+            else:
+                x.zero_()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+
+
+@pytest.mark.parametrize("family", ["lm", "recsys"])
+def test_meta_counts_equal_the_card_through_the_kernels(dev, family):
+    """A small LM training cell (kernels 9, 9b) and a small AutoInt
+    training cell (8, 8b) count the same FLOPs, bytes and kernel costs on
+    ``meta`` (where the kernel entries allocate and launch nothing) as on
+    the card, and the card launches every kernel."""
+    from repro_torch.configs.base import (LMShape, RecsysShape, get_config,
+                                          reduced)
+    from repro_torch.launch import cells, roofline
+    from repro_torch.launch.mesh import make_mesh
+    if family == "lm":
+        cfg = reduced(get_config("smollm-135m"), n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=96, vocab=128)
+
+        def build(mesh):
+            return cells.build_lm_cell(cfg, LMShape("t", 64, 2, "train"), mesh)
+        kernels = (fa_ops.KERNEL, fa_ops.KERNEL_BWD)
+    else:
+        cfg = reduced(get_config("autoint"), vocab_sizes=(40,) * 39)
+
+        def build(mesh):
+            return cells.build_recsys_cell(
+                cfg, RecsysShape("t", 32, kind="train"), mesh)
+        kernels = (eb_ops.KERNEL, eb_ops.KERNEL_BWD)
+    counts = {}
+    for where in ("meta", dev):
+        cell = build(make_mesh(1, 1, device=where))
+        _fill_ids(cell.args[2:], torch.Generator(device=where if where !=
+                                                 "meta" else "cpu"))
+        before = [k.launches for k in kernels]
+        with roofline.StepCounter() as c:
+            cell.fn(*cell.args)
+        s = c.summary()
+        counts[str(where)] = {k: s[k] for k in ("flops", "bytes_read",
+                                                "bytes_written", "kernels")}
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert all(launched) == (where != "meta"), launched
+    assert counts["meta"] == counts[str(dev)]
