@@ -53,9 +53,12 @@ Phases, in the order they run:
   4 kernels      the 2D path's kernels against their plain versions at
                  its shapes, tolerance 0 (the outputs are integers)
  4b kernel 1     its DCSC entry on the frontiers of one bfs-rmat search
+                 (its calls under sync debug mode "error": no host read)
                  against its plain version and the col_ptr entry on the
-                 same frontiers, tolerance 0, both timed (the launch, and
-                 the wrapper with its prep: the binary search's cost)
+                 same frontiers, tolerance 0; each entry timed whole (the
+                 prep kernel and the walk) on the card alone and
+                 host-timed, beside its plain version, scatter_reduce_ and
+                 its bound (ops.forward_cost)
   5 meshes       simulated 2x2 and 4x4 grids and a 16-strip 1d/1ds leg
                  (both codecs, 1 and 4 expand steps, an overflowing
                  bucket capacity) at scale 16, and every registered 2D
@@ -73,7 +76,9 @@ Phases, in the order they run:
                  roots timed with and without a recorder (the ratio)
   6 kernel times level by level on one 2D search: kernel, plain,
                  library yardstick and bound, each in ms (kernel 2 on
-                 the card alone, per launch beside its bound); kernel 2
+                 the card alone, per launch beside its bound; kernel 1's
+                 entry whole, on the card alone and host-timed, its calls
+                 under sync debug mode "error"); kernel 2
                  on the synthetic cases of kernels/edge_cases.py at the
                  path's width, tolerance 0
   7 profile      device busy and idle share of one 2D search,
@@ -122,8 +127,10 @@ Phases, in the order they run:
                  2-4 on the synthetic cases at the path's widths,
                  kernels 3 and 4 with each walk forced
  9b kernel 1     its strip entry on the frontiers of one bfs-rmat-1d
-                 search against its plain version and kernel 3 on the
-                 same frontiers, tolerance 0, both timed on the card alone
+                 search (under sync debug mode "error") against its plain
+                 version and kernel 3 on the same frontiers, tolerance 0;
+                 the entry timed whole as in 4b, kernel 3 on the card
+                 alone
  10 profile      device busy and idle share of one 1ds search per
                  expand_chunks, instrumented and with instrument=False
  8g born strips  (after phase 10, once phase 8's graph is digested and
@@ -294,7 +301,11 @@ phase 22 alone (building 22c's graph itself).
 
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-times kernels 2-9 on the card alone: 2-6 at the scale-24 paths' calls
+times kernels 1-9 on the card alone: 1-6 at the scale-24 paths' calls
+(kernel 1's entry whole, prep included, as the level steps call it, and
+host-timed; on the 2D csr search, bfs-rmat and bfs-rmat-1d, each with
+its synchronizing calls a search counted in sync debug mode "warn"; the
+2D csr session's median search ms over the 16 roots)
 (5 and 6 host-timed as well, and beside the zero-fill of their output;
 kernel 5's SASS per output word), each search whole, kernel 7 on the
 full scale-24 stream (also host-timed), kernel 8 at the AutoInt shapes (on the
@@ -587,6 +598,145 @@ def recording(targets, every: int = 1, clone: bool = False):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def no_host_reads(mod, attr: str):
+    """Run every call of ``mod.attr`` while the block runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that reads the
+    card to the host raises.  Yields the list of guarded calls' counts
+    (one entry a call)."""
+    fn = getattr(mod, attr)
+    calls = []
+
+    def guarded(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls.append(1)
+    setattr(mod, attr, guarded)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, fn)
+
+
+def kernel1_edges(sp_ops, seg, words, nr: int, coff: int):
+    """The frontier's edges of one kernel-1 call as ``scatter_reduce_``
+    takes them (``frontier_edges``: candidate position, value), the
+    candidates' size, the frontier's id count and its edge total, from
+    the plain prep of ``seg``'s addressing."""
+    from repro_torch.core.frontier import unpack_bits
+    if seg.addressing == "strips":
+        ids, offs, total = sp_ops.prepare_strips(words, seg.ptr)
+        p_, n = seg.ptr.shape[0], ids.numel()
+        s_ = torch.arange(p_ * n, device=ids.device) // max(n, 1)
+        u = ids.repeat(p_)
+        dst, vals = sp_ops.frontier_edges(
+            seg.ptr[s_, u.to(torch.int64)].to(torch.int64)
+            + s_ * seg.row_idx.shape[1], offs, total,
+            seg.row_idx.reshape(-1), u, s_ * nr)
+        return dst, vals, p_ * nr, n, total
+    mask = unpack_bits(words)
+    if seg.addressing == "csr":
+        ids, offs, total = sp_ops.prepare(mask, seg.ptr)
+        starts = seg.ptr[ids].to(torch.int64)
+    else:
+        ids, slot, offs, total = sp_ops.prepare_dcsc(mask, seg.jc, seg.ptr,
+                                                     seg.nzc)
+        starts = seg.ptr[slot].to(torch.int64)
+    dst, vals = sp_ops.frontier_edges(starts, offs, total, seg.row_idx,
+                                      ids + coff, torch.zeros_like(offs))
+    return dst, vals, None, ids.numel(), total
+
+
+def kernel1_call(sp_ops, seg, words, nr: int, coff: int) -> dict:
+    """One recorded kernel-1 call of the main path, measured: its entry
+    ``spmsv_min`` whole (the prep kernel and the walk) on the card alone
+    (``device_ms``) and host-timed (``cuda_ms``), its plain version
+    (``spmsv_min_plain``, whose prep reads the host), one
+    ``scatter_reduce_`` of the frontier's edges, and the bound from
+    ``forward_cost`` (and with the words the device prep reads, stated
+    apart).  Checks the candidates against the plain version and the
+    kernel's edges examined, count and walk against the plain total and
+    the prep's twin (tolerance 0)."""
+    got, out = sp_ops.launch(seg, words, nr, coff)
+    want, ex = sp_ops.spmsv_min_plain(seg, words, nr, coff)
+    _, count, walk = sp_ops.prep_plain(words, sp_ops.list_capacity(seg))
+    err = max_err(got, want)
+    stats = out.tolist()
+    check(stats == [int(ex), int(count), walk],
+          f"kernel 1 ({seg.addressing}): edges examined, count, walk "
+          f"{stats} against the plain {[int(ex), int(count), walk]}")
+    del got, want
+    k_ms = device_ms(lambda: sp_ops.spmsv_min(seg, words, nr, coff))
+    h_ms = cuda_ms(lambda: sp_ops.spmsv_min(seg, words, nr, coff))
+    p_ms = cuda_ms(lambda: sp_ops.spmsv_min_plain(seg, words, nr, coff),
+                   reps=3)
+    dst, vals, size, n_ids, total = kernel1_edges(sp_ops, seg, words, nr,
+                                                  coff)
+    size = size or nr
+    lib_ms = cuda_ms(lambda: torch.full(
+        (size,), 2**31 - 1, dtype=torch.int32,
+        device=words.device).scatter_reduce_(0, dst, vals, "amin"), reps=5)
+    del dst, vals
+    p_ = seg.ptr.shape[0] if seg.addressing == "strips" else 1
+    nbytes = sp_ops.forward_cost(seg.addressing, n_ids, total, nr, p_)[1]
+    prep_bytes = sp_ops.forward_cost(seg.addressing, n_ids, total, nr, p_,
+                                     n_words=words.numel())[1]
+    return {"ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": nbytes / HBM_BW * 1e3,
+            "bound_with_words_ms": prep_bytes / HBM_BW * 1e3,
+            "bytes": nbytes, "ids": n_ids, "edges": total, "walk": walk,
+            "err": err}
+
+
+def kernel1_rows(sp_ops, calls, label: str, extra=None) -> dict:
+    """Phase 6's, 4b's and 9b's rows: every recorded ``spmsv_min`` call
+    of one search through ``kernel1_call``, printed, and their sums;
+    ``extra(seg, words, nr, coff)`` returns more (key, ms, err) to hold
+    and add up (the other addressings on the same frontiers)."""
+    row = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bound_with_words_ms": 0.0, "calls": 0,
+           "max_abs_err": 0}
+    for i, (_, a, kw) in enumerate(calls):
+        seg, words, nr, coff = a[:4]
+        r = kernel1_call(sp_ops, seg, words, nr, coff)
+        more = extra(seg, words, nr, coff) if extra else []
+        e = max([r["err"]] + [m[2] for m in more])
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+        for key in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_with_words_ms"):
+            row[key] += r[key]
+        for key, ms, _ in more:
+            row[key] = row.get(key, 0.0) + ms
+        row["calls"] += 1
+        walk = {1: "frontier", 2: "column"}[r["walk"]]
+        print(f"call {i} {label}: {r['ids']} frontier ids, {r['edges']} "
+              f"edges, {walk} walk: max |kernel - plain| = {e}; entry on "
+              f"the card alone {r['ms']:.4f} ms, host-timed "
+              f"{r['host_ms']:.4f} ms"
+              + "".join(f", {key} {ms:.4f} ms" for key, ms, _ in more)
+              + f"; plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bytes']} bytes; with the prep's {words.numel()} words "
+              f"{r['bound_with_words_ms']:.5f} ms)")
+    check(row["calls"] > 0, f"no {label} call in the search")
+    check(row["max_abs_err"] == 0, f"{label} disagrees with its plain "
+          f"version (max err {row['max_abs_err']})")
+    print(f"{label}: {row['calls']} calls in one search: entry on the card "
+          f"alone {row['ms']:.4f} ms, host-timed {row['host_ms']:.4f} ms"
+          + "".join(f", {key} {row[key]:.4f} ms" for key in row
+                    if key.endswith("_ms") and key not in (
+                        "ms", "host_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_with_words_ms"))
+          + f"; plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"(with the prep's words {row['bound_with_words_ms']:.5f}); "
+          f"equal to its plain version (tolerance 0)")
+    return row
 
 
 def bottomup_bytes(rp, uew, fw, cv):
@@ -2971,25 +3121,22 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
 
     def host_reads(eng, roots_) -> float:
         """Host reads a search from ``roots_``, run again untimed: the
-        level loop's tail reads (``decomp._masses``), the 1ds exchange's
-        own (``_send_counts``), kernel 1's two a call (``spmsv/ops.py::
-        prepare``, ``prepare_dcsc``, ``prepare_strips``: the frontier's id
-        count and its edge total)."""
+        level loop's tail reads (``decomp._masses``) and the 1ds
+        exchange's own (``_send_counts``).  Kernel 1 reads nothing:
+        phases 4b, 6 and 9b run its calls in a search under sync debug
+        mode "error"."""
         return reads_of(lambda: [eng.search(r) for r in roots_],
                         len(roots_))
 
     def reads_of(run, n_searches: int) -> float:
         """Host reads a search of ``run()``, which runs ``n_searches``
         searches (the reads ``host_reads`` counts)."""
-        weight = {"masses": 1, "send_counts": 1, "prepare": 2}
         with recording([(decomp, "_masses", "masses"),
-                        (steps_1d_sparse, "_send_counts", "send_counts"),
-                        (sp_ops, "prepare", "prepare"),
-                        (sp_ops, "prepare_dcsc", "prepare"),
-                        (sp_ops, "prepare_strips", "prepare")]) as calls:
+                        (steps_1d_sparse, "_send_counts", "send_counts")]
+                       ) as calls:
             run()
         torch.cuda.synchronize()
-        return sum(weight[c[0]] for c in calls) / n_searches
+        return len(calls) / n_searches
 
     def batch_beside_many(eng_b, tag) -> dict:
         """The roots batched and one by one, host-timed in turns (one by
@@ -3541,68 +3688,28 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     # --------------------------------------------------------------- 4b
     phase("4b kernel 1 through the DCSC on the frontiers of one bfs-rmat "
           "search against its plain version and the col_ptr addressing "
-          "(tolerance 0), timed side by side")
-    with recording([(sp_ops, "spmsv_dcsc_min", "spmsv_dcsc_min")]) as calls:
+          "(tolerance 0), each entry timed whole; the search's kernel-1 "
+          "calls under sync debug mode 'error'")
+    with recording([(sp_ops, "spmsv_min", "spmsv_dcsc_min")]) as calls, \
+            no_host_reads(sp_ops, "spmsv_min") as guarded:
         eng_dcsc.search(roots[0])
     torch.cuda.synchronize()
-    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "calls": 0, "csr_ms": 0.0, "wrapper_ms": 0.0,
-           "csr_wrapper_ms": 0.0}
+    check(len(guarded) > 0, "no kernel-1 call in the bfs-rmat search")
+    print(f"one bfs-rmat search: its {len(guarded)} kernel-1 calls ran under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host read")
     cptr = graph.col_ptr[0, 0]
-    for i, (_, a, _) in enumerate(calls):
-        mask, jc, cp, nzc, ridx, nr, coff, cap_f = a
-        prep = sp_ops.prepare_dcsc(mask, jc, cp, nzc, cap_f)
-        ids, slot, offs, total = prep
-        csr_prep = sp_ops.prepare(mask, cptr)
-        got = sp_ops.launch_dcsc(*prep, cp, ridx, nr, coff)
-        e = max(max_err(got, sp_ops.spmsv_dcsc_min_plain(*prep, cp, ridx, nr,
-                                                         coff)),
-                max_err(got, sp_ops.launch(*csr_prep, cptr, ridx, nr, coff)))
-        errs["spmsv_dcsc_min"] = max(errs["spmsv_dcsc_min"], e)
-        del got
-        k_ms = cuda_ms(lambda: sp_ops.launch_dcsc(*prep, cp, ridx, nr, coff))
-        c_ms = cuda_ms(lambda: sp_ops.launch(*csr_prep, cptr, ridx, nr,
-                                             coff))
-        w_ms = cuda_ms(lambda: sp_ops.spmsv_dcsc_min(*a))
-        cw_ms = cuda_ms(lambda: sp_ops.spmsv_csr_min(mask, cptr, ridx, nr,
-                                                     coff))
-        p_ms = cuda_ms(lambda: sp_ops.spmsv_dcsc_min_plain(
-            *prep, cp, ridx, nr, coff), reps=3)
-        dst, vals = sp_ops.frontier_edges(cp[slot].to(torch.int64), offs,
-                                          total, ridx, ids + coff,
-                                          torch.zeros_like(offs))
-        lib_ms = cuda_ms(lambda: torch.full(
-            (nr,), INT_INF, dtype=torch.int32, device=dev).scatter_reduce_(
-            0, dst, vals, "amin"), reps=5)
-        del dst, vals
-        n = ids.numel()
-        # ids, slots, offsets, the cp word of each id, one row id an
-        # edge, the candidates
-        nbytes = 4 * n + 4 * n + 8 * (n + 1) + 4 * n + 4 * total + 4 * nr
-        b_ms = nbytes / HBM_BW * 1e3
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                       ("library_ms", lib_ms), ("csr_ms", c_ms),
-                       ("wrapper_ms", w_ms), ("csr_wrapper_ms", cw_ms)):
-            row[key] += v
-        row["calls"] += 1
-        print(f"call {i} spmsv_dcsc_min: frontier {n} cols, {total} edges: "
-              f"max |kernel - plain|, |dcsc - csr| = {e}; launch: dcsc "
-              f"{k_ms:.4f} ms, csr {c_ms:.4f} ms; wrapper with its prep: "
-              f"dcsc {w_ms:.4f} ms, csr {cw_ms:.4f} ms; plain {p_ms:.4f} "
-              f"ms, library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({nbytes} "
-              f"bytes)")
-    check(row["calls"] > 0, "no spmsv_dcsc_min call in the bfs-rmat search")
-    del calls, prep, csr_prep, ids, slot, offs, mask, jc, cp, nzc
-    check(errs["spmsv_dcsc_min"] == 0, "spmsv_dcsc_min disagrees with its "
-          "plain version or with the col_ptr addressing")
-    print(f"spmsv_dcsc_min: {row['calls']} launches in one search: kernel "
-          f"{row['ms']:.4f} ms (the col_ptr addressing on the same frontiers "
-          f"{row['csr_ms']:.4f}), with the prep {row['wrapper_ms']:.4f} "
-          f"(col_ptr {row['csr_wrapper_ms']:.4f}), plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.5f} ms; equal to its plain version and "
-          f"to the col_ptr addressing (tolerance 0)")
-    per_dcsc = row
+
+    def csr_beside(seg, words, nr, coff):
+        """The col_ptr addressing on the same frontier: equal, and its
+        entry on the card alone."""
+        by_ptr = sp_ops.csr(cptr, seg.row_idx)
+        e = max_err(sp_ops.launch(seg, words, nr, coff)[0],
+                    sp_ops.launch(by_ptr, words, nr, coff)[0])
+        return [("csr_ms", device_ms(lambda: sp_ops.spmsv_min(
+            by_ptr, words, nr, coff)), e)]
+    per_dcsc = kernel1_rows(sp_ops, calls, "spmsv_dcsc_min", csr_beside)
+    errs["spmsv_dcsc_min"] = per_dcsc["max_abs_err"]
+    del calls
 
     # ---------------------------------------------------------------- 5
     phase(f"5 simulated meshes at scale {MESH_SCALE}, instrumented: 2x2, "
@@ -3762,53 +3869,41 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     record["schedule"] = sched
 
     # ---------------------------------------------------------------- 6
-    phase("6 kernel times level by level on one 2D search")
-    with recording([(sp_ops, "spmsv_csr_min", "spmsv_csr_min"),
+    phase("6 kernel times level by level on one 2D search; its kernel-1 "
+          "calls under sync debug mode 'error'")
+    with recording([(sp_ops, "spmsv_min", "spmsv_csr_min"),
                     (bu_ops, "bottomup_substep", "bottomup_substep")]
-                   ) as calls:
+                   ) as calls, no_host_reads(sp_ops, "spmsv_min") as guarded:
         engine.search(roots[0])
     torch.cuda.synchronize()
+    check(len(guarded) > 0, "no kernel-1 call in the 2D csr search")
+    print(f"one 2D csr search: its {len(guarded)} kernel-1 calls ran under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host read")
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "calls": 0} for k in kernels}
+    per["spmsv_csr_min"] = kernel1_rows(
+        sp_ops, [c for c in calls if c[0] == "spmsv_csr_min"],
+        "spmsv_csr_min")
+    errs["spmsv_csr_min"] = max(errs["spmsv_csr_min"],
+                                per["spmsv_csr_min"]["max_abs_err"])
     for lvl, (kname, a, _) in enumerate(calls):
+        if kname != "bottomup_substep":
+            continue
         row = per[kname]
         row["calls"] += 1
-        if kname == "spmsv_csr_min":
-            mask, cptr, ridx, nr, coff, cap_f = a
-            ids, offs, total = sp_ops.prepare(mask, cptr, cap_f)
-            k_ms = cuda_ms(lambda: sp_ops.launch(ids, offs, total, cptr, ridx,
-                                                 nr, coff))
-            v, vals = sp_ops.frontier_edges(cptr[ids].to(torch.int64), offs,
-                                            total, ridx, ids + coff,
-                                            torch.zeros_like(offs))
-
-            def run_lib():
-                torch.full((nr,), INT_INF, dtype=torch.int32,
-                           device=dev).scatter_reduce_(0, v, vals, "amin")
-            p_ms = cuda_ms(lambda: sp_ops.spmsv_csr_min_plain(
-                ids, offs, total, cptr, ridx, nr, coff), reps=3)
-            lib_ms = cuda_ms(run_lib, reps=5)
-            nbytes = 4 * ids.numel() + 8 * (ids.numel() + 1) \
-                + 8 * ids.numel() + 4 * total + 4 * nr
-            row["library_ms"] += lib_ms
-            desc = f"frontier {ids.numel()} cols, {total} edges"
-            del v, vals
-        else:
-            rp, uew, fw, cv, coff, ne = a
-            k_ms = device_ms(lambda: bu_ops.launch(rp, uew, fw, cv, coff,
-                                                   ne))
-            p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_plain(
-                rp, uew, fw, cv, coff, ne), reps=3)
-            nbytes, n_live, read = bottomup_bytes(rp, uew, fw, cv)
-            over = k_ms / (nbytes / HBM_BW * 1e3)
-            desc = (f"{n_live} live rows, {read} edges read to the first "
-                    f"hit, on the card alone {over:.2f}x its bound")
+        rp, uew, fw, cv, coff, ne = a
+        k_ms = device_ms(lambda: bu_ops.launch(rp, uew, fw, cv, coff, ne))
+        p_ms = cuda_ms(lambda: bu_ops.bottomup_substep_plain(
+            rp, uew, fw, cv, coff, ne), reps=3)
+        nbytes, n_live, read = bottomup_bytes(rp, uew, fw, cv)
         b_ms = nbytes / HBM_BW * 1e3
         row["ms"] += k_ms
         row["plain_ms"] += p_ms
         row["bound_ms"] += b_ms
-        print(f"call {lvl} {kname}: {desc}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({nbytes} bytes)")
+        print(f"call {lvl} {kname}: {n_live} live rows, {read} edges read "
+              f"to the first hit, on the card alone {k_ms / b_ms:.2f}x its "
+              f"bound: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({nbytes} bytes)")
     # the wrapper itself: its host work (salts, two allocations) is
     # microseconds against a launch of milliseconds
     per["rmat_counter"]["ms"] = cuda_ms(lambda: rmat.rmat_edges_counter(
@@ -3838,13 +3933,10 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
           f"{RMAT_INSTR_PER_EDGE_LEVEL} instructions per edge and level at "
           f"the larger, {rate / 1e12:.3f} T/s): "
           f"{max(rb, ro) / per['rmat_counter']['ms']:.1%} of its bound")
-    for k in ("spmsv_csr_min", "bottomup_substep"):
-        r = per[k]
-        print(f"{k}: {r['calls']} launches in one search: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms"
-              + (f", library {r['library_ms']:.4f} ms"
-                 if k == "spmsv_csr_min" else ""))
+    r = per["bottomup_substep"]
+    print(f"bottomup_substep: {r['calls']} launches in one search: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms")
     per["spmsv_dcsc_min"] = per_dcsc
     record["kernel_times"] = per
     # the synthetic cases at the 2D path's width (one segment of 2^24
@@ -4686,65 +4778,29 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     # --------------------------------------------------------------- 9b
     phase("9b kernel 1 over the strip col_ptr on the frontiers of one "
           "bfs-rmat-1d search against its plain version and kernel 3 (the "
-          "strip DCSC) on the same frontiers (tolerance 0), timed side by "
-          "side")
-    with recording([(sp_ops, "spmsv_strips_csr_min",
-                     "spmsv_strips_csr_min")]) as calls:
+          "strip DCSC) on the same frontiers (tolerance 0), each entry "
+          "timed whole; the search's kernel-1 calls under sync debug mode "
+          "'error'")
+    with recording([(sp_ops, "spmsv_min", "spmsv_strips_csr_min")]
+                   ) as calls, no_host_reads(sp_ops, "spmsv_min") as guarded:
         eng_1d_csr.search(roots[0])
     torch.cuda.synchronize()
     del eng_1d_csr
-    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "calls": 0, "dcsc_ms": 0.0}
-    for i, (_, a, _) in enumerate(calls):
-        fw, cptr, ridx, nr = a
-        prep = sp_ops.prepare_strips(fw, cptr)
-        ids, offs, total = prep
-        got = sp_ops.launch_strips(*prep, cptr, ridx, nr)
-        e = max(max_err(got, sp_ops.spmsv_strips_csr_min_plain(
-                    *prep, cptr, ridx, nr)),
-                max_err(got, strip.launch(jc, cp, nzc, ridx, fw, nr)[0]))
-        errs["spmsv_strips_csr_min"] = max(errs["spmsv_strips_csr_min"], e)
-        del got
-        k_ms = device_ms(lambda: sp_ops.launch_strips(*prep, cptr, ridx, nr))
-        d_ms = device_ms(lambda: strip.launch(jc, cp, nzc, ridx, fw, nr))
-        p_ms = cuda_ms(lambda: sp_ops.spmsv_strips_csr_min_plain(
-            *prep, cptr, ridx, nr), reps=1)
-        n, p_ = ids.numel(), cptr.shape[0]
-        s_ = torch.arange(p_ * n, device=dev) // max(n, 1)
-        u = ids.repeat(p_)
-        dst, vals = sp_ops.frontier_edges(
-            cptr[s_, u.to(torch.int64)].to(torch.int64) + s_ * ridx.shape[1],
-            offs, total, ridx.reshape(-1), u, s_ * nr)
-        del s_, u
-        lib_ms = cuda_ms(lambda: torch.full(
-            (p_ * nr,), INT_INF, dtype=torch.int32,
-            device=dev).scatter_reduce_(0, dst, vals, "amin"), reps=5)
-        del dst, vals
-        # the ids, the strip-major offsets, a col_ptr word a (strip, id),
-        # one row id an edge, the (p, nr) candidates
-        nbytes = 4 * n + 8 * (p_ * n + 1) + 4 * p_ * n + 4 * total \
-            + 4 * p_ * nr
-        b_ms = nbytes / HBM_BW * 1e3
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                       ("library_ms", lib_ms), ("dcsc_ms", d_ms)):
-            row[key] += v
-        row["calls"] += 1
-        print(f"call {i} spmsv_strips_csr_min: {n} frontier ids, {total} "
-              f"edges over {p_} strips: max |kernel - plain|, |csr - "
-              f"kernel 3| = {e}; on the card alone: kernel {k_ms:.4f} ms, "
-              f"kernel 3 (strip DCSC) {d_ms:.4f} ms; plain {p_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({nbytes} "
-              f"bytes)")
-    check(row["calls"] > 0, "no spmsv_strips_csr_min call in the bfs-rmat-1d "
-          "search")
-    check(errs["spmsv_strips_csr_min"] == 0, "spmsv_strips_csr_min disagrees "
-          "with its plain version or with kernel 3")
-    print(f"spmsv_strips_csr_min: {row['calls']} launches in one search: "
-          f"kernel {row['ms']:.4f} ms (kernel 3 on the same frontiers "
-          f"{row['dcsc_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms; "
-          f"equal to its plain version and to kernel 3 (tolerance 0)")
+    check(len(guarded) > 0, "no kernel-1 call in the bfs-rmat-1d search")
+    print(f"one bfs-rmat-1d search: its {len(guarded)} kernel-1 calls ran "
+          f"under torch.cuda.set_sync_debug_mode('error'): no host read")
+
+    def dcsc_beside(seg, words, nr, coff):
+        """Kernel 3 on the same frontier: equal, and on the card alone."""
+        e = max_err(sp_ops.launch(seg, words, nr)[0],
+                    strip.launch(jc, cp, nzc, seg.row_idx, words, nr)[0])
+        return [("dcsc_ms", device_ms(lambda: strip.launch(
+            jc, cp, nzc, seg.row_idx, words, nr)), e)]
+    row = kernel1_rows(sp_ops, calls, "spmsv_strips_csr_min", dcsc_beside)
+    errs["spmsv_strips_csr_min"] = max(errs["spmsv_strips_csr_min"],
+                                       row["max_abs_err"])
     per["spmsv_strips_csr_min"] = row
+    del calls
 
     # --------------------------------------------------------------- 10
     phase("10 profile of one 1ds search per expand_chunks, instrumented "
@@ -5122,8 +5178,13 @@ def run_drivers() -> dict:
 
 
 def kernel_times(tree: Path) -> int:
-    """Kernels 2-9 of the checkout at ``tree`` on the card alone (kernel 1
-    is timed by the main run), at their real calls or shapes.  Kernels 2,
+    """Kernels 1-9 of the checkout at ``tree`` on the card alone, at their
+    real calls or shapes.  Kernel 1's entry as the level steps call it
+    (``spmsv_min``, or a tree from before it the three public names, each
+    with its prep), on the card alone and host-timed, on one 2D csr,
+    bfs-rmat and bfs-rmat-1d search (and bfs-rmat-1d-dcsc's for the
+    reads), each search's synchronizing calls counted, and the 2D csr
+    session's median search ms over the 16 roots of phase 3.  Kernels 2,
     3, 4, 5 and 6 at the scale-24 paths' calls, from the first root: one
     2D search (grid 1x1), one 1ds search on 16 strips per expand_chunks
     (1 and 4) and one 1ds search top-down only per expand_chunks (the
@@ -5144,7 +5205,9 @@ def kernel_times(tree: Path) -> int:
     limit, then one JSON line."""
     # ahead of this checkout's src, so that ``tree``'s port is imported
     sys.path.insert(0, str(tree.resolve() / "src"))
-    from repro_torch.configs.base import BFSConfig
+    import warnings
+
+    from repro_torch.configs.base import BFSConfig, get_config
     from repro_torch.core.comm_model import codec_bits, codec_packed_words
     from repro_torch.core.engine import plan_bfs
     from repro_torch.graph import rmat
@@ -5152,6 +5215,7 @@ def kernel_times(tree: Path) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.bottomup import ops as bu
     from repro_torch.kernels.frontier_codec import ops as codec
+    from repro_torch.kernels.spmsv import ops as sp
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
     dev = torch.device("cuda")
@@ -5166,20 +5230,46 @@ def kernel_times(tree: Path) -> int:
                      (strip, "spmsv_strip_dcsc_chunk", "k4"),
                      (codec, "encode_offsets", "k5"),
                      (codec, "decode_buckets", "k6")]
+    # kernel 1's entry as the level steps call it: the folded body, or a
+    # tree from before it the three public names, each with its prep
+    k1_targets = [(sp, nm, nm) for nm in (
+        ("spmsv_min",) if hasattr(sp, "spmsv_min") else
+        ("spmsv_csr_min", "spmsv_dcsc_min", "spmsv_strips_csr_min"))]
+
+    def syncs_of(eng, root) -> tuple:
+        """(synchronizing calls, top-down levels) of one search: the
+        warnings of sync debug mode "warn", each a host read or a wait on
+        the card, and the levels whose mode is top-down."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out_ = eng.search(root)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        modes_ = out_[3][:out_[1], 2]
+        return (sum("synchroniz" in str(w.message) for w in caught),
+                int((modes_ == 0).sum()))
 
     def timed_search(eng, root):
-        with recording(k2_targets + strip_targets) as calls:
+        with recording(k1_targets + k2_targets + strip_targets) as calls:
             eng.search(root)
         torch.cuda.synchronize()
         fns = {"k3": strip.spmsv_strip_dcsc,
                "k4": strip.spmsv_strip_dcsc_chunk,
                "k5": codec.encode_offsets, "k6": codec.decode_buckets}
-        t = {"k2": [], "k3": [], "k4": [], "k5": [], "k6": []}
-        host = {"k5": [], "k6": []}
+        fns.update({nm: getattr(sp, nm) for _, nm, _ in k1_targets})
+        t = {"k1": [], "k2": [], "k3": [], "k4": [], "k5": [], "k6": []}
+        host = {"k1": [], "k5": [], "k6": []}
         ids = {"k3": [], "k4": []}
         fill, fill5 = [], []
         for nm, a, kw in calls:
             fn = fns.get(nm) or getattr(bu, nm)
+            if nm.startswith("spmsv_"):
+                t["k1"].append(device_ms(lambda: fn(*a, **kw)))
+                host["k1"].append(cuda_ms(lambda: fn(*a, **kw)))
+                continue
             t[nm if nm in fns else "k2"].append(
                 device_ms(lambda: fn(*a, **kw)))
             if nm in host:
@@ -5206,6 +5296,7 @@ def kernel_times(tree: Path) -> int:
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - ts) * 1e3)
         res = {"search_ms": float(np.median(wall))}
+        res["syncs"], res["td_levels"] = syncs_of(eng, root)
         for k, ts_ in t.items():
             res[k] = {"launches": len(ts_), "ms": sum(ts_)}
         for k in t:
@@ -5233,17 +5324,43 @@ def kernel_times(tree: Path) -> int:
 
     edges = rmat.rmat_graph(SCALE, EDGE_FACTOR, seed=SEED,
                             generator="counter", device=dev)
-    root = rmat.random_source(edges, np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    roots = [rmat.random_source(edges, rng) for _ in range(N_ROOTS)]
+    root = roots[0]
     graph = build_blocked(edges, 1, 1)
-    eng = plan_bfs(graph, BFSConfig(), make_local_mesh(1, 1, device=dev),
-                   local_mode="kernel").compile()
+    mesh = make_local_mesh(1, 1, device=dev)
+    eng = plan_bfs(graph, BFSConfig(), mesh, local_mode="kernel").compile()
     out["2d"] = timed_search(eng, root)
+    # g500-s24-1x1's searches as phase 3 runs them: each root twice, the
+    # median of each root's two, then the median over the roots
+    per_root = {r: [] for r in roots}
+    for _ in range(2):
+        for r in roots:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            eng.search(r)
+            torch.cuda.synchronize()
+            per_root[r].append((time.perf_counter() - ts) * 1e3)
+    out["2d"]["roots_search_ms"] = float(np.median(
+        [np.median(v) for v in per_root.values()]))
+    del eng
+    eng = plan_bfs(graph, get_config("bfs-rmat"), mesh,
+                   local_mode="kernel").compile()
+    out["2d_bfs_rmat"] = timed_search(eng, root)
     del eng, graph
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False)
+    graph = build_blocked_1d(edges, STRIPS, with_edge_lists=False,
+                             with_col_ptr=True)
     mesh = make_local_mesh_1d(STRIPS, device=dev)
+    eng = plan_bfs(graph, get_config("bfs-rmat-1d"), mesh,
+                   local_mode="kernel").compile()
+    out["1d_bfs_rmat_1d"] = timed_search(eng, root)
+    eng = plan_bfs(graph, get_config("bfs-rmat-1d-dcsc"), mesh,
+                   local_mode="kernel").compile()
+    out["1d_bfs_rmat_1d_dcsc"] = timed_search(eng, root)
+    del eng
     for label, c, diro in (("1ds_c1", 1, True), ("1ds_c4", 4, True),
                            ("1ds_c1_topdown", 1, False),
                            ("1ds_c4_topdown", 4, False)):
@@ -6122,7 +6239,7 @@ def dryrun_phases(dev, gin_batch=None) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time kernels 2-9 (see kernel_times)")
+                    help="only time kernels 1-9 (see kernel_times)")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --kernel-times: the checkout to time")
     ap.add_argument("--backward", action="store_true",
@@ -6501,6 +6618,7 @@ def main() -> int:
                      + launches_fast.get(k, 0) + launches_new.get(k, 0)
                      + launches_nn.get(k, 0)),
         "max_abs_err": errs[k], "ms": per[k]["ms"],
+        **({"host_ms": per[k]["host_ms"]} if "host_ms" in per[k] else {}),
         "plain_ms": per[k]["plain_ms"], "bound_ms": per[k]["bound_ms"],
         "bound_by": per[k].get("bound_by", (
             "operations" if k == "rmat_counter" and rmat_by_ops

@@ -38,6 +38,7 @@ from repro_torch.core.steps_1d import (LevelArgs1D, bottomup_level_1d,
 from repro_torch.core.steps_1d_sparse import (bottomup_level_1ds,
                                               topdown_level_1ds)
 from repro_torch.graph.formats import Blocked1DGraph, BlockedGraph
+from repro_torch.kernels.spmsv import ops as spmsv_ops
 
 MAX_LEVELS = 64
 
@@ -130,27 +131,35 @@ def unregister_decomposition(name: str) -> None:
 
 
 def _masses(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
-            over: torch.Tensor = None, axes: Tuple[str, ...] = GRID_2D):
+            over: torch.Tensor = None, axes: Tuple[str, ...] = GRID_2D,
+            extra: torch.Tensor = None):
     """Frontier size, frontier edge mass and unvisited edge mass, summed
     exactly in int64 and read to the host in one transfer: the loop's
     fused reduction over the graph ``axes``.  ``over``, a 0-d bool tensor
     (the uninstrumented "1ds" bucket-overflow indicator), rides the same
-    read as a fourth value."""
+    read as a fourth value; ``extra``, int64 values that are no
+    reduction (kernel 1's ``cap_f`` overflow), after them."""
     zero = torch.zeros((), dtype=deg.dtype, device=deg.device)
     vals = [front.sum(), torch.where(front, deg, zero).sum(),
             torch.where(pi == -1, deg, zero).sum()]
     if over is not None:
         vals.append(over.to(torch.int64))
-    return collectives.psum_stacked(vals, axes).tolist()
+    out = collectives.psum_stacked(vals, axes)
+    if extra is not None:
+        out = torch.cat([out, extra])
+    return out.tolist()
 
 
 def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
                  over_cap: int = 0, expand_chunks: int = 1,
-                 axes: Tuple[str, ...] = GRID_2D):
+                 axes: Tuple[str, ...] = GRID_2D, pending: list = None):
     """(n_f, m_f, m_u, over) of a post-level state as float32 scalars and
     a bool, in one host read: one fused reduction over ``axes``.  ``over_cap`` > 0 (the uninstrumented "1ds"
     loop) adds the bucket-overflow indicator to that read; else ``over``
-    is False.
+    is False.  ``pending`` holds kernel 1's deferred ``cap_f`` checks of
+    the level (``spmsv_ops.deferred_cap_checks``): their overflow rides
+    the same read, and a frontier past ``cap_f`` raises here, as the call
+    on the CPU raises at once.
 
     The indicator is counted over ``front``, not the sieved send set
     ``front & ~visited``: in the loop the sieve leaves the frontier whole,
@@ -161,7 +170,12 @@ def reduce_state(pi: torch.Tensor, front: torch.Tensor, deg: torch.Tensor,
     if over_cap:
         counts = front.reshape(front.shape[0], expand_chunks, -1).sum(2)
         over = counts.max() > over_cap // expand_chunks
-    n_f, m_f, m_u, *ov = _masses(pi, front, deg, over, axes)
+    extra = spmsv_ops.overflow(pending) if pending else None
+    vals = _masses(pi, front, deg, over, axes, extra)
+    if extra is not None:
+        spmsv_ops.raise_overflow(pending, vals[-2:])
+        vals = vals[:-2]
+    n_f, m_f, m_u, *ov = vals
     return _F32(n_f), _F32(m_f), _F32(m_u), bool(ov and ov[0])
 
 
@@ -218,10 +232,9 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     (``reduce_state``): the next frontier's size and the frontier and
     unvisited edge masses, which the next level's direction decision and
     the loop's exit need (the JAX package keeps them on the device inside
-    a while loop).  A 2D top-down level in local_mode="kernel" adds two
-    reads per block, so 2*pr*pc in all: the frontier's column count
-    (``torch.nonzero``) and its edge total, which sizes the kernel's grid
-    (``spmsv/ops.py``).  An instrumented "1ds" top-down level adds one:
+    a while loop).  Kernel 1 reads nothing (``spmsv/ops.py``); its
+    ``cap_f`` checks, where a plan sets one, ride the tail read
+    (``deferred_cap_checks``).  An instrumented "1ds" top-down level adds one:
     the largest send count (the overflow predicate, which picks the
     level's branch) with the send total.  Uninstrumented, the overflow
     indicator rides the tail read instead (``over_cap``, the "1ds" bucket
@@ -261,37 +274,41 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     def pod(k):
         return None if sync_axis is None else k
 
-    def tail(level):
-        """The post-level reductions: each pod's, then the lockstep
-        pmax of the pods' frontier sizes."""
+    def tail(level, pending):
+        """The post-level reductions: each pod's (the first also reads
+        the level's deferred ``cap_f`` checks), then the lockstep pmax of
+        the pods' frontier sizes."""
         out = []
         for k, (pi, f) in enumerate(zip(pis, fronts)):
             collectives.at(level, "loop", pod(k))
-            out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes))
+            out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes,
+                                    pending))
         if sync_axis is not None:
             collectives.at(level, "loop")
             collectives.noted("pmax", (sync_axis,), "lockstep")
         return out
 
-    states = tail(-1)
-    modes, level = [0] * len(roots), 0
-    while level < MAX_LEVELS and max(st[0] for st in states) > 0:
-        collectives.at(level, "loop")
-        modes = decide_and_sync(cfg, n_total, modes, states, sync_modes,
-                                sync_axis)
-        for k, (mode, (n_f, m_f, m_u, over)) in enumerate(zip(modes,
-                                                              states)):
-            step = bu_level if mode == 1 else td_level
-            collectives.at(level, "bu" if mode == 1 else "td", pod(k))
-            pis[k], fronts[k], c2 = step(pis[k], fronts[k],
-                                         {"n_f": n_f, "m_f": m_f,
-                                          "over": over})
-            if instrument:
-                ctrs[k] = {key: ctrs[k][key] + c2[key] for key in ctrs[k]}
-                # stats row: n_f, m_f, mode, used, measured expand words
-                stats[k, level] = (n_f, m_f, mode, 1, c2["wire_expand"])
-        states = tail(level)
-        level += 1
+    with spmsv_ops.deferred_cap_checks() as pending:
+        states = tail(-1, pending)
+        modes, level = [0] * len(roots), 0
+        while level < MAX_LEVELS and max(st[0] for st in states) > 0:
+            collectives.at(level, "loop")
+            modes = decide_and_sync(cfg, n_total, modes, states, sync_modes,
+                                    sync_axis)
+            for k, (mode, (n_f, m_f, m_u, over)) in enumerate(zip(modes,
+                                                                  states)):
+                step = bu_level if mode == 1 else td_level
+                collectives.at(level, "bu" if mode == 1 else "td", pod(k))
+                pis[k], fronts[k], c2 = step(pis[k], fronts[k],
+                                             {"n_f": n_f, "m_f": m_f,
+                                              "over": over})
+                if instrument:
+                    ctrs[k] = {key: ctrs[k][key] + c2[key]
+                               for key in ctrs[k]}
+                    # stats row: n_f, m_f, mode, used, measured expand words
+                    stats[k, level] = (n_f, m_f, mode, 1, c2["wire_expand"])
+            states = tail(level, pending)
+            level += 1
     return pis, level, ctrs, stats
 
 

@@ -143,32 +143,27 @@ def _td_dense(g, f_words, f_mask, nr, col_offset, args):
 
 
 def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
-    """The fused CUDA SpMSV through the uncompressed col_ptr.  The grid
-    follows the live frontier, so ``args.cap_f`` is only a bound: 0 means
-    the whole column range, and a larger frontier raises (the JAX
-    package's kernel truncated it silently)."""
-    cand = spmsv_ops.spmsv_csr_min(f_mask, g["col_ptr"], g["row_idx"], nr,
-                                   col_offset, args.cap_f)
-    if not args.instrument:
-        return cand, None
-    lens = g["col_ptr"][1:] - g["col_ptr"][:-1]
-    return cand, torch.where(f_mask, lens, 0).sum(dtype=torch.int64)
+    """The fused CUDA SpMSV through the uncompressed col_ptr, on the
+    block's frontier words.  ``args.cap_f`` is only a bound: 0 means the
+    whole column range, and a larger frontier raises (the JAX package's
+    kernel truncated it silently).  The edges examined are the kernel's
+    own count."""
+    cand, ex = spmsv_ops.spmsv_min(
+        spmsv_ops.csr(g["col_ptr"], g["row_idx"]), f_words, nr, col_offset,
+        args.cap_f)
+    return cand, ex if args.instrument else None
 
 
 def _td_kernel_dcsc(g, f_words, f_mask, nr, col_offset, args):
     """The fused CUDA SpMSV through the block's DCSC: each frontier id is
     binary-searched in ``jc`` and its segment starts at ``cp[slot]`` (the
     paper's hypersparse indirection, Fig. 6); ``cap_f`` as for csr.  The
-    edges examined are the found columns' segment lengths, the JAX
-    package's ``_dcsc_edges_examined``."""
-    cand = spmsv_ops.spmsv_dcsc_min(f_mask, g["jc"], g["cp"], g["nzc"],
-                                    g["row_idx"], nr, col_offset, args.cap_f)
-    if not args.instrument:
-        return cand, None
-    jc, cp, nc = g["jc"], g["cp"], f_mask.shape[0]
-    slot = torch.arange(jc.shape[0], device=jc.device)
-    live = (slot < g["nzc"]) & (jc < nc) & f_mask[jc.clamp(max=nc - 1)]
-    return cand, torch.where(live, cp[1:] - cp[:-1], 0).sum(dtype=torch.int64)
+    edges examined, the kernel's count, are the found columns' segment
+    lengths, the JAX package's ``_dcsc_edges_examined``."""
+    cand, ex = spmsv_ops.spmsv_min(
+        spmsv_ops.dcsc(g["jc"], g["cp"], g["nzc"], g["row_idx"]), f_words,
+        nr, col_offset, args.cap_f)
+    return cand, ex if args.instrument else None
 
 
 def _td_dense_1d(g, f_words, args):
@@ -190,9 +185,8 @@ def _td_strips_csr(g, f_words, args):
     total).  ``args.cap_f`` bounds the frontier as on the 2D entries: a
     larger one raises (the JAX package's kernel truncated it
     silently)."""
-    return spmsv_ops.spmsv_strips_csr_min(f_words, g["col_ptr"],
-                                          g["row_idx"], args.part.chunk,
-                                          cap_f=args.cap_f)
+    return spmsv_ops.spmsv_min(spmsv_ops.strips(g["col_ptr"], g["row_idx"]),
+                               f_words, args.part.chunk, 0, args.cap_f)
 
 
 def _td_strip_dcsc(g, f_words, args):

@@ -1,5 +1,7 @@
-"""BFS-tree oracles: level-synchronous depths and the Graph500 parent-tree
-checks, in numpy on the host and in torch on any device.
+"""BFS-tree oracles: the sequential top-down and bottom-up searches
+(Algorithms 1 and 2), level-synchronous depths, depths from a parent
+array and the Graph500 parent-tree checks, in numpy on the host and in
+torch on any device.
 
 Parent choice in BFS may differ between correct implementations (any
 depth-(d-1) in-neighbour is legal), so validation checks tree validity
@@ -24,6 +26,49 @@ def _csr(n: int, src: np.ndarray, dst: np.ndarray):
     return ptr, d
 
 
+def bfs_topdown(n: int, src: np.ndarray, dst: np.ndarray, root: int
+                ) -> np.ndarray:
+    """Algorithm 1: parent[n] (the root its own parent, -1 unreachable);
+    each vertex takes the first frontier vertex, in frontier order, with
+    an edge into it."""
+    ptr, adj = _csr(n, src, dst)
+    parent = np.full(n, -1, dtype=np.int64)
+    parent[root] = root
+    frontier = np.array([root], dtype=np.int64)
+    while frontier.size:
+        nxt = []
+        for u in frontier:
+            for v in adj[ptr[u]:ptr[u + 1]]:
+                if parent[v] == -1:
+                    parent[v] = u
+                    nxt.append(v)
+        frontier = np.array(nxt, dtype=np.int64)
+    return parent
+
+
+def bfs_bottomup(n: int, src: np.ndarray, dst: np.ndarray, root: int
+                 ) -> np.ndarray:
+    """Algorithm 2: each unvisited vertex scans its in-neighbours (the
+    sources u of edges u -> v, ascending) and stops at the first in the
+    frontier."""
+    ptr, radj = _csr(n, dst, src)
+    parent = np.full(n, -1, dtype=np.int64)
+    parent[root] = root
+    frontier = np.zeros(n, dtype=bool)
+    frontier[root] = True
+    while frontier.any():
+        nxt = np.zeros(n, dtype=bool)
+        for u in range(n):
+            if parent[u] == -1:
+                for v in radj[ptr[u]:ptr[u + 1]]:
+                    if frontier[v]:
+                        parent[u] = v
+                        nxt[u] = True
+                        break
+        frontier = nxt
+    return parent
+
+
 def bfs_depths(n: int, src: np.ndarray, dst: np.ndarray, root: int) -> np.ndarray:
     """Level-synchronous depths on the host (-1 = unreachable)."""
     ptr, adj = _csr(n, src, dst)
@@ -46,6 +91,21 @@ def bfs_depths(n: int, src: np.ndarray, dst: np.ndarray, root: int) -> np.ndarra
         depth[new] = d + 1
         frontier = new
         d += 1
+    return depth
+
+
+def depths_from_parents(n: int, parent: np.ndarray, root: int) -> np.ndarray:
+    """Depths from a parent array, by following the parent chains: parents
+    may differ between correct searches, depths do not, so they are the
+    key for comparing two searches (-1 = unreached)."""
+    parent = np.asarray(parent, dtype=np.int64)
+    depth = np.full(n, -1, np.int64)
+    depth[root] = 0
+    for _ in range(n):
+        upd = (depth == -1) & (parent >= 0) & (depth[parent] >= 0)
+        if not upd.any():
+            break
+        depth[upd] = depth[parent[upd]] + 1
     return depth
 
 

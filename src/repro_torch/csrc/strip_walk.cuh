@@ -35,6 +35,10 @@
 // Layout: all p strips stack with a common capacity (jc (p, cap_nzc),
 // cp (p, cap_nzc+1), row_idx (p, cap), cand (p, nr)); every strip base
 // is 64-bit, since p*cap passes 2^31 at scale 24.
+//
+// Kernel 1 (spmsv_csr_min.cu) runs prep_kernel, claim and block_gather
+// under a walk of its own, whose frontier and column walks look each
+// segment up through one of its three addressings.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,14 +95,19 @@ struct Strips {
   int64_t cap;
 };
 
-struct Gather {
-  using Scan = cub::BlockScan<int32_t, kBlock>;
+// block_gather's shared arrays; ``Off`` types a block's edge offsets
+// (kernel 1 takes int64: its strip entry's segments from several strips
+// can pass 2^31 edges together)
+template <class Off>
+struct GatherT {
+  using Scan = cub::BlockScan<Off, kBlock>;
   typename Scan::TempStorage scan;
-  int32_t off[kBlock];
+  Off off[kBlock];
   int32_t col[kBlock];
   int32_t cbase[kBlock];
   int64_t start[kBlock];
 };
+using Gather = GatherT<int32_t>;
 
 // Every thread brings one segment (len 0 for none): column ``u`` of
 // strip ``strip`` with its edges at row_idx[strip, start:start+len].
@@ -106,12 +115,13 @@ struct Gather {
 // together, atomicMin-ing u into the strip's candidate of each edge's
 // row; the block's edge total goes to ``examined``.  Called by every
 // thread of the block; ends with the block in step.
+template <class Off>
 __device__ __forceinline__ void block_gather(
-    Gather& sh, const Strips& g, int32_t u, int32_t strip, int32_t start,
-    int32_t len, unsigned long long* examined) {
+    GatherT<Off>& sh, const Strips& g, int32_t u, int32_t strip,
+    int32_t start, int32_t len, unsigned long long* examined) {
   if (!__syncthreads_or(len > 0)) return;
-  int32_t off, total;
-  Gather::Scan(sh.scan).ExclusiveSum(len, off, total);
+  Off off, total;
+  typename GatherT<Off>::Scan(sh.scan).ExclusiveSum((Off)len, off, total);
   sh.off[threadIdx.x] = off;
   sh.col[threadIdx.x] = u;
   sh.cbase[threadIdx.x] = strip * g.nr;
@@ -120,11 +130,11 @@ __device__ __forceinline__ void block_gather(
   if (threadIdx.x == 0) atomicAdd(examined, (unsigned long long)total);
   // kGatherDepth edges a thread a round: their row loads are in flight
   // together before the atomics
-  for (int32_t e0 = threadIdx.x; e0 < total; e0 += kGatherDepth * kBlock) {
+  for (Off e0 = threadIdx.x; e0 < total; e0 += kGatherDepth * kBlock) {
     int32_t v[kGatherDepth], col[kGatherDepth], cb[kGatherDepth];
 #pragma unroll
     for (int i = 0; i < kGatherDepth; ++i) {
-      const int32_t e = e0 + i * kBlock;
+      const Off e = e0 + i * kBlock;
       v[i] = -1;
       if (e < total) {
         // largest t with off[t] <= e: the segment holding edge e (empty

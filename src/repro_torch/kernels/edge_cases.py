@@ -26,6 +26,17 @@ with random edges, three edges out of both ends of every sub-range of
 into one strip, and one strip that no edge enters (nzc 0); frontiers
 empty, those sub-range ends, the hub alone, the last word, 1%, 30% and
 all.
+
+Kernel 1 (``spmsv_block``, ``spmsv_strips`` and ``spmsv_frontiers``,
+``kernels/spmsv/ops.py``): a 2D block, or p strips of the same columns,
+with random edges out of about half the columns (the rest empty, so
+absent from ``jc``), a hub column of ``SPMSV_HUB_EDGES`` edges and
+edges out of every column of the last word; its DCSC padded past
+``nzc`` with the sentinel.  Frontiers (packed words): empty, the hub
+alone, the last word, empty columns only (none found in ``jc``), 1%,
+exactly at each given walk threshold and one id past it, and all.
+``spmsv_strips_uniform`` builds strips whose edges pass 2^31 together,
+on the card from a ``torch.Generator`` seed.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ GAP = 16                              # every GAP-th row has edges
 M = 32                                # frontier: ids that are M-1 mod M
 SUB_STEPS = 4                         # sub-range ends of 4, 2 and 1 steps
 HUB_EDGES = 10_000
+SPMSV_HUB_EDGES = 100_000
 
 
 def _hit(length: int, mode) -> int:
@@ -195,3 +207,109 @@ def strip_frontiers(p: int, chunk: int, hub: int, device="cpu",
             mask[:] = True
         out[name] = pack_bits(torch.from_numpy(mask)).to(device)
     return out
+
+
+def spmsv_block(nc: int, nr: int, device="cpu", seed: int = 0,
+                hub: int = None, edge_factor: int = 2):
+    """One block of kernel 1: ``(col_ptr (nc+1,), row_idx, jc (cap_nzc,),
+    cp (cap_nzc+1,), nzc (0-d), hub)``, int32 on ``device``.  About half
+    the columns carry ``edge_factor * nc`` random edges in all; the hub
+    column (drawn when ``hub`` is None) adds SPMSV_HUB_EDGES distinct
+    rows; every column of the last word has an edge; ``cap_nzc`` is
+    ``nzc`` rounded up to 8, plus 8."""
+    if nr < SPMSV_HUB_EDGES or nc % 32 or nc < 64:
+        raise ValueError(f"need nr >= {SPMSV_HUB_EDGES} rows for the hub "
+                         f"and nc a multiple of 32 (at least 64), got nr="
+                         f"{nr}, nc={nc}")
+    rng = np.random.default_rng(seed)
+    live = rng.random(nc) < 0.5
+    if hub is None:
+        hub = int(rng.integers(0, nc - 32))
+    live[hub] = True
+    cols = np.flatnonzero(live)
+    m = edge_factor * nc
+    src = np.concatenate([rng.choice(cols, m), np.full(SPMSV_HUB_EDGES, hub),
+                          np.arange(nc - 32, nc)])
+    dst = np.concatenate([rng.integers(0, nr, m),
+                          rng.permutation(nr)[:SPMSV_HUB_EDGES],
+                          rng.integers(0, nr, 32)])
+    key = np.unique(src.astype(np.int64) * nr + dst)
+    src, dst = key // nr, key % nr
+    counts = np.bincount(src, minlength=nc)
+    col_ptr = np.concatenate([[0], np.cumsum(counts)])
+    nz = np.flatnonzero(counts)
+    cap_nzc = -(-nz.shape[0] // 8) * 8 + 8
+    jc = np.full(cap_nzc, nc)
+    jc[:nz.shape[0]] = nz
+    cp = np.full(cap_nzc + 1, col_ptr[-1])
+    cp[:nz.shape[0]] = col_ptr[nz]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)
+                                ).to(device)
+    return (t(col_ptr), t(dst), t(jc), t(cp),
+            torch.tensor(nz.shape[0], dtype=torch.int32, device=device), hub)
+
+
+def spmsv_strips(p: int, n: int, device="cpu", seed: int = 0):
+    """Kernel 1's strip case: p strips of ``spmsv_block(n, n // p)`` (one
+    hub column shared by every strip, each strip's edges its own),
+    stacked as ``(col_ptr (p, n+1), row_idx (p, cap), hub)`` with cap
+    the largest strip's edge count."""
+    blocks, hub = [], None
+    for s in range(p):
+        b = spmsv_block(n, n // p, seed=seed + s, hub=hub)
+        hub = b[5]
+        blocks.append(b)
+    cap = max(int(b[0][-1]) for b in blocks)
+    row_idx = torch.zeros((p, cap), dtype=torch.int32)
+    for s, b in enumerate(blocks):
+        row_idx[s, :b[1].shape[0]] = b[1]
+    col_ptr = torch.stack([b[0] for b in blocks])
+    return col_ptr.to(device), row_idx.to(device), hub
+
+
+def spmsv_frontiers(col_ptr: torch.Tensor, hub: int, thresholds=(),
+                    device="cpu", seed: int = 0) -> Dict[str, torch.Tensor]:
+    """name -> the packed (nc/32,) int32 frontier words of kernel 1's
+    cases over the columns of ``col_ptr`` ((nc+1,), or the strips' (p,
+    nc+1), whose first strip picks the empty columns)."""
+    cp = col_ptr.reshape(-1, col_ptr.shape[-1])[0].cpu().numpy()
+    nc = cp.shape[0] - 1
+    rng = np.random.default_rng(seed)
+    empty = np.flatnonzero(np.diff(cp) == 0)
+    masks = {"empty": np.zeros(nc, bool)}
+    for name in ("hub", "last word", "absent from jc", "1%", "all"):
+        mask = np.zeros(nc, bool)
+        if name == "hub":
+            mask[hub] = True
+        elif name == "last word":
+            mask[nc - 32:] = True
+        elif name == "absent from jc":
+            mask[empty[:: max(1, empty.shape[0] // 64)]] = True
+        elif name == "1%":
+            mask = rng.random(nc) < 0.01
+        else:
+            mask[:] = True
+        masks[name] = mask
+    for t in thresholds:
+        for name, k in ((f"at {t}", t), (f"past {t}", t + 1)):
+            mask = np.zeros(nc, bool)
+            mask[rng.choice(nc, min(k, nc), replace=False)] = True
+            masks[name] = mask
+    return {name: pack_bits(torch.from_numpy(m)).to(device)
+            for name, m in masks.items()}
+
+
+def spmsv_strips_uniform(p: int, n: int, nr: int, degree: int, device,
+                         seed: int = 0):
+    """``(col_ptr (p, n+1), row_idx (p, n * degree))``: every column of
+    every strip has ``degree`` rows drawn in [0, nr) from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``; at p * n *
+    degree >= 2^31 the strips' edges together pass int32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    col_ptr = (torch.arange(n + 1, dtype=torch.int32, device=device)
+               * degree).expand(p, n + 1).contiguous()
+    row_idx = torch.randint(0, nr, (p, n * degree), generator=gen,
+                            dtype=torch.int32, device=device)
+    return col_ptr, row_idx

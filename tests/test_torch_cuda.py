@@ -8,13 +8,15 @@ it runs where the port runs:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Without a card every test skips (the kernels have no CPU mode)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import BFSConfig
 from repro_torch.core.engine import plan_bfs
-from repro_torch.core.frontier import pack_bits
+from repro_torch.core.frontier import pack_bits, unpack_bits
 from repro_torch.graph import rmat
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.kernels import edge_cases as ec
@@ -620,7 +622,8 @@ def test_spmsv_dcsc_kernel_matches_plain_and_csr(graph, dev):
             got = sp_ops.spmsv_dcsc_min(mask, jc, cp, nzc, ri, part.nr,
                                         j * part.nc)
             prep = sp_ops.prepare_dcsc(mask, jc, cp, nzc)
-            assert sp_ops.KERNEL_DCSC.launches == n + (prep[3] > 0)
+            # every call launches, an empty frontier's too
+            assert sp_ops.KERNEL_DCSC.launches == n + 1
             want = sp_ops.spmsv_dcsc_min_plain(*prep, cp, ri, part.nr,
                                                j * part.nc)
             assert torch.equal(got, want)
@@ -641,13 +644,137 @@ def test_spmsv_strips_csr_kernel_matches_plain_and_dcsc(dev):
         got, ex = sp_ops.spmsv_strips_csr_min(fw, g.col_ptr, g.row_idx,
                                               part.chunk)
         prep = sp_ops.prepare_strips(fw, g.col_ptr)
-        assert sp_ops.KERNEL_STRIPS.launches == n + (prep[2] > 0)
+        assert sp_ops.KERNEL_STRIPS.launches == n + 1
         want = sp_ops.spmsv_strips_csr_min_plain(*prep, g.col_ptr, g.row_idx,
                                                  part.chunk)
         assert torch.equal(got, want)
         cand, ex_dcsc = strip.spmsv_strip_dcsc(g.jc, g.cp, g.nzc, g.row_idx,
                                                fw, part.chunk)
         assert torch.equal(got, cand) and int(ex) == int(ex_dcsc)
+
+
+def _kernel1_cases(dev):
+    """Kernel 1's synthetic cases on the card: (name, Segments, nr,
+    frontiers) of the block through csr and dcsc and of 4 strips."""
+    b = ec.spmsv_block(1 << 17, 1 << 17, device=dev, seed=3)
+    col_ptr, row_idx, jc, cp, nzc, hub = b
+    out = []
+    for seg in (sp_ops.csr(col_ptr, row_idx),
+                sp_ops.dcsc(jc, cp, nzc, row_idx)):
+        fronts = ec.spmsv_frontiers(col_ptr, hub, (sp_ops.list_capacity(
+            seg),), device=dev, seed=3)
+        out.append((seg.addressing, seg, 1 << 17, fronts))
+    s_ptr, s_ridx, s_hub = ec.spmsv_strips(4, 1 << 19, device=dev, seed=5)
+    seg = sp_ops.strips(s_ptr, s_ridx)
+    out.append(("strips", seg, (1 << 19) // 4, ec.spmsv_frontiers(
+        s_ptr, s_hub, (sp_ops.list_capacity(seg),), device=dev, seed=5)))
+    return out
+
+
+def _kernel1_plain(seg, words, nr, coff):
+    """The plain version of ``seg``'s addressing on the card's tensors,
+    and its edge total."""
+    if seg.addressing == "strips":
+        prep = sp_ops.prepare_strips(words, seg.ptr)
+        return sp_ops.spmsv_strips_csr_min_plain(*prep, seg.ptr, seg.row_idx,
+                                                 nr), prep[-1]
+    mask = unpack_bits(words)
+    if seg.addressing == "csr":
+        prep = sp_ops.prepare(mask, seg.ptr)
+        return sp_ops.spmsv_csr_min_plain(*prep, seg.ptr, seg.row_idx, nr,
+                                          coff), prep[-1]
+    prep = sp_ops.prepare_dcsc(mask, seg.jc, seg.ptr, seg.nzc)
+    return sp_ops.spmsv_dcsc_min_plain(*prep, seg.ptr, seg.row_idx, nr,
+                                       coff), prep[-1]
+
+
+def test_spmsv_kernel_on_edge_cases(dev):
+    """Kernel 1's three addressings on the synthetic cases (a 10^5-edge
+    hub, the last word, ids absent from ``jc``, ``nzc < cap_nzc``, a
+    frontier at and one past the walk threshold, all), each walk forced
+    as well: the candidates equal the plain version, the edges examined
+    its total, the count and the walk the device prep's twin's."""
+    walks = set()
+    for kind, seg, nr, fronts in _kernel1_cases(dev):
+        cap0 = sp_ops.list_capacity(seg)
+        n_cols = next(iter(fronts.values())).shape[0] * 32
+        for name, words in fronts.items():
+            want, total = _kernel1_plain(seg, words, nr, 11)
+            for cap in (cap0, 1, n_cols):
+                cand, out = sp_ops.launch(seg, words, nr, 11, list_cap=cap)
+                _, count, walk = sp_ops.prep_plain(words, cap)
+                assert torch.equal(cand, want), (kind, name, cap)
+                assert out.tolist() == [total, int(count), walk], \
+                    (kind, name, cap)
+                walks.add(walk)
+            got, ex = sp_ops.spmsv_min(seg, words, nr, 11)
+            assert torch.equal(got, want) and int(ex) == total
+    assert walks == {sp_ops.WALK_FRONTIER, sp_ops.WALK_COLUMNS}
+
+
+def test_spmsv_strips_kernel_past_2_31_edges(dev):
+    """The strip addressing over 16 strips whose edges pass 2^31
+    together (2^20 columns of 130 edges each): both walks count every
+    edge exactly in int64 and give each strip the plain version's
+    candidates (the plain version run strip by strip)."""
+    p, n, nr, degree = 16, 1 << 20, 1 << 16, 130
+    if torch.cuda.mem_get_info(dev)[0] < 24 << 30:
+        pytest.skip("needs 24 GiB free on the card for 2^31 row ids")
+    col_ptr, row_idx = ec.spmsv_strips_uniform(p, n, nr, degree, dev)
+    seg = sp_ops.strips(col_ptr, row_idx)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for frac in (1.0, 0.3):
+        words = pack_bits(torch.rand(n, generator=g, device=dev) < frac)
+        count = int(unpack_bits(words).sum())
+        for cap in (sp_ops.list_capacity(seg), n):
+            cand, out = sp_ops.launch(seg, words, nr, list_cap=cap)
+            assert int(out[0]) == p * count * degree, (frac, cap)
+            assert p * count * degree > 2**31 or frac < 1
+            for s in range(p):
+                want = sp_ops.spmsv_csr_min(words, col_ptr[s],
+                                            row_idx[s], nr, 0)
+                assert torch.equal(cand[s], want), (frac, cap, s)
+            del cand
+
+
+def test_cap_f_overflow_raises_through_a_search(graph, dev):
+    """With ``cap_f`` below a frontier a search raises at the level's
+    read on the 2D csr and dcsc entries and on the strips (``compile``
+    searches from the hub); a call outside a level loop raises at once;
+    at ``cap_f`` 0 a search's kernel-1 calls read nothing to the host
+    (sync debug mode "error" around each)."""
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    g1 = build_blocked_1d(e, 4, align=32, cap_pad=32, with_col_ptr=True)
+    sessions = [(graph, BFSConfig(), make_local_mesh(2, 2, device=dev)),
+                (graph, BFSConfig(storage="dcsc"),
+                 make_local_mesh(2, 2, device=dev)),
+                (g1, BFSConfig(decomposition="1d", storage="csr"),
+                 make_local_mesh_1d(4, device=dev))]
+    for g_, cfg, mesh in sessions:
+        with pytest.raises(ValueError, match="exceeds cap_f=1"):
+            plan_bfs(g_, dataclasses.replace(cfg, direction_optimizing=False),
+                     mesh, local_mode="kernel", cap_f=1).compile()
+        eng = plan_bfs(g_, cfg, mesh, local_mode="kernel").compile()
+        guarded = sp_ops.spmsv_min
+
+        def no_read(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return guarded(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n = sum(k.launches for k in sp_ops._KERNELS.values())
+        sp_ops.spmsv_min = no_read
+        try:
+            eng.search(int(torch.argmax(g_.deg_A.reshape(-1))))
+        finally:
+            sp_ops.spmsv_min = guarded
+        assert sum(k.launches for k in sp_ops._KERNELS.values()) > n
+    mask = torch.arange(graph.part.nc, device=dev) < 5
+    with pytest.raises(ValueError, match="frontier of 5 columns exceeds "
+                                         "cap_f=2"):
+        sp_ops.spmsv_csr_min(mask, graph.col_ptr[0, 0], graph.row_idx[0, 0],
+                             graph.part.nr, 0, cap_f=2)
 
 
 @pytest.mark.parametrize("instrument", [True, False])
