@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import BFSConfig
-from repro_torch.core import collectives
+from repro_torch.core import collectives, trace
 from repro_torch.core.collectives import GRID_2D, STRIPS
 from repro_torch.core.partition import Partition1D, Partition2D
 from repro_torch.core.steps import (LevelArgs, bottomup_level, topdown_level,
@@ -208,6 +208,20 @@ def decide_and_sync(cfg: BFSConfig, n_total: int, modes: Sequence[int],
             for mode, bu, td in zip(modes, go_bu, go_td)]
 
 
+# the level loop's step spans and modes, by mode (0 top-down, 1 bottom-up)
+STEP_SPANS = ("bfs.td", "bfs.bu")
+STEP_MODES = ("td", "bu")
+
+
+def _at(tr, name: str, level: int, mode: str, pod: Optional[int] = None,
+        attrs: Optional[Dict] = None):
+    """Where the loop stands, for a schedule recorder (``collectives.at``),
+    and the span ``name`` of what it does there, with ``attrs``, when the
+    search is traced (``tr``, from ``trace.current``)."""
+    collectives.at(level, mode, pod)
+    return trace.OFF if tr is None else tr.span(name, **(attrs or {}))
+
+
 def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
                  cfg: BFSConfig, td_level, bu_level, sync_modes: bool = False,
                  over_cap: int = 0, expand_chunks: int = 1,
@@ -261,11 +275,21 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     the overflowed levels are the instrumented run's: the same values
     meet the same rule.
 
+    A traced search (``core/trace.py``; the decision ``trace.current``
+    is read once here and reaches the steps as ``lv["trace"]``) spans
+    the loop's entry through its first reduction (``bfs.start``), each
+    pod's step (``bfs.td`` / ``bfs.bu``, with the level, the pod, the
+    ``n_f``, ``m_f``, ``m_u`` and ``over`` the rule read and the mode it
+    chose: the mode sequence, instrumented or not) and each pod's
+    reduction with its host read (``bfs.tail``); a Recorder also counts
+    the levels, the top-down and bottom-up steps and the host reads.
+    ``_at`` sets the schedule recorder's position and opens the span in
+    one call.
+
     Returns (pis, n_levels, ctrs, stats): a list of pi and of counters, a
     pod each, the lockstep trip count, and (pods, MAX_LEVELS, 5) stats."""
     instrument = cfg.instrument
-    pis = [torch.where(gidx == r, r, -1).to(torch.int32) for r in roots]
-    fronts = [gidx == r for r in roots]
+    tr = trace.current()
     stats = np.zeros((len(roots), MAX_LEVELS, 5), np.float32)
     ctrs = [zero_counters() if instrument else {} for _ in roots]
     cap = 0 if instrument else over_cap
@@ -280,16 +304,22 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
         the pods' frontier sizes."""
         out = []
         for k, (pi, f) in enumerate(zip(pis, fronts)):
-            collectives.at(level, "loop", pod(k))
-            out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes,
-                                    pending))
+            with _at(tr, "bfs.tail", level, "loop", pod(k)):
+                out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes,
+                                        pending))
+            if tr is not None:
+                tr.count("host_reads")
         if sync_axis is not None:
             collectives.at(level, "loop")
             collectives.noted("pmax", (sync_axis,), "lockstep")
         return out
 
     with spmsv_ops.deferred_cap_checks() as pending:
-        states = tail(-1, pending)
+        with trace.OFF if tr is None else tr.span("bfs.start"):
+            pis = [torch.where(gidx == r, r, -1).to(torch.int32)
+                   for r in roots]
+            fronts = [gidx == r for r in roots]
+            states = tail(-1, pending)
         modes, level = [0] * len(roots), 0
         while level < MAX_LEVELS and max(st[0] for st in states) > 0:
             collectives.at(level, "loop")
@@ -298,10 +328,16 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
             for k, (mode, (n_f, m_f, m_u, over)) in enumerate(zip(modes,
                                                                   states)):
                 step = bu_level if mode == 1 else td_level
-                collectives.at(level, "bu" if mode == 1 else "td", pod(k))
-                pis[k], fronts[k], c2 = step(pis[k], fronts[k],
-                                             {"n_f": n_f, "m_f": m_f,
-                                              "over": over})
+                with _at(tr, STEP_SPANS[mode], level, STEP_MODES[mode],
+                         pod(k), None if tr is None else dict(
+                             level=level, pod=k, mode=STEP_MODES[mode],
+                             n_f=float(n_f), m_f=float(m_f),
+                             m_u=float(m_u), over=over)):
+                    pis[k], fronts[k], c2 = step(pis[k], fronts[k],
+                                                 {"n_f": n_f, "m_f": m_f,
+                                                  "over": over, "trace": tr})
+                if tr is not None:
+                    tr.count(STEP_MODES[mode] + "_levels")
                 if instrument:
                     ctrs[k] = {key: ctrs[k][key] + c2[key]
                                for key in ctrs[k]}
@@ -309,6 +345,8 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
                     stats[k, level] = (n_f, m_f, mode, 1, c2["wire_expand"])
             states = tail(level, pending)
             level += 1
+    if tr is not None:
+        tr.count("levels", level)
     return pis, level, ctrs, stats
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import BFSConfig
-from repro_torch.core import comm_model
+from repro_torch.core import comm_model, trace
 from repro_torch.core.decomp import (MAX_LEVELS, Decomposition, PlanStatics,
                                      get_decomposition,
                                      registered_decompositions)
@@ -347,8 +347,14 @@ class BFSEngine:
 
     def search(self, root: int):
         """The device search: (pi on the device, n_levels, counters,
-        level_stats).  Time this plus a synchronize for traversal time."""
-        return self._fn(self._check_root(root))
+        level_stats).  Time this plus a synchronize for traversal time.
+        The whole call is the ``bfs.search`` span (``core/trace.py``)."""
+        with trace.search() as sp:
+            out = self._fn(self._check_root(root))
+            if sp is not None:
+                sp.attrs.update(roots=[int(root)], pods=1,
+                                n_levels=int(out[1]))
+        return out
 
     def to_result(self, out) -> BFSResult:
         """Parents by global vertex id on the host, counters as floats
@@ -385,20 +391,26 @@ class BFSEngine:
         """The device side of ``run_batch``: (pis ``(*grid, n_roots,
         chunk)`` on the device, n_levels, level_stats).  Time this plus a
         synchronize for the batch's traversal time.  The batched program
-        is built once per (pod_axis, roots-per-pod) and kept."""
-        pods = _pod_count(self.plan.mesh, pod_axis)
-        roots = np.asarray(roots, dtype=np.int32).reshape(-1)
-        _check_split(roots.size, pods)
-        for r in roots:
-            self._check_root(r)
-        key = (pod_axis, roots.size // pods)
-        if key not in self._batch_cache:
-            t0 = time.perf_counter()
-            self._batch_cache[key] = self.plan.build_batch_fn(self._gdev,
-                                                              pod_axis)
-            self.trace_count += 1
-            self.batch_compile_s += time.perf_counter() - t0
-        return self._batch_cache[key](roots)
+        is built once per (pod_axis, roots-per-pod) and kept.  The whole
+        call is the ``bfs.search`` span (``core/trace.py``)."""
+        with trace.search() as sp:
+            pods = _pod_count(self.plan.mesh, pod_axis)
+            roots = np.asarray(roots, dtype=np.int32).reshape(-1)
+            _check_split(roots.size, pods)
+            for r in roots:
+                self._check_root(r)
+            key = (pod_axis, roots.size // pods)
+            if key not in self._batch_cache:
+                t0 = time.perf_counter()
+                self._batch_cache[key] = self.plan.build_batch_fn(
+                    self._gdev, pod_axis)
+                self.trace_count += 1
+                self.batch_compile_s += time.perf_counter() - t0
+            out = self._batch_cache[key](roots)
+            if sp is not None:
+                sp.attrs.update(roots=roots.tolist(), pods=pods,
+                                n_levels=out[1].tolist())
+        return out
 
     def run_batch(self, roots: Sequence[int],
                   pod_axis: str = "pod") -> BFSBatchResult:

@@ -16,6 +16,13 @@ read.  Both add in float32 in the JAX package's order; device sums are
 taken exactly in int64 and then cast to float32.  With
 ``LevelArgs.instrument`` False (``cfg.instrument``) a step computes no
 counter, on the host or the device, and returns ``{}``.
+
+When the search is traced (``core/trace.py``; the loop hands the
+decision down as ``lv["trace"]``), each step's stages are spans:
+top-down ``bfs.expand``, ``bfs.discover`` (kernel 1's calls),
+``bfs.fold``, ``bfs.update``; bottom-up ``bfs.expand``,
+``bfs.discover`` (the sub-steps and kernel 2's calls), ``bfs.exchange``,
+``bfs.update``.  Untraced, each site is one branch.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, comm_model
+from repro_torch.core import collectives, comm_model, trace
 from repro_torch.core.frontier import (INT_INF, expand_bitmap, pack_bits,
                                        pack_ids, unpack_bits)
 
@@ -190,57 +197,62 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     p = _F32(part.p)
     instr = args.instrument
     ctr = zero_counters() if instr else {}
+    tr = lv.get("trace")
 
     # --- Expand: transpose + gather along the processor column ----------
-    f_words, wire = expand_bitmap(front, args.perm)
-    f_cj = unpack_bits(f_words)                      # (pr, pc, nc) bool
-    if instr:
-        # the JAX package's psum of n_f: the loop's read holds it
-        collectives.noted("psum", collectives.GRID_2D, "counter")
-        ctr["wire_transpose"] = _F32(chunk / 64.0) * p
-        ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
-        ctr["use_expand"] = _F32(lv["n_f"]) * _F32(pr - 1)
+    with trace.OFF if tr is None else tr.span("bfs.expand"):
+        f_words, wire = expand_bitmap(front, args.perm)
+        f_cj = unpack_bits(f_words)                  # (pr, pc, nc) bool
+        if instr:
+            # the JAX package's psum of n_f: the loop's read holds it
+            collectives.noted("psum", collectives.GRID_2D, "counter")
+            ctr["wire_transpose"] = _F32(chunk / 64.0) * p
+            ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
+            ctr["use_expand"] = _F32(lv["n_f"]) * _F32(pr - 1)
 
     # --- Local discovery: SpMSV in the (select-source, min) semiring -----
-    cand = torch.empty((pr, pc, nr), dtype=torch.int32, device=pi.device)
-    ex = []
-    for i, j in _blocks(pr, pc):
-        gij = {k: v[i, j] for k, v in g.items()}
-        cand[i, j], ex_ij = args.ops.topdown(gij, f_words[i, j], f_cj[i, j],
-                                             nr, j * nc, args)
-        ex.append(ex_ij)
-    if instr:
-        ctr["edges_examined"] = collectives.psum(
-            torch.stack(ex), tag="counter").to(torch.float32)
-        collectives.noted("psum", collectives.GRID_2D, "counter")   # m_f
-        ctr["edges_useful"] = _F32(lv["m_f"])
+    with trace.OFF if tr is None else tr.span("bfs.discover"):
+        cand = torch.empty((pr, pc, nr), dtype=torch.int32, device=pi.device)
+        ex = []
+        for i, j in _blocks(pr, pc):
+            gij = {k: v[i, j] for k, v in g.items()}
+            cand[i, j], ex_ij = args.ops.topdown(gij, f_words[i, j],
+                                                 f_cj[i, j], nr, j * nc, args)
+            ex.append(ex_ij)
+        if instr:
+            ctr["edges_examined"] = collectives.psum(
+                torch.stack(ex), tag="counter").to(torch.float32)
+            collectives.noted("psum", collectives.GRID_2D, "counter")  # m_f
+            ctr["edges_useful"] = _F32(lv["m_f"])
 
     # --- Fold: exchange candidates along the processor row ---------------
-    wire_fold = _F32((pc - 1) * chunk) * p
-    cap_w = max(chunk // 16, 32)
-    if args.fold_mode == "alltoall":
-        t = _fold_alltoall(cand, pc, chunk)
-    elif args.fold_mode == "reduce":
-        t = _fold_ring_reduce(cand, pc, chunk)
-    elif args.fold_mode == "bitmap":
-        t = _fold_bitmap_exact(cand, pc, chunk, cap_w)
-    elif args.fold_mode == "bitmap_pure":
-        # drops the wins past cap_w by design
-        t, _ = _fold_bitmap(cand, pc, chunk, cap_w)
-    else:
-        raise ValueError(f"fold_mode={args.fold_mode!r} is not a fold")
-    if args.fold_mode.startswith("bitmap"):
-        wire_fold = _F32(comm_model.fold_bitmap_level_words(
-            pc * chunk, pc, cap_w)) * p
-    if instr:
-        ctr["wire_fold"] = wire_fold
-        n_cand = collectives.psum(cand != INT_INF,
-                                  tag="counter").to(torch.float32)
-        ctr["use_fold"] = 2.0 * n_cand               # (child, parent) pairs
+    with trace.OFF if tr is None else tr.span("bfs.fold"):
+        wire_fold = _F32((pc - 1) * chunk) * p
+        cap_w = max(chunk // 16, 32)
+        if args.fold_mode == "alltoall":
+            t = _fold_alltoall(cand, pc, chunk)
+        elif args.fold_mode == "reduce":
+            t = _fold_ring_reduce(cand, pc, chunk)
+        elif args.fold_mode == "bitmap":
+            t = _fold_bitmap_exact(cand, pc, chunk, cap_w)
+        elif args.fold_mode == "bitmap_pure":
+            # drops the wins past cap_w by design
+            t, _ = _fold_bitmap(cand, pc, chunk, cap_w)
+        else:
+            raise ValueError(f"fold_mode={args.fold_mode!r} is not a fold")
+        if args.fold_mode.startswith("bitmap"):
+            wire_fold = _F32(comm_model.fold_bitmap_level_words(
+                pc * chunk, pc, cap_w)) * p
+        if instr:
+            ctr["wire_fold"] = wire_fold
+            n_cand = collectives.psum(cand != INT_INF,
+                                      tag="counter").to(torch.float32)
+            ctr["use_fold"] = 2.0 * n_cand           # (child, parent) pairs
 
     # --- Local update -----------------------------------------------------
-    newly = (pi == -1) & (t != INT_INF)
-    pi = torch.where(newly, t, pi)
+    with trace.OFF if tr is None else tr.span("bfs.update"):
+        newly = (pi == -1) & (t != INT_INF)
+        pi = torch.where(newly, t, pi)
     return pi, newly, ctr
 
 
@@ -297,13 +309,15 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     instr = args.instrument
     ctr = zero_counters() if instr else {}
     dev = pi.device
+    tr = lv.get("trace")
 
     # --- Gather the frontier (dense bitmap) -------------------------------
-    f_words, wire = expand_bitmap(front, args.perm)
-    if instr:
-        ctr["wire_transpose"] = _F32(chunk / 64.0) * p
-        ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
-        ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
+    with trace.OFF if tr is None else tr.span("bfs.expand"):
+        f_words, wire = expand_bitmap(front, args.perm)
+        if instr:
+            ctr["wire_transpose"] = _F32(chunk / 64.0) * p
+            ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
+            ctr["use_expand"] = _F32(chunk / 64.0 * (1 + (pr - 1))) * p
 
     cap_u = max(chunk // 8, 32)           # finds a compact sub-step
     compact = args.compact_updates
@@ -327,100 +341,104 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     carry = pack_bits(cseg) if pipelined and pc > 1 else None
     g_seen = None
 
-    for s in range(pc):
-        if s > 0:
-            carry = collectives.ppermute_col_ring(carry)
-            if pipelined:
-                g_seen = unpack_bits(collectives.ppermute_col_ring(g_acc))
-            cseg = unpack_bits(carry)
-            if instr:
-                ctr["wire_rotate"] += _F32(rings * chunk / 64.0) * p
-                ctr["use_rotate"] += _F32(chunk / 64.0) * p
-        # this level's finds so far, for the next sub-step's G
-        g_next = None
-        if pipelined and s < pc - 1:
-            g_next = torch.zeros_like(cseg) if g_seen is None \
-                else g_seen.clone()
-        use_loc, n_upd = [], []
-        for i, j in _blocks(pr, pc):
-            seg_id = (j - s) % pc
-            e0 = int(args.seg_ptr[i, j, seg_id])
-            e1 = int(args.seg_ptr[i, j, seg_id + 1])
-            rp_seg = g["row_ptr"][i, j, seg_id * chunk:
-                                  (seg_id + 1) * chunk + 1] - e0
-            ue = g["col_idx"][i, j, e0:e0 + args.cap_seg]
-            ve = g["edge_dst"][i, j, e0:e0 + args.cap_seg] - seg_id * chunk \
-                if use_ve else None
-            cvec = cseg[i, j].to(torch.int32)
-            seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
-                                        j * nc, e1 - e0, ve)
-            found = seg_par != INT_INF
-            if g_seen is not None:
-                # the exactness post-filter: rows G marks were found on an
-                # earlier sub-step of this level
-                found &= ~g_seen[i, j]
-                seg_par = torch.where(found, seg_par, INT_INF)
-            if g_next is not None:
-                g_next[i, j] |= found
-            if instr:
-                row_lens = rp_seg[1:] - rp_seg[:-1]
-                unknown = ~(cseg[i, j] | g_seen[i, j]) \
-                    if g_seen is not None else cvec == 0
-                use_loc.append(torch.where(unknown, row_lens, 0)
-                               .sum(dtype=torch.int64))
-                n_upd.append(found.sum())
-            # the s = 0 self segment pays no wire, is never capacity-
-            # truncated and lands in the self slot after the exchange
-            if s == 0:
-                self_par[i, j] = seg_par
-            else:
-                if compact:
-                    # the first cap_u finds as (child, parent) pairs
-                    cidx = pack_ids(found, cap_u, 0, chunk)
-                    send_p[i, j, seg_id, :cap_u] = cidx
-                    send_p[i, j, seg_id, cap_u:] = seg_par[
-                        cidx.clamp(max=chunk - 1).to(torch.int64)]
-                    if not pure:
-                        max_found = torch.maximum(max_found, found.sum())
-                if not (compact and pure):
-                    send_d[i, j, seg_id] = seg_par
-            if not pipelined:
-                cseg[i, j] |= found
-        if instr:
-            edges_use = edges_use + collectives.psum(
-                torch.stack(use_loc), tag="counter").to(torch.float32)
+    # --- Sub-steps: kernel 2 on the rotating segments -------------------
+    with trace.OFF if tr is None else tr.span("bfs.discover"):
+        for s in range(pc):
             if s > 0:
-                ctr["wire_updates"] += _F32(
-                    2 * cap_u if compact else chunk) * p
-            ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
-                collectives.psum(torch.stack(n_upd),
-                                 tag="counter").to(torch.float32))
-        if g_next is not None:
-            g_acc = pack_bits(g_next)     # R rides ``carry`` unchanged
-        elif not pipelined and s != pc - 1:
-            carry = pack_bits(cseg)
+                carry = collectives.ppermute_col_ring(carry)
+                if pipelined:
+                    g_seen = unpack_bits(collectives.ppermute_col_ring(g_acc))
+                cseg = unpack_bits(carry)
+                if instr:
+                    ctr["wire_rotate"] += _F32(rings * chunk / 64.0) * p
+                    ctr["use_rotate"] += _F32(chunk / 64.0) * p
+            # this level's finds so far, for the next sub-step's G
+            g_next = None
+            if pipelined and s < pc - 1:
+                g_next = torch.zeros_like(cseg) if g_seen is None \
+                    else g_seen.clone()
+            use_loc, n_upd = [], []
+            for i, j in _blocks(pr, pc):
+                seg_id = (j - s) % pc
+                e0 = int(args.seg_ptr[i, j, seg_id])
+                e1 = int(args.seg_ptr[i, j, seg_id + 1])
+                rp_seg = g["row_ptr"][i, j, seg_id * chunk:
+                                      (seg_id + 1) * chunk + 1] - e0
+                ue = g["col_idx"][i, j, e0:e0 + args.cap_seg]
+                ve = g["edge_dst"][i, j, e0:e0 + args.cap_seg] \
+                    - seg_id * chunk if use_ve else None
+                cvec = cseg[i, j].to(torch.int32)
+                seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
+                                            j * nc, e1 - e0, ve)
+                found = seg_par != INT_INF
+                if g_seen is not None:
+                    # the exactness post-filter: rows G marks were found on an
+                    # earlier sub-step of this level
+                    found &= ~g_seen[i, j]
+                    seg_par = torch.where(found, seg_par, INT_INF)
+                if g_next is not None:
+                    g_next[i, j] |= found
+                if instr:
+                    row_lens = rp_seg[1:] - rp_seg[:-1]
+                    unknown = ~(cseg[i, j] | g_seen[i, j]) \
+                        if g_seen is not None else cvec == 0
+                    use_loc.append(torch.where(unknown, row_lens, 0)
+                                   .sum(dtype=torch.int64))
+                    n_upd.append(found.sum())
+                # the s = 0 self segment pays no wire, is never capacity-
+                # truncated and lands in the self slot after the exchange
+                if s == 0:
+                    self_par[i, j] = seg_par
+                else:
+                    if compact:
+                        # the first cap_u finds as (child, parent) pairs
+                        cidx = pack_ids(found, cap_u, 0, chunk)
+                        send_p[i, j, seg_id, :cap_u] = cidx
+                        send_p[i, j, seg_id, cap_u:] = seg_par[
+                            cidx.clamp(max=chunk - 1).to(torch.int64)]
+                        if not pure:
+                            max_found = torch.maximum(max_found, found.sum())
+                    if not (compact and pure):
+                        send_d[i, j, seg_id] = seg_par
+                if not pipelined:
+                    cseg[i, j] |= found
+            if instr:
+                edges_use = edges_use + collectives.psum(
+                    torch.stack(use_loc), tag="counter").to(torch.float32)
+                if s > 0:
+                    ctr["wire_updates"] += _F32(
+                        2 * cap_u if compact else chunk) * p
+                ctr["use_updates"] = ctr["use_updates"] + 2.0 * (
+                    collectives.psum(torch.stack(n_upd),
+                                     tag="counter").to(torch.float32))
+            if g_next is not None:
+                g_acc = pack_bits(g_next)     # R rides ``carry`` unchanged
+            elif not pipelined and s != pc - 1:
+                carry = pack_bits(cseg)
 
     # --- Batched update exchange (one all_to_all) -------------------------
-    jj = torch.arange(pc, device=dev)
-    if compact and pure:
-        recv = _scatter_compact(send_p, cap_u, chunk)
-    elif compact:
-        over = collectives.pmax(max_found) > cap_u
-        dense = collectives.all_to_all_cols(send_d, "fallback")
-        recv = torch.where(over, dense,
-                           _scatter_compact(send_p, cap_u, chunk))
-    else:
-        recv = collectives.all_to_all_cols(send_d)
-    recv[:, jj, jj] = self_par            # the self slot: sub-step 0
+    with trace.OFF if tr is None else tr.span("bfs.exchange"):
+        jj = torch.arange(pc, device=dev)
+        if compact and pure:
+            recv = _scatter_compact(send_p, cap_u, chunk)
+        elif compact:
+            over = collectives.pmax(max_found) > cap_u
+            dense = collectives.all_to_all_cols(send_d, "fallback")
+            recv = torch.where(over, dense,
+                               _scatter_compact(send_p, cap_u, chunk))
+        else:
+            recv = collectives.all_to_all_cols(send_d)
+        recv[:, jj, jj] = self_par            # the self slot: sub-step 0
 
     # --- Apply updates in sub-step order ---------------------------------
-    new_front = torch.zeros_like(front)
-    new_pi = pi
-    for s in range(pc):
-        upd = recv[:, jj, (jj + s) % pc]
-        newly = (upd != INT_INF) & (new_pi == -1)
-        new_pi = torch.where(newly, upd, new_pi)
-        new_front |= newly
+    with trace.OFF if tr is None else tr.span("bfs.update"):
+        new_front = torch.zeros_like(front)
+        new_pi = pi
+        for s in range(pc):
+            upd = recv[:, jj, (jj + s) % pc]
+            newly = (upd != INT_INF) & (new_pi == -1)
+            new_pi = torch.where(newly, upd, new_pi)
+            new_front |= newly
 
     if instr:
         ctr["edges_useful"] = edges_use

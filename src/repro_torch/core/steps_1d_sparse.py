@@ -203,6 +203,9 @@ def topdown_level_1ds(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         cand, ex = args.ops.topdown(g, f_words, args)
     ctr = {}
     if instr:
+        tr = lv.get("trace")
+        if tr is not None:
+            tr.count("host_reads")           # the send counts' read
         ctr = topdown_counters(lv, wire, ex)
         ctr["use_expand"] = comm_model.sparse_expand_1d_words(
             _F32(lv["n_f"]), args.part.p)

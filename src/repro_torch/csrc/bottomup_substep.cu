@@ -40,6 +40,14 @@
 //     goes warp-cooperative, 32 edges a step with a ballot early exit.
 //     4 was the fastest of 0 (warp-cooperative only), 1, 2, 4, 8 and 16
 //     on the scale-24 paths (PERF.md, findings).
+//
+// The edges it loads, counted (kCount, a non-null `loaded`): each live
+// lane's head loads (up to kLaneEdges) and every in-range lane of each
+// 32-wide walk step it runs, kept in a register over the warp's row
+// groups, summed over the warp at its end and added with one atomicAdd a
+// warp (an atomic a row group would be some 500k on one word in a
+// 2^24-row launch, serialised).  The instance without the count is the
+// kernel as it was: the same loads, stores and grid.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,18 +83,20 @@ __device__ __forceinline__ bool in_front(const uint32_t* __restrict__ fw,
   return (__ldg(fw + (u >> 5)) >> (u & 31)) & 1u;
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(kBlock) bottomup_substep_kernel(
     const int32_t* __restrict__ rp, const int32_t* __restrict__ ue,
     const uint32_t* __restrict__ fw, const int32_t* __restrict__ cvec,
     int32_t* __restrict__ out, const int32_t* __restrict__ n_edges_dev,
     int32_t p, int32_t chunk, int64_t ue_stride, int32_t col_offset,
-    int32_t n_edges) {
+    int32_t n_edges, unsigned long long* __restrict__ loaded) {
   const int32_t lane = threadIdx.x & 31;
   const int32_t gps = (chunk + 31) >> 5;             // row groups a strip
   const int64_t n_groups = (int64_t)p * gps;
   const int64_t step = ((int64_t)gridDim.x * kBlock) >> 5;
   int64_t g = ((int64_t)blockIdx.x * kBlock + threadIdx.x) >> 5;
   Rows next{1, 0, 0};
+  uint32_t n_loaded = 0;                // this lane's loads (kCount only)
   if (g < n_groups) next = load_rows(rp, cvec, g, gps, chunk, lane);
   for (; g < n_groups; g += step) {             // uniform across the warp
     const Rows cur = next;
@@ -107,6 +117,7 @@ __global__ void __launch_bounds__(kBlock) bottomup_substep_kernel(
 #pragma unroll
       for (int t = 0; t < kLaneEdges; ++t)
         head[t] = (live && lo + t < hi) ? __ldg(ues + lo + t) : -1;
+      if (kCount && live) n_loaded += min(hi - lo, kLaneEdges);
 #pragma unroll
       for (int t = 0; t < kLaneEdges; ++t)
         word[t] = head[t] >= 0 ? __ldg(fw + (head[t] >> 5)) : 0u;
@@ -131,6 +142,7 @@ __global__ void __launch_bounds__(kBlock) bottomup_substep_kernel(
           if (e < rhi) {
             u = __ldg(ues + e);
             hit = in_front(fw, u);
+            if (kCount) ++n_loaded;
           }
           const unsigned ballot = __ballot_sync(kFull, hit);
           if (ballot) {
@@ -143,48 +155,73 @@ __global__ void __launch_bounds__(kBlock) bottomup_substep_kernel(
     }
     if (r < chunk) out[(int64_t)s * chunk + r] = res;
   }
+  if (kCount) {                         // every lane of the warp is here
+    const uint32_t warp_loaded = __reduce_add_sync(kFull, n_loaded);
+    if (lane == 0 && warp_loaded)
+      atomicAdd(loaded, (unsigned long long)warp_loaded);
+  }
+}
+
+template <bool kCount>
+cudaError_t resident_blocks(int dev, int* out) {
+  // one wave of resident blocks of this instance, found once per device
+  static int waves[64] = {0};
+  if (waves[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bottomup_substep_kernel<kCount>, kBlock, 0);
+    if (err != cudaSuccess) return err;
+    waves[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *out = waves[dev];
+  return cudaSuccess;
 }
 
 cudaError_t launch(const int32_t* rp, const int32_t* ue, const uint32_t* fw,
                    const int32_t* cvec, int32_t* out, const int32_t* ne_dev,
                    int p, int chunk, long long ue_stride, int col_offset,
-                   int n_edges, cudaStream_t stream) {
-  // one wave of resident blocks, found once per device
-  static int waves[64] = {0};
+                   int n_edges, unsigned long long* loaded,
+                   cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
-  if (waves[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bottomup_substep_kernel, kBlock, 0);
-    if (err != cudaSuccess) return err;
-    waves[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  int waves = 0;
+  err = loaded ? resident_blocks<true>(dev, &waves)
+               : resident_blocks<false>(dev, &waves);
+  if (err != cudaSuccess) return err;
   const int64_t groups = (int64_t)p * ((chunk + 31) / 32);
   const int64_t need = (groups * 32 + kBlock - 1) / kBlock;
-  const int grid = (int)(need < waves[dev] ? need : waves[dev]);
-  bottomup_substep_kernel<<<grid, kBlock, 0, stream>>>(
-      rp, ue, fw, cvec, out, ne_dev, p, chunk, (int64_t)ue_stride,
-      col_offset, n_edges);
+  const int grid = (int)(need < waves ? need : waves);
+  if (loaded)
+    bottomup_substep_kernel<true><<<grid, kBlock, 0, stream>>>(
+        rp, ue, fw, cvec, out, ne_dev, p, chunk, (int64_t)ue_stride,
+        col_offset, n_edges, loaded);
+  else
+    bottomup_substep_kernel<false><<<grid, kBlock, 0, stream>>>(
+        rp, ue, fw, cvec, out, ne_dev, p, chunk, (int64_t)ue_stride,
+        col_offset, n_edges, nullptr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // n_edges_dev: (p,) int32 device edge counts, or null to use n_edges for
-// every strip.  Returns cudaGetLastError().
+// every strip.  loaded: one int64 device word the kernel adds the edges
+// it loads to, or null to count nothing.  Returns cudaGetLastError().
 extern "C" int bottomup_substep(const void* rp, const void* ue,
                                 const void* f_words, const void* cvec,
                                 void* out, const void* n_edges_dev, int p,
                                 int chunk, long long ue_stride,
-                                int col_offset, int n_edges, void* stream) {
+                                int col_offset, int n_edges, void* loaded,
+                                void* stream) {
   if (p <= 0 || chunk <= 0) return (int)cudaGetLastError();
   return (int)launch((const int32_t*)rp, (const int32_t*)ue,
                      (const uint32_t*)f_words, (const int32_t*)cvec,
                      (int32_t*)out, (const int32_t*)n_edges_dev, p, chunk,
-                     ue_stride, col_offset, n_edges, (cudaStream_t)stream);
+                     ue_stride, col_offset, n_edges,
+                     (unsigned long long*)loaded, (cudaStream_t)stream);
 }

@@ -1,20 +1,30 @@
 """The bottom-up sub-step: the wrappers of the CUDA kernel
 ``csrc/bottomup_substep.cu`` (one rotated row segment of a 2D block, or
 all p row strips of a 1D level in one launch) and their plain PyTorch
-versions."""
+versions.
+
+While a ``core/trace.py`` Recorder is active, each launch hands the
+kernel a fresh zeroed device word (``trace.device_word``) that it adds
+the edges it loads to; otherwise the pointer is null and the kernel
+counts nothing.  ``loaded_edges_plain`` re-counts the kernel's rule."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.frontier import INT_INF, test_bits
 from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
 KERNEL = CudaKernel("bottomup_substep", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p])
+
+# the kernel's walk: a lane's head edges, then the warp's step
+LANE_EDGES, WARP_EDGES = 4, 32
 
 
 def _int32_tensor(name, t, dim):
@@ -76,6 +86,33 @@ def bottomup_substep_strips_plain(row_ptr, col_idx, f_words, cvec,
         for i, ne in enumerate(n_edges.tolist())])
 
 
+def loaded_edges_plain(rp_seg, ue_win, f_words, cvec,
+                       n_edges: int) -> int:
+    """The edges the kernel loads on one row segment, by its rule: a live
+    row (``cvec == 0``, edges left below ``n_edges``) loads its first
+    ``LANE_EDGES`` edges; if none of them hits the frontier and it has
+    more, the warp walks the rest ``WARP_EDGES`` at a time, loading every
+    edge of each step up to and including the first step with a hit."""
+    dev = ue_win.device
+    lo = rp_seg[:-1].to(torch.int64)
+    hi = rp_seg[1:].to(torch.int64).clamp(max=n_edges)
+    lens = (hi - lo).clamp(min=0)
+    live = (cvec == 0) & (lens > 0)
+    rows = torch.repeat_interleave(torch.arange(cvec.shape[0], device=dev),
+                                   lens)
+    pos = torch.arange(rows.shape[0], device=dev) \
+        - (torch.cumsum(lens, 0) - lens)[rows]          # edge's place in row
+    e = lo[rows] + pos
+    hit = test_bits(f_words, ue_win[e])
+    first = torch.full(lens.shape, 1 << 62, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, rows[hit], pos[hit], reduce="amin")
+    walk_end = LANE_EDGES + WARP_EDGES * (
+        (first - LANE_EDGES).clamp(min=0) // WARP_EDGES + 1)
+    loads = torch.where(first < LANE_EDGES, lens.clamp(max=LANE_EDGES),
+                        torch.minimum(lens, walk_end))
+    return int(torch.where(live, loads, 0).sum())
+
+
 def new_output(cvec: torch.Tensor) -> torch.Tensor:
     """The kernel's output, shaped as the completed flags; the kernel
     writes every row, so it starts uninitialised."""
@@ -87,9 +124,11 @@ def launch(rp_seg, ue_win, f_words, cvec, col_offset: int,
     """The kernel's launch on checked CUDA tensors, one row segment: the
     (chunk,) result."""
     out = new_output(cvec)
+    word = trace.device_word(cvec.device)
     KERNEL.launch(rp_seg.data_ptr(), ue_win.data_ptr(), f_words.data_ptr(),
                   cvec.data_ptr(), out.data_ptr(), None, 1, cvec.shape[0],
                   ue_win.shape[0], col_offset, n_edges,
+                  None if word is None else word.data_ptr(),
                   stream_handle(cvec.device))
     return out
 
@@ -100,9 +139,12 @@ def launch_strips(row_ptr, col_idx, f_words, cvec, n_edges) -> torch.Tensor:
     the card."""
     out = new_output(cvec)
     p, chunk = cvec.shape
+    word = trace.device_word(cvec.device)
     KERNEL.launch(row_ptr.data_ptr(), col_idx.data_ptr(), f_words.data_ptr(),
                   cvec.data_ptr(), out.data_ptr(), n_edges.data_ptr(), p,
-                  chunk, col_idx.shape[1], 0, 0, stream_handle(cvec.device))
+                  chunk, col_idx.shape[1], 0, 0,
+                  None if word is None else word.data_ptr(),
+                  stream_handle(cvec.device))
     return out
 
 

@@ -321,6 +321,64 @@ def test_bottomup_kernel_on_edge_cases(dev):
                 rp[i], ci[i], fw, cv[i], 777, int(ne[i]))), (name, i)
 
 
+def test_bottomup_kernel_counts_the_edges_it_loads(graph_1d, dev):
+    """Inside a Recorder kernel 2 adds the edges it loads to a device word
+    a launch: the count equals ``loaded_edges_plain``'s re-count of its
+    rule (4 head loads a lane, then 32-wide steps up to the first hit
+    step) and covers what the inputs need (``bench.costs``'s frozen
+    ``bottomup_bytes``); the output is bit for bit the uncounted one's."""
+    from bench.costs import bottomup_bytes
+    from repro_torch.core import trace
+    g, part = graph_1d, graph_1d.part
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = dict(ec.bottomup_cases(2, 1 << 15, device=dev))
+    for ff in (0.001, 0.05, 0.5):
+        fw = pack_bits(torch.rand(part.n, generator=gen, device=dev) < ff)
+        cv = (torch.rand(part.p, part.chunk, generator=gen, device=dev)
+              < 0.3).to(torch.int32)
+        cases[f"rmat f={ff}"] = (g.row_ptr, g.col_idx, fw, cv, g.nnz)
+    for name, (rp, ci, fw, cv, ne) in cases.items():
+        plain = []
+        for i in range(rp.shape[0]):
+            n_i = int(ne[i])
+            want = bu_ops.launch(rp[i], ci[i], fw, cv[i], 777, n_i)
+            with trace.Recorder() as rec:
+                got = bu_ops.launch(rp[i], ci[i], fw, cv[i], 777, n_i)
+            assert torch.equal(got, want), (name, i)
+            (loaded,) = rec.calls[trace.BOTTOMUP_LOADED]
+            plain.append(bu_ops.loaded_edges_plain(rp[i], ci[i], fw, cv[i],
+                                                   n_i))
+            assert loaded == plain[-1], (name, i)
+            if n_i >= int(rp[i, -1]):       # the need counts every edge
+                assert loaded >= bottomup_bytes(rp[i], ci[i], fw,
+                                                cv[i])[2], (name, i)
+        want = bu_ops.launch_strips(rp, ci, fw, cv, ne)
+        with trace.Recorder() as rec:
+            got = bu_ops.launch_strips(rp, ci, fw, cv, ne)
+        assert torch.equal(got, want), name
+        assert rec.calls[trace.BOTTOMUP_LOADED] == [sum(plain)], name
+    assert trace._ACTIVE is None
+
+
+def test_search_counts_kernel_2_once_a_call(graph, dev):
+    """A traced 2D search keeps one loaded-edge count a kernel-2 call,
+    under its search id, and the same parents as an untraced one."""
+    from repro_torch.core import trace
+    eng = plan_bfs(graph, BFSConfig(decomposition="2d", instrument=False),
+                   make_local_mesh(2, 2, device=dev),
+                   local_mode="kernel").compile()
+    root = int(torch.argmax(graph.deg_A.reshape(-1)))
+    want = eng.search(root)[0]
+    n = bu_ops.KERNEL.launches
+    with trace.Recorder() as rec:
+        got = eng.search(root)[0]
+    assert torch.equal(got, want)
+    calls = rec.calls[trace.BOTTOMUP_LOADED]
+    assert len(calls) == bu_ops.KERNEL.launches - n > 0
+    assert rec.counters[0][trace.BOTTOMUP_LOADED] == sum(calls) > 0
+    assert rec.counters[0]["bu_levels"] > 0
+
+
 def test_strip_chunk_kernel_walks_match_plain(dev):
     """Both walks (the threshold at its default, at 0 ids and at every
     id) on an empty strip, a 10^4-edge column, sub-range ends, the last
