@@ -762,6 +762,51 @@ def bottomup_bytes(rp, uew, fw, cv):
     return nbytes, n_live, read
 
 
+def epilogue_bytes(ep_ops, pi0, cand, recv) -> int:
+    """Bytes one level-epilogue launch must move on these inputs
+    (``ep_ops.level_bytes``): the unvisited vertices, the slots past the
+    first each reads up to its first find, and the newly found."""
+    unvisited = pi0 == -1
+    still = unvisited.clone() if cand is None else unvisited & (
+        cand == 2**31 - 1)
+    slot_reads = 0
+    if recv is not None:
+        pc = pi0.shape[1]
+        jj = torch.arange(pc, device=pi0.device)
+        for s in range(1, pc):
+            slot_reads += int(still.sum())
+            still &= recv[:, jj, (jj + s) % pc] == 2**31 - 1
+    found = int(unvisited.sum()) - int(still.sum()) if cand is not None \
+        else 1
+    return ep_ops.level_bytes(pi0.numel(), int(unvisited.sum()), found,
+                              slot_reads, start=cand is None)[1]
+
+
+def epilogue_times(ep_ops, a, kw) -> dict:
+    """One recorded level-epilogue launch (``launch``'s arguments, the
+    inputs cloned as the call saw them) launched again: the kernel
+    against its plain twin (parents, words and masses), and on the card
+    alone the launch after a copy that restores ``pi``, less the copy
+    alone; the twin host-timed the same way; the byte bound."""
+    pi0, deg = a[:2]
+    cand = a[2] if len(a) > 2 else None
+    recv = a[3] if len(a) > 3 else None
+    root = a[4] if len(a) > 4 else kw.get("root", -1)
+    pi, pi_p = pi0.clone(), pi0.clone()
+    got = ep_ops.launch(pi, deg, cand, recv, root)
+    want = ep_ops.level_epilogue_plain(pi_p, deg, cand, recv, root)
+    err = max(max_err(pi, pi_p), max_err(got.words, want.words),
+              max_err(got.masses, want.masses))
+    copy_ms = device_ms(lambda: pi.copy_(pi0))
+    k_ms = device_ms(lambda: (pi.copy_(pi0), ep_ops.launch(
+        pi, deg, cand, recv, root))) - copy_ms
+    p_ms = cuda_ms(lambda: (pi_p.copy_(pi0), ep_ops.level_epilogue_plain(
+        pi_p, deg, cand, recv, root)), reps=3) - copy_ms
+    nbytes = epilogue_bytes(ep_ops, pi0, cand, recv)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": nbytes / HBM_BW * 1e3,
+            "bytes": nbytes, "err": err, "n_f": int(want.masses[0])}
+
+
 def strip_bytes(nzc, cap_nzc: int, live, edges: int, n_words: int,
                 n_front: int, nr: int) -> int:
     """Bytes one strip SpMSV launch must move on these inputs: nzc; in
@@ -3104,6 +3149,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     from repro_torch.graph.formats import build_blocked, build_blocked_1d
     from repro_torch.kernels import edge_cases
     from repro_torch.kernels.bottomup import ops as bu_ops
+    from repro_torch.kernels.epilogue import ops as ep_ops
     from repro_torch.kernels.frontier_codec import ops as codec_ops
     from repro_torch.kernels.spmsv import ops as sp_ops
     from repro_torch.kernels.spmsv import strip
@@ -3121,8 +3167,9 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
 
     def host_reads(eng, roots_) -> float:
         """Host reads a search from ``roots_``, run again untimed: the
-        level loop's tail reads (``decomp._masses``) and the 1ds
-        exchange's own (``_send_counts``).  Kernel 1 reads nothing:
+        level loop's tail reads (``decomp._masses``, in 2D
+        ``decomp._read_front_2d``) and the 1ds exchange's own
+        (``_send_counts``).  Kernel 1 reads nothing:
         phases 4b, 6 and 9b run its calls in a search under sync debug
         mode "error"."""
         return reads_of(lambda: [eng.search(r) for r in roots_],
@@ -3132,6 +3179,7 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
         """Host reads a search of ``run()``, which runs ``n_searches``
         searches (the reads ``host_reads`` counts)."""
         with recording([(decomp, "_masses", "masses"),
+                        (decomp, "_read_front_2d", "masses_2d"),
                         (steps_1d_sparse, "_send_counts", "send_counts")]
                        ) as calls:
             run()
@@ -3431,11 +3479,16 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     del validator
     torch.cuda.empty_cache()
     dense = plan_bfs(graph, cfg, mesh, local_mode="dense").compile()
+    # the oracle ends each level with the epilogue's plain twin
+    ep_before = kernels["level_epilogue"].launches
     for r, par in zip(roots[:2], parents[:2]):
         out = dense.search(r)
         check(torch.equal(out[0].reshape(-1)[: graph.part.n_orig], par),
               f"dense parents differ from kernel parents at root {r}")
-    print("local_mode='dense' sessions on 2 roots: parents bit-identical")
+    check(kernels["level_epilogue"].launches == ep_before,
+          "the dense oracle launched the level-epilogue kernel")
+    print("local_mode='dense' sessions on 2 roots (no kernel, the level "
+          "epilogue's plain twin included): parents bit-identical")
     del dense
     record["session"] = {
         "n": edges.n, "m_input": edges.m_input, "m": edges.m,
@@ -3679,11 +3732,22 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
               f"{m_in}-edge stream (full-stream launch and slice launch): "
               f"max |kernel - plain| = {e}")
     del full, want, part_k
+    for name, (pi0, deg_, cand, recv, root_) in edge_cases.epilogue_cases(
+            1, 1, part.chunk, device=dev).items():
+        pi_k = pi0.clone()
+        got = ep_ops.level_epilogue(pi_k, deg_, cand, recv, root_)
+        want = ep_ops.level_epilogue_plain(pi0, deg_, cand, recv, root_)
+        e = max(max_err(pi_k, pi0), max_err(got.words, want.words),
+                max_err(got.masses, want.masses))
+        errs["level_epilogue"] = max(errs["level_epilogue"], e)
+        print(f"level_epilogue    case {name:>14} ({part.chunk} vertices): "
+              f"masses {want.masses.tolist()}, max |kernel - plain| = {e}")
+        del pi0, deg_, cand, recv, pi_k, got, want
     for k in path_2d:
         check(errs[k] == 0, f"{k} disagrees with its plain version (max err "
                             f"{errs[k]})")
-    print("the 2D path's three kernels equal their plain versions "
-          "(tolerance 0)")
+    print(f"the 2D path's {len(path_2d)} kernels equal their plain versions "
+          f"(tolerance 0)")
 
     # --------------------------------------------------------------- 4b
     phase("4b kernel 1 through the DCSC on the frontiers of one bfs-rmat "
@@ -3875,8 +3939,17 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
                     (bu_ops, "bottomup_substep", "bottomup_substep")]
                    ) as calls, no_host_reads(sp_ops, "spmsv_min") as guarded:
         engine.search(roots[0])
+    # the kernel's launches (the LocalOps entry holds level_epilogue
+    # itself; it launches through the module's ``launch``)
+    with recording([(ep_ops, "launch", "level_epilogue")],
+                   clone=True) as ep_calls, \
+            no_host_reads(ep_ops, "launch") as ep_guarded:
+        engine.search(roots[0])
     torch.cuda.synchronize()
     check(len(guarded) > 0, "no kernel-1 call in the 2D csr search")
+    check(len(ep_guarded) > 0, "no level-epilogue call in the 2D search")
+    print(f"one 2D csr search: its {len(ep_guarded)} level-epilogue calls "
+          f"ran under torch.cuda.set_sync_debug_mode('error'): no host read")
     print(f"one 2D csr search: its {len(guarded)} kernel-1 calls ran under "
           f"torch.cuda.set_sync_debug_mode('error'): no host read")
     per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -3937,6 +4010,24 @@ def graph_paths(dev, kernels, record, instr_per_s, path_2d, path_1ds):
     print(f"bottomup_substep: {r['calls']} launches in one search: kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.5f} ms")
+    r = per["level_epilogue"]
+    for lvl, (_, a, kw) in enumerate(ep_calls):
+        t = epilogue_times(ep_ops, a, kw)
+        errs["level_epilogue"] = max(errs["level_epilogue"], t["err"])
+        r["calls"] += 1
+        for key in ("ms", "plain_ms", "bound_ms"):
+            r[key] += t[key]
+        print(f"call {lvl} level_epilogue: n_f {t['n_f']}, on the card "
+              f"alone {t['ms'] / t['bound_ms']:.2f}x its bound: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bytes']} bytes), max |kernel - "
+              f"plain| = {t['err']}")
+    del ep_calls
+    print(f"level_epilogue: {r['calls']} launches in one search: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms")
+    check(errs["level_epilogue"] == 0, "level_epilogue disagrees with its "
+          "plain twin on the search's calls")
     per["spmsv_dcsc_min"] = per_dcsc
     record["kernel_times"] = per
     # the synthetic cases at the 2D path's width (one segment of 2^24
@@ -5178,17 +5269,19 @@ def run_drivers() -> dict:
 
 
 def kernel_times(tree: Path) -> int:
-    """Kernels 1-9 of the checkout at ``tree`` on the card alone, at their
-    real calls or shapes.  Kernel 1's entry as the level steps call it
+    """Kernels 1-9 and the 2D level epilogue (k10) of the checkout at
+    ``tree`` on the card alone, at their real calls or shapes.  Kernel 1's entry as the level steps call it
     (``spmsv_min``, or a tree from before it the three public names, each
     with its prep), on the card alone and host-timed, on one 2D csr,
-    bfs-rmat and bfs-rmat-1d search (and bfs-rmat-1d-dcsc's for the
-    reads), each search's synchronizing calls counted, and the 2D csr
+    bfs-rmat, bfs-rmat-pipe (the split ring) and bfs-rmat-1d search (and
+    bfs-rmat-1d-dcsc's for the reads), each search's synchronizing calls
+    counted and each timed whole, and the 2D csr
     session's median search ms over the 16 roots of phase 3.  Kernels 2,
     3, 4, 5 and 6 at the scale-24 paths' calls, from the first root: one
     2D search (grid 1x1), one 1ds search on 16 strips per expand_chunks
     (1 and 4) and one 1ds search top-down only per expand_chunks (the
-    paper's 1D baseline, where kernels 3 and 4 take their column walks).
+    paper's 1D baseline, where kernels 3 and 4 take their column walks);
+    the level epilogue's calls of one more search (``epilogue_times``).
     Each recorded call is launched again through its public wrapper and
     timed with ``device_ms``, and kernels 5 and 6 also host-timed
     (``cuda_ms``, the public entry's host call included), kernel 5 beside
@@ -5218,6 +5311,10 @@ def kernel_times(tree: Path) -> int:
     from repro_torch.kernels.spmsv import ops as sp
     from repro_torch.kernels.spmsv import strip
     from repro_torch.launch.mesh import make_local_mesh, make_local_mesh_1d
+    try:                 # the 2D level epilogue; a tree from before it lacks it
+        from repro_torch.kernels.epilogue import ops as ep
+    except ImportError:
+        ep = None
     dev = torch.device("cuda")
     out = {"tree": str(tree), "device": torch.cuda.get_device_name(0),
            "smi": smi_line()}
@@ -5288,6 +5385,16 @@ def kernel_times(tree: Path) -> int:
                     device=dev)
                 fill5.append(device_ms(words.zero_))
         del calls
+        # the 2D level epilogue's calls of one more search, their inputs
+        # cloned (the kernel writes pi), each launched again
+        k10 = []
+        if ep is not None:
+            with recording([(ep, "launch", "k10")],
+                           clone=True) as ep_calls:
+                eng.search(root)
+            torch.cuda.synchronize()
+            k10 = [epilogue_times(ep, a, kw) for _, a, kw in ep_calls]
+            del ep_calls
         wall = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -5308,6 +5415,12 @@ def kernel_times(tree: Path) -> int:
             res[k]["per_launch_host_ms"] = host[k]
         res["k6"]["per_launch_fill_ms"] = fill
         res["k5"]["per_launch_fill_ms"] = fill5
+        res["k10"] = {"launches": len(k10),
+                      **{k: sum(t_[k] for t_ in k10)
+                         for k in ("ms", "plain_ms", "bound_ms")},
+                      "per_launch_ms": [t_["ms"] for t_ in k10],
+                      "max_abs_err": max([t_["err"] for t_ in k10],
+                                         default=0)}
         return res
 
     out["k5_sass"] = encode_sass(
@@ -5347,6 +5460,11 @@ def kernel_times(tree: Path) -> int:
     eng = plan_bfs(graph, get_config("bfs-rmat"), mesh,
                    local_mode="kernel").compile()
     out["2d_bfs_rmat"] = timed_search(eng, root)
+    del eng
+    # the R/G split ring (expand_chunks 2) of the same grid
+    eng = plan_bfs(graph, get_config("bfs-rmat-pipe"), mesh,
+                   local_mode="kernel").compile()
+    out["2d_bfs_rmat_pipe"] = timed_search(eng, root)
     del eng, graph
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6291,6 +6409,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.bottomup import ops as bu_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.epilogue import ops as ep_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.frontier_codec import ops as codec_ops
     from repro_torch.kernels.spmsv import ops as sp_ops
@@ -6311,7 +6430,8 @@ def main() -> int:
                "embedding_bag_bwd_sort": eb_ops.KERNEL_BWD_SORT,
                "embedding_bag_bwd_tiles": eb_ops.KERNEL_BWD_TILES,
                "embedding_bag_bwd": eb_ops.KERNEL_BWD,
-               "flash_attention_bwd": fa_ops.KERNEL_BWD}
+               "flash_attention_bwd": fa_ops.KERNEL_BWD,
+               "level_epilogue": ep_ops.KERNEL}
     replaces = {
         "spmsv_csr_min": "src/repro/kernels/spmsv/spmsv.py:56",
         "spmsv_dcsc_min": "src/repro/kernels/spmsv/spmsv.py:56",
@@ -6339,8 +6459,11 @@ def main() -> int:
         "embedding_bag_bwd":
             "src/repro/kernels/embedding_bag/embedding_bag.py:41",
         "flash_attention_bwd":
-            "src/repro/kernels/flash_attention/flash_attention.py:79"}
-    path_2d = ("spmsv_csr_min", "bottomup_substep", "rmat_counter")
+            "src/repro/kernels/flash_attention/flash_attention.py:79",
+        # no Pallas call: XLA fuses the level's update and masses
+        "level_epilogue": "src/repro/core/steps.py:241 (XLA-fused)"}
+    path_2d = ("spmsv_csr_min", "bottomup_substep", "rmat_counter",
+               "level_epilogue")
     path_1ds = ("bottomup_substep", "rmat_counter", "spmsv_strip_min",
                 "spmsv_strip_chunk_min", "codec_encode", "codec_decode")
     dev = torch.device("cuda")

@@ -173,25 +173,19 @@ def record_search(engine, pod_axis: Optional[str] = None
 def level_counts(engine, which: str) -> Dict[str, int]:
     """The collectives of ONE level body (``which`` "td" or "bu") run
     alone on the root's state, as the search loop calls it; the steps
-    come from the entry's ``level_steps``.  The JAX package lowers the
-    same body without running it."""
-    from repro_torch.core.decomp import reduce_state
+    and the state come from the entry's ``level_steps`` and ``state``.
+    The JAX package lowers the same body without running it."""
     plan = engine.plan
-    if plan.entry.level_steps is None:
+    if plan.entry.level_steps is None or plan.entry.state is None:
         raise ValueError(f"decomposition {plan.entry.name!r} declares no "
-                         f"level_steps; the budget sweep needs them")
+                         f"level_steps and state; the budget sweep needs "
+                         f"them")
     g = engine._gdev
     args = plan._level_args(g)
     root = _roots(engine, 1)[0]
-    deg = g["deg_A"]
-    gidx = torch.arange(plan.part.n, dtype=torch.int32,
-                        device=deg.device).reshape(deg.shape)
-    pi = torch.where(gidx == root, root, -1).to(torch.int32)
-    front = gidx == root
-    cap = 0 if plan.cfg.instrument else getattr(args, "cap_x", 0)
-    n_f, m_f, _, over = reduce_state(pi, front, deg, cap,
-                                     plan.statics.expand_chunks,
-                                     plan.entry.axes)
+    start, read = plan.entry.state(g, plan.part, args, plan.cfg)
+    pi, front = start(root)
+    n_f, m_f, _, over = read(pi, front, [])
     td, bu = plan.entry.level_steps
     with collectives.ScheduleRecorder() as rec:
         collectives.at(0, which)

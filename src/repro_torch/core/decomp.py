@@ -16,8 +16,9 @@ Registered:
 Each entry also carries the Graph500 validator's edge hook
 (``local_edges``, ``edge_keys``; ``core/validate.py``) and its
 collective-schedule contract (``rendezvous_axes``, ``schedule_dims``,
-``level_steps``), which ``repro_torch.analysis`` checks against the
-schedule a recorded run issues.
+``level_steps`` with the ``state`` they start from), which
+``repro_torch.analysis`` checks against the schedule a recorded run
+issues.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.core.steps_1d import (LevelArgs1D, bottomup_level_1d,
 from repro_torch.core.steps_1d_sparse import (bottomup_level_1ds,
                                               topdown_level_1ds)
 from repro_torch.graph.formats import Blocked1DGraph, BlockedGraph
+from repro_torch.kernels.epilogue import ops as epilogue
 from repro_torch.kernels.spmsv import ops as spmsv_ops
 
 MAX_LEVELS = 64
@@ -84,6 +86,11 @@ class Decomposition:
     # (topdown, bottomup) level steps, ``step(g, pi, front, args, lv)``,
     # the ones ``body`` drives: the budget sweep runs each alone
     level_steps: Optional[Tuple[Callable, Callable]] = None
+    # ``state(g, part, args, cfg) -> (start, read)``: the search state of
+    # the layout, ``start(root) -> (pi, front)`` and ``read(pi, front,
+    # pending) -> (n_f, m_f, m_u, over)`` in one host read, which
+    # ``body`` hands the loop and the budget sweep starts a step from
+    state: Optional[Callable] = None
     # the Graph500 validator's edge hook: ``local_edges(g, part, shard,
     # start, stop) -> (u, v, valid)`` enumerates slots [start, stop) of
     # one shard's edge slots (``shard`` indexes the grid dims of the
@@ -222,16 +229,17 @@ def _at(tr, name: str, level: int, mode: str, pod: Optional[int] = None,
     return trace.OFF if tr is None else tr.span(name, **(attrs or {}))
 
 
-def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
-                 cfg: BFSConfig, td_level, bu_level, sync_modes: bool = False,
-                 over_cap: int = 0, expand_chunks: int = 1,
-                 axes: Tuple[str, ...] = GRID_2D,
+def _search_loop(roots: Sequence[int], *, n_total: int, cfg: BFSConfig,
+                 td_level, bu_level, start, read, sync_modes: bool = False,
                  sync_axis: Optional[str] = None):
     """Beamer's direction heuristics, and with ``cfg.instrument`` the
     per-level stats and counter accumulation, over the (pi, front, lv) ->
-    (pi, front, ctr) steps.  ``gidx`` holds the global vertex ids in the
-    layout of ``pi`` and ``front``: ``(pr, pc, chunk)`` for 2D, ``(p,
-    chunk)`` for the strips.
+    (pi, front, ctr) steps.  The body hands the loop the state of its
+    layout: ``start(root) -> (pi, front)`` the root's, and ``read(pi,
+    front, pending) -> (n_f, m_f, m_u, over)`` the post-level values in
+    one host read (``pending``: kernel 1's deferred ``cap_f`` checks).
+    The strips' ``front`` is a bool mask reduced by ``reduce_state``; the
+    2D steps' is a ``Front`` whose masses their level epilogue summed.
 
     ``roots`` holds one root per pod: the searches run in lockstep, as
     the JAX package's pod-batched program runs them.  Each pod keeps its
@@ -243,7 +251,7 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     each level.  A single search is the case of one pod.
 
     The loop is a Python loop.  Each level ends with one host read a pod
-    (``reduce_state``): the next frontier's size and the frontier and
+    (``read``): the next frontier's size and the frontier and
     unvisited edge masses, which the next level's direction decision and
     the loop's exit need (the JAX package keeps them on the device inside
     a while loop).  Kernel 1 reads nothing (``spmsv/ops.py``); its
@@ -251,9 +259,10 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     (``deferred_cap_checks``).  An instrumented "1ds" top-down level adds one:
     the largest send count (the overflow predicate, which picks the
     level's branch) with the send total.  Uninstrumented, the overflow
-    indicator rides the tail read instead (``over_cap``, the "1ds" bucket
-    capacity, 0 for "2d" and "1d", over ``expand_chunks`` sub-ranges) and
-    reaches the step as ``lv["over"]``, so that level reads nothing more.
+    indicator rides the tail read instead (``reduce_state``'s
+    ``over_cap``, the "1ds" bucket capacity, over ``expand_chunks``
+    sub-ranges) and reaches the step as ``lv["over"]``, so that level
+    reads nothing more.
     The strip kernels' grids are fixed by the graph, so "1d" reads nothing
     more, and neither do bottom-up levels or dense discovery.
 
@@ -265,7 +274,7 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     The loop tells ``core/collectives.py`` where it stands (``at``: the
     level, the mode and, with a pod axis ``sync_axis``, the pod), so a
     ``ScheduleRecorder`` files each collective under its level: a step's
-    under "td" or "bu", the tail reduction (over the graph ``axes``), the
+    under "td" or "bu", the tail reduction (over the graph's axes), the
     decision's pod sync and the lockstep pmax over ``sync_axis`` under
     "loop".  The reduction before the first level is filed at level -1.
 
@@ -292,8 +301,6 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
     tr = trace.current()
     stats = np.zeros((len(roots), MAX_LEVELS, 5), np.float32)
     ctrs = [zero_counters() if instrument else {} for _ in roots]
-    cap = 0 if instrument else over_cap
-    deg = g["deg_A"]
 
     def pod(k):
         return None if sync_axis is None else k
@@ -305,8 +312,7 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
         out = []
         for k, (pi, f) in enumerate(zip(pis, fronts)):
             with _at(tr, "bfs.tail", level, "loop", pod(k)):
-                out.append(reduce_state(pi, f, deg, cap, expand_chunks, axes,
-                                        pending))
+                out.append(read(pi, f, pending))
             if tr is not None:
                 tr.count("host_reads")
         if sync_axis is not None:
@@ -316,9 +322,7 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
 
     with spmsv_ops.deferred_cap_checks() as pending:
         with trace.OFF if tr is None else tr.span("bfs.start"):
-            pis = [torch.where(gidx == r, r, -1).to(torch.int32)
-                   for r in roots]
-            fronts = [gidx == r for r in roots]
+            pis, fronts = (list(x) for x in zip(*map(start, roots)))
             states = tail(-1, pending)
         modes, level = [0] * len(roots), 0
         while level < MAX_LEVELS and max(st[0] for st in states) > 0:
@@ -355,6 +359,37 @@ def _search_loop(g, gidx, roots: Sequence[int], *, n_total: int,
 # ---------------------------------------------------------------------------
 
 
+def _read_front_2d(pi: torch.Tensor, front: epilogue.Front,
+                   pending: list):
+    """The 2D tail: (n_f, m_f, m_u, over) of a post-level state from the
+    masses its level epilogue summed (the fused psum over the grid that
+    ``_masses`` records), with kernel 1's deferred ``cap_f`` checks, in
+    one host read; ``over`` is False."""
+    collectives.noted("psum", GRID_2D, nbytes=3 * collectives.SCALAR_BYTES)
+    vals = front.masses
+    extra = spmsv_ops.overflow(pending) if pending else None
+    if extra is not None:
+        vals = torch.cat([vals, extra])
+    vals = vals.tolist()
+    if extra is not None:
+        spmsv_ops.raise_overflow(pending, vals[-2:])
+    n_f, m_f, m_u = vals[:3]
+    return _F32(n_f), _F32(m_f), _F32(m_u), False
+
+
+def _state_2d(g, part: Partition2D, args: LevelArgs, cfg: BFSConfig):
+    """The 2D state: a root's is ``pi`` all -1 through the level
+    epilogue with the root as the one candidate (the flat index of the
+    grid layout is the vertex id), read by ``_read_front_2d``."""
+    deg = g["deg_A"]
+
+    def start(root):
+        pi = torch.full(deg.shape, -1, dtype=torch.int32, device=deg.device)
+        return pi, args.ops.epilogue(pi, deg, root=root)
+
+    return start, _read_front_2d
+
+
 def _bfs_body_2d(g, roots, *, part: Partition2D, args: LevelArgs,
                  cfg: BFSConfig, sync_axis: Optional[str] = None,
                  sync_modes: bool = True):
@@ -362,14 +397,13 @@ def _bfs_body_2d(g, roots, *, part: Partition2D, args: LevelArgs,
     axis of a batch); the JAX package's 2D steps rendezvous with the
     whole mesh, so the pods share each direction decision
     (``sync_modes``; the linter's fixture turns it off)."""
-    dev = g["deg_A"].device
-    gidx = torch.arange(part.n, dtype=torch.int32, device=dev).reshape(
-        part.pr, part.pc, part.chunk)
+    start, read = _state_2d(g, part, args, cfg)
     return _search_loop(
-        g, gidx, roots, n_total=part.n, cfg=cfg,
+        roots, n_total=part.n, cfg=cfg,
         td_level=lambda pi, f, lv: topdown_level(g, pi, f, args, lv),
         bu_level=lambda pi, f, lv: bottomup_level(g, pi, f, args, lv),
-        sync_modes=sync_modes, axes=GRID_2D, sync_axis=sync_axis)
+        start=start, read=read, sync_modes=sync_modes,
+        sync_axis=sync_axis)
 
 
 def _make_args_2d(part, cfg, ops, statics: PlanStatics, arrays,
@@ -441,7 +475,7 @@ register_decomposition(Decomposition(
     # permutes rendezvous with every device: hence sync_modes above
     rendezvous_axes=lambda axes, mesh_axes: tuple(mesh_axes),
     schedule_dims=("fold_mode", "compact_updates", "expand_chunks"),
-    level_steps=(topdown_level, bottomup_level),
+    level_steps=(topdown_level, bottomup_level), state=_state_2d,
     edge_keys=EDGE_KEYS, local_edges=_local_edges_2d))
 
 
@@ -450,26 +484,45 @@ register_decomposition(Decomposition(
 # ---------------------------------------------------------------------------
 
 
-def _make_strip_body(td_step, bu_step, sparse: bool):
-    """The whole-search body of a strip entry: global ids in the (p,
-    chunk) strip layout, the shared loop over the given level steps, one
-    root a pod; ``sparse`` for "1ds", whose uninstrumented loop carries
-    the overflow indicator of its buckets.  The strips' collectives stay
-    inside a pod in the JAX package, so each pod switches direction on
-    its own (no ``sync_modes``)."""
+def _make_strip_state(sparse: bool):
+    """The state of a strip entry: global ids in the (p, chunk) strip
+    layout, bool fronts reduced by ``reduce_state``; ``sparse`` for
+    "1ds", whose uninstrumented read carries the overflow indicator of
+    its buckets."""
+
+    def state(g, part: Partition1D, args: LevelArgs1D, cfg: BFSConfig):
+        deg = g["deg_A"]
+        gidx = torch.arange(part.n, dtype=torch.int32,
+                            device=deg.device).reshape(part.p, part.chunk)
+        cap = args.cap_x if sparse and not cfg.instrument else 0
+
+        def start(root):
+            return torch.where(gidx == root, root, -1).to(torch.int32), \
+                gidx == root
+
+        def read(pi, front, pending):
+            return reduce_state(pi, front, deg, cap, args.expand_chunks,
+                                STRIPS, pending)
+
+        return start, read
+
+    return state
+
+
+def _make_strip_body(td_step, bu_step, state):
+    """The whole-search body of a strip entry: the shared loop over the
+    given level steps from the entry's ``state``, one root a pod.  The
+    strips' collectives stay inside a pod in the JAX package, so each pod
+    switches direction on its own (no ``sync_modes``)."""
 
     def body(g, roots, *, part: Partition1D, args: LevelArgs1D,
              cfg: BFSConfig, sync_axis: Optional[str] = None):
-        gidx = torch.arange(part.n, dtype=torch.int32,
-                            device=g["deg_A"].device).reshape(part.p,
-                                                              part.chunk)
+        start, read = state(g, part, args, cfg)
         return _search_loop(
-            g, gidx, roots, n_total=part.n, cfg=cfg,
+            roots, n_total=part.n, cfg=cfg,
             td_level=lambda pi, f, lv: td_step(g, pi, f, args, lv),
             bu_level=lambda pi, f, lv: bu_step(g, pi, f, args, lv),
-            over_cap=args.cap_x if sparse else 0,
-            expand_chunks=args.expand_chunks, axes=STRIPS,
-            sync_axis=sync_axis)
+            start=start, read=read, sync_axis=sync_axis)
 
     return body
 
@@ -523,14 +576,15 @@ for _name, _td, _bu, _validate, _dims in (
          ("expand_chunks",)),
         ("1ds", topdown_level_1ds, bottomup_level_1ds, _validate_1ds,
          ("frontier_codec", "expand_chunks"))):
+    _state = _make_strip_state(sparse=_name == "1ds")
     register_decomposition(Decomposition(
         name=_name, partition_cls=Partition1D, graph_cls=Blocked1DGraph,
         axis_sizes=lambda part: (part.p, 1),
         make_level_args=_make_args_strip,
-        body=_make_strip_body(_td, _bu, sparse=_name == "1ds"),
+        body=_make_strip_body(_td, _bu, _state),
         validate=_validate, axes=STRIPS,
         # gathers and reductions along the strip axis only: per-pod
         # direction decisions are safe
         rendezvous_axes=lambda axes, mesh_axes: tuple(axes),
-        schedule_dims=_dims, level_steps=(_td, _bu),
+        schedule_dims=_dims, level_steps=(_td, _bu), state=_state,
         edge_keys=EDGE_KEYS, local_edges=_local_edges_1d))

@@ -85,16 +85,16 @@ def transpose_vector(x: torch.Tensor, perm) -> torch.Tensor:
     return collectives.ppermute(x, perm)
 
 
-def expand_bitmap(front: torch.Tensor, perm) -> Tuple[torch.Tensor, np.float32]:
+def expand_bitmap(words: torch.Tensor, perm
+                  ) -> Tuple[torch.Tensor, np.float32]:
     """Expand (Alg. 3 l.5-6 / Alg. 4 l.6-7): transpose the ``(pr, pc,
-    chunk)`` frontier to layout B, then gather packed words along the
-    processor column, giving each processor its C_j slice.
+    chunk//32)`` packed frontier words to layout B, then gather them
+    along the processor column, giving each processor its C_j slice.
 
     Returns ``(f_words (pr, pc, nc//32) int32, wire)``: ``wire`` is the
     float32 per-processor word count of the transpose and the gather, in
     paper 64-bit-word units."""
-    pr = front.shape[0]
-    words = pack_bits(front)
+    pr = words.shape[0]
     gathered = collectives.all_gather_rows(transpose_vector(words, perm))
     # 1/2: a 32-bit word is half a paper word; the transpose sends one
     # copy and the gather pr-1 copies of each word

@@ -4,18 +4,22 @@ An entry, registered under ``(decomposition, local_mode, storage)``,
 declares which graph arrays a session ships (``keys``), the top-down
 SpMSV closure, the bottom-up sub-step closure, for the 1D strips the
 per-sub-chunk SpMSV of the pipelined expand (``topdown_chunk``), for
-"1ds" the packed codec's ``encode`` and ``decode``, and the CUDA kernels
-a session loads at compile (``kernels``), and the §5.1 storage
+"1ds" the packed codec's ``encode`` and ``decode``, for "2d" the level
+``epilogue``, and the CUDA kernels a session loads at compile
+(``kernels``), and the §5.1 storage
 accounting of its format (``storage_words(graph) -> words``, the
 graph's ``storage_words(storage)``).  Registered here, the paper's Fig. 6
 grid:
 
-  ("2d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
+  ("2d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles, and
+                                    the epilogue's plain twin
   ("2d", "kernel", "csr")           kernel 1 through the block col_ptr
-                                    + the bottom-up kernel
+                                    + the bottom-up kernel + the
+                                    epilogue kernel
   ("2d", "kernel", "dcsc")          kernel 1 through the block DCSC (a
                                     binary search a frontier id)
-                                    + the bottom-up kernel
+                                    + the bottom-up kernel + the
+                                    epilogue kernel
   ("1d", "dense",  "csr" | "dcsc")  edge-parallel plain oracles
   ("1d", "kernel", "csr")           kernel 1 over all strips through the
                                     (p, n+1) strip col_ptr + the
@@ -28,11 +32,17 @@ grid:
 
 2D closure signatures (arrays are one processor's block):
 
-  topdown(g, f_words, f_mask, nr, col_offset, args)
+  topdown(g, f_words, nr, col_offset, args)
       -> (cand (nr,) int32 candidate parents,
           edges examined, a 0-d int64 tensor, or None where a plain
           closure would compute it for the counters alone and
           ``args.instrument`` is False)
+
+  epilogue(pi, deg, cand=None, recv=None, root=-1) -> Front
+      the end of a level over the whole grid (``kernels/epilogue/
+      ops.py``): the kernel entries' ``level_epilogue``, the dense
+      oracle's ``level_epilogue_plain``, so that the oracle stays plain
+      PyTorch on the card
 
 The 1D top-down closures take ALL p strips at once (the stacked ``(p,
 ...)`` arrays; col_offset is 0 since strip ids are global), so a kernel
@@ -49,8 +59,8 @@ full-size partial bitmap, ``core/steps_1d.py``).  The bottom-up closure is per b
   bottomup(rp_seg, ue_win, f_words, cvec, col_offset, n_edges, ve_win)
       -> (chunk,) int32 newly discovered parents (INT_INF = none)
 
-``f_words`` is the packed frontier over the block's column range, and
-``f_mask`` its unpacked bool form.  ``args`` is the LevelArgs.  A 1D
+``f_words`` is the packed frontier over the block's column range (an
+entry that reads a bool mask unpacks it).  ``args`` is the LevelArgs.  A 1D
 kernel entry also scans all p strips of a bottom-up level in one launch
 (a dense entry leaves it None and runs ``bottomup`` strip by strip):
 
@@ -72,6 +82,7 @@ import torch
 from repro_torch.core.frontier import unpack_bits
 from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.bottomup.ref import bottomup_substep as bu_ref
+from repro_torch.kernels.epilogue import ops as epilogue_ops
 from repro_torch.kernels.frontier_codec import ops as codec_ops
 from repro_torch.kernels.frontier_codec import ref as codec_ref
 from repro_torch.kernels.spmsv import ops as spmsv_ops
@@ -92,6 +103,7 @@ class LocalOps:
     bottomup_strips: Callable = None  # 1D: the sub-step of all p strips
     encode: Callable = None       # 1ds: packed codec, p buckets at once
     decode: Callable = None       # 1ds: the gathered buckets -> global ids
+    epilogue: Callable = None     # 2d: the level epilogue
     kernels: Tuple = ()           # CudaKernels a session loads at compile
 
 
@@ -134,15 +146,16 @@ def registered_combos() -> Tuple[Tuple[str, str, str], ...]:
 # ---------------------------------------------------------------------------
 
 
-def _td_dense(g, f_words, f_mask, nr, col_offset, args):
-    """Edge-parallel scan over the whole block (oracle path): work
-    O(nnz) whatever the frontier, so it examines every stored edge."""
-    cand = spmsv_dense(g["edge_src"], g["row_idx"], g["nnz"], f_mask, nr,
-                       col_offset)
+def _td_dense(g, f_words, nr, col_offset, args):
+    """Edge-parallel scan over the whole block (oracle path) against the
+    block's frontier words unpacked: work O(nnz) whatever the frontier,
+    so it examines every stored edge."""
+    cand = spmsv_dense(g["edge_src"], g["row_idx"], g["nnz"],
+                       unpack_bits(f_words), nr, col_offset)
     return cand, g["nnz"].to(torch.int64) if args.instrument else None
 
 
-def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
+def _td_kernel_csr(g, f_words, nr, col_offset, args):
     """The fused CUDA SpMSV through the uncompressed col_ptr, on the
     block's frontier words.  ``args.cap_f`` is only a bound: 0 means the
     whole column range, and a larger frontier raises (the JAX package's
@@ -154,7 +167,7 @@ def _td_kernel_csr(g, f_words, f_mask, nr, col_offset, args):
     return cand, ex if args.instrument else None
 
 
-def _td_kernel_dcsc(g, f_words, f_mask, nr, col_offset, args):
+def _td_kernel_dcsc(g, f_words, nr, col_offset, args):
     """The fused CUDA SpMSV through the block's DCSC: each frontier id is
     binary-searched in ``jc`` and its segment starts at ``cp[slot]`` (the
     paper's hypersparse indirection, Fig. 6); ``cap_f`` as for csr.  The
@@ -258,17 +271,19 @@ for _storage in ("csr", "dcsc"):
     register_local_ops(LocalOps(
         decomposition="2d", local_mode="dense", storage=_storage,
         keys=_DENSE_KEYS_2D, topdown=_td_dense, bottomup=bu_ref,
+        epilogue=epilogue_ops.level_epilogue_plain,
         storage_words=_words(_storage)))
 
 register_local_ops(LocalOps(
     decomposition="2d", local_mode="kernel", storage="csr",
     keys=_KERNEL_CSR_KEYS_2D, topdown=_td_kernel_csr, bottomup=_bu_kernel,
-    storage_words=_words("csr"), kernels=(spmsv_ops.KERNEL, bu_ops.KERNEL)))
+    epilogue=epilogue_ops.level_epilogue, storage_words=_words("csr"),
+    kernels=(spmsv_ops.KERNEL, bu_ops.KERNEL, epilogue_ops.KERNEL)))
 register_local_ops(LocalOps(
     decomposition="2d", local_mode="kernel", storage="dcsc",
     keys=_KERNEL_DCSC_KEYS_2D, topdown=_td_kernel_dcsc, bottomup=_bu_kernel,
-    storage_words=_words("dcsc"),
-    kernels=(spmsv_ops.KERNEL_DCSC, bu_ops.KERNEL)))
+    epilogue=epilogue_ops.level_epilogue, storage_words=_words("dcsc"),
+    kernels=(spmsv_ops.KERNEL_DCSC, bu_ops.KERNEL, epilogue_ops.KERNEL)))
 
 _DENSE_KEYS_1D = ("edge_src", "row_idx", "nnz", "deg_A", "col_idx",
                   "row_ptr", "edge_dst")

@@ -17,6 +17,12 @@ taken exactly in int64 and then cast to float32.  With
 ``LevelArgs.instrument`` False (``cfg.instrument``) a step computes no
 counter, on the host or the device, and returns ``{}``.
 
+The frontier crosses levels packed: a step takes the ``Front`` of the
+level before it (its words) and ends in the LocalOps entry's level
+epilogue (``kernels/epilogue/ops.py``: one kernel launch, or the dense
+oracle's plain twin), which updates ``pi`` in place and returns the next
+``Front``: the words and the three masses the loop's tail reads.
+
 When the search is traced (``core/trace.py``; the loop hands the
 decision down as ``lv["trace"]``), each step's stages are spans:
 top-down ``bfs.expand``, ``bfs.discover`` (kernel 1's calls),
@@ -34,6 +40,7 @@ import torch
 from repro_torch.core import collectives, comm_model, trace
 from repro_torch.core.frontier import (INT_INF, expand_bitmap, pack_bits,
                                        pack_ids, unpack_bits)
+from repro_torch.kernels.epilogue import ops as epilogue
 
 COUNTER_KEYS = ("wire_transpose", "wire_expand", "wire_fold", "wire_rotate",
                 "wire_updates", "use_expand", "use_fold", "use_rotate",
@@ -187,11 +194,13 @@ def _fold_bitmap_exact(cand: torch.Tensor, pc: int, chunk: int, cap_w: int
 
 
 def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
-                  front: torch.Tensor, args: LevelArgs, lv: Dict
-                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+                  front: epilogue.Front, args: LevelArgs, lv: Dict
+                  ) -> Tuple[torch.Tensor, epilogue.Front, Dict]:
     """One top-down level.  ``lv`` carries the search loop's host values
     of this level's frontier size ``n_f`` and edge mass ``m_f`` (the fast
-    loop's ``over``, which 2D does not read, uninstrumented)."""
+    loop's ``over``, which 2D does not read, uninstrumented).  Kernel 1's
+    output is the candidates as it is on one block; more blocks stack
+    theirs."""
     part = args.part
     pr, pc, chunk, nc, nr = part.pr, part.pc, part.chunk, part.nc, part.nr
     p = _F32(part.p)
@@ -201,8 +210,7 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
 
     # --- Expand: transpose + gather along the processor column ----------
     with trace.OFF if tr is None else tr.span("bfs.expand"):
-        f_words, wire = expand_bitmap(front, args.perm)
-        f_cj = unpack_bits(f_words)                  # (pr, pc, nc) bool
+        f_words, wire = expand_bitmap(front.words, args.perm)
         if instr:
             # the JAX package's psum of n_f: the loop's read holds it
             collectives.noted("psum", collectives.GRID_2D, "counter")
@@ -212,13 +220,15 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
 
     # --- Local discovery: SpMSV in the (select-source, min) semiring -----
     with trace.OFF if tr is None else tr.span("bfs.discover"):
-        cand = torch.empty((pr, pc, nr), dtype=torch.int32, device=pi.device)
-        ex = []
+        outs, ex = [], []
         for i, j in _blocks(pr, pc):
             gij = {k: v[i, j] for k, v in g.items()}
-            cand[i, j], ex_ij = args.ops.topdown(gij, f_words[i, j],
-                                                 f_cj[i, j], nr, j * nc, args)
+            c_ij, ex_ij = args.ops.topdown(gij, f_words[i, j], nr, j * nc,
+                                           args)
+            outs.append(c_ij)
             ex.append(ex_ij)
+        cand = outs[0].reshape(1, 1, nr) if len(outs) == 1 \
+            else torch.stack(outs).view(pr, pc, nr)
         if instr:
             ctr["edges_examined"] = collectives.psum(
                 torch.stack(ex), tag="counter").to(torch.float32)
@@ -249,11 +259,10 @@ def topdown_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                                       tag="counter").to(torch.float32)
             ctr["use_fold"] = 2.0 * n_cand           # (child, parent) pairs
 
-    # --- Local update -----------------------------------------------------
+    # --- Local update: the level epilogue --------------------------------
     with trace.OFF if tr is None else tr.span("bfs.update"):
-        newly = (pi == -1) & (t != INT_INF)
-        pi = torch.where(newly, t, pi)
-    return pi, newly, ctr
+        front = args.ops.epilogue(pi, g["deg_A"], t.contiguous())
+    return pi, front, ctr
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +283,8 @@ def _scatter_compact(pairs: torch.Tensor, cap_u: int, chunk: int
 
 
 def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
-                   front: torch.Tensor, args: LevelArgs, lv: Dict
-                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+                   front: epilogue.Front, args: LevelArgs, lv: Dict
+                   ) -> Tuple[torch.Tensor, epilogue.Front, Dict]:
     """One bottom-up level: pc sub-steps with the completed bitmap rotating
     along the processor row (Fig. 1).
 
@@ -284,7 +293,9 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
     per-destination buffer and one all_to_all delivers them at level end.
     Updates are applied in sub-step order, and the rotating bitmap marks
     each vertex at its first discovery, so parents are those of a
-    per-sub-step exchange.
+    per-sub-step exchange.  The level epilogue applies them where they
+    lie: sub-step 0 from ``self_par``, sub-step s > 0 from the exchange's
+    slot of the sender s columns on.
 
     ``compact_updates`` ships, for each sub-step s > 0, the first
     ``cap_u`` finds (ascending) as (child, parent) pairs in one
@@ -313,7 +324,7 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
 
     # --- Gather the frontier (dense bitmap) -------------------------------
     with trace.OFF if tr is None else tr.span("bfs.expand"):
-        f_words, wire = expand_bitmap(front, args.perm)
+        f_words, wire = expand_bitmap(front.words, args.perm)
         if instr:
             ctr["wire_transpose"] = _F32(chunk / 64.0) * p
             ctr["wire_expand"] = wire * p - ctr["wire_transpose"]
@@ -333,9 +344,12 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
         send_p[..., :cap_u] = chunk
         max_found = torch.zeros((), dtype=torch.int64, device=dev)
     if not (compact and pure):
+        # at pc = 1 the one slot is the self slot, which is never sent: the
+        # buffer the recorded exchange moves is then never read
         send_d = torch.full((pr, pc, pc, chunk), INT_INF, dtype=torch.int32,
-                            device=dev)
-    self_par = torch.empty((pr, pc, chunk), dtype=torch.int32, device=dev)
+                            device=dev) if pc > 1 else \
+            torch.empty((pr, pc, pc, chunk), dtype=torch.int32, device=dev)
+    self_outs = []                        # sub-step 0's, a block each
     # the R chain rides ``carry`` from the start; the G chain (``g_acc``)
     # is empty at sub-step 0, so its masks start at sub-step 1
     carry = pack_bits(cseg) if pipelined and pc > 1 else None
@@ -363,14 +377,17 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                 e0 = int(args.seg_ptr[i, j, seg_id])
                 e1 = int(args.seg_ptr[i, j, seg_id + 1])
                 rp_seg = g["row_ptr"][i, j, seg_id * chunk:
-                                      (seg_id + 1) * chunk + 1] - e0
+                                      (seg_id + 1) * chunk + 1]
+                if e0:                    # the segment's own edge offsets
+                    rp_seg = rp_seg - e0
                 ue = g["col_idx"][i, j, e0:e0 + args.cap_seg]
                 ve = g["edge_dst"][i, j, e0:e0 + args.cap_seg] \
                     - seg_id * chunk if use_ve else None
                 cvec = cseg[i, j].to(torch.int32)
                 seg_par = args.ops.bottomup(rp_seg, ue, f_words[i, j], cvec,
                                             j * nc, e1 - e0, ve)
-                found = seg_par != INT_INF
+                # at pc = 1 only the counters read the finds
+                found = seg_par != INT_INF if instr or pc > 1 else None
                 if g_seen is not None:
                     # the exactness post-filter: rows G marks were found on an
                     # earlier sub-step of this level
@@ -386,9 +403,9 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                                    .sum(dtype=torch.int64))
                     n_upd.append(found.sum())
                 # the s = 0 self segment pays no wire, is never capacity-
-                # truncated and lands in the self slot after the exchange
+                # truncated and is the epilogue's slot 0
                 if s == 0:
-                    self_par[i, j] = seg_par
+                    self_outs.append(seg_par)
                 else:
                     if compact:
                         # the first cap_u finds as (child, parent) pairs
@@ -400,7 +417,7 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                             max_found = torch.maximum(max_found, found.sum())
                     if not (compact and pure):
                         send_d[i, j, seg_id] = seg_par
-                if not pipelined:
+                if not pipelined and s != pc - 1:
                     cseg[i, j] |= found
             if instr:
                 edges_use = edges_use + collectives.psum(
@@ -418,7 +435,6 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
 
     # --- Batched update exchange (one all_to_all) -------------------------
     with trace.OFF if tr is None else tr.span("bfs.exchange"):
-        jj = torch.arange(pc, device=dev)
         if compact and pure:
             recv = _scatter_compact(send_p, cap_u, chunk)
         elif compact:
@@ -428,19 +444,15 @@ def bottomup_level(g: Dict[str, torch.Tensor], pi: torch.Tensor,
                                _scatter_compact(send_p, cap_u, chunk))
         else:
             recv = collectives.all_to_all_cols(send_d)
-        recv[:, jj, jj] = self_par            # the self slot: sub-step 0
 
-    # --- Apply updates in sub-step order ---------------------------------
+    # --- Apply updates in sub-step order: the level epilogue -------------
     with trace.OFF if tr is None else tr.span("bfs.update"):
-        new_front = torch.zeros_like(front)
-        new_pi = pi
-        for s in range(pc):
-            upd = recv[:, jj, (jj + s) % pc]
-            newly = (upd != INT_INF) & (new_pi == -1)
-            new_pi = torch.where(newly, upd, new_pi)
-            new_front |= newly
+        self_par = self_outs[0].reshape(1, 1, chunk) if len(self_outs) == 1 \
+            else torch.stack(self_outs).view(pr, pc, chunk)
+        front = args.ops.epilogue(pi, g["deg_A"], self_par,
+                                  recv if pc > 1 else None)
 
     if instr:
         ctr["edges_useful"] = edges_use
         ctr["edges_examined"] = edges_use
-    return new_pi, new_front, ctr
+    return pi, front, ctr

@@ -24,9 +24,11 @@ and one ``torch.autograd._profiler_enabled()`` call.  The decision, a
   * inside a ``Recorder``: each span is kept in memory with its start
     and end (``time.perf_counter_ns``), its parent, its search and its
     attributes, and the counters are kept: the loop's levels, top-down
-    and bottom-up levels and host reads a search, and kernel 2's own
-    count of the edges it loads (``device_word``), one device word a
-    launch, read once when the Recorder exits.
+    and bottom-up levels and host reads a search, the launches of the
+    2D level epilogue kernel (``level_epilogues``, counted by its
+    wrapper; its plain twin counts nothing), and kernel 2's own count of
+    the edges it loads (``device_word``), one device word a launch, read
+    once when the Recorder exits.
 
 Recorders nest as ``collectives.ScheduleRecorder`` does: the inner one
 records, and the outer one resumes when it exits.
@@ -56,6 +58,8 @@ OFF = nullcontext()
 
 # kernel 2's count of the edges it loads, one device word a launch
 BOTTOMUP_LOADED = "bottomup_loaded_edges"
+# launches of the 2D level epilogue kernel (kernels/epilogue/ops.py)
+LEVEL_EPILOGUES = "level_epilogues"
 
 
 @dataclass

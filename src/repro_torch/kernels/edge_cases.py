@@ -37,6 +37,13 @@ alone, the last word, empty columns only (none found in ``jc``), 1%,
 exactly at each given walk threshold and one id past it, and all.
 ``spmsv_strips_uniform`` builds strips whose edges pass 2^31 together,
 on the card from a ``torch.Generator`` seed.
+
+The 2D level epilogue (``epilogue_cases``, ``kernels/epilogue/ops.py``)
+on a (pr, pc, chunk) grid: ``(pi, deg, cand, recv, root)`` with half the
+vertices visited, candidates in a third of the slots, and, where pc > 1,
+bottom-up slots that offer several parents for one vertex; no
+candidate at all; one vertex found; everything visited; the start (no
+``cand``, one ``root``); and degrees near 2^30, whose masses pass 2^31.
 """
 from __future__ import annotations
 
@@ -313,3 +320,51 @@ def spmsv_strips_uniform(p: int, n: int, nr: int, degree: int, device,
     row_idx = torch.randint(0, nr, (p, n * degree), generator=gen,
                             dtype=torch.int32, device=device)
     return col_ptr, row_idx
+
+
+# the degree of the heavy case: 64 such vertices pass 2^36
+HEAVY_DEG = (1 << 30) + 12345
+
+
+def epilogue_cases(pr: int, pc: int, chunk: int, device="cpu",
+                   seed: int = 0) -> Dict[str, Tuple]:
+    """name -> (pi, deg, cand, recv, root) for ``level_epilogue`` on a
+    (pr, pc, chunk) grid, int32 on ``device`` (``cand``/``recv`` None
+    where the case has none; ``root`` -1 unless the case is a start).
+    Each call makes fresh tensors: the epilogue writes ``pi``."""
+    if chunk % 32:
+        raise ValueError(f"chunk={chunk} is not a multiple of 32")
+    rng = np.random.default_rng(seed)
+    shape, n = (pr, pc, chunk), pr * pc * chunk
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int64).astype(
+            np.int32)).to(device)
+
+    inf = np.int64(2**31 - 1)
+    visited = rng.random(shape) < 0.5
+    pi = np.where(visited, rng.integers(0, n, shape), -1)
+    deg = rng.integers(0, 1000, shape)
+    cand = np.where(rng.random(shape) < 0.33, rng.integers(0, n, shape), inf)
+    recv = None
+    if pc > 1:
+        recv = np.where(rng.random((pr, pc, pc, chunk)) < 0.33,
+                        rng.integers(0, n, (pr, pc, pc, chunk)), inf)
+    cases = {"random": (pi, deg, cand, recv, -1),
+             "no candidate": (pi, deg, np.full(shape, inf),
+                              None if recv is None else np.full_like(recv,
+                                                                     inf),
+                              -1)}
+    one = np.full(shape, inf)
+    v = np.flatnonzero(pi.reshape(-1) == -1)[-1]
+    one.reshape(-1)[v] = 7
+    cases["one vertex"] = (pi, deg, one, None if recv is None
+                           else np.full_like(recv, inf), -1)
+    cases["all visited"] = (np.abs(pi), deg, cand, recv, -1)
+    cases["start"] = (np.full(shape, -1), deg, None, None,
+                      int(rng.integers(0, n)))
+    heavy = np.where(rng.random(shape) < 0.5, HEAVY_DEG, deg)
+    cases["heavy degrees"] = (pi, heavy, cand, recv, -1)
+    return {k: (t(a), t(d), None if c is None else t(c),
+                None if r is None else t(r), root)
+            for k, (a, d, c, r, root) in cases.items()}

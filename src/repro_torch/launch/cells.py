@@ -67,10 +67,12 @@ from repro_torch.configs.base import (BFSConfig, BFSShape, GNNConfig,
 from repro_torch.core import collectives
 from repro_torch.core import steps as bfs_steps
 from repro_torch.core.engine import plan_for_part
+from repro_torch.core.frontier import INT_INF, pack_bits
 from repro_torch.core.local_ops import get_local_ops
 from repro_torch.core.partition import make_partition
 from repro_torch.graph.datasets import _edges_for
 from repro_torch.graph.sampler import khop_sample
+from repro_torch.kernels.epilogue.ops import Front
 from repro_torch.launch.mesh import make_generator
 from repro_torch.models import autoint as ai
 from repro_torch.models import gnn as gnn_mod
@@ -588,8 +590,9 @@ def _level_args(cfg: BFSConfig, part, cap: int, cap_seg: int, dev
 
 
 def _one_level(g, pi, front, args) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A top-down step, then a bottom-up step from its frontier (the
-    loop's host values are not needed by the dense 2D steps' results)."""
+    """A top-down step, then a bottom-up step from its frontier (a
+    ``Front``; the loop's host values are not needed by the dense 2D
+    steps' results)."""
     lv = {"n_f": 0.0, "m_f": 0.0}
     pi1, f1, _ = bfs_steps.topdown_level(g, pi, front, args, lv)
     pi2, f2, _ = bfs_steps.bottomup_level(g, pi1, f1, args, lv)
@@ -621,7 +624,8 @@ def build_bfs_cell(cfg: BFSConfig, shape: BFSShape, mesh,
         fr = _t((pr, pc, part.chunk), torch.bool, dev)
 
         def level_fn(g, pi, front):
-            return _one_level(g, pi, front, args_l)
+            # the JAX package's level cell takes the bool frontier
+            return _one_level(g, pi, Front(pack_bits(front), None), args_l)
         return Cell(level_fn, (g_specs, pi, fr),
                     ({k: grid for k in g_specs}, grid, grid), label, meta)
 
@@ -632,13 +636,13 @@ def build_bfs_cell(cfg: BFSConfig, shape: BFSShape, mesh,
     g_sh = {k: grid for k in g_specs}
 
     def from_root(g, root):
+        # the search's start: pi all -1 through the level epilogue with
+        # the root (a device scalar) as the one candidate
         pi = torch.full((pr, pc, part.chunk), -1, dtype=torch.int32,
                         device=root.device)
-        front = torch.zeros_like(pi, dtype=torch.bool)
-        r = root.reshape(1).long()
-        pi.view(-1).index_put_((r,), root.reshape(1))
-        front.view(-1).index_put_((r,), torch.ones(1, dtype=torch.bool,
-                                                   device=root.device))
+        cand = torch.full_like(pi, INT_INF)
+        cand.view(-1).index_put_((root.reshape(1).long(),), root.reshape(1))
+        front = args_l.ops.epilogue(pi, g["deg_A"], cand)
         return _one_level(g, pi, front, args_l)
 
     if "pod" in mesh.axis_names and kwargs_get_multiroot(cfg):

@@ -67,7 +67,7 @@ def check_expand(pr, pc, rng):
                    out_specs=(P("data", "model"), P()), check_vma=False)
     w_ref, wire_ref = fn(jnp.asarray(front.reshape(pr, pc, -1)))
     w, wire = tf.expand_bitmap(
-        torch.from_numpy(front.reshape(pr, pc, -1)),
+        tf.pack_bits(torch.from_numpy(front.reshape(pr, pc, -1))),
         collectives.perm_index(tpart.transpose_perm(), "cpu"))
     assert np.array_equal(w.numpy().view(np.uint32), np.asarray(w_ref)), \
         (pr, pc)

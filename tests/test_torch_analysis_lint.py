@@ -149,7 +149,7 @@ def _leaky_td(g, pi, front, args, lv):
 
 def test_r3_flags_a_pod_leak_and_an_under_declared_rendezvous():
     body = decomp._make_strip_body(_leaky_td, bottomup_level_1d,
-                                   sparse=False)
+                                   decomp._make_strip_state(sparse=False))
     graph, mesh = registry._inputs("1d", True, "cpu")
     with _scoped_entry("1d", "1d-pod-leak", body=body):
         fs = plan_bfs(graph, BFSConfig(decomposition="1d-pod-leak"),

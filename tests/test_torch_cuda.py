@@ -22,6 +22,7 @@ from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.kernels import edge_cases as ec
 from repro_torch.kernels.bottomup import ops as bu_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.epilogue import ops as ep_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -377,6 +378,95 @@ def test_search_counts_kernel_2_once_a_call(graph, dev):
     assert len(calls) == bu_ops.KERNEL.launches - n > 0
     assert rec.counters[0][trace.BOTTOMUP_LOADED] == sum(calls) > 0
     assert rec.counters[0]["bu_levels"] > 0
+
+
+# (pr, pc, chunk): 1x1, 2x2, 1x4 (chunks off the kernel's 32 groups a
+# block step), and one 2^22-vertex block, whose grid strides
+EPILOGUE_GRIDS = [(1, 1, 96), (2, 2, 64), (1, 4, 32 * 37), (1, 1, 1 << 22)]
+
+
+@pytest.mark.parametrize("grid", EPILOGUE_GRIDS)
+def test_level_epilogue_kernel_matches_plain(dev, grid):
+    """Kernel and twin on every case of ``edge_cases.epilogue_cases``,
+    one launch after another (each must find the scratch at 0): the same
+    parents, words and masses, bit for bit, and no host read."""
+    n = ep_ops.KERNEL.launches
+    for name, (pi, deg, cand, recv, root) in ec.epilogue_cases(
+            *grid, device=dev).items():
+        pi_k = pi.clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ep_ops.level_epilogue(pi_k, deg, cand, recv, root)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = ep_ops.level_epilogue_plain(pi, deg, cand, recv, root)
+        assert torch.equal(pi_k, pi), name
+        assert torch.equal(got.words, want.words), name
+        assert got.masses.tolist() == want.masses.tolist(), name
+    assert ep_ops.KERNEL.launches - n == len(ec.epilogue_cases(1, 1, 32))
+
+
+def test_level_epilogue_keeps_a_scratch_a_stream(dev):
+    """Two launches on two streams, queued before either ends: each
+    stream sums into a scratch of its own, so each reports the twin's
+    masses."""
+    pi, deg, cand, recv, root = ec.epilogue_cases(1, 1, 1 << 22,
+                                                  device=dev)["random"]
+    want = ep_ops.level_epilogue_plain(pi.clone(), deg, cand, recv, root)
+    pis = [pi.clone(), pi.clone()]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    outs = []
+    for st, p in zip(streams, pis):
+        with torch.cuda.stream(st):
+            outs.append(ep_ops.level_epilogue(p, deg, cand, recv, root))
+    torch.cuda.synchronize()
+    for p, got in zip(pis, outs):
+        assert torch.equal(got.words, want.words)
+        assert got.masses.tolist() == want.masses.tolist()
+    assert {(str(pi.device), st.cuda_stream) for st in streams} <= \
+        set(ep_ops._SCRATCH)
+
+
+def test_search_launches_the_epilogue_each_level(graph, dev):
+    """A 2D search on the 2x2 grid and a batch over 2 pods on 1x1: one
+    launch a level and pod and one a root at the start, and the
+    instrumented run's parents and levels; the instrumented run's
+    frontier sizes, masses and modes are the CPU run's (the twin's) bit
+    for bit."""
+    root = int(torch.argmax(graph.deg_A.reshape(-1)))
+    fast = plan_bfs(graph, BFSConfig(decomposition="2d", instrument=False),
+                    make_local_mesh(2, 2, device=dev),
+                    local_mode="kernel").compile()
+    slow = plan_bfs(graph, BFSConfig(decomposition="2d"),
+                    make_local_mesh(2, 2, device=dev),
+                    local_mode="kernel").compile()
+    n = ep_ops.KERNEL.launches
+    got = fast.run(root)
+    assert ep_ops.KERNEL.launches - n == got.n_levels + 1
+    want = slow.run(root)
+    assert np.array_equal(got.parents, want.parents)
+    assert got.n_levels == want.n_levels
+    e_cpu = rmat.rmat_graph(12, 16, seed=1, generator="counter",
+                            device="cpu")
+    cpu = plan_bfs(build_blocked(e_cpu, 2, 2, align=32, cap_pad=32),
+                   BFSConfig(decomposition="2d"),
+                   make_local_mesh(2, 2, device="cpu"),
+                   local_mode="kernel").compile().run(root)
+    assert np.array_equal(cpu.parents, want.parents)
+    assert np.array_equal(cpu.level_stats[:, :3], want.level_stats[:, :3])
+    e = rmat.rmat_graph(12, 16, seed=1, generator="counter", device=dev)
+    g1 = build_blocked(e, 1, 1, align=32, cap_pad=32)
+    batch = plan_bfs(g1, BFSConfig(decomposition="2d", instrument=False),
+                     make_local_mesh(1, 1, device=dev, pods=2),
+                     local_mode="kernel").compile()
+    roots = [int(r) for r in torch.nonzero(g1.deg_A.reshape(-1) > 0)
+             .reshape(-1)[[0, 40]]]
+    n = ep_ops.KERNEL.launches
+    res = batch.run_batch(roots)
+    assert ep_ops.KERNEL.launches - n == 2 * (int(res.n_levels[0]) + 1)
+    for i, r in enumerate(roots):
+        assert np.array_equal(res.parents[i], batch.run(r).parents)
 
 
 def test_strip_chunk_kernel_walks_match_plain(dev):

@@ -67,7 +67,7 @@ def test_expand_bitmap_1x1_matches_reference():
                    out_specs=(P("data", "model"), P()), check_vma=False)
     w_ref, wire_ref = fn(jnp.asarray(front.reshape(1, 1, -1)))
     w, wire = tf.expand_bitmap(
-        torch.from_numpy(front.reshape(1, 1, -1)),
+        tf.pack_bits(torch.from_numpy(front.reshape(1, 1, -1))),
         collectives.perm_index(part.transpose_perm(), "cpu"))
     assert np.array_equal(w.numpy().view(np.uint32), np.asarray(w_ref))
     assert wire == np.float32(wire_ref)

@@ -2,8 +2,10 @@
 tree of a traced 2D search, its mode sequence against an instrumented
 run's ``level_stats``, the batch's one search id, the strips' loop spans
 and the "1ds" read, the off path (no profiler call, no Recorder call),
-the spans in a CPU ``torch.profiler`` trace, nesting, and kernel 2's
-loaded-edge rule (``loaded_edges_plain``) against a row-by-row count."""
+the spans in a CPU ``torch.profiler`` trace, nesting, kernel 2's
+loaded-edge rule (``loaded_edges_plain``) against a row-by-row count, and
+the level epilogue's launch count (``level_epilogues``): (levels + 1) x
+pods on the card, none through the plain twin."""
 import numpy as np
 import pytest
 import torch
@@ -199,6 +201,43 @@ def test_recorders_nest(graph):
     assert [outer.counters[k]["levels"] for k in (0, 1)] == \
         [inner.counters[0]["levels"]] * 2
     assert trace._ACTIVE is None
+
+
+def test_twin_counts_no_level_epilogues(graph):
+    eng = _engine(graph, instrument=False)
+    with trace.Recorder() as rec:
+        eng.search(_roots(graph)[0])
+    assert rec.counters[0]["levels"] > 0
+    assert trace.LEVEL_EPILOGUES not in rec.counters[0]
+
+
+@pytest.mark.cuda
+def test_level_epilogues_count_every_level_and_pod():
+    """On the card a recorded 2D search counts one launch a level and
+    pod and one a root at the start: (levels + 1) x pods, each loop
+    call's own, so a batch of two groups on 2 pods counts 2 x (levels +
+    2); the host reads count the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = build_blocked(rmat_graph(10, 16, seed=3, device=dev), 1, 1,
+                      align=32, cap_pad=32)
+    roots = _roots(g, 4)
+    for pods in (1, 2):
+        eng = plan_bfs(g, BFSConfig(decomposition="2d", instrument=False),
+                       make_local_mesh(1, 1, device=dev, pods=pods),
+                       local_mode="kernel").compile()
+        with trace.Recorder() as rec:
+            if pods == 1:
+                n_levels = eng.search(roots[0])[1]
+            else:
+                eng.search_batch(roots)
+        ctr = rec.counters[0]
+        groups = 1 if pods == 1 else len(roots) // pods
+        if pods == 1:
+            assert ctr["levels"] == n_levels
+        assert ctr[trace.LEVEL_EPILOGUES] == \
+            pods * (ctr["levels"] + groups) == ctr["host_reads"]
 
 
 def _loaded_by_rows(rp, ue, fw, cv, n_edges):
