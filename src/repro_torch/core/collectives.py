@@ -19,7 +19,10 @@ same: ``all_gather_rows`` is a broadcast view, and ``noted`` stands for
 a reduction the JAX package issues where the port already holds the
 value (the level loop's host read).  With no recorder active a call
 costs one test of a module global; a recorder reads no tensor and
-allocates nothing on the device.
+allocates nothing on the device.  Inside a search that a
+``core/trace.py`` Recorder traces, each record's ``nbytes`` also adds
+to the search's ``wire_bytes`` counter (the Recorder enters a
+``ScheduleRecorder`` when none is active: ``wire_tap``).
 
 Each record carries ``nbytes``, the per-device bytes of the
 collective's output, read from shapes only: the output tensor's bytes
@@ -44,6 +47,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core import trace
 
 ROW, COL, POD = "data", "model", "pod"
 GRID_2D = (ROW, COL)
@@ -161,6 +166,18 @@ def _record(op: str, axes: Tuple[str, ...], tag: str = "",
             f"{f.f_code.co_name}")
     rec.records.append(Record(KINDS[op], op, tuple(axes), rec.level,
                               rec.mode, rec.pod, tag, site, int(nbytes)))
+    cur = trace.current()
+    if cur is not None:
+        cur.count(trace.WIRE_BYTES, int(nbytes))
+
+
+def wire_tap() -> Optional[ScheduleRecorder]:
+    """For a ``trace.Recorder`` that is entering: a recorder entered here
+    while none is active, so that every collective reaches ``_record``
+    and its search's ``wire_bytes``, or None where one is active (which
+    the collectives reach already).  The caller exits it, and its
+    records go with it."""
+    return ScheduleRecorder().__enter__() if _ACTIVE is None else None
 
 
 def _block_bytes(x: torch.Tensor, n_lead: int) -> int:
@@ -215,11 +232,14 @@ def ppermute_col_ring(x: torch.Tensor) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Tiled all_gather along the row axis: processor (i, j) receives the
     concatenation over i' of x[i', j].  The result is the same for every
-    i, so it is returned as a broadcast view."""
+    i, so it is returned as a broadcast view of one contiguous block a
+    processor column, as a gather writes it (with one word a block the
+    reshape alone would leave a strided view)."""
     pr, pc = x.shape[:2]
     if _ACTIVE is not None:
         _record("all_gather", (ROW,), nbytes=pr * _block_bytes(x, 2))
-    g = x.transpose(0, 1).reshape(pc, pr * x.shape[2], *x.shape[3:])
+    g = x.transpose(0, 1).reshape(pc, pr * x.shape[2],
+                                  *x.shape[3:]).contiguous()
     return g.unsqueeze(0).expand(pr, *g.shape)
 
 

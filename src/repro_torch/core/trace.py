@@ -26,9 +26,13 @@ and one ``torch.autograd._profiler_enabled()`` call.  The decision, a
     attributes, and the counters are kept: the loop's levels, top-down
     and bottom-up levels and host reads a search, the launches of the
     2D level epilogue kernel (``level_epilogues``, counted by its
-    wrapper; its plain twin counts nothing), and kernel 2's own count of
-    the edges it loads (``device_word``), one device word a launch, read
-    once when the Recorder exits.
+    wrapper; its plain twin counts nothing), the per-device bytes of
+    every collective the search issues (``wire_bytes``, each the
+    ``nbytes`` of its ``collectives.Record``; while no
+    ``collectives.ScheduleRecorder`` is active a Recorder opens one
+    whose records it drops, so that the collectives reach the count),
+    and kernel 2's own count of the edges it loads (``device_word``),
+    one device word a launch, read once when the Recorder exits.
 
 Recorders nest as ``collectives.ScheduleRecorder`` does: the inner one
 records, and the outer one resumes when it exits.
@@ -60,6 +64,8 @@ OFF = nullcontext()
 BOTTOMUP_LOADED = "bottomup_loaded_edges"
 # launches of the 2D level epilogue kernel (kernels/epilogue/ops.py)
 LEVEL_EPILOGUES = "level_epilogues"
+# per-device bytes of the collectives a search issues (core/collectives.py)
+WIRE_BYTES = "wire_bytes"
 
 
 @dataclass
@@ -91,14 +97,20 @@ class Recorder:
         self._words: List[Tuple[Optional[int], torch.Tensor]] = []
         self._searches = 0
         self._outer: Optional[Recorder] = None
+        self._tap = None
 
     def __enter__(self) -> "Recorder":
         global _ACTIVE
+        from repro_torch.core import collectives
         self._outer, _ACTIVE = _ACTIVE, self
+        self._tap = collectives.wire_tap()
         return self
 
     def __exit__(self, *exc) -> None:
         global _ACTIVE
+        if self._tap is not None:
+            self._tap.__exit__(*exc)
+            self._tap = None
         _ACTIVE = self._outer
         self._read_words()
 

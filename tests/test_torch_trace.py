@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import BFSConfig
-from repro_torch.core import trace
+from repro_torch.core import collectives, trace
 from repro_torch.core.engine import plan_bfs
 from repro_torch.graph.formats import build_blocked, build_blocked_1d
 from repro_torch.graph.rmat import rmat_graph
@@ -201,6 +201,52 @@ def test_recorders_nest(graph):
     assert [outer.counters[k]["levels"] for k in (0, 1)] == \
         [inner.counters[0]["levels"]] * 2
     assert trace._ACTIVE is None
+
+
+@pytest.mark.parametrize("direction_optimizing", [False, True])
+@pytest.mark.parametrize("trace_outside", [False, True])
+def test_wire_bytes_sum_the_schedule_of_a_4x4_search(edges,
+                                                     direction_optimizing,
+                                                     trace_outside):
+    """``wire_bytes`` is the ``nbytes`` a ScheduleRecorder records over
+    the same search, whichever of the two is entered first."""
+    g = build_blocked(edges, 4, 4, align=32, cap_pad=32)
+    eng = _engine(g, mesh=make_local_mesh(4, 4, device="cpu"),
+                  instrument=False, storage="dcsc",
+                  direction_optimizing=direction_optimizing)
+    root = _roots(g)[0]
+    first, second = (trace.Recorder(), collectives.ScheduleRecorder())
+    if not trace_outside:
+        first, second = second, first
+    with first, second:
+        eng.search(root)
+    rec, sched = (first, second) if trace_outside else (second, first)
+    want = sum(r.nbytes for r in sched.records)
+    assert want > 0
+    assert rec.counters[0][trace.WIRE_BYTES] == want
+    # the search's own records only: a second search counts the same
+    with trace.Recorder() as again:
+        eng.search(root)
+    assert again.counters[0][trace.WIRE_BYTES] == want
+    assert collectives._ACTIVE is None and trace._ACTIVE is None
+
+
+def test_wire_bytes_counts_nothing_without_a_recorder(edges, monkeypatch):
+    g = build_blocked(edges, 4, 4, align=32, cap_pad=32)
+    eng = _engine(g, mesh=make_local_mesh(4, 4, device="cpu"),
+                  instrument=False)
+    root = _roots(g)[0]
+
+    def boom(*a, **k):
+        raise AssertionError("counted with no Recorder")
+
+    monkeypatch.setattr(trace.Search, "count", boom)
+    monkeypatch.setattr(collectives, "wire_tap", boom)
+    eng.search(root)
+    # a schedule recorder alone records, and no search counts
+    with collectives.ScheduleRecorder() as sched:
+        eng.search(root)
+    assert sched.records and collectives._ACTIVE is None
 
 
 def test_twin_counts_no_level_epilogues(graph):
